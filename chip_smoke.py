@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's main path (zig_raytracing_contest_tpu_torch) the way a
-user does, on the official bench frame: the bench scene, 1920×1080, 3 spp,
-4 bounces, waves of 2^19 rays.  Phases, each of which exits non-zero when
-it fails:
+Drives the port's two paths (zig_raytracing_contest_tpu_torch) the way a
+user does: the official bench frame (the bench scene, 1920×1080, 3 spp,
+4 bounces, waves of 2^19 rays) through the whole-path kernels, and the
+``--large`` frame of bench.py (a 100,362-triangle terrain, 1280×720, 2 spp,
+3 bounces, one wave of 1,843,200 rays) through the per-bounce pipeline.
+Phases, each of which exits non-zero when it fails:
 
 1. require a CUDA device; print the card's name and power limit;
 2. build the kernels from kernels/path_trace.cu (nvcc) and print the build
@@ -19,12 +21,30 @@ it fails:
 6. render the official frame: a warmup, then 5 timed renders; the kernel
    launch counts of these renders show the main path ran the kernels;
 7. profile one more official frame: device time by kernel and the
-   device's idle share.
+   device's idle share;
+
+then the ``--large`` frame:
+
+a. the ptxas report of the per-bounce kernels; build the scene with the
+   port's procedural module and print its bake and regime;
+b. hold trace_emit_aux and shade_fused against their twins on the card:
+   one wave of 2^16 rays at bounce 0 in raster order, then a sort and
+   bounce 1 with the previous hit; then the full wave of the frame
+   (bounce 0 sorted, bounce 1 with the previous hit), the twins on the same
+   inputs (bounce 0's trace on 2^16 lanes spread over the wave, the rest on
+   every lane); time each kernel at the full wave and each twin at 2^16
+   rays;
+c. render the scene at 160×90 with the kernels and with the twins, sorted
+   and unsorted, and hold them to the golden gates;
+d. render the ``--large`` frame: a warmup, then 5 timed renders; the
+   launch counts of these renders show the main path ran the kernels;
+e. profile one more ``--large`` frame.
 
 Run from the repository root: ``python3 chip_smoke.py``.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
-lists each kernel with its launches, its largest difference from the twin
-and its time beside the twin's.
+lists each kernel with its launches, its largest difference from the twin,
+its time beside the twin's, and the least time the card could take for the
+same work (its bound).
 """
 
 from __future__ import annotations
@@ -41,6 +61,8 @@ SPP = 3
 MAX_BOUNCE = 4
 WAVE = 1 << 19
 SEED = 0
+# the --large frame of bench.py (run_large)
+L_W, L_H, L_SPP, L_BOUNCES, L_WAVE = 1280, 720, 2, 3, 1 << 21
 SOURCE = "zig_raytracing_contest_tpu_torch/kernels/path_trace.cu"
 # (kernel, wrapper, TPU kernel it replaces)
 KERNELS = [
@@ -48,11 +70,28 @@ KERNELS = [
      "zig_raytracing_contest_tpu/render/fused.py:1031"),
     ("path_trace_kernel", "path_trace_fused",
      "zig_raytracing_contest_tpu/render/fused.py:1111"),
+    ("trace_emit_kernel", "trace_emit_aux",
+     "zig_raytracing_contest_tpu/ops/mxu_intersect.py:1555"),
+    ("shade_kernel", "shade_fused",
+     "zig_raytracing_contest_tpu/render/fused.py:1191"),
 ]
+# The card's peaks (NVIDIA H100 SXM data sheet): f32 outside the tensor
+# cores and device memory bandwidth.  A kernel's bound is the larger of its
+# operations over the first and its bytes over the second.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# f32 operations, counted from kernels/path_trace.cu: one triangle test of
+# sweep_tile (six 3-term transforms, t, u, v, det, u + v), one slab test of
+# a box (6 subtractions, 6 products, 12 min/max), one ray generation, one
+# surface shade (interpolation, texel indices and filter, scatter, update).
+OPS_TRI, OPS_BOX, OPS_GEN, OPS_SHADE = 42, 24, 30, 170
 # Kernel vs twin: rows 12-15 (alive, streams, segments, key) and the winner
 # index exactly; value rows 0-11 to f32 rounding of libm differences;
 # direction rows (3-5, after rsqrt/log/sin/cos) to 1e-5.
 RTOL, ATOL, DIR_ATOL = 3e-6, 1e-6, 1e-5
+# trace_emit_aux kernel vs twin: the share of lanes whose winners may differ
+# (two triangles hit at the same t; each such lane is checked on its own)
+TIE_SHARE = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -88,6 +127,64 @@ def compare(name, k_state, k_idx, t_state, t_idx):
     return err
 
 
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it)."""
+    op_ms, byte_ms = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
+
+
+def scene_bytes(scene) -> int:
+    """Bytes of the scene arrays a path kernel reads: transforms, records,
+    tile boxes, texels."""
+    return sum(t.numel() * t.element_size() for t in (
+        scene.tri_data, scene.rec_table, scene.tile_bbox, scene.bank))
+
+
+def compare_trace(name, scene, state, prev, k, t):
+    """trace_emit_aux kernel vs twin on the same (16, R) ``state`` and
+    ``prev``, under the parity rule: aux rows 3-4 (streams, alive) and t
+    exactly on every lane; where the winners agree, u, v and the record
+    exactly.  Where they differ (a tie, which the tree walk and the flat loop
+    settle by different visit orders), the kernel's winner is recomputed
+    with the twin's arithmetic: a front-facing hit of that ray, not its
+    previous hit, at the twin's t, with the kernel's u, v and that
+    triangle's record; and ties stay under TIE_SHARE of the lanes.  Returns
+    the largest |diff| of rows 0-2."""
+    import torch
+
+    from zig_raytracing_contest_tpu_torch.ops.mxu_intersect import triangle_hit_ref
+
+    (ka, ki, kr), (ta, ti, tr) = k, t
+    n_pass = int((ka[3:5].view(torch.int32) != ta[3:5].view(torch.int32)).any(dim=0).sum())
+    n_t = int((ka[2] != ta[2]).sum())
+    same = ki == ti
+    tied = int((~same).sum())
+    n_uv = int(((ka[0:2] != ta[0:2]).any(dim=0) & same).sum())
+    n_rec = int(((kr != tr).any(dim=0) & same).sum())
+    n_bad_tie = 0
+    if tied:
+        lane = (~same).nonzero()[:, 0]
+        w = ki[lane]
+        hit, t_w, u_w, v_w = triangle_hit_ref(scene.tri_data, state[0:3, lane],
+                                              state[3:6, lane], w)
+        good = (hit & (t_w == ta[2, lane]) & (u_w == ka[0, lane]) & (v_w == ka[1, lane])
+                & (kr[:, lane] == scene.rec_table[:, w.long()]).all(dim=0))
+        if prev is not None:
+            good &= w != prev[lane]
+        n_bad_tie = int((~good).sum())
+    fin = same & torch.isfinite(ta[2])
+    err = float((ka[0:3, fin] - ta[0:3, fin]).abs().max()) if bool(fin.any()) else 0.0
+    live = ta[4] > 0
+    print(f"  {name}: rays {ka.shape[1]}, mismatched rows 3-4: {n_pass}, t: {n_t}, "
+          f"u/v where the winners agree: {n_uv}, records: {n_rec}, tied lanes: "
+          f"{tied} (of which not a hit at the twin's t: {n_bad_tie}), max |diff| rows "
+          f"0-2: {err:.3e}; tiles swept per live ray: kernel "
+          f"{float(ka[5, live].mean()):.2f}, twin {float(ta[5, live].mean()):.2f}")
+    if n_pass or n_t or n_uv or n_rec or n_bad_tie or tied > TIE_SHARE * ka.shape[1]:
+        fail(f"{name} disagrees with its plain twin")
+    return err
+
+
 def cuda_ms(fn, reps: int) -> float:
     import torch
 
@@ -104,8 +201,8 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def profile_frame(render_scene, scene, cam, cfg, card) -> None:
-    """Where one official frame's time goes: torch.profiler's CUDA kernel
-    time by name against the frame's wall time (the rest is device idle)."""
+    """Where one frame's time goes: torch.profiler's CUDA kernel time by
+    name against the frame's wall time (the rest is device idle)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -131,6 +228,208 @@ def profile_frame(render_scene, scene, cam, cfg, card) -> None:
         print(f"  {ms:8.3f} ms  x{n:<5d} {key[:80]}")
 
 
+def ptxas_report(log: str, names) -> list:
+    """nvcc -Xptxas=-v lines (registers, stack, spills) of the kernels whose
+    mangled names contain one of ``names``."""
+    out, cur = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            cur = next((n for n in names if n in line), None)
+        elif cur and ("registers" in line or "spill" in line):
+            out.append(f"{cur}: {line.strip()}")
+    return out
+
+
+def large_phases(card, timing, errs, bounds, launches) -> None:
+    """Phases a-e: the --large frame through the per-bounce pipeline."""
+    import torch
+
+    from zig_raytracing_contest_tpu_torch import kernels
+    from zig_raytracing_contest_tpu_torch.config import Config
+    from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
+    from zig_raytracing_contest_tpu_torch.render import fused, wavefront
+    from zig_raytracing_contest_tpu_torch.render.pipeline import prepare_scene, render_scene
+    from zig_raytracing_contest_tpu_torch.render.wavefront import (
+        build_gen_par,
+        gen_rays_raster,
+        ray_sort_key,
+        regime,
+        sort_state_payload,
+    )
+    from zig_raytracing_contest_tpu_torch.scene.procedural import large_scene
+
+    dev = torch.device("cuda", 0)
+    # a. the per-bounce kernels' ptxas report; the scene, through the port
+    for line in ptxas_report(kernels.BUILD_INFO["log"], ("trace_emit_kernel", "shade_kernel")):
+        print("  " + line)
+    tmp = tempfile.TemporaryDirectory()
+    path = large_scene(Path(tmp.name) / "large.gltf")
+    cfg = Config(grid_resolution=(128, 128, 128), num_samples=L_SPP,
+                 max_bounce=L_BOUNCES, wave_size=L_WAVE, seed=SEED)
+    scene, cam, _ = prepare_scene(str(path), cfg, camera_name="Camera 1", width=L_W,
+                                  height=L_H, device=dev)
+    reg = regime(scene)
+    print(f"--large scene: tri_data {tuple(scene.tri_data.shape)}, tiles "
+          f"{scene.tile_bbox.shape[1]}, tree_bbox {tuple(scene.tree_bbox.shape)}, "
+          f"regime {reg}, texels {scene.bank.shape[0]}, emissive_dummy "
+          f"{scene.emissive_dummy}")
+    if reg != "per-bounce, sorted":
+        fail(f"--large scene renders in the {reg} regime, expected per-bounce, sorted")
+
+    # b. kernels vs twins on the card, in the main path's order (bounce 0,
+    # sort, bounce 1 with the previous hit); the twins at 2^16 rays
+    par = build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
+    table = scene.rec_table
+    small, full = 1 << 16, L_W * L_H * L_SPP
+    st0 = gen_rays_raster(par, SEED, L_W * 300, small, L_SPP, L_W)
+    k0 = mi.trace_emit_aux(scene, st0, table)
+    t0 = mi.trace_emit_aux_ref(scene, st0, table)
+    torch.cuda.synchronize()
+    e0 = compare_trace("trace_emit_aux (bounce 0, raster order)", scene, st0, None, k0, t0)
+    sk0 = fused.shade_fused(scene, st0, k0[0], k0[1], 0, k0[2])
+    stw0 = fused.shade_fused_ref(scene, st0, k0[0], k0[1], 0, k0[2])
+    torch.cuda.synchronize()
+    es0 = compare("shade_fused (bounce 0)", sk0, None, stw0, None)
+    _, st1, (prev1,) = sort_state_payload(ray_sort_key(scene, sk0), sk0, (k0[1],))
+    k1 = mi.trace_emit_aux(scene, st1, table, prev1)
+    t1 = mi.trace_emit_aux_ref(scene, st1, table, prev1)
+    torch.cuda.synchronize()
+    e1 = compare_trace("trace_emit_aux (bounce 1 after the sort, prev)", scene, st1, prev1,
+                       k1, t1)
+    sk1 = fused.shade_fused(scene, st1, k1[0], k1[1], 1, k1[2])
+    stw1 = fused.shade_fused_ref(scene, st1, k1[0], k1[1], 1, k1[2])
+    torch.cuda.synchronize()
+    es1 = compare("shade_fused (bounce 1)", sk1, None, stw1, None)
+
+    # the full wave of the main path (bounce 0 sorted, then bounce 1), held
+    # against the twins on the same inputs: bounce 0's trace on 2^16 lanes
+    # spread over the wave, every other call on every lane
+    stf = gen_rays_raster(par, SEED, 0, full, L_SPP, L_W)
+    _, stf, _ = sort_state_payload(ray_sort_key(scene, stf), stf)
+    af, idf, rf = mi.trace_emit_aux(scene, stf, table)
+    sf = fused.shade_fused(scene, stf, af, idf, 0, rf)
+    _, stf1, (prevf,) = sort_state_payload(ray_sort_key(scene, sf), sf, (idf,))
+    af1, idf1, rf1 = mi.trace_emit_aux(scene, stf1, table, prevf)
+    sf1 = fused.shade_fused(scene, stf1, af1, idf1, 1, rf1)
+    torch.cuda.synchronize()
+    lane = torch.arange(small, device=dev) * (full // small)
+    st_l = stf[:, lane].contiguous()
+    e2 = compare_trace(f"trace_emit_aux (full wave, bounce 0, {small} lanes)", scene, st_l,
+                       None, (af[:, lane], idf[lane], rf[:, lane]),
+                       mi.trace_emit_aux_ref(scene, st_l, table))
+    es2 = compare("shade_fused (full wave, bounce 0)", sf, None,
+                  fused.shade_fused_ref(scene, stf, af, idf, 0, rf), None)
+    tw1 = mi.trace_emit_aux_ref(scene, stf1, table, prevf)
+    e3 = compare_trace("trace_emit_aux (full wave, bounce 1, prev)", scene, stf1, prevf,
+                       (af1, idf1, rf1), tw1)
+    es3 = compare("shade_fused (full wave, bounce 1)", sf1, None,
+                  fused.shade_fused_ref(scene, stf1, af1, idf1, 1, rf1), None)
+    errs["trace_emit_aux"] = max(e0, e1, e2, e3)
+    errs["shade_fused"] = max(es0, es1, es2, es3)
+    timing["trace_emit_aux"] = (
+        cuda_ms(lambda: mi.trace_emit_aux(scene, stf1, table, prevf), 5),
+        cuda_ms(lambda: mi.trace_emit_aux_ref(scene, st1, table, prev1), 2),
+        full, small,
+    )
+    timing["shade_fused"] = (
+        cuda_ms(lambda: fused.shade_fused(scene, stf1, af1, idf1, 1, rf1), 5),
+        cuda_ms(lambda: fused.shade_fused_ref(scene, st1, k1[0], k1[1], 1, k1[2]), 2),
+        full, small,
+    )
+    # The least work of the timed bounce-1 calls on this run's data.  Trace:
+    # the tiles swept, times 128 triangle tests, plus the boxes tested, each
+    # the fewer of the flat twin's culls and the heap walk's (both find the
+    # same nearest hits, so the fewer suffice); bytes: alive and streams of
+    # every ray, o, d and prev of each
+    # live one, aux, idx and record out, and the scene's 13 transform rows,
+    # record table and heap once.  Shade: state in and out of every ray, t of
+    # each live one, u, v and the 24-float record of each live hit, and the
+    # texel bank once.
+    tp, p2x2 = scene.tri_data.shape[1], scene.tree_bbox.shape[1]
+    live = stf1[12] > 0
+    n_live = float(live.sum())
+    hits = float((live & torch.isfinite(af1[2])).sum())
+    tiles = min(float(af1[5].sum()), float(tw1[0][5].sum()))
+    boxes = min(float(af1[6].sum()), float(tw1[0][6].sum()))
+    bounds["trace_emit_aux"] = bound(
+        tiles * 128 * OPS_TRI + boxes * OPS_BOX,
+        full * (2 + 8 + 1 + 24) * 4 + n_live * (6 + 1) * 4 + tp * (13 + 24) * 4
+        + 6 * p2x2 * 4)
+    bounds["shade_fused"] = bound(
+        hits * OPS_SHADE,
+        full * (16 + 16) * 4 + n_live * 4 + hits * (2 + 24) * 4 + scene.bank.numel() * 4)
+    print(f"  bounce 1 (full wave): live rays {int(n_live)}, live hits {int(hits)}; per "
+          f"live ray tiles swept: kernel {float(af1[5][live].mean()):.2f}, twin "
+          f"{float(tw1[0][5][live].mean()):.2f}; heap boxes tested "
+          f"{float(af1[6][live].mean()):.2f}")
+    for name in ("trace_emit_aux", "shade_fused"):
+        k_ms, p_ms, rays, p_rays = timing[name]
+        print(f"  {name}: kernel {k_ms:.3f} ms at {rays} rays, plain twin {p_ms:.3f} ms "
+              f"at {p_rays} rays, bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) "
+              f"({card})")
+    del stf, stf1, st_l, af, af1, rf, rf1, sf, sf1, tw1
+
+    # c. a small --large frame, kernels vs twins, sorted (as the scene
+    # renders) and unsorted (SORT_MIN_TRIS raised past its bank: the regime
+    # of 2^15 < padded triangles <= 2^16)
+    s_cfg = Config(num_samples=L_SPP, max_bounce=L_BOUNCES, seed=SEED)
+    s_scene, s_cam, _ = prepare_scene(str(path), s_cfg, camera_name="Camera 1", width=160,
+                                      height=90, device=dev)
+    sort_min = wavefront.SORT_MIN_TRIS
+    try:
+        for want, sort_at in (("per-bounce, sorted", sort_min),
+                              ("per-bounce", s_scene.tri_data.shape[1])):
+            wavefront.SORT_MIN_TRIS = sort_at
+            if regime(s_scene) != want:
+                fail(f"160x90 --large frame renders {regime(s_scene)}, expected {want}")
+            img_k, st_k = render_scene(s_scene, s_cam, s_cfg)
+            img_t, st_t = render_scene(s_scene, s_cam, s_cfg, plain=True)
+            diff = abs(img_k.astype(int) - img_t.astype(int))
+            frac, mean = float((diff > 2).mean()), float(diff.mean())
+            seg_rel = abs(st_k.segments - st_t.segments) / max(st_t.segments, 1)
+            print(f"--large frame 160x90 ({want}): diff>2 on {frac:.4%} of channels, mean "
+                  f"|diff| {mean:.4f}, segments {st_k.segments} vs {st_t.segments} "
+                  f"({seg_rel:.4%})")
+            if (not (frac < 0.06 and mean < 1.5 and seg_rel < 0.005)
+                    or img_k.shape != (90, 160, 3)):
+                fail(f"160x90 --large frame ({want}): kernels and twins disagree beyond "
+                     "the golden gates")
+    finally:
+        wavefront.SORT_MIN_TRIS = sort_min
+
+    # d. the --large frame, through the main path
+    quantum = L_SPP * 1024
+    wave = min(L_WAVE, full + quantum - 1) // quantum * quantum
+    num_waves = -(-full // wave)
+    kernels.reset_launches()
+    img, stats = render_scene(scene, cam, cfg)  # warmup
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(5):
+        t0_ = time.perf_counter()
+        img, stats = render_scene(scene, cam, cfg)
+        torch.cuda.synchronize()
+        rates.append(stats.segments / (time.perf_counter() - t0_) / 1e6)
+    got = dict(kernels.LAUNCHES)
+    if img.shape != (L_H, L_W, 3) or not 0 < float(img.mean()) < 255:
+        fail(f"--large frame: shape {img.shape}, mean {float(img.mean())}")
+    for name in ("trace_emit_aux", "shade_fused"):
+        if got[name] != L_BOUNCES * num_waves * 6:
+            fail(f"{name} launched {got[name]} times, expected "
+                 f"{L_BOUNCES * num_waves * 6}")
+        launches[name] = got[name]
+    med, best = statistics.median(rates), max(rates)
+    spread = (max(rates) - min(rates)) / med * 100
+    print(f"--large {L_W}x{L_H} {L_SPP} spp {L_BOUNCES} bounces: median {med:.3f} "
+          f"Mrays/s, best {best:.3f}, spread {spread:.1f}%, segments {stats.segments}, "
+          f"waves {num_waves} of {wave} rays, launches {got} ({card})")
+    print("  reps Mrays/s: " + ", ".join(f"{r:.3f}" for r in rates))
+
+    # e. where one --large frame's time goes
+    profile_frame(render_scene, scene, cam, cfg, card)
+    tmp.cleanup()
+
+
 def main() -> int:
     import torch
 
@@ -145,6 +444,7 @@ def main() -> int:
 
     from zig_raytracing_contest_tpu_torch import kernels
     from zig_raytracing_contest_tpu_torch.config import Config
+    from zig_raytracing_contest_tpu_torch.ops.mxu_intersect import nearest_hit_ref
     from zig_raytracing_contest_tpu_torch.render import fused
     from zig_raytracing_contest_tpu_torch.render.pipeline import (
         prepare_scene,
@@ -179,13 +479,13 @@ def main() -> int:
 
     # 4. kernels vs twins on the card
     par = build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
-    num_slots, tiles_x = slot_geometry(1920, 1080)
+    num_slots, tiles_x = slot_geometry(1920, 1080, True)
     gen = fused.GenParams(spp=SPP, width=1920, img_w=1920, img_h=1080,
                           tiles_x=tiles_x)
     quantum = SPP * 1024
     full_wave = WAVE // quantum * quantum
     errs = {"path_trace_gen": 0.0, "path_trace_fused": 0.0}
-    timing = {}
+    timing, bounds = {}, {}
     for R, slot_base in ((1 << 16, 1024 * 900), (full_wave, 5 * (full_wave // SPP))):
         meta = (slot_base, slot_base % 1920, slot_base // 1920, SEED,
                 slot_base // 1024, 0, 0, 0)
@@ -211,6 +511,25 @@ def main() -> int:
         errs["path_trace_fused"] = max(errs["path_trace_fused"], compare(
             "path_trace_fused (bounces 2-3 after the resort, prev)", k3, None, t3, None))
         if R == full_wave:
+            # the work of the timed calls, counted by the twin: tiles whose
+            # box each live ray passes (the flat loop sweeps those)
+            sc_b = scene_bytes(scene)
+            nt = scene.tile_bbox.shape[1]
+            g0 = fused.gen_rays_ref(par, meta, R, gen)
+            live0 = g0[12] > 0
+            sw0 = nearest_hit_ref(scene.tri_data, scene.tile_bbox, scene.tile, g0[0:3],
+                                  g0[3:6], live0)[4]
+            n0 = float(live0.sum())
+            bounds["path_trace_gen"] = bound(
+                float(sw0.sum()) * 128 * OPS_TRI + n0 * (nt * OPS_BOX + OPS_SHADE)
+                + R * OPS_GEN, sc_b + R * (16 + 1) * 4)
+            live1 = st[12] > 0
+            sw1 = nearest_hit_ref(scene.tri_data, scene.tile_bbox, scene.tile, st[0:3],
+                                  st[3:6], live1, idx_s)[4]
+            n1 = float(live1.sum())
+            bounds["path_trace_fused"] = bound(
+                float(sw1.sum()) * 128 * OPS_TRI + n1 * (nt * OPS_BOX + OPS_SHADE),
+                sc_b + R * (16 + 1 + 16 + 1) * 4)
             timing["path_trace_gen"] = (
                 cuda_ms(lambda: fused.path_trace_gen(*args, emit_key=True, emit_idx=True), 5),
                 cuda_ms(lambda: fused.path_trace_gen_ref(*args, emit_key=True, emit_idx=True), 2),
@@ -221,9 +540,12 @@ def main() -> int:
                 cuda_ms(lambda: fused.path_trace_fused_ref(scene, st, 1, bounce0=1,
                                                            prev=idx_s, emit_idx=True), 2),
             )
-    for name, (k_ms, p_ms) in timing.items():
+    for name in list(timing):
+        k_ms, p_ms = timing[name]
+        timing[name] = (k_ms, p_ms, full_wave, full_wave)
         print(f"  {name} at {full_wave} rays: kernel {k_ms:.3f} ms, plain twin "
-              f"{p_ms:.3f} ms ({card})")
+              f"{p_ms:.3f} ms, bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) "
+              f"({card})")
 
     # 5. a small frame, kernels vs twins
     small_cfg = Config(num_samples=SPP, max_bounce=MAX_BOUNCE, seed=SEED)
@@ -242,7 +564,7 @@ def main() -> int:
         fail(f"frame shape {img_k.shape}")
 
     # 6. the official frame, through the main path
-    fused.reset_launches()
+    kernels.reset_launches()
     img, stats = render_scene(scene, cam, cfg)  # warmup
     torch.cuda.synchronize()
     rates = []
@@ -251,7 +573,7 @@ def main() -> int:
         img, stats = render_scene(scene, cam, cfg)
         torch.cuda.synchronize()
         rates.append(stats.segments / (time.perf_counter() - t0) / 1e6)
-    launches = dict(fused.LAUNCHES)
+    launches = dict(kernels.LAUNCHES)
     if img.shape != (1080, 1920, 3) or not 0 < float(img.mean()) < 255:
         fail(f"official frame: shape {img.shape}, mean {float(img.mean())}")
     num_waves = -(-num_slots * SPP // full_wave)
@@ -269,10 +591,15 @@ def main() -> int:
     print("  reps Mrays/s: " + ", ".join(f"{r:.3f}" for r in rates))
     profile_frame(render_scene, scene, cam, cfg, card)
 
+    large_phases(card, timing, errs, bounds, launches)
+
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": SOURCE, "replaces": replaces,
          "launches": launches[wrapper], "max_abs_err": errs[wrapper],
-         "ms": timing[wrapper][0], "plain_ms": timing[wrapper][1]}
+         "ms": timing[wrapper][0], "plain_ms": timing[wrapper][1],
+         "rays": timing[wrapper][2], "plain_rays": timing[wrapper][3],
+         "bound_ms": bounds[wrapper][0], "bound_by": bounds[wrapper][1],
+         "library_ms": None}
         for kname, wrapper, replaces in KERNELS
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -93,7 +93,7 @@ def test_port_bake_equals_jax_bake(name, tmp_path):
     shade = build_shade_table(tgeom, tm)
     np.testing.assert_array_equal(shade, np.asarray(js.shade_table))
 
-    ts = build_torch_scene(tgeom, tm, scene_bbox(tgeom.positions))
+    ts = build_torch_scene(tgeom, tm, scene_bbox(tgeom.positions), device="cpu")
     np.testing.assert_array_equal(ts.bbox_min.numpy(), np.asarray(js.grid.bbox_min))
     np.testing.assert_array_equal(ts.bbox_max.numpy(), np.asarray(js.grid.bbox_max))
     np.testing.assert_array_equal(ts.tri_data.numpy(), mxu.tri_data)
@@ -109,9 +109,9 @@ def test_port_bake_equals_jax_bake(name, tmp_path):
         np.testing.assert_array_equal(ts.bank.numpy().T, np.asarray(js.color_u16f_t)[:, :P])
 
         # from_jax_scene round trip: the same TorchScene, tensor for tensor
-        fj = from_jax_scene(jax_scene_arrays(js))
-        for f in ("tri_data", "tile_bbox", "perm", "rec_table", "bank",
-                  "bbox_min", "bbox_max"):
+        fj = from_jax_scene(jax_scene_arrays(js), device="cpu")
+        for f in ("tri_data", "tile_bbox", "tree_bbox", "group_bbox", "perm",
+                  "rec_table", "bank", "bbox_min", "bbox_max"):
             assert torch.equal(getattr(fj, f), getattr(ts, f)), f
         assert (fj.tile, fj.emissive_dummy) == (ts.tile, ts.emissive_dummy)
 
@@ -136,10 +136,11 @@ def test_out_of_slice_scenes_raise(tmp_path):
     g = load_gltf(str(path))
     geo, mats = load_geometry(g), load_materials(g)
     with pytest.raises(NotImplementedError, match="item 11"):
-        build_torch_scene(geo, mats, scene_bbox(geo.positions), backend="grid")
-    with pytest.raises(NotImplementedError, match="REC_EMIT_MAX_TRIS"):
-        from zig_raytracing_contest_tpu_torch.scene.types import check_whole_path
+        build_torch_scene(geo, mats, scene_bbox(geo.positions), device="cpu",
+                          backend="grid")
+    from zig_raytracing_contest_tpu_torch.scene.types import check_resident
 
-        check_whole_path((1 << 15) + 1024, 10)
+    with pytest.raises(NotImplementedError, match="VMEM_RESIDENT_MAX_TRIS"):
+        check_resident((1 << 17) + 1024, 10)
     with pytest.raises(NotImplementedError, match="PAGED_MAX_TEXELS"):
-        check_whole_path(1024, (1 << 20) + 1)
+        check_resident(1024, (1 << 20) + 1)

@@ -6,8 +6,9 @@ that has only CUDA PyTorch and nvcc.  There, from the repository root
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Elsewhere the test skips: a CUDA kernel has no CPU mode.
-chip_smoke.py runs the same comparison at the official frame's shapes.
+Elsewhere the tests skip: a CUDA kernel has no CPU mode.
+chip_smoke.py runs the same comparisons at the shapes of the official and
+``--large`` frames.
 """
 
 import pytest
@@ -49,3 +50,61 @@ def test_kernels_match_twins_on_cuda(tmp_path):
     # (row 13 holds RNG streams as f32 bit patterns, some of them NaN)
     assert torch.equal(k2[12:16].view(torch.int32), t2[12:16].view(torch.int32))
     torch.testing.assert_close(k2[0:12], t2[0:12], rtol=3e-6, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_per_bounce_kernels_match_twins_on_cuda(tmp_path):
+    """trace_emit_aux: aux rows 3-4 and t exactly; where the winners agree
+    u, v and the record exactly (elsewhere two triangles tie at that t, and
+    the tree walk and the flat loop break the tie by their visit orders).
+    shade_fused: rows 12-15 exactly, value rows to f32 rounding (direction
+    rows carry the libm ULPs of rsqrt/log/sin/cos: 1e-5)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    from zig_raytracing_contest_tpu_torch import kernels
+    from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
+    from zig_raytracing_contest_tpu_torch.render import fused
+    from zig_raytracing_contest_tpu_torch.render.wavefront import (
+        build_gen_par,
+        gen_rays_raster,
+        ray_sort_key,
+        sort_state_payload,
+    )
+
+    path = tproc.large_scene(tmp_path / "l.gltf", side=48)
+    cfg = Config(num_samples=2, max_bounce=3)
+    scene, cam, _ = prepare_scene(str(path), cfg, camera_name="Camera 1",
+                                  width=96, height=64, device="cuda")
+    assert scene.tile_bbox.shape[1] == 37  # the tree walk, not the flat loop
+    par = build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
+    state = gen_rays_raster(par, 0, 0, 96 * 64 * 2, 2, 96)
+    prev = None
+    kernels.reset_launches()
+    for bounce in range(3):
+        extra = () if prev is None else (prev,)
+        _, state, extra = sort_state_payload(ray_sort_key(scene, state), state, extra)
+        prev = extra[0] if extra else None
+        ka, ki, kr = mi.trace_emit_aux(scene, state, scene.rec_table, prev)
+        ta, ti, tr = mi.trace_emit_aux_ref(scene, state, scene.rec_table, prev)
+        assert torch.equal(ka[3:5].view(torch.int32), ta[3:5].view(torch.int32))
+        assert torch.equal(ka[2], ta[2])
+        same = ki == ti
+        assert float(same.float().mean()) > 0.99
+        assert torch.equal(ka[0:2][:, same], ta[0:2][:, same])
+        assert torch.equal(kr[:, same], tr[:, same])
+        # a tie: the kernel's winner is hit at the twin's t, with its own
+        # u, v and record, and is not the excluded triangle
+        w = ki[~same]
+        hit, tw, uw, vw = mi.triangle_hit_ref(scene.tri_data, state[0:3, ~same],
+                                              state[3:6, ~same], w)
+        assert bool(hit.all()) and torch.equal(tw, ta[2][~same])
+        assert torch.equal(uw, ka[0][~same]) and torch.equal(vw, ka[1][~same])
+        assert torch.equal(kr[:, ~same], scene.rec_table[:, w.long()])
+        if prev is not None:
+            assert not bool((w == prev[~same]).any())
+        k = fused.shade_fused(scene, state, ka, ki, bounce, kr)
+        t = fused.shade_fused_ref(scene, state, ka, ki, bounce, kr)
+        assert torch.equal(k[12:16].view(torch.int32), t[12:16].view(torch.int32))
+        torch.testing.assert_close(k[0:12], t[0:12], rtol=3e-6, atol=1e-5)
+        state, prev = k, ki
+    assert kernels.LAUNCHES["trace_emit_aux"] == kernels.LAUNCHES["shade_fused"] == 3

@@ -42,7 +42,7 @@ def scenes(tmp_path_factory):
     geo, mats = load_geometry(g), load_materials(g)
     js = build_device_scene(geo, build_grid(geo.positions, (8, 8, 8)), mats,
                             backend="mxu")
-    ts = build_torch_scene(geo, mats, scene_bbox(geo.positions))
+    ts = build_torch_scene(geo, mats, scene_bbox(geo.positions), device="cpu")
     return js, ts, cam
 
 

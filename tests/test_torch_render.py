@@ -46,7 +46,7 @@ def _gate(img, ref, opaque: bool, name: str):
 
 def _both(path, cam_kw, spp=3, max_bounce=4, seed=0):
     cfg = Config(num_samples=spp, max_bounce=max_bounce, seed=seed, wave_size=1 << 14)
-    scene, cam, _ = prepare_scene(str(path), cfg, **cam_kw)
+    scene, cam, _ = prepare_scene(str(path), cfg, device="cpu", **cam_kw)
     img, stats = render_scene(scene, cam, cfg)
     jcfg = JConfig(grid_resolution=(8, 8, 8), num_samples=spp,
                    max_bounce=max_bounce, seed=seed)
@@ -90,7 +90,8 @@ def test_golden(name):
     JAX package pages)."""
     cam_kw = GOLDEN_CASES[name]
     cfg = Config(grid_resolution=(16, 16, 16), num_samples=4, max_bounce=3, seed=12345)
-    scene, cam, _ = prepare_scene(str(ASSETS / f"{name}.gltf"), cfg, **cam_kw)
+    scene, cam, _ = prepare_scene(str(ASSETS / f"{name}.gltf"), cfg, device="cpu",
+                                  **cam_kw)
     img, _ = render_scene(scene, cam, cfg)
     golden = np.asarray(Image.open(ASSETS / f"golden_{name}.png"))
     _gate(img, golden, True, name)
@@ -119,7 +120,8 @@ def test_cuda_render_raises_without_cuda(tmp_path):
         pytest.skip("this host has CUDA: the refusal is for CUDA-less hosts")
     path = tproc.cornell_like_box(tmp_path / "box.gltf")
     cfg = Config(num_samples=1, max_bounce=1)
-    scene, cam, _ = prepare_scene(str(path), cfg, camera_name="Camera 1", width=8, height=8)
+    scene, cam, _ = prepare_scene(str(path), cfg, camera_name="Camera 1", width=8, height=8,
+                                  device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         render_scene(scene, cam, cfg, device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):
@@ -141,7 +143,7 @@ def test_cli_renders_a_png(tmp_path):
         return subprocess.run(
             [sys.executable, "-m", "zig_raytracing_contest_tpu_torch", "--in",
              str(path), "--out", str(out), "--width", "24", "--height", "16",
-             "--config", str(tmp_path / "config.json"), *extra],
+             "--config", str(tmp_path / "config.json"), "--device", "cpu", *extra],
             cwd=REPO, capture_output=True, text=True, timeout=300,
         )
 
@@ -164,7 +166,7 @@ def test_progressive_dumps_and_debug_checks(tmp_path):
     cfg = Config(num_samples=2, max_bounce=2, wave_size=2048, progressive_every=1,
                  debug_checks=True)
     scene, cam, _ = prepare_scene(str(path), cfg, camera_name="Camera 1", width=40,
-                                  height=40)
+                                  height=40, device="cpu")
     dump = tmp_path / "partial.png"
     img, stats = render_scene(scene, cam, cfg, progressive_path=str(dump))
     partial = np.asarray(Image.open(dump))
@@ -196,7 +198,7 @@ def test_gen_twin_matches_pallas_kernel_lane_by_lane(tmp_path):
                               height=32)
     cfg = Config(num_samples=1, max_bounce=1)
     ts, cam, _ = prepare_scene(str(path), cfg, camera_name="Camera 1", width=64,
-                               height=32)
+                               height=32, device="cpu")
     R = 1024
     meta = (1024, 0, 0, 9, 1, 0, 0, 0)
     jpar = jax_par(js, *(jnp.asarray(v) for v in (jcam.origin, jcam.lower_left_corner,

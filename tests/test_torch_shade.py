@@ -44,6 +44,8 @@ def scene_and_rays(tmp_path_factory):
     ts = from_jax_scene({
         "mxu.tri_data": np.asarray(js.mxu.tri_data),
         "mxu.tile_bbox": np.asarray(js.mxu.tile_bbox),
+        "mxu.tree_bbox": np.asarray(js.mxu.tree_bbox),
+        "mxu.group_bbox": np.asarray(js.mxu.group_bbox),
         "mxu.perm": np.asarray(js.mxu.perm),
         "mxu.tile": js.mxu.tile,
         "shade_table_t": np.asarray(js.shade_table_t),
@@ -51,7 +53,7 @@ def scene_and_rays(tmp_path_factory):
         "grid.bbox_min": np.asarray(js.grid.bbox_min),
         "grid.bbox_max": np.asarray(js.grid.bbox_max),
         "emissive_all_dummy": js.emissive_all_dummy is not None,
-    })
+    }, device="cpu")
     rs = np.random.default_rng(99)
     xs = (np.arange(R) % W + rs.uniform(size=R)).astype(np.float32)
     ys = (np.arange(R) // W + rs.uniform(size=R)).astype(np.float32)

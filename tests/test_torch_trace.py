@@ -53,7 +53,7 @@ def scene_and_rays(request, tmp_path_factory):
 
 
 def _port(scene, orig, dirs, active, prev=None):
-    t, i, u, v = nearest_hit_ref(
+    t, i, u, v, _ = nearest_hit_ref(
         torch.from_numpy(np.array(scene.mxu.tri_data)),
         torch.from_numpy(np.array(scene.mxu.tile_bbox)),
         scene.mxu.tile,

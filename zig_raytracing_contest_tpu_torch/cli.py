@@ -5,8 +5,10 @@ Reference CLI (src/main.zig:33-39): ``--in`` (default input.gltf), ``--out``
 Extras, as in the JAX package's CLI: ``--config`` (path to config.json,
 default ./config.json), ``--devices`` (device count; only 1 is supported so
 far), ``--log-level`` and ``--profile`` (a torch.profiler trace of the
-render).  The render runs on the CUDA card when PyTorch sees one, else on
-the CPU with the kernels' plain twins.
+render).  ``--device`` (``cuda``, the default, or ``cpu``) is the port's
+counterpart of the platform the JAX CLI takes from ``JAX_PLATFORMS``: the
+render runs on the CUDA card, or on the CPU with the kernels' plain twins
+only when ``--device cpu`` asks for it.  Without a card the default fails.
 
 Run: ``python -m zig_raytracing_contest_tpu_torch --in scene.gltf --out out.png``.
 """
@@ -30,6 +32,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--height", type=int, default=None)
     p.add_argument("--config", default="config.json")
     p.add_argument("--devices", type=int, default=None)
+    p.add_argument(
+        "--device",
+        choices=("cuda", "cpu"),
+        default="cuda",
+        help="render on the CUDA card (default) or on the CPU (plain twins)",
+    )
     p.add_argument("--log-level", default="INFO")
     p.add_argument(
         "--profile",
@@ -41,7 +49,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
     logging.basicConfig(
         level=getattr(logging, args.log_level.upper(), logging.INFO),
         format="%(levelname)s: %(message)s",
@@ -51,13 +60,16 @@ def main(argv=None) -> int:
     from .config import Config
     from .render.pipeline import render_file
 
+    device = args.device
+    if device == "cuda" and not torch.cuda.is_available():
+        parser.error("--device cuda: PyTorch sees no CUDA card "
+                     "(torch.cuda.is_available() is False); pass --device cpu "
+                     "to render on the CPU")
     config = Config.load(args.config)
     if args.devices is not None and args.devices > 1:
         raise NotImplementedError(
             "multi-device pixel tiling (--devices > 1) is ROADMAP queue 1 item 13"
         )
-    # The CUDA kernels when PyTorch sees a card, else their CPU twins.
-    device = "cuda" if torch.cuda.is_available() else "cpu"
     log = logging.getLogger("zig_raytracing_contest_tpu_torch")
     log.info("Device: %s", device)
 
@@ -66,7 +78,7 @@ def main(argv=None) -> int:
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU]
-        if device.startswith("cuda"):
+        if device == "cuda":
             activities.append(ProfilerActivity.CUDA)
         profiler = profile(activities=activities)
         profiler.__enter__()

@@ -2,9 +2,10 @@
 
 The port of ``zig_raytracing_contest_tpu/grid/builder.py:125-126`` (initGrid,
 src/stage2.zig:44-57): the box over every triangle vertex, in f32.  The
-whole-path renderer reads it for the beam-sort key's quantization
-(``render/wavefront.build_gen_par``).  The 128³ SAT grid and its DDA belong
-to the grid fallback, which the port has not taken over yet.
+renderer reads it for the beam-sort keys' quantization
+(``render/wavefront.build_gen_par``, ``ray_sort_key``).  The 128³ SAT grid
+and its DDA belong to the grid fallback, which the port has not taken over
+yet.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Build and bind the CUDA kernels of path_trace.cu.
+"""Build and bind the CUDA kernels of path_trace.cu, and count their launches.
 
 At first use the source is compiled with ``nvcc`` into a shared library
 with a plain C interface, under ``kernels/_build/`` (keyed on a hash of the
@@ -36,6 +36,16 @@ _lib = None
 # What the last build did: seconds spent (0.0 when the library was already
 # built) and nvcc's report (ptxas registers / spills per kernel).
 BUILD_INFO = {"seconds": None, "log": ""}
+
+# Kernel launches per wrapper, counted by the wrappers (render/fused.py,
+# ops/mxu_intersect.py) where they launch a CUDA kernel, never for the twins.
+LAUNCHES = {"path_trace_gen": 0, "path_trace_fused": 0, "trace_emit_aux": 0,
+            "shade_fused": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 class ZrcScene(ctypes.Structure):
@@ -121,6 +131,15 @@ def load():
                 ctypes.POINTER(ZrcScene), ptr, ptr, i32, i32, ptr, ptr, i32,
                 i32, ptr,
             ]
+            lib.zrc_trace_emit.restype = i32
+            lib.zrc_trace_emit.argtypes = [
+                ctypes.POINTER(ZrcScene), ptr, i32, ptr, ptr, ptr, i32, ptr, ptr,
+                ptr, i32, i32, ptr,
+            ]
+            lib.zrc_shade.restype = i32
+            lib.zrc_shade.argtypes = [
+                ctypes.POINTER(ZrcScene), ptr, ptr, ptr, i32, ptr, i32, i32, ptr,
+            ]
             lib.zrc_error_string.restype = ctypes.c_char_p
             lib.zrc_error_string.argtypes = [i32]
             _lib = lib
@@ -203,3 +222,56 @@ def launch_path_trace(scene, state_in, prev, bounce0: int, max_bounce: int,
         dev.index or 0, stream,
     )
     _raise_on(lib, err, "path_trace_kernel")
+
+
+def launch_trace_emit(scene, state, prev, table, aux_out, idx_out, rec_out) -> None:
+    """Launch trace_emit_kernel: ``state`` (16, R) → ``aux_out`` (8, R),
+    ``idx_out`` (R,) int32 and, when ``table`` (24, Tp) is given,
+    ``rec_out`` (24, R); ``prev`` (R,) int32 or None."""
+    lib = load()
+    dev = scene.device
+    R = state.shape[1]
+    _check(state, "state", torch.float32, (16, R), dev)
+    _check(aux_out, "aux_out", torch.float32, (8, R), dev)
+    _check(idx_out, "idx_out", torch.int32, (R,), dev)
+    if prev is not None:
+        _check(prev, "prev", torch.int32, (R,), dev)
+    tp = scene.tri_data.shape[1]
+    if table is not None:
+        _check(table, "table", torch.float32, (24, tp), dev)
+        _check(rec_out, "rec_out", torch.float32, (24, R), dev)
+    tree = scene.tree_bbox
+    p2 = tree.shape[1] // 2
+    _check(tree, "tree_bbox", torch.float32, (6, 2 * p2), dev)
+    nt = scene.tile_bbox.shape[1]
+    if p2 & (p2 - 1) or p2 < nt or p2 > 1 << 30:
+        raise ValueError(f"tree_bbox of {p2} leaves does not fit {nt} tiles")
+    sc = _scene_struct(scene, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.zrc_trace_emit(
+        ctypes.byref(sc), tree.data_ptr(), p2, state.data_ptr(),
+        None if prev is None else prev.data_ptr(),
+        None if table is None else table.data_ptr(), tp, aux_out.data_ptr(),
+        idx_out.data_ptr(), None if table is None else rec_out.data_ptr(), R,
+        dev.index or 0, stream,
+    )
+    _raise_on(lib, err, "trace_emit_kernel")
+
+
+def launch_shade(scene, state_in, aux, rec, bounce: int, state_out) -> None:
+    """Launch shade_kernel: ``state_in`` (16, R), ``aux`` (8, R) and
+    ``rec`` (24, R) → ``state_out`` (16, R)."""
+    lib = load()
+    dev = scene.device
+    R = state_in.shape[1]
+    _check(state_in, "state_in", torch.float32, (16, R), dev)
+    _check(aux, "aux", torch.float32, (8, R), dev)
+    _check(rec, "rec", torch.float32, (24, R), dev)
+    _check(state_out, "state_out", torch.float32, (16, R), dev)
+    sc = _scene_struct(scene, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.zrc_shade(
+        ctypes.byref(sc), state_in.data_ptr(), aux.data_ptr(), rec.data_ptr(),
+        int(bounce), state_out.data_ptr(), R, dev.index or 0, stream,
+    )
+    _raise_on(lib, err, "shade_kernel")

@@ -1,18 +1,38 @@
-// Whole-path CUDA kernels for Hopper (sm_90a): ray generation, nearest hit,
-// shading and the beam-sort key, one thread per ray.
+// CUDA kernels for Hopper (sm_90a): ray generation, nearest hit, shading
+// and the beam-sort key, one thread per ray.
 //
-// Replaces the two whole-path Pallas kernels of the JAX package:
+// Replaces the Pallas kernels of the JAX package:
 //   path_trace_gen_kernel  <- zig_raytracing_contest_tpu/render/fused.py:1031
 //                             path_trace_gen (_make_path_kernel_gen :981)
 //   path_trace_kernel      <- zig_raytracing_contest_tpu/render/fused.py:1111
 //                             path_trace_fused (_make_path_kernel :727)
+//   trace_emit_kernel      <- zig_raytracing_contest_tpu/ops/mxu_intersect.py:1555
+//                             trace_emit_aux (_make_trace_kernel_t_rec :1326,
+//                             _make_trace_kernel_t :1309)
+//   shade_kernel           <- zig_raytracing_contest_tpu/render/fused.py:1191
+//                             shade_fused (_make_shade1_kernel :668)
 // with the shared device functions
 //   gen_ray        <- fused._gen_rays (:844)
 //   trace_nearest  <- mxu_intersect._trace_body_resident (:1027), flat tile
 //                     loop with _cull_any (:782) and _tile_update (:443)
-//   shade_bounce   <- fused._shade1_body (:595): _prep_math (:110, non-tiled)
+//   trace_tree     <- mxu_intersect._tree_traverse (:1191) with
+//                     _cull_entry_batch (:786), a per-ray binary walk
+//   shade_surface  <- fused._shade1_body (:595): _prep_math (:110, non-tiled)
 //                     and _shade_live (:245)
 //   emit_sort_key  <- fused._emit_sort_key (:915)
+//
+// The whole-path kernels keep the flat tile loop for every scene.  The
+// per-bounce kernels serve scenes past 2^15 padded triangles: trace_emit
+// walks the tile heap, and its winner record is one direct load per ray
+// after the walk (the JAX kernel's deferred _extract_winner_records :590).
+// What bounds them on this card: trace_emit is bound by operations (~41
+// f32 operations per triangle of every swept tile, ~24 per heap box) over
+// a state of 64 bytes in and 132 out per ray; the walk keeps each ray's
+// stack in registers/local memory and sweeps only the tiles its own slab
+// tests reach, nearest first, so the running best culls the rest.
+// shade_kernel is bound by bytes: 256 bytes of state, aux and record per
+// ray in and 64 out, coalesced (thread i owns column i), against ~150
+// operations per live ray.
 //
 // What bounds it on this card: the trace, ~40 f32 operations per ray per
 // triangle of every tile whose box the ray's slab test passes; the state
@@ -176,40 +196,127 @@ __device__ __forceinline__ bool tile_passes(const float* bb, int nt, int j,
     return !miss;
 }
 
-// Nearest front-facing hit over the flat tile loop, in the transform form
-// (mxu_intersect._intersect_tile), skipping Morton index ``prev`` (-1: none).
+// Sweep the triangles of tile j in ascending Morton index, in the transform
+// form (mxu_intersect._intersect_tile), skipping Morton index ``prev`` (-1:
+// none); a hit replaces ``h`` only on a strictly smaller t.
+__device__ __forceinline__ void sweep_tile(const ZrcScene& sc, int j,
+                                           const float o[3], const float d[3],
+                                           int prev, Hit& h) {
+    int s = j * sc.tile;
+    for (int k = 0; k < sc.tile; ++k) {
+        int gi = s + k;
+        const float4* m4 = sc.tri + 4 * (size_t)gi;
+        float4 a = __ldg(m4), b = __ldg(m4 + 1), c = __ldg(m4 + 2);
+        float n_sq = __ldg(m4 + 3).x;
+        // rows: a = M00 M01 M02 M10, b = M11 M12 M20 M21,
+        //       c = M22 c0 c1 c2
+        float ou = a.x * o[0] + a.y * o[1] + a.z * o[2] + c.y;
+        float ov = a.w * o[0] + b.x * o[1] + b.y * o[2] + c.z;
+        float ow = b.z * o[0] + b.w * o[1] + c.x * o[2] + c.w;
+        float du = a.x * d[0] + a.y * d[1] + a.z * d[2];
+        float dv = a.w * d[0] + b.x * d[1] + b.y * d[2];
+        float dw = b.z * d[0] + b.w * d[1] + c.x * d[2];
+        float t = -ow / dw;
+        float u = ou + t * du;
+        float v = ov + t * dv;
+        float det = -dw * n_sq;
+        bool ok = (det >= MT_EPSILON) && (u >= 0.0f) && (v >= 0.0f) &&
+                  (u + v <= 1.0f) && (t > 0.0f) && (gi != prev);
+        if (ok && t < h.t) {
+            h.t = t;
+            h.u = u;
+            h.v = v;
+            h.idx = gi;
+        }
+    }
+}
+
+// Nearest front-facing hit over the flat tile loop, skipping Morton index
+// ``prev`` (-1: none).
 __device__ Hit trace_nearest(const ZrcScene& sc, const float o[3],
                              const float d[3], int prev) {
     float inv[3] = {1.0f / d[0], 1.0f / d[1], 1.0f / d[2]};
     Hit h = {INFINITY, 0.0f, 0.0f, 0};
     for (int j = 0; j < sc.nt; ++j) {
         if (!tile_passes(sc.tile_bbox, sc.nt, j, o, inv, h.t)) continue;
-        int s = j * sc.tile;
-        for (int k = 0; k < sc.tile; ++k) {
-            int gi = s + k;
-            const float4* m4 = sc.tri + 4 * (size_t)gi;
-            float4 a = __ldg(m4), b = __ldg(m4 + 1), c = __ldg(m4 + 2);
-            float n_sq = __ldg(m4 + 3).x;
-            // rows: a = M00 M01 M02 M10, b = M11 M12 M20 M21,
-            //       c = M22 c0 c1 c2
-            float ou = a.x * o[0] + a.y * o[1] + a.z * o[2] + c.y;
-            float ov = a.w * o[0] + b.x * o[1] + b.y * o[2] + c.z;
-            float ow = b.z * o[0] + b.w * o[1] + c.x * o[2] + c.w;
-            float du = a.x * d[0] + a.y * d[1] + a.z * d[2];
-            float dv = a.w * d[0] + b.x * d[1] + b.y * d[2];
-            float dw = b.z * d[0] + b.w * d[1] + c.x * d[2];
-            float t = -ow / dw;
-            float u = ou + t * du;
-            float v = ov + t * dv;
-            float det = -dw * n_sq;
-            bool ok = (det >= MT_EPSILON) && (u >= 0.0f) && (v >= 0.0f) &&
-                      (u + v <= 1.0f) && (t > 0.0f) && (gi != prev);
-            if (ok && t < h.t) {
-                h.t = t;
-                h.u = u;
-                h.v = v;
-                h.idx = gi;
+        sweep_tile(sc, j, o, d, prev, h);
+    }
+    return h;
+}
+
+// ----------------------------------------------------------- trace_tree
+// Per-ray depth-first walk of the tile heap (mxu_intersect._build_heap:
+// node n's children are 2n and 2n+1, leaf p2 + j is tile j; empty subtrees
+// hold the always-miss box).  The heap depth is log2(p2) <= 10 for resident
+// banks, and the walk pushes at most one node per level.
+#define TREE_STACK 32
+
+// Entry t of heap node n for the ray, or +inf when the slab test of
+// _cull_mask culls it against ``best`` (a NaN never culls).  A negative or
+// NaN entry (origin inside the box, or on a slab plane) reads 0, as in
+// _cull_entry_batch.
+__device__ __forceinline__ float node_entry(const float* tree, int stride, int n,
+                                            const float o[3], const float inv[3],
+                                            float best) {
+    float tx1 = (__ldg(tree + 0 * stride + n) - o[0]) * inv[0];
+    float tx2 = (__ldg(tree + 3 * stride + n) - o[0]) * inv[0];
+    float ty1 = (__ldg(tree + 1 * stride + n) - o[1]) * inv[1];
+    float ty2 = (__ldg(tree + 4 * stride + n) - o[1]) * inv[1];
+    float tz1 = (__ldg(tree + 2 * stride + n) - o[2]) * inv[2];
+    float tz2 = (__ldg(tree + 5 * stride + n) - o[2]) * inv[2];
+    float tmin = nan_max(nan_max(nan_min(tx1, tx2), nan_min(ty1, ty2)),
+                         nan_min(tz1, tz2));
+    float tmax = nan_min(nan_min(nan_max(tx1, tx2), nan_max(ty1, ty2)),
+                         nan_max(tz1, tz2));
+    if ((tmin > tmax) || (tmax <= 0.0f) || (tmin >= best)) return INFINITY;
+    return tmin >= 0.0f ? tmin : 0.0f;
+}
+
+// Nearest front-facing hit by the tree walk: both children of a node are
+// tested against the running best t; the nearer descends, the farther is
+// pushed with its entry t and skipped when popped at or behind the best.
+// ``swept`` counts the tiles swept, ``tested`` the heap boxes tested.
+// The nearest t does not depend on the visit order; which of two triangles
+// at the same t wins does (the first swept), as in _tree_traverse.
+__device__ Hit trace_tree(const ZrcScene& sc, const float* tree, int p2,
+                          const float o[3], const float d[3], int prev,
+                          int& swept, int& tested) {
+    float inv[3] = {1.0f / d[0], 1.0f / d[1], 1.0f / d[2]};
+    Hit h = {INFINITY, 0.0f, 0.0f, 0};
+    const int stride = 2 * p2;
+    int stack_n[TREE_STACK];
+    float stack_e[TREE_STACK];
+    int sp = 0;
+    swept = 0;
+    tested = 1;
+    int node = node_entry(tree, stride, 1, o, inv, h.t) < INFINITY ? 1 : 0;
+    while (node) {
+        if (node >= p2) {
+            int j = node - p2;
+            if (j < sc.nt) {
+                sweep_tile(sc, j, o, d, prev, h);
+                ++swept;
             }
+            node = 0;
+        } else {
+            int c = 2 * node;
+            float e0 = node_entry(tree, stride, c, o, inv, h.t);
+            float e1 = node_entry(tree, stride, c + 1, o, inv, h.t);
+            tested += 2;
+            bool p0 = e0 < INFINITY, p1 = e1 < INFINITY;
+            if (p0 && p1) {
+                bool right_first = e1 < e0;
+                stack_n[sp] = right_first ? c : c + 1;
+                stack_e[sp] = right_first ? e0 : e1;
+                ++sp;
+                node = right_first ? c + 1 : c;
+            } else {
+                node = p0 ? c : (p1 ? c + 1 : 0);
+            }
+        }
+        while (node == 0 && sp > 0) {
+            --sp;
+            if (stack_e[sp] < h.t) node = stack_n[sp];
         }
     }
     return h;
@@ -261,32 +368,22 @@ __device__ __forceinline__ float bilerp(float p11, float p21, float p12,
     return r1 * (1.0f - fv) + r2 * fv;
 }
 
-// One bounce of shading for a live ray that traced ``h`` (_shade_live).
-__device__ void shade_bounce(const ZrcScene& sc, float s[S_ROWS], const Hit& h,
-                             int bounce) {
-    bool missed = !(h.t < INFINITY);
-    float dy = s[S_DX + 1];
-    if (missed) {
-        // sky (src/stage3.zig:144-150); the ray dies
-        float sky_t = 0.5f * (dy + 1.0f);
-        s[S_RR + 0] = s[S_RR + 0] + s[S_TR + 0] * (1.0f - 0.5f * sky_t);
-        s[S_RR + 1] = s[S_RR + 1] + s[S_TR + 1] * (1.0f - 0.3f * sky_t);
-        s[S_RR + 2] = s[S_RR + 2] + s[S_TR + 2];
-        s[S_ALIVE] = 0.0f;
-        s[S_SEG] = s[S_SEG] + 1.0f;
-        s[S_KEY] = 0.0f;
-        return;
-    }
-    float r[P_COLS];
-    const float4* rp = sc.rec + 6 * (size_t)h.idx;
-    for (int q = 0; q < 6; ++q) {
-        float4 x = __ldg(rp + q);
-        r[4 * q + 0] = x.x;
-        r[4 * q + 1] = x.y;
-        r[4 * q + 2] = x.z;
-        r[4 * q + 3] = x.w;
-    }
-    float u = h.u, v = h.v;
+// Sky on a miss (src/stage3.zig:144-150); the ray dies.
+__device__ void shade_sky(float s[S_ROWS]) {
+    float sky_t = 0.5f * (s[S_DX + 1] + 1.0f);
+    s[S_RR + 0] = s[S_RR + 0] + s[S_TR + 0] * (1.0f - 0.5f * sky_t);
+    s[S_RR + 1] = s[S_RR + 1] + s[S_TR + 1] * (1.0f - 0.3f * sky_t);
+    s[S_RR + 2] = s[S_RR + 2] + s[S_TR + 2];
+    s[S_ALIVE] = 0.0f;
+    s[S_SEG] = s[S_SEG] + 1.0f;
+    s[S_KEY] = 0.0f;
+}
+
+// One bounce of shading for a live ray that hit at (t, u, v) the triangle
+// whose packed record is ``r`` (_shade_live after _prep_math).
+__device__ void shade_surface(const ZrcScene& sc, float s[S_ROWS],
+                              const float r[P_COLS], float u, float v, float t,
+                              int bounce) {
     float w0 = 1.0f - u - v;
     float tc_u = r[P_UV + 0] * w0 + r[P_UV + 2] * u + r[P_UV + 4] * v;
     float tc_v = r[P_UV + 1] * w0 + r[P_UV + 3] * u + r[P_UV + 5] * v;
@@ -350,7 +447,7 @@ __device__ void shade_bounce(const ZrcScene& sc, float s[S_ROWS], const Hit& h,
         s[S_TR + 2] = s[S_TR + 2] * ab;
     }
     // re-origin at t + FLT_EPSILON (an absolute nudge, src/stage3.zig:209)
-    float t_step = h.t + FLT_EPS;
+    float t_step = t + FLT_EPS;
     for (int a = 0; a < 3; ++a)
         s[S_OX + a] = s[S_OX + a] + s[S_DX + a] * t_step;
     if (!pass_through) {
@@ -361,6 +458,26 @@ __device__ void shade_bounce(const ZrcScene& sc, float s[S_ROWS], const Hit& h,
     s[S_ALIVE] = 1.0f;
     s[S_SEG] = s[S_SEG] + 1.0f;
     s[S_KEY] = 0.0f;
+}
+
+// One bounce of shading for a live ray that traced ``h``: the winner's
+// record is read from the scene's table (a miss reads none).
+__device__ void shade_bounce(const ZrcScene& sc, float s[S_ROWS], const Hit& h,
+                             int bounce) {
+    if (!(h.t < INFINITY)) {
+        shade_sky(s);
+        return;
+    }
+    float r[P_COLS];
+    const float4* rp = sc.rec + 6 * (size_t)h.idx;
+    for (int q = 0; q < 6; ++q) {
+        float4 x = __ldg(rp + q);
+        r[4 * q + 0] = x.x;
+        r[4 * q + 1] = x.y;
+        r[4 * q + 2] = x.z;
+        r[4 * q + 3] = x.w;
+    }
+    shade_surface(sc, s, r, h.u, h.v, h.t, bounce);
 }
 
 // ------------------------------------------------------- emit_sort_key
@@ -448,6 +565,82 @@ __global__ void path_trace_kernel(ZrcScene sc, const float* __restrict__ state_i
     if (idx_out) idx_out[i] = idx;
 }
 
+// ------------------------------------------------- per-bounce kernels
+// The per-bounce pipeline (scenes past REC_EMIT_MAX_TRIS padded triangles)
+// runs one trace and one shade launch per bounce, with a beam sort between
+// bounces done by PyTorch.  State, aux and records are field-major (rows of
+// R floats), so thread i reads and writes column i: coalesced.
+
+// Nearest hit of every ray of a (16, R) state -> aux (8, R) [u, v, t,
+// streams, alive, tiles swept, boxes tested, 0], idx (R,) Morton index and,
+// when ``rec_out`` is given, the winner's 24-float record read from the
+// field-major (24, table_cols) ``table`` (zeros on a miss).  A dead ray
+// traces nothing: t = +inf, idx = 0.
+__global__ void trace_emit_kernel(ZrcScene sc, const float* __restrict__ tree,
+                                  int p2, const float* __restrict__ state,
+                                  const int* __restrict__ prev,
+                                  const float* __restrict__ table, int table_cols,
+                                  float* __restrict__ aux, int* __restrict__ idx_out,
+                                  float* __restrict__ rec_out, int R) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= R) return;
+    const size_t n = (size_t)R;
+    float alive = state[S_ALIVE * n + i];
+    Hit h = {INFINITY, 0.0f, 0.0f, 0};
+    int swept = 0, tested = 0;
+    if (alive > 0.0f) {
+        float o[3] = {state[(S_OX + 0) * n + i], state[(S_OX + 1) * n + i],
+                      state[(S_OX + 2) * n + i]};
+        float d[3] = {state[(S_DX + 0) * n + i], state[(S_DX + 1) * n + i],
+                      state[(S_DX + 2) * n + i]};
+        h = trace_tree(sc, tree, p2, o, d, prev ? prev[i] : -1, swept, tested);
+    }
+    aux[0 * n + i] = h.u;
+    aux[1 * n + i] = h.v;
+    aux[2 * n + i] = h.t;
+    aux[3 * n + i] = state[S_STREAMS * n + i];
+    aux[4 * n + i] = alive;
+    aux[5 * n + i] = (float)swept;
+    aux[6 * n + i] = (float)tested;
+    aux[7 * n + i] = 0.0f;
+    idx_out[i] = h.idx;
+    if (rec_out) {
+        bool hit = h.t < INFINITY;
+        for (int k = 0; k < P_COLS; ++k)
+            rec_out[k * n + i] =
+                hit ? __ldg(table + (size_t)k * table_cols + h.idx) : 0.0f;
+    }
+}
+
+// One bounce of shading of a (16, R) state from the trace's aux and
+// records.  A dead ray's 16 rows pass through; a live ray gets the sky on a
+// miss, else the surface shade with the same device code (and so the same
+// roundings) as path_trace_kernel.
+__global__ void shade_kernel(ZrcScene sc, const float* __restrict__ state_in,
+                             const float* __restrict__ aux,
+                             const float* __restrict__ rec, int bounce,
+                             float* __restrict__ state_out, int R) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= R) return;
+    const size_t n = (size_t)R;
+    float s[S_ROWS];
+#pragma unroll
+    for (int f = 0; f < S_ROWS; ++f) s[f] = state_in[f * n + i];
+    if (s[S_ALIVE] > 0.0f) {
+        float t = aux[2 * n + i];
+        if (!(t < INFINITY)) {
+            shade_sky(s);
+        } else {
+            float r[P_COLS];
+#pragma unroll
+            for (int k = 0; k < P_COLS; ++k) r[k] = rec[k * n + i];
+            shade_surface(sc, s, r, aux[0 * n + i], aux[1 * n + i], t, bounce);
+        }
+    }
+#pragma unroll
+    for (int f = 0; f < S_ROWS; ++f) state_out[f * n + i] = s[f];
+}
+
 // ------------------------------------------------------------ launchers
 // Plain C entry points for ctypes (kernels/__init__.py).  They launch on
 // the caller's stream, allocate nothing, and return cudaGetLastError().
@@ -476,6 +669,32 @@ extern "C" int zrc_path_trace(const ZrcScene* sc, const float* state_in,
     int blocks = (R + kThreads - 1) / kThreads;
     path_trace_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         *sc, state_in, prev, bounce0, max_bounce, state_out, idx_out, R);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int zrc_trace_emit(const ZrcScene* sc, const float* tree, int p2,
+                              const float* state, const int* prev,
+                              const float* table, int table_cols, float* aux,
+                              int* idx_out, float* rec_out, int R, int device,
+                              void* stream) {
+    if (R <= 0) return 0;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    int blocks = (R + kThreads - 1) / kThreads;
+    trace_emit_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        *sc, tree, p2, state, prev, table, table_cols, aux, idx_out, rec_out, R);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int zrc_shade(const ZrcScene* sc, const float* state_in,
+                         const float* aux, const float* rec, int bounce,
+                         float* state_out, int R, int device, void* stream) {
+    if (R <= 0) return 0;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    int blocks = (R + kThreads - 1) / kThreads;
+    shade_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        *sc, state_in, aux, rec, bounce, state_out, R);
     return (int)cudaGetLastError();
 }
 

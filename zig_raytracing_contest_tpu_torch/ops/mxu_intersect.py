@@ -6,7 +6,9 @@ is, so the port's arrays equal the JAX package's (tests/test_torch_bake.py),
 and ``nearest_hit_ref`` is the plain PyTorch twin of the resident trace
 body's flat tile loop (``_trace_body_resident`` with ``_cull_any`` and
 ``_tile_update``).  The CUDA kernels (kernels/path_trace.cu) run the same
-arithmetic per ray.
+arithmetic per ray.  ``trace_emit_aux`` is the per-bounce pipeline's
+nearest hit: its CUDA kernel walks the tile heap (``tree_bbox``), its twin
+``trace_emit_aux_ref`` is the flat loop plus the record load.
 
 Every triangle (v0, e1, e2) is baked into its world→barycentric affine
 transform M = [e1 e2 n]⁻¹ (n = e1 × e2), c = -M·v0.  For a ray (o, d):
@@ -29,6 +31,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import kernels
+
 MT_EPSILON = 1e-8
 INF = float("inf")
 
@@ -43,9 +47,10 @@ _BANK_ROWS = 16
 
 # Past this many padded triangles the JAX package leaves the whole-path
 # regime for the per-bounce pipeline (ops/mxu_intersect.py REC_EMIT_MAX_TRIS).
+# Read at call time (render/wavefront.py), so a test can lower it.
 REC_EMIT_MAX_TRIS = 1 << 15
 # Resident scenes (VMEM_RESIDENT_MAX_TRIS in the JAX package) bake 128-
-# triangle tiles.
+# triangle tiles; past it the JAX package streams the bank from HBM.
 VMEM_RESIDENT_MAX_TRIS = 1 << 17
 
 
@@ -229,12 +234,14 @@ def nearest_hit_ref(tri_data: torch.Tensor, tile_bbox: torch.Tensor, tile: int,
     ``o``/``d``: (3, R) f32; ``active``: (R,) bool; ``prev``: optional (R,)
     int64 Morton index each ray may not hit again (the previous hit).  Each
     real tile is culled per ray against its box and the running best, then
-    folded with the tie rule above.  Returns (t, idx, u, v): t = +inf,
-    idx = u = v = 0 where nothing was hit.
+    folded with the tie rule above.  Returns (t, idx, u, v, swept): t = +inf,
+    idx = u = v = 0 where nothing was hit; ``swept`` (R,) f32 counts the
+    tiles whose box each ray passed (the work a per-ray kernel sweeps).
     """
     R = o.shape[1]
     out = [torch.empty(R, dtype=dt, device=o.device)
-           for dt in (torch.float32, torch.int64, torch.float32, torch.float32)]
+           for dt in (torch.float32, torch.int64, torch.float32, torch.float32,
+                      torch.float32)]
     for c0 in range(0, R, _RAY_CHUNK):
         sl = slice(c0, min(c0 + _RAY_CHUNK, R))
         res = _nearest_hit_chunk(
@@ -246,6 +253,32 @@ def nearest_hit_ref(tri_data: torch.Tensor, tile_bbox: torch.Tensor, tile: int,
     return tuple(out)
 
 
+def _transform_hit(m, o, d):
+    """(front-facing hit, t, u, v) of the transform-form test: ``m`` the 13
+    rows of tri_data, broadcast against the ray components ``o``, ``d``."""
+    ou = m[0] * o[0] + m[1] * o[1] + m[2] * o[2] + m[9]
+    ov = m[3] * o[0] + m[4] * o[1] + m[5] * o[2] + m[10]
+    ow = m[6] * o[0] + m[7] * o[1] + m[8] * o[2] + m[11]
+    du = m[0] * d[0] + m[1] * d[1] + m[2] * d[2]
+    dv = m[3] * d[0] + m[4] * d[1] + m[5] * d[2]
+    dw = m[6] * d[0] + m[7] * d[1] + m[8] * d[2]
+    t = -ow / dw
+    u = ou + t * du
+    v = ov + t * dv
+    det = -dw * m[12]
+    ok = (det >= MT_EPSILON) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
+    return ok, t, u, v
+
+
+def triangle_hit_ref(tri_data: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
+                     idx: torch.Tensor):
+    """(hit, t, u, v) of each ray (o, d: (3, R)) against its own triangle
+    ``idx`` (R,), with the flat loop's arithmetic: the check of a winner
+    that another triangle ties at the same t."""
+    m = tri_data[:_ROWS, idx.to(torch.int64)]
+    return _transform_hit(m, o, d)
+
+
 def _nearest_hit_chunk(tri_data, tile_bbox, tile, o, d, active, prev):
     R = o.shape[1]
     dev = o.device
@@ -253,6 +286,7 @@ def _nearest_hit_chunk(tri_data, tile_bbox, tile, o, d, active, prev):
     best_i = torch.zeros(R, dtype=torch.int64, device=dev)
     best_u = torch.zeros(R, dtype=torch.float32, device=dev)
     best_v = torch.zeros(R, dtype=torch.float32, device=dev)
+    swept = torch.zeros(R, dtype=torch.float32, device=dev)
     inv = [1.0 / d[a] for a in range(3)]
     ox, oy, oz = (o[a][:, None] for a in range(3))
     dx, dy, dz = (d[a][:, None] for a in range(3))
@@ -261,20 +295,11 @@ def _nearest_hit_chunk(tri_data, tile_bbox, tile, o, d, active, prev):
         passed = cull_mask_ref(tile_bbox[:, j], o, inv, best_t, active)
         if not bool(passed.any()):
             continue
+        swept += passed
         s = j * tile
         rows = tri_data[:_ROWS, s : s + tile]
-        m = [rows[r][None, :] for r in range(_ROWS)]
-        ou = m[0] * ox + m[1] * oy + m[2] * oz + m[9]
-        ov = m[3] * ox + m[4] * oy + m[5] * oz + m[10]
-        ow = m[6] * ox + m[7] * oy + m[8] * oz + m[11]
-        du = m[0] * dx + m[1] * dy + m[2] * dz
-        dv = m[3] * dx + m[4] * dy + m[5] * dz
-        dw = m[6] * dx + m[7] * dy + m[8] * dz
-        t = -ow / dw
-        u = ou + t * du
-        v = ov + t * dv
-        det = -dw * m[12]
-        ok = (det >= MT_EPSILON) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
+        ok, t, u, v = _transform_hit([rows[r][None, :] for r in range(_ROWS)],
+                                     (ox, oy, oz), (dx, dy, dz))
         if prev is not None:
             ok = ok & ((ids[None, :] + s) != prev[:, None])
         t = torch.where(ok, t, INF)
@@ -286,4 +311,58 @@ def _nearest_hit_chunk(tri_data, tile_bbox, tile, o, d, active, prev):
         best_i = torch.where(better, s + cand, best_i)
         best_u = torch.where(better, u.gather(1, cand_c)[:, 0], best_u)
         best_v = torch.where(better, v.gather(1, cand_c)[:, 0], best_v)
-    return best_t, best_i, best_u, best_v
+    return best_t, best_i, best_u, best_v, swept
+
+
+def records_ref(table: torch.Tensor, t: torch.Tensor, idx: torch.Tensor):
+    """The winner's (24,) column of the (24, Tp) record ``table`` per ray,
+    zeros on a miss (the JAX kernels' record extraction reads a miss as
+    zeros)."""
+    return torch.where((t < INF)[None, :], table[:, idx], 0.0)
+
+
+def trace_emit_aux_ref(scene, state16: torch.Tensor, rec_table=None, prev=None):
+    """Plain twin of ``trace_emit_aux``: the flat tile loop and the record
+    load.  aux rows 5-6 count, per ray, the tiles swept and the tile boxes
+    tested (every real tile for a live ray)."""
+    alive = state16[12] > 0.0
+    t, idx, u, v, swept = nearest_hit_ref(
+        scene.tri_data, scene.tile_bbox, scene.tile, state16[0:3], state16[3:6],
+        alive, prev,
+    )
+    tested = alive.to(torch.float32) * scene.tile_bbox.shape[1]
+    aux = torch.stack([u, v, t, state16[13], state16[12], swept, tested,
+                       torch.zeros_like(t)])
+    rec = None if rec_table is None else records_ref(rec_table, t, idx)
+    return aux, idx.to(torch.int32), rec
+
+
+def trace_emit_aux(scene, state16: torch.Tensor, rec_table=None, prev=None):
+    """Field-major nearest hit of the per-bounce pipeline (the JAX
+    package's ``trace_emit_aux``): (16, R) state → (aux (8, R) f32,
+    idx (R,) int32 Morton index, rec (24, R) f32 or None).
+
+    aux rows: [u, v, t, streams, alive, tiles swept, boxes tested, 0]; a
+    dead or missing ray has t = +inf, u = v = 0, idx = 0 and an all-zero
+    record.  ``rec_table`` (24, Tp): the Morton-ordered packed records to
+    emit the winner's from (None: no record).  ``prev`` (R,) int32: each
+    ray's previous hit, never hit again.
+
+    On a CUDA scene this launches ``trace_emit_kernel`` (a per-ray walk of
+    ``scene.tree_bbox``); on a CPU scene it runs ``trace_emit_aux_ref``.
+    The two find the same nearest t; where two triangles tie at that t the
+    walk keeps the first it swept, the flat loop the lower index."""
+    kind = scene.device.type
+    if kind == "cpu":
+        return trace_emit_aux_ref(scene, state16, rec_table, prev)
+    if kind != "cuda":
+        raise ValueError(f"no trace kernel for device {scene.device}")
+    R = state16.shape[1]
+    dev = scene.device
+    aux = torch.empty((8, R), dtype=torch.float32, device=dev)
+    idx = torch.empty(R, dtype=torch.int32, device=dev)
+    rec = (None if rec_table is None
+           else torch.empty((24, R), dtype=torch.float32, device=dev))
+    kernels.launch_trace_emit(scene, state16, prev, rec_table, aux, idx, rec)
+    kernels.LAUNCHES["trace_emit_aux"] += 1
+    return aux, idx, rec

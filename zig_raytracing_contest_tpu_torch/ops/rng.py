@@ -55,6 +55,12 @@ def _u01(bits: torch.Tensor) -> torch.Tensor:
     return ((bits >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
 
 
+def uniform2_soa(streams: torch.Tensor, tag: int):
+    """Two (R,) uniforms of the (stream, tag) draw: the pixel jitter
+    (src/stage3.zig:238)."""
+    return _u01(_bits(streams, tag, 0)), _u01(_bits(streams, tag, 1))
+
+
 def streams_to_f32(streams: torch.Tensor) -> torch.Tensor:
     """int64-held uint32 streams → their f32 bit pattern (state row 13)."""
     signed = torch.where(streams >= 1 << 31, streams - (1 << 32), streams)

@@ -1,7 +1,7 @@
-"""Whole-path kernels: primary-ray generation, trace and shade of every bounce.
+"""Path kernels: primary-ray generation, trace and shade of every bounce,
+and the per-bounce shade.
 
-The port of the two whole-path Pallas kernels of
-``zig_raytracing_contest_tpu/render/fused.py``:
+The port of the Pallas kernels of ``zig_raytracing_contest_tpu/render/fused.py``:
 
 * ``path_trace_gen`` (fused.py:1031) generates one wave of primary rays
   (``_gen_rays``), traces and shades its first ``max_bounce`` bounces, and
@@ -9,12 +9,15 @@ The port of the two whole-path Pallas kernels of
   winner triangle;
 * ``path_trace_fused`` (fused.py:1111) continues the (sorted) state for
   ``max_bounce`` bounces numbered from ``bounce0``, excluding each ray's
-  previous hit.
+  previous hit;
+* ``shade_fused`` (fused.py:1191, the single-kernel ``_make_shade1_kernel``)
+  shades one bounce of the per-bounce pipeline from the trace's aux and
+  records.
 
 Each entry point is a wrapper with two bodies: the CUDA kernel of
 kernels/path_trace.cu for tensors on a CUDA device, and the plain PyTorch
-twin (``path_trace_gen_ref`` / ``path_trace_fused_ref``, composed from
-``gen_rays_ref``, ``nearest_hit_ref``, ``shade_ref`` and
+twin (``path_trace_gen_ref`` / ``path_trace_fused_ref`` / ``shade_fused_ref``,
+composed from ``gen_rays_ref``, ``nearest_hit_ref``, ``shade_ref`` and
 ``sort_key_ref``) for tensors on the CPU.  The device decides; there is no
 fallback from one to the other.
 
@@ -34,7 +37,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.mxu_intersect import nearest_hit_ref
+from .. import kernels
+from ..ops.mxu_intersect import nearest_hit_ref, records_ref
 from ..ops.rng import _TWO_PI, _bits, _u01, f32_to_streams, ray_streams, streams_to_f32
 from ..scene.types import PCOL_BASE, PCOL_EMIS, PCOL_NRM, PCOL_UV, TorchScene
 
@@ -64,16 +68,6 @@ META_Y_BASE = 2
 META_SEED = 3
 META_TILE_BASE = 4
 PIX_TILE = 32  # tiled order: 32×32-pixel squares = 1024 slots
-
-# Kernel launches per entry point, counted by the wrappers where they
-# launch a CUDA kernel (never for the twins).
-LAUNCHES = {"path_trace_gen": 0, "path_trace_fused": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
 
 # ---------------------------------------------------------------------------
 # Plain PyTorch twins
@@ -321,13 +315,6 @@ def interleave_key(dead, q, dq) -> torch.Tensor:
     return (dead << 30) | key
 
 
-def _records(scene: TorchScene, t: torch.Tensor, idx: torch.Tensor):
-    """The winner's packed record, zeros on a miss (the JAX kernels' record
-    extraction reads a miss as zeros)."""
-    rec = scene.rec_table[:, idx]
-    return torch.where((t < INF)[None, :], rec, 0.0)
-
-
 def _bounces_ref(scene: TorchScene, state, idx, prev_first, bounces):
     """Trace + shade each bounce in ``bounces`` for the live rays.
     ``prev_first`` excludes each ray's previous hit at the first bounce;
@@ -337,12 +324,12 @@ def _bounces_ref(scene: TorchScene, state, idx, prev_first, bounces):
         alive = state[12] > 0.0
         if not bool(alive.any()):
             break
-        t, hit, u, v = nearest_hit_ref(
+        t, hit, u, v, _ = nearest_hit_ref(
             scene.tri_data, scene.tile_bbox, scene.tile, state[0:3],
             state[3:6], alive, prev,
         )
-        state = shade_ref(state, t, u, v, _records(scene, t, hit), scene.bank,
-                          bounce, scene.emissive_dummy)
+        state = shade_ref(state, t, u, v, records_ref(scene.rec_table, t, hit),
+                          scene.bank, bounce, scene.emissive_dummy)
         idx = torch.where(alive, hit, idx)
         prev = idx
     return state, idx
@@ -373,6 +360,14 @@ def path_trace_fused_ref(scene: TorchScene, state16, max_bounce: int,
     return (state, idx.to(torch.int32)) if emit_idx else state
 
 
+def shade_fused_ref(scene: TorchScene, state, aux, tri, bounce: int, rec=None):
+    """Plain twin of ``shade_fused``: ``shade_ref`` fed from aux."""
+    if rec is None:
+        rec = records_ref(scene.rec_table, aux[2], tri.to(torch.int64))
+    return shade_ref(state, aux[2], aux[0], aux[1], rec, scene.bank, bounce,
+                     scene.emissive_dummy)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers: CUDA kernel for CUDA tensors, twin for CPU tensors
 # ---------------------------------------------------------------------------
@@ -381,7 +376,7 @@ def path_trace_fused_ref(scene: TorchScene, state16, max_bounce: int,
 def _device_kind(scene: TorchScene) -> str:
     kind = scene.device.type
     if kind not in ("cpu", "cuda"):
-        raise ValueError(f"no whole-path kernel for device {scene.device}")
+        raise ValueError(f"no path kernel for device {scene.device}")
     return kind
 
 
@@ -399,13 +394,11 @@ def path_trace_gen(scene: TorchScene, par, meta, wave_size: int,
     if _device_kind(scene) == "cpu":
         return path_trace_gen_ref(scene, par, meta, wave_size, max_bounce,
                                   gen, emit_key, emit_idx)
-    from ..kernels import launch_path_trace_gen
-
     state = torch.empty((16, wave_size), dtype=torch.float32, device=scene.device)
     idx = torch.empty(wave_size, dtype=torch.int32, device=scene.device)
-    launch_path_trace_gen(scene, par, meta, gen, max_bounce, emit_key,
+    kernels.launch_path_trace_gen(scene, par, meta, gen, max_bounce, emit_key,
                           state, idx)
-    LAUNCHES["path_trace_gen"] += 1
+    kernels.LAUNCHES["path_trace_gen"] += 1
     return (state, idx) if emit_idx else state
 
 
@@ -418,11 +411,30 @@ def path_trace_fused(scene: TorchScene, state16, max_bounce: int,
     if _device_kind(scene) == "cpu":
         return path_trace_fused_ref(scene, state16, max_bounce, bounce0, prev,
                                     emit_idx)
-    from ..kernels import launch_path_trace
-
     R = state16.shape[1]
     state = torch.empty((16, R), dtype=torch.float32, device=scene.device)
     idx = torch.empty(R, dtype=torch.int32, device=scene.device)
-    launch_path_trace(scene, state16, prev, bounce0, max_bounce, state, idx)
-    LAUNCHES["path_trace_fused"] += 1
+    kernels.launch_path_trace(scene, state16, prev, bounce0, max_bounce, state, idx)
+    kernels.LAUNCHES["path_trace_fused"] += 1
     return (state, idx) if emit_idx else state
+
+
+def shade_fused(scene: TorchScene, state, aux, tri, bounce: int, rec=None):
+    """One bounce of the per-bounce pipeline's shading → the new (16, R)
+    state, from the (16, R) state, the trace's aux (8, R) and winners
+    ``tri`` (R,) int32, and their records ``rec`` (24, R) (gathered from
+    the scene's table when None).  ``bounce`` is the absolute bounce (RNG
+    tags 2b+1, 2b+2).
+
+    A dead ray's state passes through, as under the JAX function's
+    ``block_skip``; its kernel decides per ray, so the port has no
+    block_skip switch (on this path a dead ray's row 15 is already 0, the
+    only row the JAX kernel would rewrite)."""
+    if _device_kind(scene) == "cpu":
+        return shade_fused_ref(scene, state, aux, tri, bounce, rec)
+    if rec is None:
+        rec = records_ref(scene.rec_table, aux[2], tri.to(torch.int64))
+    out = torch.empty_like(state)
+    kernels.launch_shade(scene, state, aux, rec, bounce, out)
+    kernels.LAUNCHES["shade_fused"] += 1
+    return out

@@ -1,12 +1,16 @@
 """End-to-end render pipeline: scene file → PNG, with phase timing.
 
 The port of ``zig_raytracing_contest_tpu/render/pipeline.py`` for the
-whole-path regime: load → preprocess → compile (scene bake) → render →
+resident regimes: load → preprocess → compile (scene bake) → render →
 save, each phase timed and logged like the reference's main()
-(src/main.zig:73-143).  Frames render in waves of pixel slots in 32×32
-tiled order; each wave's radiance is summed per slot into a field-major
+(src/main.zig:73-143).  Frames render in waves of pixel slots, in 32×32
+tiled order for whole-path scenes and in raster order for per-bounce
+scenes; each wave's radiance is summed per slot into a field-major
 framebuffer, which is mapped back to raster order, averaged and
 gamma-encoded at the end.
+
+Every entry point renders on the CUDA card unless the caller passes
+``device="cpu"``, which runs the kernels' plain PyTorch twins.
 """
 
 from __future__ import annotations
@@ -27,14 +31,18 @@ from ..scene.materials import load_materials
 from ..scene.types import TorchScene, build_torch_scene
 from ..utils.image_io import write_png
 from ..utils.timing import PhaseTimers
-from .wavefront import build_gen_par, render_wave_rows, whole_path_regime
+from .wavefront import build_gen_par, regime, render_wave_rows, whole_path_regime
 
 log = logging.getLogger("zig_raytracing_contest_tpu_torch")
 
 
-def slot_geometry(width: int, height: int) -> tuple[int, int]:
-    """(num_slots, tiles_x) of the frame's 32×32-tiled pixel-slot space:
-    each 1024-slot tile is a compact pixel square."""
+def slot_geometry(width: int, height: int, whole_path: bool) -> tuple[int, int]:
+    """(num_slots, tiles_x) of the frame's pixel-slot space.  Whole-path
+    frames use 32×32-tiled order (each 1024-slot tile a compact pixel
+    square); the per-bounce pipeline keeps raster order (slot == pixel id,
+    tiles_x = 0)."""
+    if not whole_path:
+        return width * height, 0
     tiles_x = -(-width // 32)
     tiles_y = -(-height // 32)
     return tiles_x * tiles_y * 1024, tiles_x
@@ -50,10 +58,10 @@ def slot_of_pixel(width: int, height: int, tiles_x: int) -> np.ndarray:
 
 
 def finalize_image_rows(fb: torch.Tensor, num_pixels: int, spp: int,
-                        slot_perm: torch.Tensor) -> torch.Tensor:
-    """Map slots back to raster pixels, average samples, gamma-encode →
-    (num_pixels * 3,) uint8."""
-    fb = fb[:, slot_perm]  # (3, num_pixels) raster order
+                        slot_perm: torch.Tensor | None) -> torch.Tensor:
+    """Map slots back to raster pixels (``slot_perm``; None for raster
+    order), average samples, gamma-encode → (num_pixels * 3,) uint8."""
+    fb = fb[:, :num_pixels] if slot_perm is None else fb[:, slot_perm]
     return linalg.vec3_to_rgb(fb.T / spp).reshape(-1)
 
 
@@ -68,8 +76,8 @@ class RenderStats:
 
 
 def prepare_scene(in_path: str, config: Config, camera_name=None, width=None,
-                  height=None, device="cpu"):
-    """Host pipeline: parse, extract, bake, upload.  Returns
+                  height=None, device="cuda"):
+    """Host pipeline: parse, extract, bake, upload to ``device``.  Returns
     (TorchScene, Camera, timers)."""
     timers = PhaseTimers()
 
@@ -97,7 +105,8 @@ def prepare_scene(in_path: str, config: Config, camera_name=None, width=None,
             geometry, materials, scene_bbox(geometry.positions), device,
             backend=config.backend,
         )
-        log.info("Intersection backend: flat tile loop on %s", scene.device)
+        log.info("Intersection backend: %s on %s",
+                 regime(scene, config.ext_flags), scene.device)
 
     return scene, camera, timers
 
@@ -121,21 +130,22 @@ def render_scene(
         scene = scene.to(device)
     timers = timers or PhaseTimers()
     w, h, spp = camera.width, camera.height, config.num_samples
-    if not whole_path_regime(scene, config.ext_flags):
+    if config.ext_flags.any:
         raise NotImplementedError(
             "the rendering extensions (nee, russian_roulette, pbr) are "
             "ROADMAP queue 1 item 12"
         )
     num_pixels = w * h
-    num_slots, tiles_x = slot_geometry(w, h)
+    num_slots, tiles_x = slot_geometry(w, h, whole_path_regime(scene))
     total_rays = num_slots * spp
     if total_rays >= 1 << 31:
         raise ValueError(
             f"{num_slots} slots × {spp} spp = {total_rays} rays exceeds "
             f"the int32 ray-id space (2^31); reduce resolution or spp."
         )
-    # Waves are whole multiples of spp·1024 rays: whole pixel slots, whole
-    # 32×32 tiles.  Slot math is exact below 2^23 rays per wave.
+    # Waves are whole multiples of spp·1024 rays: whole pixel slots (and
+    # whole 32×32 tiles in tiled order).  Slot math is exact below 2^23
+    # rays per wave.
     quantum = spp * 1024
     wave_size = max(
         quantum, min(config.wave_size, total_rays + quantum - 1) // quantum * quantum
@@ -151,7 +161,8 @@ def render_scene(
     par = build_gen_par(scene, camera.origin, camera.lower_left_corner,
                         camera.right, camera.up)
     fb = torch.zeros((3, num_waves * wave_pixels), dtype=torch.float32, device=dev)
-    slot_perm = torch.from_numpy(slot_of_pixel(w, h, tiles_x)).to(dev)
+    slot_perm = (torch.from_numpy(slot_of_pixel(w, h, tiles_x)).to(dev)
+                 if tiles_x else None)
     segments = torch.zeros((), dtype=torch.int64, device=dev)
 
     with timers.phase("render", "Rendered"):
@@ -203,9 +214,10 @@ def render_file(
     camera_name=None,
     width=None,
     height=None,
-    device="cpu",
+    device="cuda",
 ) -> RenderStats:
-    """Full reference-equivalent run: scene file in, PNG out."""
+    """Full reference-equivalent run: scene file in, PNG out, rendered on
+    ``device``."""
     scene, camera, timers = prepare_scene(
         in_path, config, camera_name, width, height, device
     )

@@ -384,3 +384,62 @@ def bench_scene(path: str | Path, num_objects: int = 200, seed: int = 42,
 
     b.add_camera_node((0, 2.5, 14), (0, 0.5, 0), yfov=0.8, name="Camera 1")
     return b.write_gltf(path)
+
+
+def large_scene(path: str | Path, side: int = 224, seed: int = 7):
+    """The ``--large`` bench scene: a copy of ``bench.py::build_large_scene``
+    (which imports the JAX package), with the same NumPy draws.  A
+    ``side``×``side``-quad terrain (2·side² triangles: 100,352 at 224) with
+    a repeat 8×8 checker texture, inside a room of four walls and an
+    emissive ceiling; one camera, "Camera 1"."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder()
+
+    checker = np.zeros((8, 8, 4), np.uint8)
+    checker[::2, ::2] = checker[1::2, 1::2] = [210, 210, 210, 255]
+    checker[::2, 1::2] = checker[1::2, ::2] = [60, 60, 90, 255]
+    terrain_mat = b.add_material(
+        base_color_texture=b.add_texture(b.add_image_png(checker))
+    )
+    wall = b.add_material(base_color_factor=(0.6, 0.6, 0.65, 1.0))
+    light = b.add_material(base_color_factor=(0, 0, 0, 1), emissive_factor=(8, 8, 8))
+
+    n = side + 1
+    xs = np.linspace(-10, 10, n, dtype=np.float32)
+    zs = np.linspace(-10, 10, n, dtype=np.float32)
+    xg, zg = np.meshgrid(xs, zs)
+    y = (
+        1.2 * np.sin(xg * 0.9) * np.cos(zg * 0.7)
+        + 0.35 * np.sin(xg * 3.1 + 1.0) * np.sin(zg * 2.7)
+        + rng.normal(0, 0.02, xg.shape)
+    ).astype(np.float32)
+    pos = np.stack([xg, y, zg], axis=-1).reshape(-1, 3)
+    a = (np.arange(side)[:, None] * n + np.arange(side)[None, :]).reshape(-1, 1)
+    idx = np.concatenate([a, a + n, a + 1, a + 1, a + n, a + n + 1], axis=1)
+    idx = idx.reshape(-1).astype(np.uint32)
+    tri = idx.reshape(-1, 3)
+    fn = np.cross(pos[tri[:, 1]] - pos[tri[:, 0]], pos[tri[:, 2]] - pos[tri[:, 0]])
+    nrm = np.zeros_like(pos)
+    for k in range(3):
+        np.add.at(nrm, tri[:, k], fn)
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-20)
+    uv = np.stack(
+        [(xg + 10) / 20 * 16, (zg + 10) / 20 * 16], axis=-1
+    ).reshape(-1, 2).astype(np.float32)
+    b.add_mesh_node(
+        pos, idx, terrain_mat, normals=nrm, texcoords=uv, index_dtype=np.uint32
+    )
+
+    S = 11.0
+    for center, uax, vax, mat in [
+        ((0, 7, 0), (S, 0, 0), (0, 0, S), light),  # ceiling light
+        ((0, 0, -S), (S, 0, 0), (0, 7, 0), wall),  # walls
+        ((0, 0, S), (-S, 0, 0), (0, 7, 0), wall),
+        ((-S, 0, 0), (0, 0, S), (0, 7, 0), wall),
+        ((S, 0, 0), (0, 0, -S), (0, 7, 0), wall),
+    ]:
+        p, i2, n2, t2 = quad(center, uax, vax)
+        b.add_mesh_node(p, i2, mat, normals=n2, texcoords=t2)
+
+    b.add_camera_node((0, 4.5, 9.5), (0, 0.5, 0), yfov=0.9, name="Camera 1")
+    return b.write_gltf(path)

@@ -1,7 +1,9 @@
-"""Device-side scene of the whole-path renderer.
+"""Device-side scene of the resident renderer.
 
 The port of the parts of ``zig_raytracing_contest_tpu/scene/types.py`` that
-the whole-path regime reads: the shade table (``build_shade_table``), the
+the resident regimes read (the whole path and the per-bounce pipeline, up
+to VMEM_RESIDENT_MAX_TRIS padded triangles): the triangle bake with its
+tile heap, the shade table (``build_shade_table``), the
 packed 24-column record (``build_packed_record``, non-tiled texel offsets),
 the texel bank as u16-valued f32 RGBA rows, and the ``emissive_all_dummy``
 flag.  A ``TorchScene`` holds these as tensors on one device.
@@ -9,7 +11,7 @@ flag.  A ``TorchScene`` holds these as tensors on one device.
 The JAX package's one-hot (4, Pp) bank, paged corner-expanded bank and
 u16×2-packed bank exist because a TPU has no gather unit.  Here every texel
 is a direct load from the row-major (P, 4) bank, so one layout serves every
-bank size the whole-path regime admits.
+bank size up to PAGED_MAX_TEXELS.
 """
 
 from __future__ import annotations
@@ -20,7 +22,6 @@ import numpy as np
 import torch
 
 from ..ops.mxu_intersect import (
-    REC_EMIT_MAX_TRIS,
     TRI_TILE_SMALL,
     VMEM_RESIDENT_MAX_TRIS,
     MXUTriangles,
@@ -29,7 +30,7 @@ from ..ops.mxu_intersect import (
 from .geometry import GeometryArrays
 from .materials import MaterialBank
 
-# Banks past this many texels leave the JAX package's whole-path regime
+# Banks past this many texels take the JAX package's 3-stage shade
 # (scene/types.py PAGED_MAX_TEXELS).
 PAGED_MAX_TEXELS = 1 << 20
 
@@ -111,10 +112,13 @@ def emissive_all_dummy(materials: MaterialBank) -> bool:
 
 @dataclass
 class TorchScene:
-    """The whole-path renderer's scene, as tensors on one device.
+    """The resident renderer's scene, as tensors on one device.
 
     tri_data   (16, Tp) f32 — transform bank in Morton order (rows 0-12)
     tile_bbox  (6, nt) f32 — per-real-tile boxes, the flat loop's bounds
+    tree_bbox  (6, 2·p2) f32 — implicit binary heap over the tile boxes,
+               the per-bounce trace's tree
+    group_bbox (6, ng) f32 — boxes of 8-tile groups (read by no kernel yet)
     perm       (Tp,) int64 — Morton position → original triangle id
     rec_table  (24, Tp) f32 — packed shade records in Morton order
     bank       (P, 4) f32 — u16-valued RGBA texels (dequantized in-shade)
@@ -125,6 +129,8 @@ class TorchScene:
 
     tri_data: torch.Tensor
     tile_bbox: torch.Tensor
+    tree_bbox: torch.Tensor
+    group_bbox: torch.Tensor
     perm: torch.Tensor
     rec_table: torch.Tensor
     bank: torch.Tensor
@@ -165,18 +171,18 @@ class TorchScene:
         return cached
 
 
-def check_whole_path(num_padded_tris: int, num_texels: int) -> None:
-    """Raise for scenes outside the port's whole-path slice."""
-    if num_padded_tris > REC_EMIT_MAX_TRIS:
+def check_resident(num_padded_tris: int, num_texels: int) -> None:
+    """Raise for scenes past the port's resident range."""
+    if num_padded_tris > VMEM_RESIDENT_MAX_TRIS:
         raise NotImplementedError(
-            f"{num_padded_tris} padded triangles exceed REC_EMIT_MAX_TRIS = "
-            f"{REC_EMIT_MAX_TRIS}: the per-bounce pipeline is ROADMAP queue 1 "
-            f"item 10 (queue 2 items 7-9)"
+            f"{num_padded_tris} padded triangles exceed VMEM_RESIDENT_MAX_TRIS "
+            f"= {VMEM_RESIDENT_MAX_TRIS}: the HBM-streaming trace is ROADMAP "
+            f"queue 2 item 8"
         )
     if num_texels > PAGED_MAX_TEXELS:
         raise NotImplementedError(
             f"{num_texels} texels exceed PAGED_MAX_TEXELS = {PAGED_MAX_TEXELS}: "
-            f"the per-bounce texel-gather pipeline is ROADMAP queue 1 item 10"
+            f"the 3-stage shade is ROADMAP queue 2 item 9"
         )
 
 
@@ -184,8 +190,8 @@ def bake_scene_triangles(geometry: GeometryArrays) -> MXUTriangles:
     """The JAX package's bake of a resident scene (128-triangle tiles)."""
     if geometry.num_triangles > VMEM_RESIDENT_MAX_TRIS:
         raise NotImplementedError(
-            f"{geometry.num_triangles} triangles: HBM-streaming scenes are "
-            f"ROADMAP queue 1 item 10 (queue 2 item 8)"
+            f"{geometry.num_triangles} triangles exceed VMEM_RESIDENT_MAX_TRIS: "
+            f"the HBM-streaming trace is ROADMAP queue 2 item 8"
         )
     pos = geometry.positions
     return bake_triangles(pos[:, 0], pos[:, 1] - pos[:, 0], pos[:, 2] - pos[:, 0],
@@ -196,10 +202,10 @@ def build_torch_scene(
     geometry: GeometryArrays,
     materials: MaterialBank,
     bbox: tuple[np.ndarray, np.ndarray],
-    device="cpu",
+    device="cuda",
     backend: str = "auto",
 ) -> TorchScene:
-    """Host bake → TorchScene on ``device``."""
+    """Host bake → TorchScene on ``device`` (the CPU only when asked)."""
     if backend not in ("auto", "mxu", "grid"):
         raise ValueError(f"unknown backend {backend!r}")
     if backend == "grid":
@@ -207,11 +213,13 @@ def build_torch_scene(
             "backend='grid' (grid/DDA fallback) is ROADMAP queue 1 item 11"
         )
     mxu = bake_scene_triangles(geometry)
-    check_whole_path(mxu.tri_data.shape[1], materials.color_u16.shape[0])
+    check_resident(mxu.tri_data.shape[1], materials.color_u16.shape[0])
     record = build_packed_record(build_shade_table(geometry, materials))
     return TorchScene(
         tri_data=torch.from_numpy(mxu.tri_data),
         tile_bbox=torch.from_numpy(mxu.tile_bbox),
+        tree_bbox=torch.from_numpy(mxu.tree_bbox),
+        group_bbox=torch.from_numpy(mxu.group_bbox),
         perm=torch.from_numpy(mxu.perm.astype(np.int64)),
         rec_table=torch.from_numpy(np.ascontiguousarray(record[mxu.perm].T)),
         bank=torch.from_numpy(materials.color_u16.astype(np.float32)),
@@ -222,10 +230,12 @@ def build_torch_scene(
     ).to(device)
 
 
-def from_jax_scene(arrays: dict, device="cpu") -> TorchScene:
-    """TorchScene from a JAX ``DeviceScene``'s arrays taken as NumPy.
+def from_jax_scene(arrays: dict, device="cuda") -> TorchScene:
+    """TorchScene on ``device`` (the CPU only when asked) from a JAX
+    ``DeviceScene``'s arrays taken as NumPy.
 
-    Keys: ``mxu.tri_data``, ``mxu.tile_bbox``, ``mxu.perm``, ``mxu.tile``,
+    Keys: ``mxu.tri_data``, ``mxu.tile_bbox``, ``mxu.tree_bbox``,
+    ``mxu.group_bbox``, ``mxu.perm``, ``mxu.tile``,
     ``shade_table_t``, ``color_u16f_t`` (the (4, P) one-hot bank cut back to
     its P real texels), ``grid.bbox_min``, ``grid.bbox_max`` and
     ``emissive_all_dummy`` (bool).  Both packages then trace and shade
@@ -235,10 +245,12 @@ def from_jax_scene(arrays: dict, device="cpu") -> TorchScene:
 
     tri = f32("mxu.tri_data")
     bank = f32("color_u16f_t")
-    check_whole_path(tri.shape[1], bank.shape[1])
+    check_resident(tri.shape[1], bank.shape[1])
     return TorchScene(
         tri_data=tri,
         tile_bbox=f32("mxu.tile_bbox"),
+        tree_bbox=f32("mxu.tree_bbox"),
+        group_bbox=f32("mxu.group_bbox"),
         perm=torch.from_numpy(np.array(arrays["mxu.perm"], np.int64)),
         rec_table=f32("shade_table_t"),
         bank=bank.T.contiguous(),
