@@ -38,7 +38,26 @@ c. render the scene at 160×90 with the kernels and with the twins, sorted
    and unsorted, and hold them to the golden gates;
 d. render the ``--large`` frame: a warmup, then 5 timed renders; the
    launch counts of these renders show the main path ran the kernels;
-e. profile one more ``--large`` frame.
+e. profile one more ``--large`` frame;
+
+then the streaming regime and the 3-stage bank:
+
+f. the 500k-triangle terrain (``large_scene(side=500)``, the 500k row of
+   scripts/large_sweep.py, at the ``--large`` frame's settings): its bake,
+   load and bake seconds and regime (streaming, sorted); trace_emit_aux
+   (trace_stream_kernel) and shade_fused against their twins at 2^16 rays
+   (bounce 0, then sorted bounce 1) and on the full wave (the trace on 2^16
+   lanes spread over it); the kernel timed at the full bounce-1 wave beside
+   trace_emit_kernel on the same inputs (the two walks' A/B); the frame: a
+   warmup and 5 timed renders, launch counts checked; one profile;
+g. a 2-Mtexel bank: the ``--large`` geometry with its terrain texture
+   replaced by a 2048x1024 noise image drawn from the seed, which has no
+   resident form (3-stage bank): shade_fused against its twin on the full
+   bounce-0 and bounce-1 waves, a 160x90 frame kernels vs twins under the
+   golden gates, the full frame: a warmup and 5 timed renders; one profile.
+
+Phase b also times trace_emit_kernel without a record (rec_out null) and
+holds it against the twin.
 
 Run from the repository root: ``python3 chip_smoke.py``.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
@@ -63,17 +82,28 @@ WAVE = 1 << 19
 SEED = 0
 # the --large frame of bench.py (run_large)
 L_W, L_H, L_SPP, L_BOUNCES, L_WAVE = 1280, 720, 2, 3, 1 << 21
+# the 500k row of scripts/large_sweep.py; the 2-Mtexel bank's texture
+S_SIDE, TEX_W, TEX_H = 500, 2048, 1024
 SOURCE = "zig_raytracing_contest_tpu_torch/kernels/path_trace.cu"
-# (kernel, wrapper, TPU kernel it replaces)
+# (entry, kernel, TPU kernel it replaces); each entry's numbers are keyed
+# by the entry, its launches by the kernel (kernels.LAUNCHES)
 KERNELS = [
-    ("path_trace_gen_kernel", "path_trace_gen",
+    ("path_trace_gen", "path_trace_gen_kernel",
      "zig_raytracing_contest_tpu/render/fused.py:1031"),
-    ("path_trace_kernel", "path_trace_fused",
+    ("path_trace", "path_trace_kernel",
      "zig_raytracing_contest_tpu/render/fused.py:1111"),
-    ("trace_emit_kernel", "trace_emit_aux",
+    ("trace_emit", "trace_emit_kernel",
      "zig_raytracing_contest_tpu/ops/mxu_intersect.py:1555"),
-    ("shade_kernel", "shade_fused",
+    ("trace_emit_norec", "trace_emit_kernel",
+     "zig_raytracing_contest_tpu/ops/mxu_intersect.py:1309"),
+    ("trace_stream", "trace_stream_kernel",
+     "zig_raytracing_contest_tpu/ops/mxu_intersect.py:1344"),
+    ("shade", "shade_kernel",
      "zig_raytracing_contest_tpu/render/fused.py:1191"),
+    ("shade_prep", "shade_kernel",
+     "zig_raytracing_contest_tpu/render/fused.py:84"),
+    ("shade_3stage", "shade_kernel",
+     "zig_raytracing_contest_tpu/render/fused.py:200"),
 ]
 # The card's peaks (NVIDIA H100 SXM data sheet): f32 outside the tensor
 # cores and device memory bandwidth.  A kernel's bound is the larger of its
@@ -144,7 +174,7 @@ def compare_trace(name, scene, state, prev, k, t):
     """trace_emit_aux kernel vs twin on the same (16, R) ``state`` and
     ``prev``, under the parity rule: aux rows 3-4 (streams, alive) and t
     exactly on every lane; where the winners agree, u, v and the record
-    exactly.  Where they differ (a tie, which the tree walk and the flat loop
+    (when there is one) exactly.  Where they differ (a tie, which the tree walk and the flat loop
     settle by different visit orders), the kernel's winner is recomputed
     with the twin's arithmetic: a front-facing hit of that ray, not its
     previous hit, at the twin's t, with the kernel's u, v and that
@@ -160,15 +190,16 @@ def compare_trace(name, scene, state, prev, k, t):
     same = ki == ti
     tied = int((~same).sum())
     n_uv = int(((ka[0:2] != ta[0:2]).any(dim=0) & same).sum())
-    n_rec = int(((kr != tr).any(dim=0) & same).sum())
+    n_rec = 0 if kr is None else int(((kr != tr).any(dim=0) & same).sum())
     n_bad_tie = 0
     if tied:
         lane = (~same).nonzero()[:, 0]
         w = ki[lane]
         hit, t_w, u_w, v_w = triangle_hit_ref(scene.tri_data, state[0:3, lane],
                                               state[3:6, lane], w)
-        good = (hit & (t_w == ta[2, lane]) & (u_w == ka[0, lane]) & (v_w == ka[1, lane])
-                & (kr[:, lane] == scene.rec_table[:, w.long()]).all(dim=0))
+        good = hit & (t_w == ta[2, lane]) & (u_w == ka[0, lane]) & (v_w == ka[1, lane])
+        if kr is not None:
+            good &= (kr[:, lane] == scene.rec_table[:, w.long()]).all(dim=0)
         if prev is not None:
             good &= w != prev[lane]
         n_bad_tie = int((~good).sum())
@@ -249,13 +280,7 @@ def large_phases(card, timing, errs, bounds, launches) -> None:
     from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
     from zig_raytracing_contest_tpu_torch.render import fused, wavefront
     from zig_raytracing_contest_tpu_torch.render.pipeline import prepare_scene, render_scene
-    from zig_raytracing_contest_tpu_torch.render.wavefront import (
-        build_gen_par,
-        gen_rays_raster,
-        ray_sort_key,
-        regime,
-        sort_state_payload,
-    )
+    from zig_raytracing_contest_tpu_torch.render.wavefront import regime
     from zig_raytracing_contest_tpu_torch.scene.procedural import large_scene
 
     dev = torch.device("cuda", 0)
@@ -278,39 +303,15 @@ def large_phases(card, timing, errs, bounds, launches) -> None:
 
     # b. kernels vs twins on the card, in the main path's order (bounce 0,
     # sort, bounce 1 with the previous hit); the twins at 2^16 rays
-    par = build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
     table = scene.rec_table
     small, full = 1 << 16, L_W * L_H * L_SPP
-    st0 = gen_rays_raster(par, SEED, L_W * 300, small, L_SPP, L_W)
-    k0 = mi.trace_emit_aux(scene, st0, table)
-    t0 = mi.trace_emit_aux_ref(scene, st0, table)
-    torch.cuda.synchronize()
-    e0 = compare_trace("trace_emit_aux (bounce 0, raster order)", scene, st0, None, k0, t0)
-    sk0 = fused.shade_fused(scene, st0, k0[0], k0[1], 0, k0[2])
-    stw0 = fused.shade_fused_ref(scene, st0, k0[0], k0[1], 0, k0[2])
-    torch.cuda.synchronize()
-    es0 = compare("shade_fused (bounce 0)", sk0, None, stw0, None)
-    _, st1, (prev1,) = sort_state_payload(ray_sort_key(scene, sk0), sk0, (k0[1],))
-    k1 = mi.trace_emit_aux(scene, st1, table, prev1)
-    t1 = mi.trace_emit_aux_ref(scene, st1, table, prev1)
-    torch.cuda.synchronize()
-    e1 = compare_trace("trace_emit_aux (bounce 1 after the sort, prev)", scene, st1, prev1,
-                       k1, t1)
-    sk1 = fused.shade_fused(scene, st1, k1[0], k1[1], 1, k1[2])
-    stw1 = fused.shade_fused_ref(scene, st1, k1[0], k1[1], 1, k1[2])
-    torch.cuda.synchronize()
-    es1 = compare("shade_fused (bounce 1)", sk1, None, stw1, None)
+    e0, e1, es0, es1, (st1, prev1, k1) = small_wave_checks(scene, cam, "")
 
     # the full wave of the main path (bounce 0 sorted, then bounce 1), held
     # against the twins on the same inputs: bounce 0's trace on 2^16 lanes
     # spread over the wave, every other call on every lane
-    stf = gen_rays_raster(par, SEED, 0, full, L_SPP, L_W)
-    _, stf, _ = sort_state_payload(ray_sort_key(scene, stf), stf)
-    af, idf, rf = mi.trace_emit_aux(scene, stf, table)
-    sf = fused.shade_fused(scene, stf, af, idf, 0, rf)
-    _, stf1, (prevf,) = sort_state_payload(ray_sort_key(scene, sf), sf, (idf,))
-    af1, idf1, rf1 = mi.trace_emit_aux(scene, stf1, table, prevf)
-    sf1 = fused.shade_fused(scene, stf1, af1, idf1, 1, rf1)
+    (stf, af, idf, rf, sf), (stf1, prevf, af1, idf1, rf1, sf1) = per_bounce_waves(
+        scene, cam, full)
     torch.cuda.synchronize()
     lane = torch.arange(small, device=dev) * (full // small)
     st_l = stf[:, lane].contiguous()
@@ -324,14 +325,14 @@ def large_phases(card, timing, errs, bounds, launches) -> None:
                        (af1, idf1, rf1), tw1)
     es3 = compare("shade_fused (full wave, bounce 1)", sf1, None,
                   fused.shade_fused_ref(scene, stf1, af1, idf1, 1, rf1), None)
-    errs["trace_emit_aux"] = max(e0, e1, e2, e3)
-    errs["shade_fused"] = max(es0, es1, es2, es3)
-    timing["trace_emit_aux"] = (
+    errs["trace_emit"] = max(e0, e1, e2, e3)
+    errs["shade"] = max(es0, es1, es2, es3)
+    timing["trace_emit"] = (
         cuda_ms(lambda: mi.trace_emit_aux(scene, stf1, table, prevf), 5),
         cuda_ms(lambda: mi.trace_emit_aux_ref(scene, st1, table, prev1), 2),
         full, small,
     )
-    timing["shade_fused"] = (
+    timing["shade"] = (
         cuda_ms(lambda: fused.shade_fused(scene, stf1, af1, idf1, 1, rf1), 5),
         cuda_ms(lambda: fused.shade_fused_ref(scene, st1, k1[0], k1[1], 1, k1[2]), 2),
         full, small,
@@ -351,23 +352,41 @@ def large_phases(card, timing, errs, bounds, launches) -> None:
     hits = float((live & torch.isfinite(af1[2])).sum())
     tiles = min(float(af1[5].sum()), float(tw1[0][5].sum()))
     boxes = min(float(af1[6].sum()), float(tw1[0][6].sum()))
-    bounds["trace_emit_aux"] = bound(
+    bounds["trace_emit"] = bound(
         tiles * 128 * OPS_TRI + boxes * OPS_BOX,
         full * (2 + 8 + 1 + 24) * 4 + n_live * (6 + 1) * 4 + tp * (13 + 24) * 4
         + 6 * p2x2 * 4)
-    bounds["shade_fused"] = bound(
+    bounds["shade"] = bound(
         hits * OPS_SHADE,
         full * (16 + 16) * 4 + n_live * 4 + hits * (2 + 24) * 4 + scene.bank.numel() * 4)
     print(f"  bounce 1 (full wave): live rays {int(n_live)}, live hits {int(hits)}; per "
           f"live ray tiles swept: kernel {float(af1[5][live].mean()):.2f}, twin "
           f"{float(tw1[0][5][live].mean()):.2f}; heap boxes tested "
           f"{float(af1[6][live].mean()):.2f}")
-    for name in ("trace_emit_aux", "shade_fused"):
+    # the record-off trace (rec_out null) on the same bounce-1 wave: the
+    # same walk, so the same aux and winners; the bound without record bytes
+    an, idn, rn = mi.trace_emit_aux(scene, stf1, None, prevf)
+    torch.cuda.synchronize()
+    if rn is not None or not (torch.equal(an.view(torch.int32), af1.view(torch.int32))
+                              and torch.equal(idn, idf1)):
+        fail("trace_emit_kernel without a record disagrees with its record-on launch")
+    errs["trace_emit_norec"] = compare_trace(
+        "trace_emit_aux, record off (full wave, bounce 1, prev)", scene, stf1, prevf,
+        (an, idn, None), (tw1[0], tw1[1], None))
+    timing["trace_emit_norec"] = (
+        cuda_ms(lambda: mi.trace_emit_aux(scene, stf1, None, prevf), 5),
+        cuda_ms(lambda: mi.trace_emit_aux_ref(scene, st1, None, prev1), 2),
+        full, small,
+    )
+    bounds["trace_emit_norec"] = bound(
+        tiles * 128 * OPS_TRI + boxes * OPS_BOX,
+        full * (2 + 8 + 1) * 4 + n_live * (6 + 1) * 4 + tp * 13 * 4 + 6 * p2x2 * 4)
+    for name in ("trace_emit", "trace_emit_norec", "shade"):
         k_ms, p_ms, rays, p_rays = timing[name]
         print(f"  {name}: kernel {k_ms:.3f} ms at {rays} rays, plain twin {p_ms:.3f} ms "
               f"at {p_rays} rays, bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) "
               f"({card})")
-    del stf, stf1, st_l, af, af1, rf, rf1, sf, sf1, tw1
+    del stf, stf1, st_l, af, af1, rf, rf1, sf, sf1, tw1, an
 
     # c. a small --large frame, kernels vs twins, sorted (as the scene
     # renders) and unsorted (SORT_MIN_TRIS raised past its bank: the regime
@@ -382,50 +401,340 @@ def large_phases(card, timing, errs, bounds, launches) -> None:
             wavefront.SORT_MIN_TRIS = sort_at
             if regime(s_scene) != want:
                 fail(f"160x90 --large frame renders {regime(s_scene)}, expected {want}")
-            img_k, st_k = render_scene(s_scene, s_cam, s_cfg)
-            img_t, st_t = render_scene(s_scene, s_cam, s_cfg, plain=True)
-            diff = abs(img_k.astype(int) - img_t.astype(int))
-            frac, mean = float((diff > 2).mean()), float(diff.mean())
-            seg_rel = abs(st_k.segments - st_t.segments) / max(st_t.segments, 1)
-            print(f"--large frame 160x90 ({want}): diff>2 on {frac:.4%} of channels, mean "
-                  f"|diff| {mean:.4f}, segments {st_k.segments} vs {st_t.segments} "
-                  f"({seg_rel:.4%})")
-            if (not (frac < 0.06 and mean < 1.5 and seg_rel < 0.005)
-                    or img_k.shape != (90, 160, 3)):
-                fail(f"160x90 --large frame ({want}): kernels and twins disagree beyond "
-                     "the golden gates")
+            frame_gate(render_scene, s_scene, s_cam, s_cfg, f"--large frame 160x90 ({want})")
     finally:
         wavefront.SORT_MIN_TRIS = sort_min
 
     # d. the --large frame, through the main path
-    quantum = L_SPP * 1024
-    wave = min(L_WAVE, full + quantum - 1) // quantum * quantum
-    num_waves = -(-full // wave)
+    got = render_timed(render_scene, scene, cam, cfg, "--large", card,
+                       {"trace_emit": 6 * L_BOUNCES, "shade": 6 * L_BOUNCES,
+                        "trace_stream": 0})
+    launches.update(trace_emit=got["trace_emit"], trace_emit_norec=got["trace_emit"],
+                    shade=got["shade"])
+
+    # e. where one --large frame's time goes
+    profile_frame(render_scene, scene, cam, cfg, card)
+    tmp.cleanup()
+
+
+def render_timed(render_scene, scene, cam, cfg, what, card, want) -> dict:
+    """A frame through the main path: the launch counts set to 0, a warmup
+    and 5 timed renders, the counts read and held to ``want`` (kernel ->
+    launches over the 6 renders).  Prints the median, best and spread in
+    Mrays/s; returns the counts."""
+    import torch
+
+    from zig_raytracing_contest_tpu_torch import kernels
+
     kernels.reset_launches()
     img, stats = render_scene(scene, cam, cfg)  # warmup
     torch.cuda.synchronize()
     rates = []
     for _ in range(5):
-        t0_ = time.perf_counter()
+        t0 = time.perf_counter()
         img, stats = render_scene(scene, cam, cfg)
         torch.cuda.synchronize()
-        rates.append(stats.segments / (time.perf_counter() - t0_) / 1e6)
+        rates.append(stats.segments / (time.perf_counter() - t0) / 1e6)
     got = dict(kernels.LAUNCHES)
-    if img.shape != (L_H, L_W, 3) or not 0 < float(img.mean()) < 255:
-        fail(f"--large frame: shape {img.shape}, mean {float(img.mean())}")
-    for name in ("trace_emit_aux", "shade_fused"):
-        if got[name] != L_BOUNCES * num_waves * 6:
-            fail(f"{name} launched {got[name]} times, expected "
-                 f"{L_BOUNCES * num_waves * 6}")
-        launches[name] = got[name]
+    if img.shape != (cam.height, cam.width, 3) or not 0 < float(img.mean()) < 255:
+        fail(f"{what} frame: shape {img.shape}, mean {float(img.mean())}")
+    for name, n in want.items():
+        if got[name] != n:
+            fail(f"{what} frame: {name} launched {got[name]} times, expected {n}")
     med, best = statistics.median(rates), max(rates)
     spread = (max(rates) - min(rates)) / med * 100
-    print(f"--large {L_W}x{L_H} {L_SPP} spp {L_BOUNCES} bounces: median {med:.3f} "
-          f"Mrays/s, best {best:.3f}, spread {spread:.1f}%, segments {stats.segments}, "
-          f"waves {num_waves} of {wave} rays, launches {got} ({card})")
+    print(f"{what} {cam.width}x{cam.height} {cfg.num_samples} spp {cfg.max_bounce} "
+          f"bounces: median {med:.3f} Mrays/s, best {best:.3f}, spread {spread:.1f}%, "
+          f"segments {stats.segments}, launches {got} ({card})")
     print("  reps Mrays/s: " + ", ".join(f"{r:.3f}" for r in rates))
+    return got
 
-    # e. where one --large frame's time goes
+
+def frame_gate(render_scene, scene, cam, cfg, what) -> None:
+    """A small frame with the kernels and with the twins, held to the golden
+    gates (tests/test_golden.py's alpha-scene gates) and equal segments
+    within 0.5%."""
+    img_k, st_k = render_scene(scene, cam, cfg)
+    img_t, st_t = render_scene(scene, cam, cfg, plain=True)
+    diff = abs(img_k.astype(int) - img_t.astype(int))
+    frac, mean = float((diff > 2).mean()), float(diff.mean())
+    seg_rel = abs(st_k.segments - st_t.segments) / max(st_t.segments, 1)
+    print(f"{what}: diff>2 on {frac:.4%} of channels, mean |diff| {mean:.4f}, segments "
+          f"{st_k.segments} vs {st_t.segments} ({seg_rel:.4%})")
+    if (not (frac < 0.06 and mean < 1.5 and seg_rel < 0.005)
+            or img_k.shape != (cam.height, cam.width, 3)):
+        fail(f"{what}: kernels and twins disagree beyond the golden gates")
+
+
+def big_texture_scene(path: Path, seed: int) -> Path:
+    """Replace the terrain texture (the only image) of the ``--large`` scene
+    written at ``path`` by a TEX_W x TEX_H opaque RGBA noise image drawn
+    from ``seed``: about 2.1M texels, whose tiled capacity is past 2^20, so
+    the bank has no resident form (the JAX package's 3-stage shade)."""
+    import numpy as np
+
+    from zig_raytracing_contest_tpu_torch.utils.image_io import encode_srgb_png_bytes
+
+    doc = json.loads(path.read_text())
+    bin_path = path.parent / doc["buffers"][0]["uri"]
+    blob = bytearray(bin_path.read_bytes())
+    blob.extend(b"\0" * (-len(blob) % 4))
+    rgba = np.random.default_rng(seed).integers(0, 256, (TEX_H, TEX_W, 4), np.uint8)
+    rgba[..., 3] = 255
+    png = encode_srgb_png_bytes(rgba)
+    doc["bufferViews"].append({"buffer": 0, "byteOffset": len(blob),
+                               "byteLength": len(png)})
+    blob.extend(png)
+    (image,) = doc["images"]
+    image["bufferView"] = len(doc["bufferViews"]) - 1
+    doc["buffers"][0]["byteLength"] = len(blob)
+    bin_path.write_bytes(bytes(blob))
+    path.write_text(json.dumps(doc))
+    return path
+
+
+def small_wave_checks(scene, cam, tag: str):
+    """trace_emit_aux and shade_fused against their twins on a 2^16-ray wave
+    at bounce 0 (raster order, from pixel row 300) and, after a sort with
+    the previous hit, at bounce 1.  Returns the trace's and the shade's
+    largest differences at each bounce and (state, prev, kernel outputs)
+    of bounce 1."""
+    from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
+    from zig_raytracing_contest_tpu_torch.render import fused
+    from zig_raytracing_contest_tpu_torch.render.wavefront import (
+        build_gen_par,
+        gen_rays_raster,
+        ray_sort_key,
+        sort_state_payload,
+    )
+
+    par = build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
+    table = scene.rec_table
+    st0 = gen_rays_raster(par, SEED, L_W * 300, 1 << 16, L_SPP, L_W)
+    k0 = mi.trace_emit_aux(scene, st0, table)
+    e0 = compare_trace(f"trace_emit_aux ({tag}bounce 0, raster order)", scene, st0, None,
+                       k0, mi.trace_emit_aux_ref(scene, st0, table))
+    sk0 = fused.shade_fused(scene, st0, k0[0], k0[1], 0, k0[2])
+    es0 = compare(f"shade_fused ({tag}bounce 0)", sk0, None,
+                  fused.shade_fused_ref(scene, st0, k0[0], k0[1], 0, k0[2]), None)
+    _, st1, (prev1,) = sort_state_payload(ray_sort_key(scene, sk0), sk0, (k0[1],))
+    k1 = mi.trace_emit_aux(scene, st1, table, prev1)
+    e1 = compare_trace(f"trace_emit_aux ({tag}bounce 1 after the sort, prev)", scene, st1,
+                       prev1, k1, mi.trace_emit_aux_ref(scene, st1, table, prev1))
+    sk1 = fused.shade_fused(scene, st1, k1[0], k1[1], 1, k1[2])
+    es1 = compare(f"shade_fused ({tag}bounce 1)", sk1, None,
+                  fused.shade_fused_ref(scene, st1, k1[0], k1[1], 1, k1[2]), None)
+    return e0, e1, es0, es1, (st1, prev1, k1)
+
+
+def per_bounce_waves(scene, cam, full):
+    """The main path's first two bounces of one full wave on the kernels
+    (gen, sort, trace, shade, sort with the previous hit, trace, shade).
+    Returns (stf, af, idf, rf, sf) of bounce 0 and (stf1, prevf, af1, idf1,
+    rf1, sf1) of bounce 1."""
+    from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
+    from zig_raytracing_contest_tpu_torch.render import fused
+    from zig_raytracing_contest_tpu_torch.render.wavefront import (
+        build_gen_par,
+        gen_rays_raster,
+        ray_sort_key,
+        sort_state_payload,
+    )
+
+    par = build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
+    stf = gen_rays_raster(par, SEED, 0, full, L_SPP, L_W)
+    _, stf, _ = sort_state_payload(ray_sort_key(scene, stf), stf)
+    af, idf, rf = mi.trace_emit_aux(scene, stf, scene.rec_table)
+    sf = fused.shade_fused(scene, stf, af, idf, 0, rf)
+    _, stf1, (prevf,) = sort_state_payload(ray_sort_key(scene, sf), sf, (idf,))
+    af1, idf1, rf1 = mi.trace_emit_aux(scene, stf1, scene.rec_table, prevf)
+    sf1 = fused.shade_fused(scene, stf1, af1, idf1, 1, rf1)
+    return (stf, af, idf, rf, sf), (stf1, prevf, af1, idf1, rf1, sf1)
+
+
+def stream_phases(card, timing, errs, bounds, launches) -> None:
+    """Phase f: the 500k-triangle terrain through the streaming trace."""
+    import torch
+
+    from zig_raytracing_contest_tpu_torch import kernels
+    from zig_raytracing_contest_tpu_torch.config import Config
+    from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
+    from zig_raytracing_contest_tpu_torch.render import fused
+    from zig_raytracing_contest_tpu_torch.render.pipeline import prepare_scene, render_scene
+    from zig_raytracing_contest_tpu_torch.render.wavefront import regime, shade_bank
+    from zig_raytracing_contest_tpu_torch.scene.procedural import large_scene
+
+    dev = torch.device("cuda", 0)
+    for line in ptxas_report(kernels.BUILD_INFO["log"], ("trace_stream_kernel",)):
+        print("  " + line)
+    tmp = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    path = large_scene(Path(tmp.name) / "large500.gltf", side=S_SIDE)
+    write_s = time.perf_counter() - t0
+    cfg = Config(grid_resolution=(128, 128, 128), num_samples=L_SPP,
+                 max_bounce=L_BOUNCES, wave_size=L_WAVE, seed=SEED)
+    scene, cam, timers = prepare_scene(str(path), cfg, camera_name="Camera 1", width=L_W,
+                                       height=L_H, device=dev)
+    ph = timers.phases
+    reg, nt, ng = regime(scene), scene.tile_bbox.shape[1], scene.group_bbox.shape[1]
+    print(f"500k scene: tri_data {tuple(scene.tri_data.shape)}, tile {scene.tile}, tiles "
+          f"{nt}, groups {ng} of {scene.group_tiles}, group_tree_bbox "
+          f"{tuple(scene.group_tree_bbox.shape)}, texels {scene.bank.shape[0]}, regime "
+          f"{reg}, {shade_bank(scene)}; written in {write_s:.2f} s, loaded in "
+          f"{ph['load'] + ph['preprocess']:.2f} s, baked in {ph['compile']:.2f} s")
+    if reg != "streaming, sorted":
+        fail(f"500k scene renders in the {reg} regime, expected streaming, sorted")
+    if (tuple(scene.tri_data.shape), scene.tile, nt, ng) != ((16, 501760), 256, 1954, 245):
+        fail("500k scene: the bake differs from the JAX package's shapes")
+
+    # kernels vs twins: 2^16 rays at bounce 0 (raster order) and bounce 1
+    # (sorted, with the previous hit), then the full wave
+    table = scene.rec_table
+    small, full = 1 << 16, L_W * L_H * L_SPP
+    e0, e1, es0, es1, (st1, prev1, _) = small_wave_checks(scene, cam, "500k, ")
+    (stf, af, idf, rf, sf), (stf1, prevf, af1, idf1, rf1, sf1) = per_bounce_waves(
+        scene, cam, full)
+    torch.cuda.synchronize()
+    lane = torch.arange(small, device=dev) * (full // small)
+    st_l = stf[:, lane].contiguous()
+    e2 = compare_trace(f"trace_emit_aux (500k, full wave, bounce 0, {small} lanes)", scene,
+                       st_l, None, (af[:, lane], idf[lane], rf[:, lane]),
+                       mi.trace_emit_aux_ref(scene, st_l, table))
+    es2 = compare("shade_fused (500k, full wave, bounce 0)", sf, None,
+                  fused.shade_fused_ref(scene, stf, af, idf, 0, rf), None)
+    st_l1, pv_l1 = stf1[:, lane].contiguous(), prevf[lane].contiguous()
+    tw1 = mi.trace_emit_aux_ref(scene, st_l1, table, pv_l1)
+    e3 = compare_trace(f"trace_emit_aux (500k, full wave, bounce 1, prev, {small} lanes)",
+                       scene, st_l1, pv_l1, (af1[:, lane], idf1[lane], rf1[:, lane]), tw1)
+    es3 = compare("shade_fused (500k, full wave, bounce 1)", sf1, None,
+                  fused.shade_fused_ref(scene, stf1, af1, idf1, 1, rf1), None)
+    errs["trace_stream"] = max(e0, e1, e2, e3)
+    errs["shade"] = max(errs["shade"], es0, es1, es2, es3)
+    timing["trace_stream"] = (
+        cuda_ms(lambda: mi.trace_emit_aux(scene, stf1, table, prevf), 5),
+        cuda_ms(lambda: mi.trace_emit_aux_ref(scene, st1, table, prev1), 1),
+        full, small,
+    )
+    # The least work of the timed bounce-1 call on this run's data: tiles
+    # swept × 256 triangle tests plus boxes tested, each per live ray the
+    # fewer of the kernel's count (whole wave) and the flat twin's (its
+    # 2^16 lanes), times the live rays; bytes as phase b's, with the group
+    # boxes and heap in place of the tile heap.
+    tp = scene.tri_data.shape[1]
+    live, live_l = stf1[12] > 0, st_l1[12] > 0
+    n_live = float(live.sum())
+    per_ray = {row: (float(af1[row][live].mean()), float(tw1[0][row][live_l].mean()))
+               for row in (5, 6)}
+    bounds["trace_stream"] = bound(
+        n_live * (min(per_ray[5]) * scene.tile * OPS_TRI + min(per_ray[6]) * OPS_BOX),
+        full * (2 + 8 + 1 + 24) * 4 + n_live * (6 + 1) * 4 + tp * (13 + 24) * 4
+        + 6 * (nt + ng + scene.group_tree_bbox.shape[1]) * 4)
+    print(f"  bounce 1 (full wave): live rays {int(n_live)}; per live ray tiles swept: "
+          f"kernel {per_ray[5][0]:.2f}, twin {per_ray[5][1]:.2f}; boxes tested: kernel "
+          f"{per_ray[6][0]:.2f}, twin {per_ray[6][1]:.2f}")
+    k_ms, p_ms, rays, p_rays = timing["trace_stream"]
+    print(f"  trace_stream: kernel {k_ms:.3f} ms at {rays} rays, plain twin {p_ms:.3f} ms "
+          f"at {p_rays} rays, bound {bounds['trace_stream'][0]:.4f} ms "
+          f"({bounds['trace_stream'][1]}) ({card})")
+
+    # the two walks on the same bounce-1 inputs, launched directly:
+    # trace_stream_kernel (group heap) and trace_emit_kernel (tile heap)
+    outs = {name: (torch.empty((8, full), dtype=torch.float32, device=dev),
+                   torch.empty(full, dtype=torch.int32, device=dev),
+                   torch.empty((24, full), dtype=torch.float32, device=dev))
+            for name in ("stream", "emit")}
+    launch = {"stream": kernels.launch_trace_stream, "emit": kernels.launch_trace_emit}
+
+    def walk(name):
+        return lambda: launch[name](scene, stf1, prevf, table, *outs[name])
+
+    ab = {name: [] for name in outs}
+    for name in ("stream", "emit", "emit", "stream"):
+        ab[name].append(cuda_ms(walk(name), 5))
+    if not torch.equal(outs["stream"][0][2], outs["emit"][0][2]):
+        fail("the group-heap and tile-heap walks find different nearest t")
+    for name, kname in (("stream", "trace_stream_kernel"), ("emit", "trace_emit_kernel")):
+        a = outs[name][0]
+        print(f"  A/B {kname}: {ab[name][0]:.3f}, {ab[name][1]:.3f} ms; per live ray "
+              f"tiles swept {float(a[5][live].mean()):.2f}, boxes tested "
+              f"{float(a[6][live].mean()):.2f} ({card})")
+    del stf, stf1, st_l, st_l1, af, af1, rf, rf1, sf, sf1, tw1, outs
+
+    # the 500k frame, through the main path
+    got = render_timed(render_scene, scene, cam, cfg, "500k", card,
+                       {"trace_stream": 6 * L_BOUNCES, "shade": 6 * L_BOUNCES,
+                        "trace_emit": 0})
+    launches["trace_stream"] = got["trace_stream"]
+    profile_frame(render_scene, scene, cam, cfg, card)
+    tmp.cleanup()
+
+
+def bank_phases(card, timing, errs, bounds, launches) -> None:
+    """Phase g: a bank with no resident form (2-Mtexel), the 3-stage shade
+    of the JAX package, through shade_kernel."""
+    import torch
+
+    from zig_raytracing_contest_tpu_torch.config import Config
+    from zig_raytracing_contest_tpu_torch.render import fused
+    from zig_raytracing_contest_tpu_torch.render.pipeline import prepare_scene, render_scene
+    from zig_raytracing_contest_tpu_torch.render.wavefront import regime, shade_bank
+    from zig_raytracing_contest_tpu_torch.scene.procedural import large_scene
+
+    dev = torch.device("cuda", 0)
+    tmp = tempfile.TemporaryDirectory()
+    path = big_texture_scene(large_scene(Path(tmp.name) / "bank.gltf"), SEED)
+    cfg = Config(grid_resolution=(128, 128, 128), num_samples=L_SPP,
+                 max_bounce=L_BOUNCES, wave_size=L_WAVE, seed=SEED)
+    scene, cam, timers = prepare_scene(str(path), cfg, camera_name="Camera 1", width=L_W,
+                                       height=L_H, device=dev)
+    reg, bank = regime(scene), shade_bank(scene)
+    ph = timers.phases
+    print(f"2-Mtexel scene: texels {scene.bank.shape[0]}, tri_data "
+          f"{tuple(scene.tri_data.shape)}, regime {reg}, {bank}; loaded in "
+          f"{ph['load'] + ph['preprocess']:.2f} s, baked in {ph['compile']:.2f} s")
+    if (reg, bank) != ("per-bounce, sorted", "3-stage bank"):
+        fail(f"2-Mtexel scene renders {reg}, {bank}; expected per-bounce, sorted, "
+             "3-stage bank")
+    small, full = 1 << 16, L_W * L_H * L_SPP
+    (stf, af, idf, rf, sf), (stf1, _, af1, idf1, rf1, sf1) = per_bounce_waves(
+        scene, cam, full)
+    torch.cuda.synchronize()
+    es0 = compare("shade_fused (2-Mtexel bank, full wave, bounce 0)", sf, None,
+                  fused.shade_fused_ref(scene, stf, af, idf, 0, rf), None)
+    es1 = compare("shade_fused (2-Mtexel bank, full wave, bounce 1)", sf1, None,
+                  fused.shade_fused_ref(scene, stf1, af1, idf1, 1, rf1), None)
+    lane = torch.arange(small, device=dev) * (full // small)
+    sl = [x[..., lane].contiguous() for x in (stf1, af1, idf1, rf1)]
+    ms = (cuda_ms(lambda: fused.shade_fused(scene, stf1, af1, idf1, 1, rf1), 5),
+          cuda_ms(lambda: fused.shade_fused_ref(scene, sl[0], sl[1], sl[2], 1, sl[3]), 2),
+          full, small)
+    # The least work of the timed call: state in and out of every ray, t of
+    # each live one, u, v and the record of each live hit, and each distinct
+    # texel those hits read (16 B) once.
+    live = stf1[12] > 0
+    hit = live & torch.isfinite(af1[2])
+    n_live, hits = float(live.sum()), float(hit.sum())
+    idx, _ = fused.prep_math_ref(rf1[:, hit], af1[0, hit], af1[1, hit],
+                                 scene.emissive_dummy)
+    texels = int(torch.unique(torch.stack(idx).clamp(0, scene.bank.shape[0] - 1)).numel())
+    b = bound(hits * OPS_SHADE,
+              full * (16 + 16) * 4 + n_live * 4 + hits * (2 + 24) * 4 + texels * 16)
+    print(f"  bounce 1 (full wave): live rays {int(n_live)}, live hits {int(hits)}, "
+          f"distinct texels read {texels} of {scene.bank.shape[0]}; shade_fused: kernel "
+          f"{ms[0]:.3f} ms at {full} rays, plain twin {ms[1]:.3f} ms at {small} rays, "
+          f"bound {b[0]:.4f} ms ({b[1]}) ({card})")
+    for entry in ("shade_prep", "shade_3stage"):
+        errs[entry], timing[entry], bounds[entry] = max(es0, es1), ms, b
+    del stf, stf1, af, af1, rf, rf1, sf, sf1, sl, idx
+
+    s_cfg = Config(num_samples=L_SPP, max_bounce=L_BOUNCES, seed=SEED)
+    s_scene, s_cam, _ = prepare_scene(str(path), s_cfg, camera_name="Camera 1", width=160,
+                                      height=90, device=dev)
+    frame_gate(render_scene, s_scene, s_cam, s_cfg, "2-Mtexel frame 160x90")
+    got = render_timed(render_scene, scene, cam, cfg, "2-Mtexel", card,
+                       {"trace_emit": 6 * L_BOUNCES, "shade": 6 * L_BOUNCES,
+                        "trace_stream": 0})
+    launches["shade_prep"] = launches["shade_3stage"] = got["shade"]
     profile_frame(render_scene, scene, cam, cfg, card)
     tmp.cleanup()
 
@@ -484,7 +793,7 @@ def main() -> int:
                           tiles_x=tiles_x)
     quantum = SPP * 1024
     full_wave = WAVE // quantum * quantum
-    errs = {"path_trace_gen": 0.0, "path_trace_fused": 0.0}
+    errs = {"path_trace_gen": 0.0, "path_trace": 0.0}
     timing, bounds = {}, {}
     for R, slot_base in ((1 << 16, 1024 * 900), (full_wave, 5 * (full_wave // SPP))):
         meta = (slot_base, slot_base % 1920, slot_base // 1920, SEED,
@@ -501,14 +810,14 @@ def main() -> int:
         t2, ti2 = fused.path_trace_fused_ref(scene, st, 1, bounce0=1, prev=idx_s,
                                              emit_idx=True)
         torch.cuda.synchronize()
-        errs["path_trace_fused"] = max(errs["path_trace_fused"], compare(
+        errs["path_trace"] = max(errs["path_trace"], compare(
             "path_trace_fused (bounce 1 after the sort, prev)", k2, ki2, t2, ti2))
         # the main path's last call: resort on the host key, bounces 2-3
         _, st2, (idx2,) = sort_state_payload(ray_sort_key(scene, k2), k2, (ki2,))
         k3 = fused.path_trace_fused(scene, st2, 2, bounce0=2, prev=idx2)
         t3 = fused.path_trace_fused_ref(scene, st2, 2, bounce0=2, prev=idx2)
         torch.cuda.synchronize()
-        errs["path_trace_fused"] = max(errs["path_trace_fused"], compare(
+        errs["path_trace"] = max(errs["path_trace"], compare(
             "path_trace_fused (bounces 2-3 after the resort, prev)", k3, None, t3, None))
         if R == full_wave:
             # the work of the timed calls, counted by the twin: tiles whose
@@ -527,14 +836,14 @@ def main() -> int:
             sw1 = nearest_hit_ref(scene.tri_data, scene.tile_bbox, scene.tile, st[0:3],
                                   st[3:6], live1, idx_s)[4]
             n1 = float(live1.sum())
-            bounds["path_trace_fused"] = bound(
+            bounds["path_trace"] = bound(
                 float(sw1.sum()) * 128 * OPS_TRI + n1 * (nt * OPS_BOX + OPS_SHADE),
                 sc_b + R * (16 + 1 + 16 + 1) * 4)
             timing["path_trace_gen"] = (
                 cuda_ms(lambda: fused.path_trace_gen(*args, emit_key=True, emit_idx=True), 5),
                 cuda_ms(lambda: fused.path_trace_gen_ref(*args, emit_key=True, emit_idx=True), 2),
             )
-            timing["path_trace_fused"] = (
+            timing["path_trace"] = (
                 cuda_ms(lambda: fused.path_trace_fused(scene, st, 1, bounce0=1, prev=idx_s,
                                                        emit_idx=True), 5),
                 cuda_ms(lambda: fused.path_trace_fused_ref(scene, st, 1, bounce0=1,
@@ -573,16 +882,17 @@ def main() -> int:
         img, stats = render_scene(scene, cam, cfg)
         torch.cuda.synchronize()
         rates.append(stats.segments / (time.perf_counter() - t0) / 1e6)
-    launches = dict(kernels.LAUNCHES)
+    got = dict(kernels.LAUNCHES)
     if img.shape != (1080, 1920, 3) or not 0 < float(img.mean()) < 255:
         fail(f"official frame: shape {img.shape}, mean {float(img.mean())}")
     num_waves = -(-num_slots * SPP // full_wave)
-    for name in ("path_trace_gen", "path_trace_fused"):
-        if launches[name] == 0:
+    for name in ("path_trace_gen", "path_trace"):
+        if got[name] == 0:
             fail(f"{name}: the main path launched no kernel")
-    if launches["path_trace_gen"] != 6 * num_waves:
-        fail(f"path_trace_gen launched {launches['path_trace_gen']} times, "
+    if got["path_trace_gen"] != 6 * num_waves:
+        fail(f"path_trace_gen launched {got['path_trace_gen']} times, "
              f"expected {6 * num_waves}")
+    launches = {"path_trace_gen": got["path_trace_gen"], "path_trace": got["path_trace"]}
     med, best = statistics.median(rates), max(rates)
     spread = (max(rates) - min(rates)) / med * 100
     print(f"official 1920x1080 {SPP} spp {MAX_BOUNCE} bounces: median {med:.3f} "
@@ -592,15 +902,17 @@ def main() -> int:
     profile_frame(render_scene, scene, cam, cfg, card)
 
     large_phases(card, timing, errs, bounds, launches)
+    stream_phases(card, timing, errs, bounds, launches)
+    bank_phases(card, timing, errs, bounds, launches)
 
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": SOURCE, "replaces": replaces,
-         "launches": launches[wrapper], "max_abs_err": errs[wrapper],
-         "ms": timing[wrapper][0], "plain_ms": timing[wrapper][1],
-         "rays": timing[wrapper][2], "plain_rays": timing[wrapper][3],
-         "bound_ms": bounds[wrapper][0], "bound_by": bounds[wrapper][1],
+         "launches": launches[entry], "max_abs_err": errs[entry],
+         "ms": timing[entry][0], "plain_ms": timing[entry][1],
+         "rays": timing[entry][2], "plain_rays": timing[entry][3],
+         "bound_ms": bounds[entry][0], "bound_by": bounds[entry][1],
          "library_ms": None}
-        for kname, wrapper, replaces in KERNELS
+        for entry, kname, replaces in KERNELS
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,17 +39,22 @@ ASSETS = Path(__file__).parent / "assets"
 
 
 def jax_scene_arrays(scene) -> dict:
-    """A JAX DeviceScene's whole-path arrays as NumPy (from_jax_scene keys)."""
+    """A JAX DeviceScene's MXU arrays as NumPy (from_jax_scene keys)."""
     P = scene.color_data.shape[0]
     return {
         "mxu.tri_data": np.asarray(scene.mxu.tri_data),
         "mxu.tile_bbox": np.asarray(scene.mxu.tile_bbox),
         "mxu.group_bbox": np.asarray(scene.mxu.group_bbox),
         "mxu.tree_bbox": np.asarray(scene.mxu.tree_bbox),
+        "mxu.group_tree_bbox": np.asarray(scene.mxu.group_tree_bbox),
         "mxu.perm": np.asarray(scene.mxu.perm),
         "mxu.tile": scene.mxu.tile,
+        "mxu.group_tiles": scene.mxu.group_tiles,
         "shade_table_t": np.asarray(scene.shade_table_t),
-        "color_u16f_t": np.asarray(scene.color_u16f_t)[:, :P],
+        "color_u16f_t": (None if scene.color_u16f_t is None
+                         else np.asarray(scene.color_u16f_t)[:, :P]),
+        "color_packed_t": np.asarray(scene.color_packed_t),
+        "tiled_layout": scene.tiled_layout is not None,
         "grid.bbox_min": np.asarray(scene.grid.bbox_min),
         "grid.bbox_max": np.asarray(scene.grid.bbox_max),
         "emissive_all_dummy": scene.emissive_all_dummy is not None,
@@ -109,11 +114,49 @@ def test_port_bake_equals_jax_bake(name, tmp_path):
         np.testing.assert_array_equal(ts.bank.numpy().T, np.asarray(js.color_u16f_t)[:, :P])
 
         # from_jax_scene round trip: the same TorchScene, tensor for tensor
-        fj = from_jax_scene(jax_scene_arrays(js), device="cpu")
-        for f in ("tri_data", "tile_bbox", "tree_bbox", "group_bbox", "perm",
-                  "rec_table", "bank", "bbox_min", "bbox_max"):
-            assert torch.equal(getattr(fj, f), getattr(ts, f)), f
-        assert (fj.tile, fj.emissive_dummy) == (ts.tile, ts.emissive_dummy)
+        _assert_round_trip(js, ts)
+
+
+def _assert_round_trip(js, ts):
+    """from_jax_scene of the JAX scene is the port's TorchScene, tensor for
+    tensor and flag for flag."""
+    fj = from_jax_scene(jax_scene_arrays(js), device="cpu")
+    for f in ("tri_data", "tile_bbox", "tree_bbox", "group_bbox", "group_tree_bbox",
+              "perm", "rec_table", "bank", "bbox_min", "bbox_max"):
+        assert torch.equal(getattr(fj, f), getattr(ts, f)), f
+    for f in ("tile", "emissive_dummy", "group_tiles", "bank_resident"):
+        assert getattr(fj, f) == getattr(ts, f), f
+
+
+def test_from_jax_scene_three_stage_bank(tmp_path, monkeypatch):
+    """With both resident-bank bounds lowered to 0, the JAX package bakes no
+    one-hot and no paged bank (its 3-stage shade): from_jax_scene takes the
+    bank from the unpacked u16×2 bank and the port's own bake agrees.  With
+    only the one-hot bound lowered the JAX bake is paged, whose tiled texel
+    offsets the port does not read: from_jax_scene refuses it."""
+    from zig_raytracing_contest_tpu.scene import types as jtypes
+    from zig_raytracing_contest_tpu_torch.scene import types as ttypes
+
+    path, _ = _scene_file("bench20", tmp_path)
+    jg, tg = jgltf(str(path)), load_gltf(str(path))
+    jgeom, tgeom = jgeo(jg), load_geometry(tg)
+    jm, tm = jmat(jg), load_materials(tg)
+    grid = build_grid(jgeom.positions, (8, 8, 8))
+    for mod in (jtypes, ttypes):
+        monkeypatch.setattr(mod, "ONEHOT_MAX_TEXELS", 0)
+    paged = build_device_scene(jgeom, grid, jm, backend="mxu")
+    assert paged.tiled_layout is not None
+    with pytest.raises(ValueError, match="tiled texel offsets"):
+        from_jax_scene(jax_scene_arrays(paged), device="cpu")
+    for mod in (jtypes, ttypes):
+        monkeypatch.setattr(mod, "PAGED_MAX_TEXELS", 0)
+    js = build_device_scene(jgeom, grid, jm, backend="mxu")
+    assert js.color_u16f_t is None and js.color_paged_t is None
+    assert js.tiled_layout is None
+    ts = build_torch_scene(tgeom, tm, scene_bbox(tgeom.positions), device="cpu")
+    assert not ts.bank_resident
+    np.testing.assert_array_equal(ts.rec_table.numpy(), np.asarray(js.shade_table_t))
+    _assert_round_trip(js, ts)
 
 
 def test_bench_scene_matches_bench_py(tmp_path):
@@ -131,16 +174,28 @@ def test_bench_scene_matches_bench_py(tmp_path):
     np.testing.assert_array_equal(load_materials(a).color_u16, load_materials(b).color_u16)
 
 
-def test_out_of_slice_scenes_raise(tmp_path):
+def test_out_of_slice_scenes_raise(tmp_path, monkeypatch):
+    """The grid backend and scenes past MXU_BACKEND_MAX_TRIANGLES (lowered
+    here) raise, naming the grid fallback's ROADMAP item; scenes past the
+    resident triangle bound and banks past the resident texel bounds (both
+    lowered here) now build, as a streaming bake and a 3-stage bank."""
+    from zig_raytracing_contest_tpu_torch.scene import types as ttypes
+
     path = jproc.cornell_like_box(tmp_path / "box.gltf")
     g = load_gltf(str(path))
     geo, mats = load_geometry(g), load_materials(g)
+    bbox = scene_bbox(geo.positions)
     with pytest.raises(NotImplementedError, match="item 11"):
-        build_torch_scene(geo, mats, scene_bbox(geo.positions), device="cpu",
-                          backend="grid")
-    from zig_raytracing_contest_tpu_torch.scene.types import check_resident
+        build_torch_scene(geo, mats, bbox, device="cpu", backend="grid")
+    monkeypatch.setattr(ttypes, "MXU_BACKEND_MAX_TRIANGLES", geo.num_triangles - 1)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        build_torch_scene(geo, mats, bbox, device="cpu")
+    assert build_torch_scene(geo, mats, bbox, device="cpu", backend="mxu").tile == 128
+    monkeypatch.undo()
 
-    with pytest.raises(NotImplementedError, match="VMEM_RESIDENT_MAX_TRIS"):
-        check_resident((1 << 17) + 1024, 10)
-    with pytest.raises(NotImplementedError, match="PAGED_MAX_TEXELS"):
-        check_resident(1024, (1 << 20) + 1)
+    monkeypatch.setattr(ttypes, "VMEM_RESIDENT_MAX_TRIS", geo.num_triangles - 1)
+    for mod_attr in ("ONEHOT_MAX_TEXELS", "PAGED_MAX_TEXELS"):
+        monkeypatch.setattr(ttypes, mod_attr, 0)
+    scene = build_torch_scene(geo, mats, bbox, device="cpu")
+    assert scene.tile == 256 and not scene.bank_resident
+    assert tuple(scene.group_tree_bbox.shape) == (6, 2)

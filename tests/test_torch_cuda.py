@@ -107,4 +107,51 @@ def test_per_bounce_kernels_match_twins_on_cuda(tmp_path):
         assert torch.equal(k[12:16].view(torch.int32), t[12:16].view(torch.int32))
         torch.testing.assert_close(k[0:12], t[0:12], rtol=3e-6, atol=1e-5)
         state, prev = k, ki
-    assert kernels.LAUNCHES["trace_emit_aux"] == kernels.LAUNCHES["shade_fused"] == 3
+    assert kernels.LAUNCHES["trace_emit"] == kernels.LAUNCHES["shade"] == 3
+    assert kernels.LAUNCHES["trace_stream"] == 0
+
+
+@pytest.mark.cuda
+def test_trace_stream_kernel_matches_twin_on_cuda(tmp_path, monkeypatch):
+    """trace_stream_kernel on a small terrain forced to stream
+    (VMEM_RESIDENT_MAX_TRIS lowered below its 5120 padded triangles): 37
+    tiles in 5 groups, the last one short of tiles, so the group heap has 8
+    leaves, 3 of them empty.  The same parity rule as trace_emit_aux, and
+    only the streaming kernel launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    from zig_raytracing_contest_tpu_torch import kernels
+    from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
+    from zig_raytracing_contest_tpu_torch.render.wavefront import (
+        build_gen_par,
+        gen_rays_raster,
+        ray_sort_key,
+        sort_state_payload,
+    )
+
+    path = tproc.large_scene(tmp_path / "l.gltf", side=48)
+    cfg = Config(num_samples=2, max_bounce=3)
+    scene, cam, _ = prepare_scene(str(path), cfg, camera_name="Camera 1",
+                                  width=96, height=64, device="cuda")
+    assert scene.group_bbox.shape[1] == 5 and scene.group_tree_bbox.shape[1] == 16
+    monkeypatch.setattr(mi, "VMEM_RESIDENT_MAX_TRIS", 4096)
+    par = build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
+    state = gen_rays_raster(par, 0, 0, 96 * 64 * 2, 2, 96)
+    _, state, _ = sort_state_payload(ray_sort_key(scene, state), state)
+    kernels.reset_launches()
+    for prev in (None, mi.trace_emit_aux_ref(scene, state)[1]):
+        ka, ki, kr = mi.trace_emit_aux(scene, state, scene.rec_table, prev)
+        ta, ti, tr = mi.trace_emit_aux_ref(scene, state, scene.rec_table, prev)
+        assert torch.equal(ka[3:5].view(torch.int32), ta[3:5].view(torch.int32))
+        assert torch.equal(ka[2], ta[2])
+        same = ki == ti
+        assert float(same.float().mean()) > 0.99
+        assert torch.equal(ka[0:2][:, same], ta[0:2][:, same])
+        assert torch.equal(kr[:, same], tr[:, same])
+        w = ki[~same]
+        hit, tw, _, _ = mi.triangle_hit_ref(scene.tri_data, state[0:3, ~same],
+                                            state[3:6, ~same], w)
+        assert bool(hit.all()) and torch.equal(tw, ta[2][~same])
+        assert bool((ka[5] <= scene.tile_bbox.shape[1]).all())
+    assert kernels.LAUNCHES["trace_stream"] == 2
+    assert kernels.LAUNCHES["trace_emit"] == 0

@@ -62,7 +62,6 @@ from zig_raytracing_contest_tpu_torch.scene.materials import load_materials
 from zig_raytracing_contest_tpu_torch.scene.types import (
     TorchScene,
     build_torch_scene,
-    check_resident,
     from_jax_scene,
 )
 
@@ -103,6 +102,7 @@ def traced(tmp_path_factory):
         tile_bbox=torch.from_numpy(tris.tile_bbox),
         tree_bbox=torch.from_numpy(tris.tree_bbox),
         group_bbox=torch.from_numpy(tris.group_bbox),
+        group_tree_bbox=torch.from_numpy(tris.group_tree_bbox),
         perm=torch.from_numpy(tris.perm.astype(np.int64)),
         rec_table=torch.from_numpy(np.ascontiguousarray(table)),
         bank=torch.from_numpy(np.asarray(js.color_u16f_t)[:, :P].T.copy()),
@@ -110,6 +110,8 @@ def traced(tmp_path_factory):
         bbox_max=torch.ones(3),
         tile=tris.tile,
         emissive_dummy=js.emissive_all_dummy is not None,
+        group_tiles=tris.group_tiles,
+        bank_resident=True,
     )
     assert tris.tile_bbox.shape[1] >= jmi.TREE_MIN_TILES
 
@@ -278,13 +280,14 @@ def test_per_bounce_frame_matches_jax(terrain, sort, monkeypatch):
     np.testing.assert_array_equal(img, jimg)
 
 
-def _scene_of(num_padded_tris: int) -> TorchScene:
+def _scene_of(num_padded_tris: int, bank_resident: bool = True) -> TorchScene:
     z = torch.zeros(6, 1)
     return TorchScene(
         tri_data=torch.empty((16, num_padded_tris)), tile_bbox=z, tree_bbox=z,
-        group_bbox=z, perm=torch.zeros(1, dtype=torch.int64), rec_table=z,
-        bank=torch.zeros(1, 4), bbox_min=torch.zeros(3), bbox_max=torch.ones(3),
-        tile=128, emissive_dummy=True,
+        group_bbox=z, group_tree_bbox=z, perm=torch.zeros(1, dtype=torch.int64),
+        rec_table=z, bank=torch.zeros(1, 4), bbox_min=torch.zeros(3),
+        bbox_max=torch.ones(3), tile=128, emissive_dummy=True, group_tiles=8,
+        bank_resident=bank_resident,
     )
 
 
@@ -294,23 +297,25 @@ def _scene_of(num_padded_tris: int) -> TorchScene:
     (1 << 16, "per-bounce"),
     ((1 << 16) + 1024, "per-bounce, sorted"),
     (1 << 17, "per-bounce, sorted"),
-    ((1 << 17) + 1, None),
+    ((1 << 17) + 1, "streaming, sorted"),
 ])
 def test_regime_boundaries(tris, want):
     """REC_EMIT_MAX_TRIS = 2^15, SORT_MIN_TRIS = 2^16 and the resident
-    bound VMEM_RESIDENT_MAX_TRIS = 2^17 (past it: the HBM-streaming trace,
-    ROADMAP queue 2 item 8)."""
-    if want is None:
-        with pytest.raises(NotImplementedError, match="queue 2 item 8"):
-            check_resident(tris, 10)
-        return
-    check_resident(tris, 10)
+    bound VMEM_RESIDENT_MAX_TRIS = 2^17, past which the trace streams; a
+    bank without a resident form leaves the whole path for the per-bounce
+    pipeline (tests/test_torch_stream.py holds these edges against the JAX
+    package)."""
     scene = _scene_of(tris)
     assert wavefront.regime(scene) == want
+    assert wavefront.shade_bank(scene) == "resident bank"
     whole = want == "whole path"
     assert wavefront.whole_path_regime(scene) == whole
     assert pipeline.slot_geometry(48, 40, whole) == ((2 * 2 * 1024, 2) if whole
                                                      else (48 * 40, 0))
+    paged_past = _scene_of(tris, bank_resident=False)
+    assert wavefront.shade_bank(paged_past) == "3-stage bank"
+    assert not wavefront.whole_path_regime(paged_past)
+    assert wavefront.regime(paged_past) == ("per-bounce" if whole else want)
 
 
 def test_wave_pixel_coords_and_jitter_match_jax():
@@ -367,7 +372,8 @@ def test_entry_points_default_to_the_card(tmp_path, terrain):
     arrays = {
         "mxu.tri_data": cpu.tri_data.numpy(), "mxu.tile_bbox": cpu.tile_bbox.numpy(),
         "mxu.tree_bbox": cpu.tree_bbox.numpy(), "mxu.group_bbox": cpu.group_bbox.numpy(),
-        "mxu.perm": cpu.perm.numpy(), "mxu.tile": cpu.tile,
+        "mxu.group_tree_bbox": cpu.group_tree_bbox.numpy(), "mxu.perm": cpu.perm.numpy(),
+        "mxu.tile": cpu.tile, "mxu.group_tiles": cpu.group_tiles,
         "shade_table_t": cpu.rec_table.numpy(), "color_u16f_t": cpu.bank.numpy().T,
         "grid.bbox_min": cpu.bbox_min.numpy(), "grid.bbox_max": cpu.bbox_max.numpy(),
         "emissive_all_dummy": cpu.emissive_dummy,

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_bake import jax_scene_arrays
 
 from zig_raytracing_contest_tpu.grid.builder import build_grid
 from zig_raytracing_contest_tpu.ops import linalg, rng
@@ -41,19 +42,7 @@ def scene_and_rays(tmp_path_factory):
     js = build_device_scene(geo, build_grid(geo.positions, (8, 8, 8)),
                             load_materials(g), backend="mxu")
     P = js.color_data.shape[0]
-    ts = from_jax_scene({
-        "mxu.tri_data": np.asarray(js.mxu.tri_data),
-        "mxu.tile_bbox": np.asarray(js.mxu.tile_bbox),
-        "mxu.tree_bbox": np.asarray(js.mxu.tree_bbox),
-        "mxu.group_bbox": np.asarray(js.mxu.group_bbox),
-        "mxu.perm": np.asarray(js.mxu.perm),
-        "mxu.tile": js.mxu.tile,
-        "shade_table_t": np.asarray(js.shade_table_t),
-        "color_u16f_t": np.asarray(js.color_u16f_t)[:, :P],
-        "grid.bbox_min": np.asarray(js.grid.bbox_min),
-        "grid.bbox_max": np.asarray(js.grid.bbox_max),
-        "emissive_all_dummy": js.emissive_all_dummy is not None,
-    }, device="cpu")
+    ts = from_jax_scene(jax_scene_arrays(js), device="cpu")
     rs = np.random.default_rng(99)
     xs = (np.arange(R) % W + rs.uniform(size=R)).astype(np.float32)
     ys = (np.arange(R) // W + rs.uniform(size=R)).astype(np.float32)

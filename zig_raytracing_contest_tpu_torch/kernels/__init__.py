@@ -37,10 +37,10 @@ _lib = None
 # built) and nvcc's report (ptxas registers / spills per kernel).
 BUILD_INFO = {"seconds": None, "log": ""}
 
-# Kernel launches per wrapper, counted by the wrappers (render/fused.py,
-# ops/mxu_intersect.py) where they launch a CUDA kernel, never for the twins.
-LAUNCHES = {"path_trace_gen": 0, "path_trace_fused": 0, "trace_emit_aux": 0,
-            "shade_fused": 0}
+# Launches per CUDA kernel, counted by the launchers below right after a
+# launch is accepted; the twins never count.
+LAUNCHES = {"path_trace_gen": 0, "path_trace": 0, "trace_emit": 0,
+            "trace_stream": 0, "shade": 0}
 
 
 def reset_launches() -> None:
@@ -58,6 +58,16 @@ class ZrcScene(ctypes.Structure):
         ("tile", ctypes.c_int),
         ("num_texels", ctypes.c_int),
         ("emissive_dummy", ctypes.c_int),
+    ]
+
+
+class ZrcHeap(ctypes.Structure):
+    _fields_ = [
+        ("tree", ctypes.c_void_p),
+        ("gbox", ctypes.c_void_p),
+        ("p2", ctypes.c_int),
+        ("ng", ctypes.c_int),
+        ("group_tiles", ctypes.c_int),
     ]
 
 
@@ -133,8 +143,8 @@ def load():
             ]
             lib.zrc_trace_emit.restype = i32
             lib.zrc_trace_emit.argtypes = [
-                ctypes.POINTER(ZrcScene), ptr, i32, ptr, ptr, ptr, i32, ptr, ptr,
-                ptr, i32, i32, ptr,
+                ctypes.POINTER(ZrcScene), ctypes.POINTER(ZrcHeap), ptr, ptr, ptr,
+                i32, ptr, ptr, ptr, i32, i32, ptr,
             ]
             lib.zrc_shade.restype = i32
             lib.zrc_shade.argtypes = [
@@ -199,6 +209,7 @@ def launch_path_trace_gen(scene, par, meta, gen, max_bounce: int,
         state_out.data_ptr(), idx_out.data_ptr(), R, dev.index or 0, stream,
     )
     _raise_on(lib, err, "path_trace_gen_kernel")
+    LAUNCHES["path_trace_gen"] += 1
 
 
 def launch_path_trace(scene, state_in, prev, bounce0: int, max_bounce: int,
@@ -222,12 +233,26 @@ def launch_path_trace(scene, state_in, prev, bounce0: int, max_bounce: int,
         dev.index or 0, stream,
     )
     _raise_on(lib, err, "path_trace_kernel")
+    LAUNCHES["path_trace"] += 1
 
 
-def launch_trace_emit(scene, state, prev, table, aux_out, idx_out, rec_out) -> None:
-    """Launch trace_emit_kernel: ``state`` (16, R) → ``aux_out`` (8, R),
-    ``idx_out`` (R,) int32 and, when ``table`` (24, Tp) is given,
-    ``rec_out`` (24, R); ``prev`` (R,) int32 or None."""
+def _heap(tree, gbox, group_tiles: int, leaves: int, device) -> ZrcHeap:
+    """The heap struct of a (6, 2·p2) ``tree`` over ``leaves`` leaves
+    (tiles, or the groups of ``gbox`` (6, ng))."""
+    p2 = tree.shape[1] // 2
+    _check(tree, "heap", torch.float32, (6, 2 * p2), device)
+    if p2 & (p2 - 1) or p2 < leaves or p2 > 1 << 30:
+        raise ValueError(f"heap of {p2} leaves does not fit {leaves} leaves")
+    if gbox is None:
+        return ZrcHeap(tree.data_ptr(), None, p2, 0, 0)
+    _check(gbox, "group_bbox", torch.float32, (6, leaves), device)
+    return ZrcHeap(tree.data_ptr(), gbox.data_ptr(), p2, leaves, group_tiles)
+
+
+def _launch_trace(scene, heap: ZrcHeap, state, prev, table, aux_out, idx_out,
+                  rec_out) -> None:
+    """Launch the walk of ``heap``: trace_stream_kernel when it has group
+    boxes, else trace_emit_kernel."""
     lib = load()
     dev = scene.device
     R = state.shape[1]
@@ -240,22 +265,40 @@ def launch_trace_emit(scene, state, prev, table, aux_out, idx_out, rec_out) -> N
     if table is not None:
         _check(table, "table", torch.float32, (24, tp), dev)
         _check(rec_out, "rec_out", torch.float32, (24, R), dev)
-    tree = scene.tree_bbox
-    p2 = tree.shape[1] // 2
-    _check(tree, "tree_bbox", torch.float32, (6, 2 * p2), dev)
-    nt = scene.tile_bbox.shape[1]
-    if p2 & (p2 - 1) or p2 < nt or p2 > 1 << 30:
-        raise ValueError(f"tree_bbox of {p2} leaves does not fit {nt} tiles")
     sc = _scene_struct(scene, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.zrc_trace_emit(
-        ctypes.byref(sc), tree.data_ptr(), p2, state.data_ptr(),
+        ctypes.byref(sc), ctypes.byref(heap), state.data_ptr(),
         None if prev is None else prev.data_ptr(),
         None if table is None else table.data_ptr(), tp, aux_out.data_ptr(),
         idx_out.data_ptr(), None if table is None else rec_out.data_ptr(), R,
         dev.index or 0, stream,
     )
-    _raise_on(lib, err, "trace_emit_kernel")
+    name = "trace_stream" if heap.gbox else "trace_emit"
+    _raise_on(lib, err, f"{name}_kernel")
+    LAUNCHES[name] += 1
+
+
+def launch_trace_emit(scene, state, prev, table, aux_out, idx_out, rec_out) -> None:
+    """Launch trace_emit_kernel (the walk of ``scene.tree_bbox``):
+    ``state`` (16, R) → ``aux_out`` (8, R), ``idx_out`` (R,) int32 and,
+    when ``table`` (24, Tp) is given, ``rec_out`` (24, R); ``prev`` (R,)
+    int32 or None."""
+    heap = _heap(scene.tree_bbox, None, 0, scene.tile_bbox.shape[1], scene.device)
+    _launch_trace(scene, heap, state, prev, table, aux_out, idx_out, rec_out)
+
+
+def launch_trace_stream(scene, state, prev, table, aux_out, idx_out, rec_out) -> None:
+    """Launch trace_stream_kernel (the walk of ``scene.group_tree_bbox``,
+    each reached group's tiles culled and swept); arguments as
+    ``launch_trace_emit``."""
+    ng = scene.group_bbox.shape[1]
+    nt = scene.tile_bbox.shape[1]
+    if ng != -(-nt // scene.group_tiles):
+        raise ValueError(f"{ng} groups of {scene.group_tiles} do not cover {nt} tiles")
+    heap = _heap(scene.group_tree_bbox, scene.group_bbox, scene.group_tiles, ng,
+                 scene.device)
+    _launch_trace(scene, heap, state, prev, table, aux_out, idx_out, rec_out)
 
 
 def launch_shade(scene, state_in, aux, rec, bounce: int, state_out) -> None:
@@ -275,3 +318,4 @@ def launch_shade(scene, state_in, aux, rec, bounce: int, state_out) -> None:
         int(bounce), state_out.data_ptr(), R, dev.index or 0, stream,
     )
     _raise_on(lib, err, "shade_kernel")
+    LAUNCHES["shade"] += 1

@@ -9,27 +9,40 @@
 //   trace_emit_kernel      <- zig_raytracing_contest_tpu/ops/mxu_intersect.py:1555
 //                             trace_emit_aux (_make_trace_kernel_t_rec :1326,
 //                             _make_trace_kernel_t :1309)
+//   trace_stream_kernel    <- the same call's streaming kernel
+//                             (_make_trace_kernel_t_hbm :1344, body :1380)
 //   shade_kernel           <- zig_raytracing_contest_tpu/render/fused.py:1191
 //                             shade_fused (_make_shade1_kernel :668)
 // with the shared device functions
 //   gen_ray        <- fused._gen_rays (:844)
 //   trace_nearest  <- mxu_intersect._trace_body_resident (:1027), flat tile
 //                     loop with _cull_any (:782) and _tile_update (:443)
-//   trace_tree     <- mxu_intersect._tree_traverse (:1191) with
-//                     _cull_entry_batch (:786), a per-ray binary walk
+//   walk_heap      <- mxu_intersect._tree_traverse (:1191) with
+//                     _cull_entry_batch (:786), a per-ray binary walk of
+//                     the tile heap or (streaming) of the group heap,
+//                     whose leaves re-cull and sweep their group's tiles
+//                     (visit_group / process_group :1418-1517; it also
+//                     covers _front_to_back_groups :869, which visits a
+//                     block's groups nearest first below 16 groups)
 //   shade_surface  <- fused._shade1_body (:595): _prep_math (:110, non-tiled)
 //                     and _shade_live (:245)
 //   emit_sort_key  <- fused._emit_sort_key (:915)
 //
 // The whole-path kernels keep the flat tile loop for every scene.  The
 // per-bounce kernels serve scenes past 2^15 padded triangles: trace_emit
-// walks the tile heap, and its winner record is one direct load per ray
-// after the walk (the JAX kernel's deferred _extract_winner_records :590).
-// What bounds them on this card: trace_emit is bound by operations (~41
-// f32 operations per triangle of every swept tile, ~24 per heap box) over
-// a state of 64 bytes in and 132 out per ray; the walk keeps each ray's
+// walks the tile heap, trace_stream (past 2^17 padded triangles) the heap
+// of 8-tile groups, and the winner record is one direct load per ray
+// after the walk (the JAX kernels' deferred _extract_winner_records :590).
+// What bounds them on this card: both traces are bound by operations (~41
+// f32 operations per triangle of every swept tile, ~24 per box) over a
+// state of 64 bytes in and 132 out per ray; the walk keeps each ray's
 // stack in registers/local memory and sweeps only the tiles its own slab
-// tests reach, nearest first, so the running best culls the rest.
+// tests reach, nearest first, so the running best culls the rest.  The
+// TPU's streaming kernel DMAs each surviving group's tiles through a
+// double-buffered VMEM scratch because its core cannot read the bank in
+// HBM directly; here a thread reads its tiles' triangles straight from
+// device memory (through L1/L2), so the two walks differ only in the heap
+// they walk and the leaf they visit.
 // shade_kernel is bound by bytes: 256 bytes of state, aux and record per
 // ray in and 64 out, coalesced (thread i owns column i), against ~150
 // operations per live ray.
@@ -244,11 +257,13 @@ __device__ Hit trace_nearest(const ZrcScene& sc, const float o[3],
     return h;
 }
 
-// ----------------------------------------------------------- trace_tree
-// Per-ray depth-first walk of the tile heap (mxu_intersect._build_heap:
-// node n's children are 2n and 2n+1, leaf p2 + j is tile j; empty subtrees
-// hold the always-miss box).  The heap depth is log2(p2) <= 10 for resident
-// banks, and the walk pushes at most one node per level.
+// ------------------------------------------------------------ walk_heap
+// Per-ray depth-first walk of an implicit heap (mxu_intersect._build_heap:
+// node n's children are 2n and 2n+1, leaf p2 + j is tile or group j; empty
+// subtrees hold the always-miss box).  The heap depth is log2(p2): at most
+// 10 for resident tile heaps and for group heaps (STREAM_MAX_TILES / 8 =
+// 1024 groups), 13 for a streaming bake's tile heap; the walk pushes at
+// most one node per level.
 #define TREE_STACK 32
 
 // Entry t of heap node n for the ray, or +inf when the slab test of
@@ -272,36 +287,68 @@ __device__ __forceinline__ float node_entry(const float* tree, int stride, int n
     return tmin >= 0.0f ? tmin : 0.0f;
 }
 
+// The heap a per-bounce trace walks: the tile heap (``gbox`` null: leaf
+// p2 + j is tile j) or the group heap (leaf p2 + g is group g, whose box is
+// column g of the (6, ng) ``gbox`` and whose tiles are g * group_tiles ..
+// min((g + 1) * group_tiles, nt) - 1).
+struct ZrcHeap {
+    const float* tree;       // (6, 2 * p2) f32 implicit heap
+    const float* gbox;       // (6, ng) f32 group boxes, or null
+    int p2;
+    int ng;
+    int group_tiles;
+};
+
 // Nearest front-facing hit by the tree walk: both children of a node are
 // tested against the running best t; the nearer descends, the farther is
 // pushed with its entry t and skipped when popped at or behind the best.
-// ``swept`` counts the tiles swept, ``tested`` the heap boxes tested.
-// The nearest t does not depend on the visit order; which of two triangles
-// at the same t wins does (the first swept), as in _tree_traverse.
-__device__ Hit trace_tree(const ZrcScene& sc, const float* tree, int p2,
-                          const float o[3], const float d[3], int prev,
-                          int& swept, int& tested) {
+// A tile leaf is swept; a group leaf re-culls its box against the running
+// best (visit_group), then culls and sweeps its real tiles in ascending
+// order (process_group: tiles >= nt in the last group are never read).
+// ``swept`` counts the tiles swept, ``tested`` the boxes tested (heap
+// nodes, group re-culls, tile boxes).  The nearest t does not depend on
+// the visit order; which of two triangles at the same t wins does (the
+// first swept), as in _tree_traverse.
+template <bool kGroups>
+__device__ Hit walk_heap(const ZrcScene& sc, const ZrcHeap& hp,
+                         const float o[3], const float d[3], int prev,
+                         int& swept, int& tested) {
     float inv[3] = {1.0f / d[0], 1.0f / d[1], 1.0f / d[2]};
     Hit h = {INFINITY, 0.0f, 0.0f, 0};
+    const int p2 = hp.p2;
     const int stride = 2 * p2;
     int stack_n[TREE_STACK];
     float stack_e[TREE_STACK];
     int sp = 0;
     swept = 0;
     tested = 1;
-    int node = node_entry(tree, stride, 1, o, inv, h.t) < INFINITY ? 1 : 0;
+    int node = node_entry(hp.tree, stride, 1, o, inv, h.t) < INFINITY ? 1 : 0;
     while (node) {
         if (node >= p2) {
             int j = node - p2;
-            if (j < sc.nt) {
-                sweep_tile(sc, j, o, d, prev, h);
-                ++swept;
+            if (!kGroups) {
+                if (j < sc.nt) {
+                    sweep_tile(sc, j, o, d, prev, h);
+                    ++swept;
+                }
+            } else if (j < hp.ng) {
+                ++tested;
+                if (tile_passes(hp.gbox, hp.ng, j, o, inv, h.t)) {
+                    int j1 = min((j + 1) * hp.group_tiles, sc.nt);
+                    for (int jt = j * hp.group_tiles; jt < j1; ++jt) {
+                        ++tested;
+                        if (!tile_passes(sc.tile_bbox, sc.nt, jt, o, inv, h.t))
+                            continue;
+                        sweep_tile(sc, jt, o, d, prev, h);
+                        ++swept;
+                    }
+                }
             }
             node = 0;
         } else {
             int c = 2 * node;
-            float e0 = node_entry(tree, stride, c, o, inv, h.t);
-            float e1 = node_entry(tree, stride, c + 1, o, inv, h.t);
+            float e0 = node_entry(hp.tree, stride, c, o, inv, h.t);
+            float e1 = node_entry(hp.tree, stride, c + 1, o, inv, h.t);
             tested += 2;
             bool p0 = e0 < INFINITY, p1 = e1 < INFINITY;
             if (p0 && p1) {
@@ -576,14 +623,13 @@ __global__ void path_trace_kernel(ZrcScene sc, const float* __restrict__ state_i
 // when ``rec_out`` is given, the winner's 24-float record read from the
 // field-major (24, table_cols) ``table`` (zeros on a miss).  A dead ray
 // traces nothing: t = +inf, idx = 0.
-__global__ void trace_emit_kernel(ZrcScene sc, const float* __restrict__ tree,
-                                  int p2, const float* __restrict__ state,
-                                  const int* __restrict__ prev,
-                                  const float* __restrict__ table, int table_cols,
-                                  float* __restrict__ aux, int* __restrict__ idx_out,
-                                  float* __restrict__ rec_out, int R) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= R) return;
+template <bool kGroups>
+__device__ void trace_emit_ray(const ZrcScene& sc, const ZrcHeap& hp, int i,
+                               const float* __restrict__ state,
+                               const int* __restrict__ prev,
+                               const float* __restrict__ table, int table_cols,
+                               float* __restrict__ aux, int* __restrict__ idx_out,
+                               float* __restrict__ rec_out, int R) {
     const size_t n = (size_t)R;
     float alive = state[S_ALIVE * n + i];
     Hit h = {INFINITY, 0.0f, 0.0f, 0};
@@ -593,7 +639,7 @@ __global__ void trace_emit_kernel(ZrcScene sc, const float* __restrict__ tree,
                       state[(S_OX + 2) * n + i]};
         float d[3] = {state[(S_DX + 0) * n + i], state[(S_DX + 1) * n + i],
                       state[(S_DX + 2) * n + i]};
-        h = trace_tree(sc, tree, p2, o, d, prev ? prev[i] : -1, swept, tested);
+        h = walk_heap<kGroups>(sc, hp, o, d, prev ? prev[i] : -1, swept, tested);
     }
     aux[0 * n + i] = h.u;
     aux[1 * n + i] = h.v;
@@ -610,6 +656,32 @@ __global__ void trace_emit_kernel(ZrcScene sc, const float* __restrict__ tree,
             rec_out[k * n + i] =
                 hit ? __ldg(table + (size_t)k * table_cols + h.idx) : 0.0f;
     }
+}
+
+// Resident scenes: the walk of the tile heap.
+__global__ void trace_emit_kernel(ZrcScene sc, ZrcHeap hp,
+                                  const float* __restrict__ state,
+                                  const int* __restrict__ prev,
+                                  const float* __restrict__ table, int table_cols,
+                                  float* __restrict__ aux, int* __restrict__ idx_out,
+                                  float* __restrict__ rec_out, int R) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= R) return;
+    trace_emit_ray<false>(sc, hp, i, state, prev, table, table_cols, aux,
+                          idx_out, rec_out, R);
+}
+
+// Streaming scenes: the walk of the group heap.
+__global__ void trace_stream_kernel(ZrcScene sc, ZrcHeap hp,
+                                    const float* __restrict__ state,
+                                    const int* __restrict__ prev,
+                                    const float* __restrict__ table, int table_cols,
+                                    float* __restrict__ aux, int* __restrict__ idx_out,
+                                    float* __restrict__ rec_out, int R) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= R) return;
+    trace_emit_ray<true>(sc, hp, i, state, prev, table, table_cols, aux,
+                         idx_out, rec_out, R);
 }
 
 // One bounce of shading of a (16, R) state from the trace's aux and
@@ -672,7 +744,9 @@ extern "C" int zrc_path_trace(const ZrcScene* sc, const float* state_in,
     return (int)cudaGetLastError();
 }
 
-extern "C" int zrc_trace_emit(const ZrcScene* sc, const float* tree, int p2,
+// A heap with group boxes launches trace_stream_kernel, else
+// trace_emit_kernel.
+extern "C" int zrc_trace_emit(const ZrcScene* sc, const ZrcHeap* hp,
                               const float* state, const int* prev,
                               const float* table, int table_cols, float* aux,
                               int* idx_out, float* rec_out, int R, int device,
@@ -681,8 +755,12 @@ extern "C" int zrc_trace_emit(const ZrcScene* sc, const float* tree, int p2,
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     int blocks = (R + kThreads - 1) / kThreads;
-    trace_emit_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        *sc, tree, p2, state, prev, table, table_cols, aux, idx_out, rec_out, R);
+    if (hp->gbox)
+        trace_stream_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+            *sc, *hp, state, prev, table, table_cols, aux, idx_out, rec_out, R);
+    else
+        trace_emit_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+            *sc, *hp, state, prev, table, table_cols, aux, idx_out, rec_out, R);
     return (int)cudaGetLastError();
 }
 

@@ -7,8 +7,9 @@ and ``nearest_hit_ref`` is the plain PyTorch twin of the resident trace
 body's flat tile loop (``_trace_body_resident`` with ``_cull_any`` and
 ``_tile_update``).  The CUDA kernels (kernels/path_trace.cu) run the same
 arithmetic per ray.  ``trace_emit_aux`` is the per-bounce pipeline's
-nearest hit: its CUDA kernel walks the tile heap (``tree_bbox``), its twin
-``trace_emit_aux_ref`` is the flat loop plus the record load.
+nearest hit: its CUDA kernels walk the tile heap (``tree_bbox``) of a
+resident scene or the group heap (``group_tree_bbox``) of a streaming one,
+its twin ``trace_emit_aux_ref`` is the flat loop plus the record load.
 
 Every triangle (v0, e1, e2) is baked into its world→barycentric affine
 transform M = [e1 e2 n]⁻¹ (n = e1 × e2), c = -M·v0.  For a ray (o, d):
@@ -50,7 +51,9 @@ _BANK_ROWS = 16
 # Read at call time (render/wavefront.py), so a test can lower it.
 REC_EMIT_MAX_TRIS = 1 << 15
 # Resident scenes (VMEM_RESIDENT_MAX_TRIS in the JAX package) bake 128-
-# triangle tiles; past it the JAX package streams the bank from HBM.
+# triangle tiles; past it the JAX package streams the bank from HBM.  Past
+# it in padded triangles, trace_emit_aux launches the streaming kernel.
+# Read at call time, so a test can lower it.
 VMEM_RESIDENT_MAX_TRIS = 1 << 17
 
 
@@ -62,9 +65,10 @@ class MXUTriangles:
                |n|² = 0, which the det test culls unconditionally.
     tile_bbox: (6, ceil(T / tile)) f32 — [min xyz, max xyz] per REAL tile.
     perm:      (Tp,) int32 — Morton position → original triangle id.
-    group_bbox / tree_bbox / group_tree_bbox: the JAX package's cull
-               groups and implicit heaps, kept for parity of the bake; the
-               flat tile loop reads none of them.
+    group_bbox / tree_bbox / group_tree_bbox: the cull groups' boxes and
+               the implicit heaps over the tiles and over the groups (the
+               per-bounce trace kernels walk them; the flat loop reads
+               none of them).
     """
 
     tri_data: np.ndarray
@@ -337,6 +341,12 @@ def trace_emit_aux_ref(scene, state16: torch.Tensor, rec_table=None, prev=None):
     return aux, idx.to(torch.int32), rec
 
 
+def streams_bank(scene) -> bool:
+    """The scene takes the streaming trace: more than VMEM_RESIDENT_MAX_TRIS
+    padded triangles (the JAX package's ``trace_emit_aux`` test)."""
+    return scene.tri_data.shape[1] > VMEM_RESIDENT_MAX_TRIS
+
+
 def trace_emit_aux(scene, state16: torch.Tensor, rec_table=None, prev=None):
     """Field-major nearest hit of the per-bounce pipeline (the JAX
     package's ``trace_emit_aux``): (16, R) state → (aux (8, R) f32,
@@ -349,9 +359,12 @@ def trace_emit_aux(scene, state16: torch.Tensor, rec_table=None, prev=None):
     ray's previous hit, never hit again.
 
     On a CUDA scene this launches ``trace_emit_kernel`` (a per-ray walk of
-    ``scene.tree_bbox``); on a CPU scene it runs ``trace_emit_aux_ref``.
-    The two find the same nearest t; where two triangles tie at that t the
-    walk keeps the first it swept, the flat loop the lower index."""
+    ``scene.tree_bbox``) or, past VMEM_RESIDENT_MAX_TRIS padded triangles,
+    ``trace_stream_kernel`` (a per-ray walk of ``scene.group_tree_bbox``,
+    sweeping each reached group's tiles); on a CPU scene it runs
+    ``trace_emit_aux_ref``.  They find the same nearest t; where two
+    triangles tie at that t the walks keep the first they swept, the flat
+    loop the lower index."""
     kind = scene.device.type
     if kind == "cpu":
         return trace_emit_aux_ref(scene, state16, rec_table, prev)
@@ -363,6 +376,8 @@ def trace_emit_aux(scene, state16: torch.Tensor, rec_table=None, prev=None):
     idx = torch.empty(R, dtype=torch.int32, device=dev)
     rec = (None if rec_table is None
            else torch.empty((24, R), dtype=torch.float32, device=dev))
-    kernels.launch_trace_emit(scene, state16, prev, rec_table, aux, idx, rec)
-    kernels.LAUNCHES["trace_emit_aux"] += 1
+    if streams_bank(scene):
+        kernels.launch_trace_stream(scene, state16, prev, rec_table, aux, idx, rec)
+    else:
+        kernels.launch_trace_emit(scene, state16, prev, rec_table, aux, idx, rec)
     return aux, idx, rec

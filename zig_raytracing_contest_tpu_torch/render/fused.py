@@ -10,9 +10,10 @@ The port of the Pallas kernels of ``zig_raytracing_contest_tpu/render/fused.py``
 * ``path_trace_fused`` (fused.py:1111) continues the (sorted) state for
   ``max_bounce`` bounces numbered from ``bounce0``, excluding each ray's
   previous hit;
-* ``shade_fused`` (fused.py:1191, the single-kernel ``_make_shade1_kernel``)
+* ``shade_fused`` (fused.py:1191: the single-kernel ``_make_shade1_kernel``
+  and the 3-stage ``_make_prep_kernel`` + gather + ``_make_shade_kernel``)
   shades one bounce of the per-bounce pipeline from the trace's aux and
-  records.
+  records, for any bank.
 
 Each entry point is a wrapper with two bodies: the CUDA kernel of
 kernels/path_trace.cu for tensors on a CUDA device, and the plain PyTorch
@@ -398,7 +399,6 @@ def path_trace_gen(scene: TorchScene, par, meta, wave_size: int,
     idx = torch.empty(wave_size, dtype=torch.int32, device=scene.device)
     kernels.launch_path_trace_gen(scene, par, meta, gen, max_bounce, emit_key,
                           state, idx)
-    kernels.LAUNCHES["path_trace_gen"] += 1
     return (state, idx) if emit_idx else state
 
 
@@ -415,7 +415,6 @@ def path_trace_fused(scene: TorchScene, state16, max_bounce: int,
     state = torch.empty((16, R), dtype=torch.float32, device=scene.device)
     idx = torch.empty(R, dtype=torch.int32, device=scene.device)
     kernels.launch_path_trace(scene, state16, prev, bounce0, max_bounce, state, idx)
-    kernels.LAUNCHES["path_trace_fused"] += 1
     return (state, idx) if emit_idx else state
 
 
@@ -429,12 +428,22 @@ def shade_fused(scene: TorchScene, state, aux, tri, bounce: int, rec=None):
     A dead ray's state passes through, as under the JAX function's
     ``block_skip``; its kernel decides per ray, so the port has no
     block_skip switch (on this path a dead ray's row 15 is already 0, the
-    only row the JAX kernel would rewrite)."""
+    only row the JAX kernel would rewrite).
+
+    The same kernel serves every bank.  The JAX function shades a resident
+    bank in one kernel (``_make_shade1_kernel``) and any other bank in three
+    steps: ``_make_prep_kernel`` (interpolation and texel indices), an XLA
+    gather of u16×2-packed texels, ``_make_shade_kernel``; the split exists
+    because a TPU kernel cannot gather from a bank past its VMEM.  Here a
+    texel is one float4 load from the (P, 4) bank at any P below 2^24, so
+    ``shade_kernel`` computes the 3-stage result too (the indices of
+    ``prep_math_ref``, the texels, ``_shade_live``).  JAX's gather fills an
+    out-of-range index where the kernel clamps it; such indices come only
+    from missed or dead lanes, whose texels are masked."""
     if _device_kind(scene) == "cpu":
         return shade_fused_ref(scene, state, aux, tri, bounce, rec)
     if rec is None:
         rec = records_ref(scene.rec_table, aux[2], tri.to(torch.int64))
     out = torch.empty_like(state)
     kernels.launch_shade(scene, state, aux, rec, bounce, out)
-    kernels.LAUNCHES["shade_fused"] += 1
     return out

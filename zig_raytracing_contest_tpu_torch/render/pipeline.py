@@ -1,7 +1,7 @@
 """End-to-end render pipeline: scene file → PNG, with phase timing.
 
-The port of ``zig_raytracing_contest_tpu/render/pipeline.py`` for the
-resident regimes: load → preprocess → compile (scene bake) → render →
+The port of ``zig_raytracing_contest_tpu/render/pipeline.py`` for the MXU
+regimes: load → preprocess → compile (scene bake) → render →
 save, each phase timed and logged like the reference's main()
 (src/main.zig:73-143).  Frames render in waves of pixel slots, in 32×32
 tiled order for whole-path scenes and in raster order for per-bounce
@@ -31,7 +31,13 @@ from ..scene.materials import load_materials
 from ..scene.types import TorchScene, build_torch_scene
 from ..utils.image_io import write_png
 from ..utils.timing import PhaseTimers
-from .wavefront import build_gen_par, regime, render_wave_rows, whole_path_regime
+from .wavefront import (
+    build_gen_par,
+    regime,
+    render_wave_rows,
+    shade_bank,
+    whole_path_regime,
+)
 
 log = logging.getLogger("zig_raytracing_contest_tpu_torch")
 
@@ -105,8 +111,8 @@ def prepare_scene(in_path: str, config: Config, camera_name=None, width=None,
             geometry, materials, scene_bbox(geometry.positions), device,
             backend=config.backend,
         )
-        log.info("Intersection backend: %s on %s",
-                 regime(scene, config.ext_flags), scene.device)
+        log.info("Intersection backend: %s on %s (%s)",
+                 regime(scene, config.ext_flags), scene.device, shade_bank(scene))
 
     return scene, camera, timers
 

@@ -1,8 +1,8 @@
 """One wave of the frame: kernel calls, beam sorts and the unsort.
 
-The port of ``zig_raytracing_contest_tpu/render/wavefront.py``'s two
-resident regimes.  Scenes up to REC_EMIT_MAX_TRIS padded triangles take
-the whole path, per wave:
+The port of ``zig_raytracing_contest_tpu/render/wavefront.py``'s MXU
+regimes.  Scenes up to REC_EMIT_MAX_TRIS padded triangles whose texel bank
+has a resident form in the JAX package take the whole path, per wave:
 
 1. ``path_trace_gen`` makes the primary rays and runs bounce 0, emitting
    the beam-sort key and each ray's winner triangle;
@@ -12,11 +12,14 @@ the whole path, per wave:
 5. ``path_trace_fused`` runs bounces 2 .. max_bounce-1;
 6. an unsort brings radiance and segment counts back to wave order.
 
-Larger resident scenes take the per-bounce pipeline (the fused branch of
+Every other scene takes the per-bounce pipeline (the fused branch of
 ``render_wave``): raster-order primary rays made here, then per bounce one
 ``trace_emit_aux`` and one ``shade_fused`` call; past SORT_MIN_TRIS padded
 triangles the wave is beam-sorted before every bounce and unsorted at the
-end.
+end.  Past VMEM_RESIDENT_MAX_TRIS padded triangles the trace streams (its
+kernel walks the group heap), and a bank without a resident form is the
+JAX package's 3-stage shade; the port shades both kinds of bank with one
+kernel.
 
 A ray's result does not depend on its lane, so the sorts change speed,
 not the image.  Sorting is PyTorch: a stable ``torch.sort`` of the int32
@@ -45,13 +48,14 @@ SORT_MIN_TRIS = 1 << 16
 
 def whole_path_regime(scene: TorchScene, ext: ExtFlags | None = None) -> bool:
     """True when the wave renders through the whole-path kernels: no
-    extension is on and the padded triangle bank is within both
-    REC_EMIT_MAX_TRIS and SORT_MIN_TRIS (TorchScene's constructor already
-    refused banks past the resident range)."""
+    extension is on, the texel bank has a resident form and the padded
+    triangle bank is within both REC_EMIT_MAX_TRIS and SORT_MIN_TRIS (the
+    JAX package's whole_path_regime with use_fused)."""
     if ext is not None and ext.any:
         return False
     tp = scene.tri_data.shape[1]
-    return tp <= mxu_intersect.REC_EMIT_MAX_TRIS and tp <= SORT_MIN_TRIS
+    return (scene.bank_resident and tp <= mxu_intersect.REC_EMIT_MAX_TRIS
+            and tp <= SORT_MIN_TRIS)
 
 
 def sorts_every_bounce(scene: TorchScene) -> bool:
@@ -60,10 +64,20 @@ def sorts_every_bounce(scene: TorchScene) -> bool:
 
 
 def regime(scene: TorchScene, ext: ExtFlags | None = None) -> str:
-    """The regime a frame of ``scene`` renders in, for logs and reports."""
+    """The regime a frame of ``scene`` renders in, for logs and reports:
+    "whole path", "per-bounce", "per-bounce, sorted" or "streaming,
+    sorted" (past VMEM_RESIDENT_MAX_TRIS padded triangles)."""
     if whole_path_regime(scene, ext):
         return "whole path"
-    return "per-bounce, sorted" if sorts_every_bounce(scene) else "per-bounce"
+    name = "streaming" if mxu_intersect.streams_bank(scene) else "per-bounce"
+    return name + ", sorted" if sorts_every_bounce(scene) else name
+
+
+def shade_bank(scene: TorchScene) -> str:
+    """Which shade of the JAX package the scene's bank takes: "resident
+    bank" (one kernel) or "3-stage bank" (prep, gather, shade).  The port's
+    ``shade_kernel`` serves both."""
+    return "resident bank" if scene.bank_resident else "3-stage bank"
 
 
 def build_gen_par(scene: TorchScene, cam_origin, cam_lower_left, cam_right,

@@ -1,17 +1,20 @@
-"""Device-side scene of the resident renderer.
+"""Device-side scene of the renderer.
 
 The port of the parts of ``zig_raytracing_contest_tpu/scene/types.py`` that
-the resident regimes read (the whole path and the per-bounce pipeline, up
-to VMEM_RESIDENT_MAX_TRIS padded triangles): the triangle bake with its
-tile heap, the shade table (``build_shade_table``), the
-packed 24-column record (``build_packed_record``, non-tiled texel offsets),
-the texel bank as u16-valued f32 RGBA rows, and the ``emissive_all_dummy``
-flag.  A ``TorchScene`` holds these as tensors on one device.
+the MXU regimes read, up to MXU_BACKEND_MAX_TRIANGLES: the triangle bake
+with its tile and group heaps (128-triangle tiles for resident scenes,
+``_stream_tile`` past VMEM_RESIDENT_MAX_TRIS), the shade table
+(``build_shade_table``), the packed 24-column record
+(``build_packed_record``, non-tiled texel offsets), the texel bank as
+u16-valued f32 RGBA rows, and the ``emissive_all_dummy`` flag.  A
+``TorchScene`` holds these as tensors on one device.
 
 The JAX package's one-hot (4, Pp) bank, paged corner-expanded bank and
 u16×2-packed bank exist because a TPU has no gather unit.  Here every texel
 is a direct load from the row-major (P, 4) bank, so one layout serves every
-bank size up to PAGED_MAX_TEXELS.
+bank up to 2^24 texels; ``bank_resident`` only records which shade the JAX
+package would take (its single-kernel shade or its 3-stage shade), which
+decides the regime.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from ..ops.mxu_intersect import (
+    TRI_TILE,
     TRI_TILE_SMALL,
     VMEM_RESIDENT_MAX_TRIS,
     MXUTriangles,
@@ -30,9 +34,59 @@ from ..ops.mxu_intersect import (
 from .geometry import GeometryArrays
 from .materials import MaterialBank
 
-# Banks past this many texels take the JAX package's 3-stage shade
-# (scene/types.py PAGED_MAX_TEXELS).
+# Past this many triangles the JAX package's auto backend takes the grid
+# fallback (scene/types.py MXU_BACKEND_MAX_TRIANGLES).
+MXU_BACKEND_MAX_TRIANGLES = 1 << 24
+
+# Streaming bakes keep at most this many tiles: bigger scenes double the
+# tile instead (scene/types.py STREAM_MAX_TILES, _stream_tile).  Read at
+# call time, so a test can lower it.
+STREAM_MAX_TILES = 8192
+
+
+def _stream_tile(num_triangles: int) -> int:
+    tile = TRI_TILE
+    while num_triangles > tile * STREAM_MAX_TILES:
+        tile *= 2
+    return tile
+
+
+# A bank has a resident form in the JAX package (its single-kernel shade)
+# when it holds at most ONEHOT_MAX_TEXELS texels (the one-hot bank) or when
+# its padded tiled capacity is at most PAGED_MAX_TEXELS (the paged bank);
+# past both it takes the 3-stage shade.  Read at call time.
+ONEHOT_MAX_TEXELS = 1024
 PAGED_MAX_TEXELS = 1 << 20
+# The paged bank's 2-D tiling (scene/types.py PAGE_TEXELS, PAGE_TILE_*).
+PAGE_TEXELS = 2048
+PAGE_TILE_W = 64
+PAGE_TILE_H = PAGE_TEXELS // PAGE_TILE_W  # 32
+
+
+def tiled_texel_capacity(color_desc: np.ndarray) -> int:
+    """Texel capacity of the JAX package's tiled page layout
+    (``_tiled_texel_map``'s ``padded_total``): textures that fit one
+    64×32 page tile pack row-major at the front, padded to a page; each
+    larger texture takes whole page tiles; the total pads to a page."""
+    desc = np.asarray(color_desc, np.int64)
+    ws, hs = desc[:, 1], desc[:, 2]
+    small = (ws <= PAGE_TILE_W) & (hs <= PAGE_TILE_H)
+    pos = int((ws[small] * hs[small]).sum())
+    pos = -(-pos // PAGE_TEXELS) * PAGE_TEXELS
+    big = ~small
+    pos += int(((-(-ws[big] // PAGE_TILE_W)) * (-(-hs[big] // PAGE_TILE_H))).sum()
+               * PAGE_TEXELS)
+    return -(-pos // PAGE_TEXELS) * PAGE_TEXELS
+
+
+def bank_is_resident(num_texels: int, color_desc: np.ndarray) -> bool:
+    """True when the JAX package bakes a resident (one-hot or paged) bank:
+    at most ONEHOT_MAX_TEXELS texels, or a tiled capacity within
+    PAGED_MAX_TEXELS (build_device_scene's paged-bank decision)."""
+    if num_texels <= ONEHOT_MAX_TEXELS:
+        return True
+    return tiled_texel_capacity(color_desc) <= PAGED_MAX_TEXELS
+
 
 # shade_table column layout
 COL_NRM = 0  # 9 cols: 3 vertices × xyz (world, normalized)
@@ -112,25 +166,32 @@ def emissive_all_dummy(materials: MaterialBank) -> bool:
 
 @dataclass
 class TorchScene:
-    """The resident renderer's scene, as tensors on one device.
+    """The renderer's scene, as tensors on one device.
 
     tri_data   (16, Tp) f32 — transform bank in Morton order (rows 0-12)
     tile_bbox  (6, nt) f32 — per-real-tile boxes, the flat loop's bounds
     tree_bbox  (6, 2·p2) f32 — implicit binary heap over the tile boxes,
-               the per-bounce trace's tree
-    group_bbox (6, ng) f32 — boxes of 8-tile groups (read by no kernel yet)
+               the resident per-bounce trace's tree
+    group_bbox (6, ng) f32 — boxes of ``group_tiles``-tile groups
+    group_tree_bbox (6, 2·p2g) f32 — implicit binary heap over the group
+               boxes, the streaming trace's tree
     perm       (Tp,) int64 — Morton position → original triangle id
     rec_table  (24, Tp) f32 — packed shade records in Morton order
     bank       (P, 4) f32 — u16-valued RGBA texels (dequantized in-shade)
     bbox_min / bbox_max (3,) f32 — scene box, for the beam-sort key
     tile       triangles per tile (static)
     emissive_dummy  every emissive entry is 1×1 (static)
+    group_tiles     tiles per cull group (static)
+    bank_resident   the JAX package would bake a resident (one-hot or
+                    paged) bank, so the whole path may take the scene
+                    (static); else its shade is the 3-stage one
     """
 
     tri_data: torch.Tensor
     tile_bbox: torch.Tensor
     tree_bbox: torch.Tensor
     group_bbox: torch.Tensor
+    group_tree_bbox: torch.Tensor
     perm: torch.Tensor
     rec_table: torch.Tensor
     bank: torch.Tensor
@@ -138,6 +199,8 @@ class TorchScene:
     bbox_max: torch.Tensor
     tile: int
     emissive_dummy: bool
+    group_tiles: int
+    bank_resident: bool
 
     @property
     def device(self) -> torch.device:
@@ -171,31 +234,29 @@ class TorchScene:
         return cached
 
 
-def check_resident(num_padded_tris: int, num_texels: int) -> None:
-    """Raise for scenes past the port's resident range."""
-    if num_padded_tris > VMEM_RESIDENT_MAX_TRIS:
-        raise NotImplementedError(
-            f"{num_padded_tris} padded triangles exceed VMEM_RESIDENT_MAX_TRIS "
-            f"= {VMEM_RESIDENT_MAX_TRIS}: the HBM-streaming trace is ROADMAP "
-            f"queue 2 item 8"
-        )
-    if num_texels > PAGED_MAX_TEXELS:
-        raise NotImplementedError(
-            f"{num_texels} texels exceed PAGED_MAX_TEXELS = {PAGED_MAX_TEXELS}: "
-            f"the 3-stage shade is ROADMAP queue 2 item 9"
-        )
+def bake_tile(num_triangles: int) -> int:
+    """Triangles per tile of the bake (build_device_scene's rule, on the raw
+    count): 128 for resident scenes, else ``_stream_tile``."""
+    if num_triangles <= VMEM_RESIDENT_MAX_TRIS:
+        return TRI_TILE_SMALL
+    return _stream_tile(num_triangles)
 
 
-def bake_scene_triangles(geometry: GeometryArrays) -> MXUTriangles:
-    """The JAX package's bake of a resident scene (128-triangle tiles)."""
-    if geometry.num_triangles > VMEM_RESIDENT_MAX_TRIS:
+def bake_scene_triangles(geometry: GeometryArrays, backend: str = "auto") -> MXUTriangles:
+    """The JAX package's triangle bake: 128-triangle tiles while the raw
+    count is within VMEM_RESIDENT_MAX_TRIS, else ``_stream_tile`` (256·2^k,
+    at most STREAM_MAX_TILES tiles).  The kernels decide streaming on the
+    padded count (ops/mxu_intersect.trace_emit_aux)."""
+    T = geometry.num_triangles
+    if backend != "mxu" and T > MXU_BACKEND_MAX_TRIANGLES:
         raise NotImplementedError(
-            f"{geometry.num_triangles} triangles exceed VMEM_RESIDENT_MAX_TRIS: "
-            f"the HBM-streaming trace is ROADMAP queue 2 item 8"
+            f"{T} triangles exceed MXU_BACKEND_MAX_TRIANGLES = "
+            f"{MXU_BACKEND_MAX_TRIANGLES}: the grid/DDA fallback is ROADMAP "
+            f"queue 1 item 11"
         )
     pos = geometry.positions
     return bake_triangles(pos[:, 0], pos[:, 1] - pos[:, 0], pos[:, 2] - pos[:, 0],
-                          tile=TRI_TILE_SMALL)
+                          tile=bake_tile(T))
 
 
 def build_torch_scene(
@@ -212,14 +273,14 @@ def build_torch_scene(
         raise NotImplementedError(
             "backend='grid' (grid/DDA fallback) is ROADMAP queue 1 item 11"
         )
-    mxu = bake_scene_triangles(geometry)
-    check_resident(mxu.tri_data.shape[1], materials.color_u16.shape[0])
+    mxu = bake_scene_triangles(geometry, backend)
     record = build_packed_record(build_shade_table(geometry, materials))
     return TorchScene(
         tri_data=torch.from_numpy(mxu.tri_data),
         tile_bbox=torch.from_numpy(mxu.tile_bbox),
         tree_bbox=torch.from_numpy(mxu.tree_bbox),
         group_bbox=torch.from_numpy(mxu.group_bbox),
+        group_tree_bbox=torch.from_numpy(mxu.group_tree_bbox),
         perm=torch.from_numpy(mxu.perm.astype(np.int64)),
         rec_table=torch.from_numpy(np.ascontiguousarray(record[mxu.perm].T)),
         bank=torch.from_numpy(materials.color_u16.astype(np.float32)),
@@ -227,7 +288,18 @@ def build_torch_scene(
         bbox_max=torch.from_numpy(np.asarray(bbox[1], np.float32)),
         tile=mxu.tile,
         emissive_dummy=emissive_all_dummy(materials),
+        group_tiles=mxu.group_tiles,
+        bank_resident=bank_is_resident(materials.color_u16.shape[0],
+                                       materials.color_desc),
     ).to(device)
+
+
+def _unpack_color_bank(packed: np.ndarray) -> np.ndarray:
+    """(2, P) int32 u16×2-packed bank (R|G<<16, B|A<<16) → (P, 4) f32 of
+    the u16 values."""
+    w = np.asarray(packed).view(np.uint32)
+    return np.stack([w[0] & 0xFFFF, w[0] >> 16, w[1] & 0xFFFF, w[1] >> 16],
+                    axis=1).astype(np.float32)
 
 
 def from_jax_scene(arrays: dict, device="cuda") -> TorchScene:
@@ -235,27 +307,45 @@ def from_jax_scene(arrays: dict, device="cuda") -> TorchScene:
     ``DeviceScene``'s arrays taken as NumPy.
 
     Keys: ``mxu.tri_data``, ``mxu.tile_bbox``, ``mxu.tree_bbox``,
-    ``mxu.group_bbox``, ``mxu.perm``, ``mxu.tile``,
-    ``shade_table_t``, ``color_u16f_t`` (the (4, P) one-hot bank cut back to
-    its P real texels), ``grid.bbox_min``, ``grid.bbox_max`` and
-    ``emissive_all_dummy`` (bool).  Both packages then trace and shade
-    identical state."""
+    ``mxu.group_bbox``, ``mxu.group_tree_bbox``, ``mxu.perm``, ``mxu.tile``,
+    ``mxu.group_tiles``, ``shade_table_t``, ``color_u16f_t`` (the (4, P)
+    one-hot bank cut back to its P real texels, or None past
+    ONEHOT_MAX_TEXELS), ``color_packed_t`` (the (2, P) u16×2-packed bank),
+    ``tiled_layout`` (bool: the bake chose the tiled page layout),
+    ``grid.bbox_min``, ``grid.bbox_max`` and ``emissive_all_dummy`` (bool).
+    Both packages then trace and shade identical state.
+
+    The bank is the one-hot bank when there is one (a resident bank), else
+    the unpacked u16×2 bank (the 3-stage shade's).  A paged bank's records
+    and bank hold tiled texel offsets, which the port's row-major shade
+    does not read: it raises ``ValueError``."""
     def f32(key):
         return torch.from_numpy(np.array(arrays[key], np.float32))
 
-    tri = f32("mxu.tri_data")
-    bank = f32("color_u16f_t")
-    check_resident(tri.shape[1], bank.shape[1])
+    if arrays.get("tiled_layout"):
+        raise ValueError(
+            "the JAX scene holds a paged bank: its shade_table_t and "
+            "color_packed_t use tiled texel offsets, and the port reads "
+            "row-major ones (ROADMAP queue 1 item 3)"
+        )
+    onehot = arrays.get("color_u16f_t")
+    if onehot is not None:
+        bank = torch.from_numpy(np.array(onehot, np.float32).T.copy())
+    else:
+        bank = torch.from_numpy(_unpack_color_bank(arrays["color_packed_t"]))
     return TorchScene(
-        tri_data=tri,
+        tri_data=f32("mxu.tri_data"),
         tile_bbox=f32("mxu.tile_bbox"),
         tree_bbox=f32("mxu.tree_bbox"),
         group_bbox=f32("mxu.group_bbox"),
+        group_tree_bbox=f32("mxu.group_tree_bbox"),
         perm=torch.from_numpy(np.array(arrays["mxu.perm"], np.int64)),
         rec_table=f32("shade_table_t"),
-        bank=bank.T.contiguous(),
+        bank=bank,
         bbox_min=f32("grid.bbox_min"),
         bbox_max=f32("grid.bbox_max"),
         tile=int(arrays["mxu.tile"]),
         emissive_dummy=bool(arrays["emissive_all_dummy"]),
+        group_tiles=int(arrays["mxu.group_tiles"]),
+        bank_resident=onehot is not None,
     ).to(device)
