@@ -59,11 +59,32 @@ g. a 2-Mtexel bank: the ``--large`` geometry with its terrain texture
 Phase b also times trace_emit_kernel without a record (rec_out null) and
 holds it against the twin.
 
+Then a Duck-class textured GLB through the whole path, and the probes:
+
+h. the port's Duck-class GLB (scene/duck.py, 9586 triangles in 75 tiles, a
+   327,685-texel bank) at the official frame's settings: its bake line and
+   walk (the tile heap); path_trace_gen and path_trace_fused against their
+   twins at 2^16 rays and on a full wave, single-bounce calls lane by lane
+   with tied lanes recomputed, bounces 2-3 to the share TIE_SHARE of the
+   lanes and segments within 0.5%; each kernel timed at the full wave
+   beside its twin, its bound from the tiles swept and boxes tested per
+   live ray; the A/B of path_trace_kernel with the tile heap and with a
+   null heap (the flat loop) on the same bounce-1 wave; a 320×180 frame,
+   kernels vs twins, under the golden gates; the frame: a warmup and 5
+   timed renders, launch counts checked; one profile;
+i. the probe kernels: texel_fetch_kernel against its plain version on the
+   paged-fetch check's three banks × three index patterns and a clamp
+   texture, then on the Duck bank at the bounce-0 wave's body-texture
+   hits; sort_key_kernel against sort_key_ref and the host key on 256
+   lanes and on the Duck's bounce-0 wave; each timed.
+
 Run from the repository root: ``python3 chip_smoke.py``.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, its largest difference from the twin,
 its time beside the twin's, and the least time the card could take for the
-same work (its bound).
+same work (its bound).  ``python3 chip_smoke.py --official-only`` runs
+phases 1-3 and 6 alone (copied into another checkout, it times that
+checkout's official frame on the same card: an A/B of two commits).
 """
 
 from __future__ import annotations
@@ -84,6 +105,8 @@ SEED = 0
 L_W, L_H, L_SPP, L_BOUNCES, L_WAVE = 1280, 720, 2, 3, 1 << 21
 # the 500k row of scripts/large_sweep.py; the 2-Mtexel bank's texture
 S_SIDE, TEX_W, TEX_H = 500, 2048, 1024
+# the Duck-class GLB's detail, body texture side and bake (tests/test_golden.py)
+D_DETAIL, D_TEX, D_TILES = 1.0, 512, 75
 SOURCE = "zig_raytracing_contest_tpu_torch/kernels/path_trace.cu"
 # (entry, kernel, TPU kernel it replaces); each entry's numbers are keyed
 # by the entry, its launches by the kernel (kernels.LAUNCHES)
@@ -104,6 +127,12 @@ KERNELS = [
      "zig_raytracing_contest_tpu/render/fused.py:84"),
     ("shade_3stage", "shade_kernel",
      "zig_raytracing_contest_tpu/render/fused.py:200"),
+    ("path_trace_gen_duck", "path_trace_gen_kernel",
+     "zig_raytracing_contest_tpu/render/fused.py:1031"),
+    ("path_trace_duck", "path_trace_kernel",
+     "zig_raytracing_contest_tpu/render/fused.py:1111"),
+    ("texel_fetch", "texel_fetch_kernel", "scripts/check_paged_tpu.py:57"),
+    ("sort_key", "sort_key_kernel", "tests/test_fused.py:988"),
 ]
 # The card's peaks (NVIDIA H100 SXM data sheet): f32 outside the tensor
 # cores and device memory bandwidth.  A kernel's bound is the larger of its
@@ -115,6 +144,10 @@ PEAK_BYTES = 3.35e12
 # a box (6 subtractions, 6 products, 12 min/max), one ray generation, one
 # surface shade (interpolation, texel indices and filter, scatter, update).
 OPS_TRI, OPS_BOX, OPS_GEN, OPS_SHADE = 42, 24, 30, 170
+# f32 operations of one beam-sort key (emit_sort_key: the exit slab test
+# and the two quantizations per axis; its integer bit interleave is not
+# counted)
+OPS_KEY = 67
 # Kernel vs twin: rows 12-15 (alive, streams, segments, key) and the winner
 # index exactly; value rows 0-11 to f32 rounding of libm differences;
 # direction rows (3-5, after rsqrt/log/sin/cos) to 1e-5.
@@ -137,17 +170,22 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def compare(name, k_state, k_idx, t_state, t_idx):
-    """Mismatch counts and the largest value difference, kernel vs twin."""
+def lanes_off(k_state, t_state):
+    """Per lane of two (16, R) states: (rows 12-15 differ in any bit, a
+    value row 0-11 is beyond RTOL/ATOL, DIR_ATOL for the direction)."""
     import torch
 
-    exact_rows = (k_state[12:16].view(torch.int32) != t_state[12:16].view(torch.int32))
-    n_exact = int(exact_rows.any(dim=0).sum())
-    n_idx = 0 if k_idx is None else int((k_idx != t_idx).sum())
+    exact = (k_state[12:16].view(torch.int32) != t_state[12:16].view(torch.int32))
     ok_val = torch.isclose(k_state[0:12], t_state[0:12], rtol=RTOL, atol=ATOL)
-    ok_dir = torch.isclose(k_state[3:6], t_state[3:6], rtol=0.0, atol=DIR_ATOL)
-    ok_val[3:6] = ok_dir
-    n_val = int((~ok_val).any(dim=0).sum())
+    ok_val[3:6] = torch.isclose(k_state[3:6], t_state[3:6], rtol=0.0, atol=DIR_ATOL)
+    return exact.any(dim=0), (~ok_val).any(dim=0)
+
+
+def compare(name, k_state, k_idx, t_state, t_idx):
+    """Mismatch counts and the largest value difference, kernel vs twin."""
+    exact, val = lanes_off(k_state, t_state)
+    n_exact, n_val = int(exact.sum()), int(val.sum())
+    n_idx = 0 if k_idx is None else int((k_idx != t_idx).sum())
     err = float((k_state[0:12] - t_state[0:12]).abs().max())
     print(f"  {name}: rays {k_state.shape[1]}, mismatched rows 12-15: {n_exact}, "
           f"idx: {n_idx}, rows 0-11 beyond tolerance: {n_val}, "
@@ -739,8 +777,367 @@ def bank_phases(card, timing, errs, bounds, launches) -> None:
     tmp.cleanup()
 
 
-def main() -> int:
+def compare_one_bounce(name, scene, st_in, bounce, prev, k, t, par=None):
+    """One bounce of a whole-path kernel against its twin on the same input
+    state ``st_in``.  Where the winners agree: rows 12-15 and the winner
+    exactly, value rows as ``compare``.  Where they differ (a tie at the
+    nearest t: the tile-heap walk keeps the first triangle it swept, the
+    twin's flat loop the lower index), the kernel's winner is recomputed
+    with the twin's arithmetic: a front-facing hit at the twin's t, not the
+    previous hit, and the lane equal to the twin's shade of that winner
+    (and its key with ``par``); tied lanes stay under TIE_SHARE.  Returns
+    the largest |diff| of rows 0-11 where the winners agree."""
     import torch
+
+    from zig_raytracing_contest_tpu_torch.ops.mxu_intersect import (
+        nearest_hit_ref,
+        records_ref,
+        triangle_hit_ref,
+    )
+    from zig_raytracing_contest_tpu_torch.render import fused
+
+    (ks, ki), (ts, ti) = k, t
+    same = ki == ti
+    exact, val = lanes_off(ks, ts)
+    n_exact, n_val = int((exact & same).sum()), int((val & same).sum())
+    err = float((ks[0:12, same] - ts[0:12, same]).abs().max()) if bool(same.any()) else 0.0
+    lane = (~same).nonzero()[:, 0]
+    n_bad_tie = 0
+    if lane.numel():
+        o, d, w = st_in[0:3, lane], st_in[3:6, lane], ki[lane]
+        hit, tw, uw, vw = triangle_hit_ref(scene.tri_data, o, d, w)
+        pv = None if prev is None else prev[lane].long()
+        tt = nearest_hit_ref(scene.tri_data, scene.tile_bbox, scene.tile, o, d,
+                             st_in[12, lane] > 0, pv)[0]
+        want = fused.shade_ref(st_in[:, lane], tw, uw, vw,
+                               records_ref(scene.rec_table, tw, w.long()), scene.bank,
+                               bounce, scene.emissive_dummy)
+        if par is not None:
+            want[15] = fused.sort_key_ref(want, par).view(torch.float32)
+        ex, va = lanes_off(ks[:, lane], want)
+        good = hit & (tw == tt) & ~ex & ~va
+        if pv is not None:
+            good &= w.long() != pv
+        n_bad_tie = int((~good).sum())
+    R = ks.shape[1]
+    print(f"  {name}: rays {R}, mismatched rows 12-15: {n_exact}, rows 0-11 beyond "
+          f"tolerance: {n_val}, max |diff| rows 0-11: {err:.3e}; tied lanes "
+          f"{lane.numel()} (of which not the twin's shade of a hit at its t: {n_bad_tie})")
+    if n_exact or n_val or n_bad_tie or lane.numel() > TIE_SHARE * R:
+        fail(f"{name} disagrees with its plain twin")
+    return err
+
+
+def compare_bounces(name, k, t):
+    """A multi-bounce whole-path call against its twin: a tie decorrelates
+    a ray for its later bounces, so lanes off the ``compare`` rule stay
+    under TIE_SHARE and the segments within 0.5%.  Returns the largest
+    |diff| of rows 0-11 on the other lanes."""
+    exact, val = lanes_off(k, t)
+    off = exact | val
+    seg_k, seg_t = float(k[14].sum()), float(t[14].sum())
+    seg_rel = abs(seg_k - seg_t) / max(seg_t, 1.0)
+    err = float((k[0:12, ~off] - t[0:12, ~off]).abs().max())
+    print(f"  {name}: rays {k.shape[1]}, lanes off the rule: {int(off.sum())}, segments "
+          f"{int(seg_k)} vs {int(seg_t)} ({seg_rel:.4%}), max |diff| rows 0-11 elsewhere: "
+          f"{err:.3e}")
+    if int(off.sum()) > TIE_SHARE * k.shape[1] or seg_rel >= 0.005:
+        fail(f"{name} disagrees with its plain twin")
+    return err
+
+
+def duck_phases(card, timing, errs, bounds, launches) -> dict:
+    """Phase h: the Duck-class GLB through the whole path, walking the tile
+    heap.  Returns what phase i reads: the scene, the gen parameters and
+    the bounce-0 full wave (input and kernel output)."""
+    import torch
+
+    from zig_raytracing_contest_tpu_torch import kernels
+    from zig_raytracing_contest_tpu_torch.config import Config
+    from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
+    from zig_raytracing_contest_tpu_torch.render import fused
+    from zig_raytracing_contest_tpu_torch.render.pipeline import (
+        prepare_scene,
+        render_scene,
+        slot_geometry,
+    )
+    from zig_raytracing_contest_tpu_torch.render.wavefront import (
+        build_gen_par,
+        ray_sort_key,
+        regime,
+        shade_bank,
+        sort_state_payload,
+        trace_walk,
+    )
+    from zig_raytracing_contest_tpu_torch.scene.duck import write_duck_glb
+
+    dev = torch.device("cuda", 0)
+    tmp = tempfile.TemporaryDirectory()
+    path = write_duck_glb(Path(tmp.name) / "duck.glb", tex_size=D_TEX, detail=D_DETAIL)
+    cfg = Config(grid_resolution=(128, 128, 128), num_samples=SPP, max_bounce=MAX_BOUNCE,
+                 wave_size=WAVE, seed=SEED)
+    scene, cam, timers = prepare_scene(str(path), cfg, height=1080, device=dev)
+    nt, walk = scene.tile_bbox.shape[1], trace_walk(scene)
+    print(f"Duck scene: tri_data {tuple(scene.tri_data.shape)}, tiles {nt}, tree_bbox "
+          f"{tuple(scene.tree_bbox.shape)}, texels {scene.bank.shape[0]}, regime "
+          f"{regime(scene)}, {shade_bank(scene)}, walk {walk}, camera {cam.width}x"
+          f"{cam.height}; loaded in {timers.phases['load'] + timers.phases['preprocess']:.2f}"
+          f" s, baked in {timers.phases['compile']:.2f} s")
+    if (nt, walk, regime(scene), cam.width) != (D_TILES, "tile heap", "whole path", 1920):
+        fail("the Duck scene does not bake to 75 tiles walked in the whole path at 1920x1080")
+
+    par = build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
+    num_slots, tiles_x = slot_geometry(1920, 1080, True)
+    gen = fused.GenParams(spp=SPP, width=1920, img_w=1920, img_h=1080, tiles_x=tiles_x)
+    quantum = SPP * 1024
+    full_wave = WAVE // quantum * quantum
+    errs["path_trace_gen_duck"] = errs["path_trace_duck"] = 0.0
+    keep = {}
+    # both waves start at 32x32 pixel tile 920 (tile row 15, column 20), so
+    # they cross the duck in the middle of the frame
+    for R, slot_base in ((1 << 16, 1024 * 920), (full_wave, 1024 * 920)):
+        meta = (slot_base, slot_base % 1920, slot_base // 1920, SEED, slot_base // 1024,
+                0, 0, 0)
+        args = (scene, par, meta, R, 1, gen)
+        st0 = fused.gen_rays_ref(par, meta, R, gen)
+        k0 = fused.path_trace_gen(*args, emit_key=True, emit_idx=True)
+        t0 = fused.path_trace_gen_ref(*args, emit_key=True, emit_idx=True)
+        torch.cuda.synchronize()
+        errs["path_trace_gen_duck"] = max(errs["path_trace_gen_duck"], compare_one_bounce(
+            "Duck path_trace_gen (bounce 0, key, idx)", scene, st0, 0, None, k0, t0, par))
+        key = k0[0][15].contiguous().view(torch.int32)
+        _, st, (idx_s,) = sort_state_payload(key, k0[0], (k0[1],))
+        k1 = fused.path_trace_fused(scene, st, 1, bounce0=1, prev=idx_s, emit_idx=True)
+        t1 = fused.path_trace_fused_ref(scene, st, 1, bounce0=1, prev=idx_s, emit_idx=True)
+        torch.cuda.synchronize()
+        errs["path_trace_duck"] = max(errs["path_trace_duck"], compare_one_bounce(
+            "Duck path_trace_fused (bounce 1 after the sort, prev)", scene, st, 1, idx_s,
+            k1, t1))
+        _, st2, (idx2,) = sort_state_payload(ray_sort_key(scene, k1[0]), k1[0], (k1[1],))
+        k3 = fused.path_trace_fused(scene, st2, 2, bounce0=2, prev=idx2)
+        t3 = fused.path_trace_fused_ref(scene, st2, 2, bounce0=2, prev=idx2)
+        torch.cuda.synchronize()
+        errs["path_trace_duck"] = max(errs["path_trace_duck"], compare_bounces(
+            "Duck path_trace_fused (bounces 2-3 after the resort, prev)", k3, t3))
+    del t0, t1, k3, t3, st2, idx2
+
+    # the least work of the timed calls on this run's data: tiles swept ×
+    # 128 triangle tests and boxes tested, each the fewer of the walk's
+    # count (trace_emit_aux: the same walk_heap, aux rows 5-6) and the flat
+    # twin's, plus the shade of each live ray and the generation of each
+    # ray; bytes: the scene's arrays and heap once, the state out (and in)
+    sc_b = scene_bytes(scene) + scene.tree_bbox.numel() * 4
+
+    def work(state, prev):
+        live = state[12] > 0
+        aux = mi.trace_emit_aux(scene, state, None, prev)[0]
+        swept = nearest_hit_ref_swept(scene, state, live, prev)
+        tiles = min(float(aux[5].sum()), swept)
+        boxes = min(float(aux[6].sum()), float(live.sum()) * nt)
+        n = float(live.sum())
+        return tiles, boxes, n, float(aux[5][live].mean()), swept / max(n, 1.0)
+
+    w0 = work(st0, None)
+    w1 = work(st, idx_s)
+    bounds["path_trace_gen_duck"] = bound(
+        w0[0] * 128 * OPS_TRI + w0[1] * OPS_BOX + w0[2] * OPS_SHADE + full_wave * OPS_GEN,
+        sc_b + full_wave * (16 + 1) * 4)
+    bounds["path_trace_duck"] = bound(
+        w1[0] * 128 * OPS_TRI + w1[1] * OPS_BOX + w1[2] * OPS_SHADE,
+        sc_b + full_wave * (16 + 1 + 16 + 1) * 4)
+    timing["path_trace_gen_duck"] = (
+        cuda_ms(lambda: fused.path_trace_gen(*args, emit_key=True, emit_idx=True), 5),
+        cuda_ms(lambda: fused.path_trace_gen_ref(*args, emit_key=True, emit_idx=True), 2),
+        full_wave, full_wave)
+    timing["path_trace_duck"] = (
+        cuda_ms(lambda: fused.path_trace_fused(scene, st, 1, bounce0=1, prev=idx_s,
+                                               emit_idx=True), 5),
+        cuda_ms(lambda: fused.path_trace_fused_ref(scene, st, 1, bounce0=1, prev=idx_s,
+                                                   emit_idx=True), 2),
+        full_wave, full_wave)
+    for name, w in (("path_trace_gen_duck", w0), ("path_trace_duck", w1)):
+        k_ms, p_ms, rays, _ = timing[name]
+        print(f"  {name} at {rays} rays: kernel {k_ms:.3f} ms, plain twin {p_ms:.3f} ms, "
+              f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}); live rays {int(w[2])}, "
+              f"tiles swept per live ray: walk {w[3]:.2f}, flat {w[4]:.2f} ({card})")
+
+    # A/B: the same bounce-1 wave through path_trace_kernel with the tile
+    # heap and with a null heap (the flat loop)
+    outs = {tree: (torch.empty_like(st), torch.empty_like(idx_s)) for tree in (True, False)}
+
+    def launch(tree):
+        return lambda: kernels.launch_path_trace(scene, st, idx_s, 1, 1, *outs[tree],
+                                                 tree=tree)
+
+    ab = {True: [], False: []}
+    for tree in (True, False, False, True):
+        ab[tree].append(cuda_ms(launch(tree), 5))
+    (kt, it), (kf, iff) = outs[True], outs[False]
+    same = it == iff
+    eq = torch.equal(kt[:, same].view(torch.int32), kf[:, same].view(torch.int32))
+    ties = (~same).nonzero()[:, 0]
+    hit_t = triangle_hit_ref_t(scene, st, ties, it)
+    hit_f = triangle_hit_ref_t(scene, st, ties, iff)
+    print(f"  A/B path_trace_kernel, bounce 1 at {full_wave} rays: tile heap "
+          f"{ab[True][0]:.3f}, {ab[True][1]:.3f} ms; flat loop {ab[False][0]:.3f}, "
+          f"{ab[False][1]:.3f} ms; lanes whose winners differ {ties.numel()} ({card})")
+    if not eq or ties.numel() > TIE_SHARE * full_wave or not torch.equal(hit_t, hit_f):
+        fail("the tile-heap walk and the flat loop disagree beyond ties")
+    del outs, kt, kf
+
+    # a small Duck frame, kernels vs twins
+    s_cfg = Config(num_samples=SPP, max_bounce=MAX_BOUNCE, seed=SEED)
+    s_scene, s_cam, _ = prepare_scene(str(path), s_cfg, height=180, device=dev)
+    frame_gate(render_scene, s_scene, s_cam, s_cfg, "Duck frame 320x180")
+
+    # the Duck frame, through the main path
+    num_waves = -(-num_slots * SPP // full_wave)
+    got = render_timed(render_scene, scene, cam, cfg, "Duck", card,
+                       {"path_trace_gen": 6 * num_waves, "trace_emit": 0, "shade": 0,
+                        "trace_stream": 0})
+    if got["path_trace"] == 0:
+        fail("Duck frame: the main path launched no path_trace_kernel")
+    launches["path_trace_gen_duck"] = got["path_trace_gen"]
+    launches["path_trace_duck"] = got["path_trace"]
+    profile_frame(render_scene, scene, cam, cfg, card)
+    keep.update(scene=scene, par=par, tmp=tmp, st0=st0, k0=k0[0])
+    return keep
+
+
+def nearest_hit_ref_swept(scene, state, live, prev) -> float:
+    """Tiles the flat twin sweeps over the live rays of ``state``."""
+    from zig_raytracing_contest_tpu_torch.ops.mxu_intersect import nearest_hit_ref
+
+    pv = None if prev is None else prev.long()
+    return float(nearest_hit_ref(scene.tri_data, scene.tile_bbox, scene.tile, state[0:3],
+                                 state[3:6], live, pv)[4].sum())
+
+
+def triangle_hit_ref_t(scene, state, lane, idx):
+    """t of each ray ``lane`` of ``state`` against its triangle ``idx[lane]``."""
+    from zig_raytracing_contest_tpu_torch.ops.mxu_intersect import triangle_hit_ref
+
+    hit, t, _, _ = triangle_hit_ref(scene.tri_data, state[0:3, lane], state[3:6, lane],
+                                    idx[lane])
+    return t.masked_fill(~hit, float("nan"))
+
+
+def probe_phases(card, timing, errs, bounds, launches, duck) -> None:
+    """Phase i: the probe kernels against their plain versions."""
+    import torch
+
+    from zig_raytracing_contest_tpu_torch import kernels
+    from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
+    from zig_raytracing_contest_tpu_torch.probes import check_fetch, sort_key
+    from zig_raytracing_contest_tpu_torch.render import fused
+    from zig_raytracing_contest_tpu_torch.render.wavefront import ray_sort_key
+    from zig_raytracing_contest_tpu_torch.scene.types import PCOL_BASE
+
+    dev = torch.device("cuda", 0)
+    # the probes' own entry points, launch counts set to 0 just before
+    kernels.reset_launches()
+    fetch = check_fetch.run_checks(dev)
+    keys = sort_key.run_checks(dev)
+    torch.cuda.synchronize()
+    got = dict(kernels.LAUNCHES)
+    for label, lanes, bad in fetch:
+        print(f"  texel_fetch {label}: {bad} of {lanes} lanes differ")
+    for label, lanes, n_ref, n_host in keys:
+        print(f"  sort_key {label}: {n_ref} of {lanes} lanes differ from sort_key_ref, "
+              f"{n_host} from the host key")
+    if any(bad for _, _, bad in fetch) or any(a or b for _, _, a, b in keys):
+        fail("a probe kernel disagrees with its plain version")
+    launches["texel_fetch"], launches["sort_key"] = got["texel_fetch"], got["sort_key"]
+    if got["texel_fetch"] != len(fetch) or got["sort_key"] != len(keys):
+        fail(f"probe launches {got}")
+
+    # the Duck bank, at the body-texture hits of the bounce-0 wave
+    scene, st0, k0, par = duck["scene"], duck["st0"], duck["k0"], duck["par"]
+    aux, _, rec = mi.trace_emit_aux(scene, st0, scene.rec_table)
+    tex_idx, _ = fused.prep_math_ref(rec, aux[0], aux[1], scene.emissive_dummy)
+    hitl = (aux[4] > 0) & torch.isfinite(aux[2])
+    body = hitl & (rec[PCOL_BASE + 1].abs() == D_TEX)
+    off = int(rec[PCOL_BASE][body][0])
+    texture = (off, D_TEX, D_TEX, int(rec[PCOL_BASE + 1][body][0] < 0),
+               int(rec[PCOL_BASE + 2][body][0] < 0))
+    demand = body & (rec[PCOL_BASE] == off)
+    base = torch.where(demand, tex_idx[0], off).to(torch.int32)
+    got_f = check_fetch.texel_fetch(scene.bank, texture, base, demand)
+    want_f = check_fetch.texel_fetch_ref(scene.bank, texture, base, demand)
+    bad = int((got_f.view(torch.int32) != want_f.view(torch.int32)).any(dim=0).sum())
+    # the same corners at the shade's own four texel indices
+    shade_px = torch.stack([scene.bank[tex_idx[c].clamp(0, scene.bank.shape[0] - 1)]
+                            for c in range(4)])  # (4, B, 4)
+    shade_px = torch.where(demand[None, :, None], shade_px, 0.0)
+    n_shade = int((shade_px.permute(0, 2, 1).reshape(16, -1) != got_f).any(dim=0).sum())
+    B = base.shape[0]
+    corners = check_fetch.corner_indices(texture, base[demand])
+    texels = int(torch.unique(corners).numel())
+    timing["texel_fetch"] = (
+        cuda_ms(lambda: check_fetch.texel_fetch(scene.bank, texture, base, demand), 20),
+        cuda_ms(lambda: check_fetch.texel_fetch_ref(scene.bank, texture, base, demand), 5),
+        B, B)
+    bounds["texel_fetch"] = bound(0.0, B * (4 + 1 + 16 * 4) + texels * 16)
+    errs["texel_fetch"] = float((got_f - want_f).abs().max())
+    print(f"  texel_fetch, Duck bank ({scene.bank.shape[0]} texels), body texture {texture} "
+          f"at the bounce-0 wave's hits: demanded lanes {int(demand.sum())} of {B}, lanes "
+          f"differing from the plain version {bad}, from the shade's four texel indices "
+          f"{n_shade}; kernel {timing['texel_fetch'][0]:.4f} ms, plain "
+          f"{timing['texel_fetch'][1]:.4f} ms, bound {bounds['texel_fetch'][0]:.4f} ms "
+          f"({bounds['texel_fetch'][1]}, {texels} distinct texels) ({card})")
+    if bad or n_shade or not bool(demand.any()):
+        fail("texel_fetch_kernel disagrees on the Duck bank")
+
+    # the key of the Duck's bounce-0 wave (as path_trace_gen leaves it)
+    key = sort_key.sort_key(k0, par)
+    n_ref = int((key != fused.sort_key_ref(k0, par)).sum())
+    n_gen = int((key != k0[15].contiguous().view(torch.int32)).sum())
+    host = ray_sort_key(scene, k0)
+    n_host = int((key != host).sum())
+    n_dead = int(((key >> 30) != (host >> 30)).sum())
+    R = k0.shape[1]
+    timing["sort_key"] = (cuda_ms(lambda: sort_key.sort_key(k0, par), 20),
+                          cuda_ms(lambda: fused.sort_key_ref(k0, par), 5), R, R)
+    bounds["sort_key"] = bound(R * float(OPS_KEY), R * (7 + 1) * 4 + 32 * 4)
+    errs["sort_key"] = float((key - fused.sort_key_ref(k0, par)).abs().max())
+    print(f"  sort_key, Duck bounce-0 wave of {R} rays: lanes differing from sort_key_ref "
+          f"{n_ref}, from the key path_trace_gen emitted {n_gen}, from the host key "
+          f"{n_host} (dead bit {n_dead}); kernel {timing['sort_key'][0]:.4f} ms, plain "
+          f"{timing['sort_key'][1]:.4f} ms, bound {bounds['sort_key'][0]:.4f} ms "
+          f"({bounds['sort_key'][1]}) ({card})")
+    # the host key rounds (o - bmin) / span · 32, the kernel key
+    # (o - bmin) · (32 / span): a ray may sit one cell apart at a boundary
+    if n_ref or n_gen or n_dead or n_host > 1e-3 * R:
+        fail("sort_key_kernel disagrees with its plain version")
+    duck["tmp"].cleanup()
+
+
+def official_frame(render_scene, scene, cam, cfg, card) -> dict:
+    """Phase 6: the official frame through the main path, a warmup and 5
+    timed renders; returns the launch counts of the 6 renders."""
+    from zig_raytracing_contest_tpu_torch.render.pipeline import slot_geometry
+
+    num_slots, _ = slot_geometry(1920, 1080, True)
+    full_wave = WAVE // (SPP * 1024) * (SPP * 1024)
+    num_waves = -(-num_slots * SPP // full_wave)
+    got = render_timed(render_scene, scene, cam, cfg, "official", card,
+                       {"path_trace_gen": 6 * num_waves})
+    if got["path_trace"] == 0:
+        fail("path_trace: the main path launched no kernel")
+    print(f"  waves {num_waves} of {full_wave} rays")
+    return got
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA card")
+    ap.add_argument("--official-only", action="store_true",
+                    help="phases 1-3 and 6 only: build, then time the official frame "
+                         "(for an A/B of two checkouts on one card)")
+    args = ap.parse_args(argv)
 
     # 1. the card
     if not torch.cuda.is_available():
@@ -785,10 +1182,14 @@ def main() -> int:
     print(f"scene: tri_data {tuple(scene.tri_data.shape)}, tiles "
           f"{scene.tile_bbox.shape[1]}, texels {scene.bank.shape[0]}, "
           f"emissive_dummy {scene.emissive_dummy}")
+    if args.official_only:
+        official_frame(render_scene, scene, cam, cfg, card)
+        tmp.cleanup()
+        return 0
 
     # 4. kernels vs twins on the card
     par = build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
-    num_slots, tiles_x = slot_geometry(1920, 1080, True)
+    _, tiles_x = slot_geometry(1920, 1080, True)
     gen = fused.GenParams(spp=SPP, width=1920, img_w=1920, img_h=1080,
                           tiles_x=tiles_x)
     quantum = SPP * 1024
@@ -873,37 +1274,15 @@ def main() -> int:
         fail(f"frame shape {img_k.shape}")
 
     # 6. the official frame, through the main path
-    kernels.reset_launches()
-    img, stats = render_scene(scene, cam, cfg)  # warmup
-    torch.cuda.synchronize()
-    rates = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        img, stats = render_scene(scene, cam, cfg)
-        torch.cuda.synchronize()
-        rates.append(stats.segments / (time.perf_counter() - t0) / 1e6)
-    got = dict(kernels.LAUNCHES)
-    if img.shape != (1080, 1920, 3) or not 0 < float(img.mean()) < 255:
-        fail(f"official frame: shape {img.shape}, mean {float(img.mean())}")
-    num_waves = -(-num_slots * SPP // full_wave)
-    for name in ("path_trace_gen", "path_trace"):
-        if got[name] == 0:
-            fail(f"{name}: the main path launched no kernel")
-    if got["path_trace_gen"] != 6 * num_waves:
-        fail(f"path_trace_gen launched {got['path_trace_gen']} times, "
-             f"expected {6 * num_waves}")
+    got = official_frame(render_scene, scene, cam, cfg, card)
     launches = {"path_trace_gen": got["path_trace_gen"], "path_trace": got["path_trace"]}
-    med, best = statistics.median(rates), max(rates)
-    spread = (max(rates) - min(rates)) / med * 100
-    print(f"official 1920x1080 {SPP} spp {MAX_BOUNCE} bounces: median {med:.3f} "
-          f"Mrays/s, best {best:.3f}, spread {spread:.1f}%, segments "
-          f"{stats.segments}, waves {num_waves} of {full_wave} rays ({card})")
-    print("  reps Mrays/s: " + ", ".join(f"{r:.3f}" for r in rates))
     profile_frame(render_scene, scene, cam, cfg, card)
 
     large_phases(card, timing, errs, bounds, launches)
     stream_phases(card, timing, errs, bounds, launches)
     bank_phases(card, timing, errs, bounds, launches)
+    duck = duck_phases(card, timing, errs, bounds, launches)
+    probe_phases(card, timing, errs, bounds, launches, duck)
 
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": SOURCE, "replaces": replaces,

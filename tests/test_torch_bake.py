@@ -38,8 +38,9 @@ from zig_raytracing_contest_tpu_torch.scene.types import (
 ASSETS = Path(__file__).parent / "assets"
 
 
-def jax_scene_arrays(scene) -> dict:
-    """A JAX DeviceScene's MXU arrays as NumPy (from_jax_scene keys)."""
+def jax_scene_arrays(scene, color_desc=None) -> dict:
+    """A JAX DeviceScene's MXU arrays as NumPy (from_jax_scene keys), with
+    the JAX materials' ``color_desc`` (a paged bake's texture layout)."""
     P = scene.color_data.shape[0]
     return {
         "mxu.tri_data": np.asarray(scene.mxu.tri_data),
@@ -58,6 +59,7 @@ def jax_scene_arrays(scene) -> dict:
         "grid.bbox_min": np.asarray(scene.grid.bbox_min),
         "grid.bbox_max": np.asarray(scene.grid.bbox_max),
         "emissive_all_dummy": scene.emissive_all_dummy is not None,
+        "color_desc": None if color_desc is None else np.asarray(color_desc),
     }
 
 
@@ -117,10 +119,10 @@ def test_port_bake_equals_jax_bake(name, tmp_path):
         _assert_round_trip(js, ts)
 
 
-def _assert_round_trip(js, ts):
+def _assert_round_trip(js, ts, color_desc=None):
     """from_jax_scene of the JAX scene is the port's TorchScene, tensor for
     tensor and flag for flag."""
-    fj = from_jax_scene(jax_scene_arrays(js), device="cpu")
+    fj = from_jax_scene(jax_scene_arrays(js, color_desc), device="cpu")
     for f in ("tri_data", "tile_bbox", "tree_bbox", "group_bbox", "group_tree_bbox",
               "perm", "rec_table", "bank", "bbox_min", "bbox_max"):
         assert torch.equal(getattr(fj, f), getattr(ts, f)), f
@@ -132,8 +134,9 @@ def test_from_jax_scene_three_stage_bank(tmp_path, monkeypatch):
     """With both resident-bank bounds lowered to 0, the JAX package bakes no
     one-hot and no paged bank (its 3-stage shade): from_jax_scene takes the
     bank from the unpacked u16×2 bank and the port's own bake agrees.  With
-    only the one-hot bound lowered the JAX bake is paged, whose tiled texel
-    offsets the port does not read: from_jax_scene refuses it."""
+    only the one-hot bound lowered the JAX bake is paged: its tiled bank
+    and record offsets map back to the port's row-major ones, and the bank
+    is resident."""
     from zig_raytracing_contest_tpu.scene import types as jtypes
     from zig_raytracing_contest_tpu_torch.scene import types as ttypes
 
@@ -146,8 +149,9 @@ def test_from_jax_scene_three_stage_bank(tmp_path, monkeypatch):
         monkeypatch.setattr(mod, "ONEHOT_MAX_TEXELS", 0)
     paged = build_device_scene(jgeom, grid, jm, backend="mxu")
     assert paged.tiled_layout is not None
-    with pytest.raises(ValueError, match="tiled texel offsets"):
-        from_jax_scene(jax_scene_arrays(paged), device="cpu")
+    ts_paged = build_torch_scene(tgeom, tm, scene_bbox(tgeom.positions), device="cpu")
+    assert ts_paged.bank_resident
+    _assert_round_trip(paged, ts_paged, jm.color_desc)
     for mod in (jtypes, ttypes):
         monkeypatch.setattr(mod, "PAGED_MAX_TEXELS", 0)
     js = build_device_scene(jgeom, grid, jm, backend="mxu")

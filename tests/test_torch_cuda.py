@@ -155,3 +155,101 @@ def test_trace_stream_kernel_matches_twin_on_cuda(tmp_path, monkeypatch):
         assert bool((ka[5] <= scene.tile_bbox.shape[1]).all())
     assert kernels.LAUNCHES["trace_stream"] == 2
     assert kernels.LAUNCHES["trace_emit"] == 0
+
+
+def _hold_one_bounce(scene, st_in, bounce, prev, k, ki, t, ti):
+    """A single-bounce whole-path call against its twin: where the winners
+    agree, rows 12-15 and the winner exactly and rows 0-11 to f32 rounding;
+    where they differ (a tie: the tile-heap walk keeps the first triangle
+    it swept at the nearest t, the flat loop the lower index), the
+    kernel's winner is hit at the twin's t and the lane equals the twin's
+    shade of that winner.  Returns the number of tied lanes."""
+    from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
+    from zig_raytracing_contest_tpu_torch.render import fused
+
+    same = ki == ti
+    assert torch.equal(k[12:16, same].view(torch.int32), t[12:16, same].view(torch.int32))
+    torch.testing.assert_close(k[0:12, same], t[0:12, same], rtol=3e-6, atol=1e-5)
+    lane = (~same).nonzero()[:, 0]
+    if lane.numel():
+        o, d, w = st_in[0:3, lane], st_in[3:6, lane], ki[lane]
+        hit, tw, uw, vw = mi.triangle_hit_ref(scene.tri_data, o, d, w)
+        tt = mi.nearest_hit_ref(scene.tri_data, scene.tile_bbox, scene.tile, o, d,
+                                st_in[12, lane] > 0,
+                                None if prev is None else prev[lane].long())[0]
+        assert bool(hit.all()) and torch.equal(tw, tt)
+        want = fused.shade_ref(st_in[:, lane], tw, uw, vw,
+                               mi.records_ref(scene.rec_table, tw, w.long()), scene.bank,
+                               bounce, scene.emissive_dummy)
+        assert torch.equal(k[12:15, lane].view(torch.int32), want[12:15].view(torch.int32))
+        torch.testing.assert_close(k[0:12, lane], want[0:12], rtol=3e-6, atol=1e-5)
+    return int(lane.numel())
+
+
+@pytest.mark.cuda
+def test_whole_path_tree_walk_matches_twins_on_cuda(tmp_path):
+    """The whole-path kernels on a Duck-class scene of 21 tiles walk the
+    tile heap: one bounce of path_trace_gen and of path_trace_fused held to
+    the twins lane by lane, ties recomputed (under 0.1% of the lanes); three
+    bounces to the same rows on all but 0.1% of the lanes and segments
+    within 0.5%; and path_trace_kernel with a null heap (the flat loop)
+    equal to the walk where their winners agree."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    from zig_raytracing_contest_tpu_torch import kernels
+    from zig_raytracing_contest_tpu_torch.render import fused
+    from zig_raytracing_contest_tpu_torch.render.wavefront import (
+        build_gen_par,
+        sort_state_payload,
+    )
+    from zig_raytracing_contest_tpu_torch.scene.duck import write_duck_glb
+
+    path = write_duck_glb(tmp_path / "duck.glb", tex_size=64, detail=0.5)
+    cfg = Config(num_samples=3, max_bounce=4)
+    scene, cam, _ = prepare_scene(str(path), cfg, height=108, device="cuda")
+    assert scene.tile_bbox.shape[1] == 21 and fused.whole_path_walk(scene) == "tile heap"
+    par = build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
+    gen = fused.GenParams(3, 192, 192, 108, tiles_x=6)
+    R = 24 * 1024 * 3
+    args = (scene, par, (0, 0, 0, 7, 0, 0, 0, 0), R, 1, gen)
+    kernels.reset_launches()
+    k, ki = fused.path_trace_gen(*args, emit_key=True, emit_idx=True)
+    t, ti = fused.path_trace_gen_ref(*args, emit_key=True, emit_idx=True)
+    st0 = fused.gen_rays_ref(par, args[2], R, gen)
+    tied = _hold_one_bounce(scene, st0, 0, None, k, ki, t, ti)
+    _, st, (idx,) = sort_state_payload(k[15].contiguous().view(torch.int32), k, (ki,))
+    k1, ki1 = fused.path_trace_fused(scene, st, 1, bounce0=1, prev=idx, emit_idx=True)
+    t1, ti1 = fused.path_trace_fused_ref(scene, st, 1, bounce0=1, prev=idx, emit_idx=True)
+    tied += _hold_one_bounce(scene, st, 1, idx, k1, ki1, t1, ti1)
+    assert tied <= 2e-3 * R
+    k3 = fused.path_trace_fused(scene, st, 3, bounce0=1, prev=idx)
+    t3 = fused.path_trace_fused_ref(scene, st, 3, bounce0=1, prev=idx)
+    off = ((k3[12:16].view(torch.int32) != t3[12:16].view(torch.int32)).any(dim=0)
+           | ~torch.isclose(k3[0:12], t3[0:12], rtol=3e-6, atol=1e-5).all(dim=0))
+    assert int(off.sum()) <= 1e-3 * R
+    assert abs(float(k3[14].sum() - t3[14].sum())) <= 0.005 * float(t3[14].sum())
+    assert kernels.LAUNCHES["path_trace_gen"] == 1 and kernels.LAUNCHES["path_trace"] == 2
+    # the same bounce through the flat loop (a null heap)
+    flat, fi = torch.empty_like(k1), torch.empty_like(ki1)
+    kernels.launch_path_trace(scene, st, idx, 1, 1, flat, fi, tree=False)
+    same = fi == ki1
+    assert float(same.float().mean()) > 0.998
+    assert torch.equal(flat[:, same].view(torch.int32), k1[:, same].view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_probe_kernels_match_plain_on_cuda():
+    """texel_fetch_kernel on the paged-fetch check's banks and index
+    patterns, and sort_key_kernel on 256 lanes (lanes 5-8 dead), each bit
+    for bit equal to its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    from zig_raytracing_contest_tpu_torch import kernels
+    from zig_raytracing_contest_tpu_torch.probes import check_fetch, sort_key
+
+    kernels.reset_launches()
+    fetch = check_fetch.run_checks("cuda")
+    assert len(fetch) == 10 and all(bad == 0 for _, _, bad in fetch), fetch
+    keys = sort_key.run_checks("cuda")
+    assert all(n_ref == n_host == 0 for _, _, n_ref, n_host in keys), keys
+    assert kernels.LAUNCHES["texel_fetch"] == 10 and kernels.LAUNCHES["sort_key"] == 1

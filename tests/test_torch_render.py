@@ -104,6 +104,9 @@ def test_port_imports_neither_jax_nor_pillow():
         "import zig_raytracing_contest_tpu_torch.render.pipeline\n"
         "import zig_raytracing_contest_tpu_torch.cli\n"
         "import zig_raytracing_contest_tpu_torch.kernels\n"
+        "import zig_raytracing_contest_tpu_torch.probes.check_fetch\n"
+        "import zig_raytracing_contest_tpu_torch.probes.sort_key\n"
+        "import zig_raytracing_contest_tpu_torch.scene.duck\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'PIL'"
         ", 'zig_raytracing_contest_tpu'))\n"
         "print(bad)\n"

@@ -40,7 +40,7 @@ BUILD_INFO = {"seconds": None, "log": ""}
 # Launches per CUDA kernel, counted by the launchers below right after a
 # launch is accepted; the twins never count.
 LAUNCHES = {"path_trace_gen": 0, "path_trace": 0, "trace_emit": 0,
-            "trace_stream": 0, "shade": 0}
+            "trace_stream": 0, "shade": 0, "texel_fetch": 0, "sort_key": 0}
 
 
 def reset_launches() -> None:
@@ -68,6 +68,16 @@ class ZrcHeap(ctypes.Structure):
         ("p2", ctypes.c_int),
         ("ng", ctypes.c_int),
         ("group_tiles", ctypes.c_int),
+    ]
+
+
+class ZrcTexture(ctypes.Structure):
+    _fields_ = [
+        ("off", ctypes.c_int),
+        ("w", ctypes.c_int),
+        ("h", ctypes.c_int),
+        ("repeat_u", ctypes.c_int),
+        ("repeat_v", ctypes.c_int),
     ]
 
 
@@ -133,13 +143,13 @@ def load():
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.zrc_path_trace_gen.restype = i32
             lib.zrc_path_trace_gen.argtypes = [
-                ctypes.POINTER(ZrcScene), ctypes.POINTER(ZrcGen), i32, i32,
-                ptr, ptr, i32, i32, ptr,
+                ctypes.POINTER(ZrcScene), ctypes.POINTER(ZrcHeap),
+                ctypes.POINTER(ZrcGen), i32, i32, ptr, ptr, i32, i32, ptr,
             ]
             lib.zrc_path_trace.restype = i32
             lib.zrc_path_trace.argtypes = [
-                ctypes.POINTER(ZrcScene), ptr, ptr, i32, i32, ptr, ptr, i32,
-                i32, ptr,
+                ctypes.POINTER(ZrcScene), ctypes.POINTER(ZrcHeap), ptr, ptr, i32,
+                i32, ptr, ptr, i32, i32, ptr,
             ]
             lib.zrc_trace_emit.restype = i32
             lib.zrc_trace_emit.argtypes = [
@@ -150,6 +160,13 @@ def load():
             lib.zrc_shade.argtypes = [
                 ctypes.POINTER(ZrcScene), ptr, ptr, ptr, i32, ptr, i32, i32, ptr,
             ]
+            lib.zrc_texel_fetch.restype = i32
+            lib.zrc_texel_fetch.argtypes = [
+                ctypes.POINTER(ZrcScene), ctypes.POINTER(ZrcTexture), ptr, ptr, ptr,
+                i32, i32, ptr,
+            ]
+            lib.zrc_sort_key.restype = i32
+            lib.zrc_sort_key.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
             lib.zrc_error_string.restype = ctypes.c_char_p
             lib.zrc_error_string.argtypes = [i32]
             _lib = lib
@@ -187,10 +204,20 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {lib.zrc_error_string(err).decode()}")
 
 
+def _whole_path_heap(scene, tree: bool, device) -> ZrcHeap:
+    """The heap the whole-path kernels walk: the tile heap
+    (``scene.tree_bbox``) when ``tree``, else a null heap (the flat tile
+    loop)."""
+    if not tree:
+        return ZrcHeap(None, None, 0, 0, 0)
+    return _heap(scene.tree_bbox, None, 0, scene.tile_bbox.shape[1], device)
+
+
 def launch_path_trace_gen(scene, par, meta, gen, max_bounce: int,
-                          emit_key: bool, state_out, idx_out) -> None:
+                          emit_key: bool, state_out, idx_out, tree: bool) -> None:
     """Launch path_trace_gen_kernel into ``state_out`` (16, R) and
-    ``idx_out`` (R,) int32."""
+    ``idx_out`` (R,) int32; ``tree``: walk the tile heap, else the flat
+    tile loop."""
     lib = load()
     dev = scene.device
     R = state_out.shape[1]
@@ -200,12 +227,14 @@ def launch_path_trace_gen(scene, par, meta, gen, max_bounce: int,
     if R >= 1 << 23:
         raise ValueError(f"wave of {R} rays: slot math is exact below 2^23")
     sc = _scene_struct(scene, dev)
+    hp = _whole_path_heap(scene, tree, dev)
     g = ZrcGen(par.data_ptr(), int(meta[1]), int(meta[2]), int(meta[4]),
                int(meta[3]) & 0xFFFFFFFF, gen.spp, gen.width, gen.img_w,
                gen.img_h, gen.tiles_x)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.zrc_path_trace_gen(
-        ctypes.byref(sc), ctypes.byref(g), int(max_bounce), int(emit_key),
+        ctypes.byref(sc), ctypes.byref(hp), ctypes.byref(g), int(max_bounce),
+        int(emit_key),
         state_out.data_ptr(), idx_out.data_ptr(), R, dev.index or 0, stream,
     )
     _raise_on(lib, err, "path_trace_gen_kernel")
@@ -213,9 +242,9 @@ def launch_path_trace_gen(scene, par, meta, gen, max_bounce: int,
 
 
 def launch_path_trace(scene, state_in, prev, bounce0: int, max_bounce: int,
-                      state_out, idx_out) -> None:
+                      state_out, idx_out, tree: bool) -> None:
     """Launch path_trace_kernel: ``state_in`` (16, R) → ``state_out``;
-    ``prev`` (R,) int32 or None."""
+    ``prev`` (R,) int32 or None; ``tree`` as in ``launch_path_trace_gen``."""
     lib = load()
     dev = scene.device
     R = state_in.shape[1]
@@ -225,9 +254,10 @@ def launch_path_trace(scene, state_in, prev, bounce0: int, max_bounce: int,
     if prev is not None:
         _check(prev, "prev", torch.int32, (R,), dev)
     sc = _scene_struct(scene, dev)
+    hp = _whole_path_heap(scene, tree, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.zrc_path_trace(
-        ctypes.byref(sc), state_in.data_ptr(),
+        ctypes.byref(sc), ctypes.byref(hp), state_in.data_ptr(),
         None if prev is None else prev.data_ptr(), int(bounce0),
         int(max_bounce), state_out.data_ptr(), idx_out.data_ptr(), R,
         dev.index or 0, stream,
@@ -319,3 +349,47 @@ def launch_shade(scene, state_in, aux, rec, bounce: int, state_out) -> None:
     )
     _raise_on(lib, err, "shade_kernel")
     LAUNCHES["shade"] += 1
+
+
+def launch_texel_fetch(bank, texture, base, demand, out) -> None:
+    """Launch texel_fetch_kernel: the four bilinear corners (self, +x, +y,
+    +xy under the texture's wrap mode) of each base texel ``base`` (B,)
+    int32 of ``texture`` (off, w, h, repeat_u, repeat_v) in the (P, 4)
+    ``bank``, into ``out`` (16, B) f32, row 4·corner + channel; lanes where
+    ``demand`` (B,) bool is False read 0."""
+    lib = load()
+    dev = bank.device
+    B = base.shape[0]
+    _check(bank, "bank", torch.float32, (bank.shape[0], 4), dev)
+    _check(base, "base", torch.int32, (B,), dev)
+    _check(demand, "demand", torch.bool, (B,), dev)
+    _check(out, "out", torch.float32, (16, B), dev)
+    off, w, h, rep_u, rep_v = (int(x) for x in texture)
+    if w < 1 or h < 1 or off < 0 or off + w * h > bank.shape[0]:
+        raise ValueError(f"texture {tuple(texture)} does not lie in a bank of "
+                         f"{bank.shape[0]} texels")
+    sc = ZrcScene(None, None, None, bank.data_ptr(), 0, 0, bank.shape[0], 0)
+    tex = ZrcTexture(off, w, h, rep_u, rep_v)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.zrc_texel_fetch(ctypes.byref(sc), ctypes.byref(tex), base.data_ptr(),
+                              demand.data_ptr(), out.data_ptr(), B, dev.index or 0,
+                              stream)
+    _raise_on(lib, err, "texel_fetch_kernel")
+    LAUNCHES["texel_fetch"] += 1
+
+
+def launch_sort_key(state, par, key_out) -> None:
+    """Launch sort_key_kernel: the whole-path kernels' beam-sort key of
+    every column of ``state`` (16, R) with the gen parameters ``par``
+    (32,), into ``key_out`` (R,) int32."""
+    lib = load()
+    dev = state.device
+    R = state.shape[1]
+    _check(state, "state", torch.float32, (16, R), dev)
+    _check(par, "par", torch.float32, (32,), dev)
+    _check(key_out, "key_out", torch.int32, (R,), dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.zrc_sort_key(state.data_ptr(), par.data_ptr(), key_out.data_ptr(), R,
+                           dev.index or 0, stream)
+    _raise_on(lib, err, "sort_key_kernel")
+    LAUNCHES["sort_key"] += 1

@@ -13,25 +13,36 @@
 //                             (_make_trace_kernel_t_hbm :1344, body :1380)
 //   shade_kernel           <- zig_raytracing_contest_tpu/render/fused.py:1191
 //                             shade_fused (_make_shade1_kernel :668)
+//   texel_fetch_kernel     <- scripts/check_paged_tpu.py:57 run_fetch (the
+//                             paged texel fetch fused._fetch_paged :401 with
+//                             the clamp reconciliation _paged_corners :545)
+//   sort_key_kernel        <- tests/test_fused.py:988 (the pallas_call
+//                             around fused._emit_sort_key :915)
 // with the shared device functions
 //   gen_ray        <- fused._gen_rays (:844)
 //   trace_nearest  <- mxu_intersect._trace_body_resident (:1027), flat tile
-//                     loop with _cull_any (:782) and _tile_update (:443)
+//                     loop with _cull_any (:782) and _tile_update (:443);
+//                     the whole-path kernels below TREE_MIN_TILES tiles
 //   walk_heap      <- mxu_intersect._tree_traverse (:1191) with
 //                     _cull_entry_batch (:786), a per-ray binary walk of
-//                     the tile heap or (streaming) of the group heap,
-//                     whose leaves re-cull and sweep their group's tiles
-//                     (visit_group / process_group :1418-1517; it also
-//                     covers _front_to_back_groups :869, which visits a
-//                     block's groups nearest first below 16 groups)
+//                     the tile heap (the whole-path kernels from
+//                     TREE_MIN_TILES = 16 tiles up, and trace_emit) or of
+//                     the group heap (trace_stream), whose leaves re-cull
+//                     and sweep their group's tiles (visit_group /
+//                     process_group :1418-1517; it also covers
+//                     _front_to_back_groups :869, which visits a block's
+//                     groups nearest first below 16 groups)
 //   shade_surface  <- fused._shade1_body (:595): _prep_math (:110, non-tiled)
 //                     and _shade_live (:245)
 //   emit_sort_key  <- fused._emit_sort_key (:915)
 //
-// The whole-path kernels keep the flat tile loop for every scene.  The
-// per-bounce kernels serve scenes past 2^15 padded triangles: trace_emit
-// walks the tile heap, trace_stream (past 2^17 padded triangles) the heap
-// of 8-tile groups, and the winner record is one direct load per ray
+// Which loop each kernel takes: the whole-path kernels walk the tile heap
+// when the launcher passes one (scenes of at least TREE_MIN_TILES = 16
+// tiles, the JAX kernels' rule) and take the flat tile loop when it passes
+// a null heap.  The per-bounce kernels serve scenes past 2^15 padded
+// triangles: trace_emit walks the tile heap, trace_stream (past 2^17
+// padded triangles) the heap of 8-tile groups, and the winner record is
+// one direct load per ray
 // after the walk (the JAX kernels' deferred _extract_winner_records :590).
 // What bounds them on this card: both traces are bound by operations (~41
 // f32 operations per triangle of every swept tile, ~24 per box) over a
@@ -565,16 +576,26 @@ __device__ int emit_sort_key(const float* par, const float s[S_ROWS]) {
 
 // ------------------------------------------------------------- kernels
 
-// Bounces [bounce0, bounce0 + n) of one ray.  ``prev`` is excluded at the
-// first bounce (-1: none); each later bounce excludes the one before.
-// Returns the last traced winner (``idx`` if the ray never traced).
-__device__ int run_bounces(const ZrcScene& sc, float s[S_ROWS], int bounce0,
-                           int n, int prev, int idx) {
+// Bounces [bounce0, bounce0 + n) of one ray, each traced by the walk of
+// the tile heap ``hp`` (kTree) or by the flat tile loop.  Two instantiations
+// keep the flat kernels free of the walk's registers and stack.  ``prev`` is
+// excluded at the first bounce (-1: none); each later bounce excludes the
+// one before.  Returns the last traced winner (``idx`` if the ray never
+// traced).
+template <bool kTree>
+__device__ int run_bounces(const ZrcScene& sc, const ZrcHeap& hp, float s[S_ROWS],
+                           int bounce0, int n, int prev, int idx) {
     for (int b = bounce0; b < bounce0 + n; ++b) {
         if (!(s[S_ALIVE] > 0.0f)) break;
         float o[3] = {s[S_OX], s[S_OX + 1], s[S_OX + 2]};
         float d[3] = {s[S_DX], s[S_DX + 1], s[S_DX + 2]};
-        Hit h = trace_nearest(sc, o, d, prev);
+        Hit h;
+        if (kTree) {
+            int swept, tested;
+            h = walk_heap<false>(sc, hp, o, d, prev, swept, tested);
+        } else {
+            h = trace_nearest(sc, o, d, prev);
+        }
         shade_bounce(sc, s, h, b);
         idx = h.idx;
         prev = idx;
@@ -582,21 +603,25 @@ __device__ int run_bounces(const ZrcScene& sc, float s[S_ROWS], int bounce0,
     return idx;
 }
 
-__global__ void path_trace_gen_kernel(ZrcScene sc, ZrcGen g, int max_bounce,
+template <bool kTree>
+__global__ void path_trace_gen_kernel(ZrcScene sc, ZrcHeap hp, ZrcGen g,
+                                      int max_bounce,
                                       int emit_key, float* __restrict__ state_out,
                                       int* __restrict__ idx_out, int R) {
     int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= R) return;
     float s[S_ROWS];
     gen_ray(g, i, s);
-    int idx = run_bounces(sc, s, 0, max_bounce, -1, 0);
+    int idx = run_bounces<kTree>(sc, hp, s, 0, max_bounce, -1, 0);
     if (emit_key) s[S_KEY] = __int_as_float(emit_sort_key(g.par, s));
 #pragma unroll
     for (int f = 0; f < S_ROWS; ++f) state_out[(size_t)f * R + i] = s[f];
     if (idx_out) idx_out[i] = idx;
 }
 
-__global__ void path_trace_kernel(ZrcScene sc, const float* __restrict__ state_in,
+template <bool kTree>
+__global__ void path_trace_kernel(ZrcScene sc, ZrcHeap hp,
+                                  const float* __restrict__ state_in,
                                   const int* __restrict__ prev, int bounce0,
                                   int max_bounce, float* __restrict__ state_out,
                                   int* __restrict__ idx_out, int R) {
@@ -606,7 +631,7 @@ __global__ void path_trace_kernel(ZrcScene sc, const float* __restrict__ state_i
 #pragma unroll
     for (int f = 0; f < S_ROWS; ++f) s[f] = state_in[(size_t)f * R + i];
     int p = prev ? prev[i] : -1;
-    int idx = run_bounces(sc, s, bounce0, max_bounce, p, prev ? p : 0);
+    int idx = run_bounces<kTree>(sc, hp, s, bounce0, max_bounce, p, prev ? p : 0);
 #pragma unroll
     for (int f = 0; f < S_ROWS; ++f) state_out[(size_t)f * R + i] = s[f];
     if (idx_out) idx_out[i] = idx;
@@ -713,34 +738,108 @@ __global__ void shade_kernel(ZrcScene sc, const float* __restrict__ state_in,
     for (int f = 0; f < S_ROWS; ++f) state_out[f * n + i] = s[f];
 }
 
+// ------------------------------------------------------------- probes
+// Counterparts of the two TPU probes of this path (a paged texel fetch and
+// the whole-path kernels' sort key), each a thin kernel around the device
+// function the path kernels use, so the function is held to its plain
+// version on its own.
+
+struct ZrcTexture {
+    int off;       // first texel in the row-major bank
+    int w;
+    int h;
+    int repeat_u;  // 1: repeat wrap on x, 0: clamp
+    int repeat_v;
+};
+
+// The four bilinear corners of base texel base[i] of texture ``tx``: self,
+// +x, +y, +xy, the neighbours under the texture's wrap mode (repeat: (x+1)
+// mod w; clamp: min(x+1, w-1)), as _paged_corner_maps bakes them.  At a
+// clamp edge the neighbour is the texel itself, loaded twice, which is
+// the collapsed corner _paged_corners selects.  Row 4·corner + channel of
+// ``out`` (16, B) holds the u16-valued texel of ``texel`` (the shade's
+// loader, scale 1); a lane that is not demanded reads 0 (bound by bytes:
+// 4 B of index and 1 B of demand in, 64 B out, 4 float4 loads per lane).
+__global__ void texel_fetch_kernel(ZrcScene sc, ZrcTexture tx,
+                                   const int* __restrict__ base,
+                                   const bool* __restrict__ demand,
+                                   float* __restrict__ out, int B) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= B) return;
+    float4 c[4] = {};
+    if (demand[i]) {
+        int local = base[i] - tx.off;
+        int y = local / tx.w;
+        int x = local - y * tx.w;
+        int nx = tx.repeat_u ? (x + 1 == tx.w ? 0 : x + 1) : min(x + 1, tx.w - 1);
+        int ny = tx.repeat_v ? (y + 1 == tx.h ? 0 : y + 1) : min(y + 1, tx.h - 1);
+        c[0] = texel(sc, tx.off + y * tx.w + x, 1.0f);
+        c[1] = texel(sc, tx.off + y * tx.w + nx, 1.0f);
+        c[2] = texel(sc, tx.off + ny * tx.w + x, 1.0f);
+        c[3] = texel(sc, tx.off + ny * tx.w + nx, 1.0f);
+    }
+    const size_t n = (size_t)B;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        out[(4 * k + 0) * n + i] = c[k].x;
+        out[(4 * k + 1) * n + i] = c[k].y;
+        out[(4 * k + 2) * n + i] = c[k].z;
+        out[(4 * k + 3) * n + i] = c[k].w;
+    }
+}
+
+// emit_sort_key of every column of a (16, R) state into key[i] (bound by
+// bytes: 28 B of state in and 4 B out per lane against ~80 operations).
+__global__ void sort_key_kernel(const float* __restrict__ state,
+                                const float* __restrict__ par,
+                                int* __restrict__ key, int R) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= R) return;
+    float s[S_ROWS];
+#pragma unroll
+    for (int f = 0; f < S_ROWS; ++f) s[f] = state[(size_t)f * R + i];
+    key[i] = emit_sort_key(par, s);
+}
+
 // ------------------------------------------------------------ launchers
 // Plain C entry points for ctypes (kernels/__init__.py).  They launch on
 // the caller's stream, allocate nothing, and return cudaGetLastError().
 
 static const int kThreads = 128;
 
-extern "C" int zrc_path_trace_gen(const ZrcScene* sc, const ZrcGen* g,
-                                  int max_bounce, int emit_key, float* state_out,
-                                  int* idx_out, int R, int device, void* stream) {
+// The whole-path kernels walk ``hp`` (the tile heap: the kTree
+// instantiation), or take the flat tile loop when hp->tree is null.
+extern "C" int zrc_path_trace_gen(const ZrcScene* sc, const ZrcHeap* hp,
+                                  const ZrcGen* g, int max_bounce, int emit_key,
+                                  float* state_out, int* idx_out, int R, int device,
+                                  void* stream) {
     if (R <= 0) return 0;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     int blocks = (R + kThreads - 1) / kThreads;
-    path_trace_gen_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        *sc, *g, max_bounce, emit_key, state_out, idx_out, R);
+    if (hp->tree)
+        path_trace_gen_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+            *sc, *hp, *g, max_bounce, emit_key, state_out, idx_out, R);
+    else
+        path_trace_gen_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+            *sc, *hp, *g, max_bounce, emit_key, state_out, idx_out, R);
     return (int)cudaGetLastError();
 }
 
-extern "C" int zrc_path_trace(const ZrcScene* sc, const float* state_in,
-                              const int* prev, int bounce0, int max_bounce,
-                              float* state_out, int* idx_out, int R, int device,
-                              void* stream) {
+extern "C" int zrc_path_trace(const ZrcScene* sc, const ZrcHeap* hp,
+                              const float* state_in, const int* prev, int bounce0,
+                              int max_bounce, float* state_out, int* idx_out, int R,
+                              int device, void* stream) {
     if (R <= 0) return 0;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     int blocks = (R + kThreads - 1) / kThreads;
-    path_trace_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        *sc, state_in, prev, bounce0, max_bounce, state_out, idx_out, R);
+    if (hp->tree)
+        path_trace_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+            *sc, *hp, state_in, prev, bounce0, max_bounce, state_out, idx_out, R);
+    else
+        path_trace_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+            *sc, *hp, state_in, prev, bounce0, max_bounce, state_out, idx_out, R);
     return (int)cudaGetLastError();
 }
 
@@ -773,6 +872,28 @@ extern "C" int zrc_shade(const ZrcScene* sc, const float* state_in,
     int blocks = (R + kThreads - 1) / kThreads;
     shade_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         *sc, state_in, aux, rec, bounce, state_out, R);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int zrc_texel_fetch(const ZrcScene* sc, const ZrcTexture* tx,
+                               const int* base, const bool* demand, float* out,
+                               int B, int device, void* stream) {
+    if (B <= 0) return 0;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    int blocks = (B + kThreads - 1) / kThreads;
+    texel_fetch_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        *sc, *tx, base, demand, out, B);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int zrc_sort_key(const float* state, const float* par, int* key, int R,
+                            int device, void* stream) {
+    if (R <= 0) return 0;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    int blocks = (R + kThreads - 1) / kThreads;
+    sort_key_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(state, par, key, R);
     return (int)cudaGetLastError();
 }
 

@@ -6,7 +6,8 @@ is, so the port's arrays equal the JAX package's (tests/test_torch_bake.py),
 and ``nearest_hit_ref`` is the plain PyTorch twin of the resident trace
 body's flat tile loop (``_trace_body_resident`` with ``_cull_any`` and
 ``_tile_update``).  The CUDA kernels (kernels/path_trace.cu) run the same
-arithmetic per ray.  ``trace_emit_aux`` is the per-bounce pipeline's
+arithmetic per ray; the whole-path kernels walk the tile heap from
+TREE_MIN_TILES tiles up.  ``trace_emit_aux`` is the per-bounce pipeline's
 nearest hit: its CUDA kernels walk the tile heap (``tree_bbox``) of a
 resident scene or the group heap (``group_tree_bbox``) of a streaming one,
 its twin ``trace_emit_aux_ref`` is the flat loop plus the record load.
@@ -55,6 +56,11 @@ REC_EMIT_MAX_TRIS = 1 << 15
 # it in padded triangles, trace_emit_aux launches the streaming kernel.
 # Read at call time, so a test can lower it.
 VMEM_RESIDENT_MAX_TRIS = 1 << 17
+# Whole-path scenes with at least this many tiles walk the tile heap
+# (tree_bbox) in the whole-path kernels, fewer take the flat tile loop (the
+# JAX package's TREE_MIN_TILES rule of _trace_body_resident).  Read at call
+# time (render/fused.whole_path_walk), so a test can change it.
+TREE_MIN_TILES = 16
 
 
 @dataclass(frozen=True)
@@ -297,24 +303,30 @@ def _nearest_hit_chunk(tri_data, tile_bbox, tile, o, d, active, prev):
     ids = torch.arange(tile, device=dev)
     for j in range(tile_bbox.shape[1]):
         passed = cull_mask_ref(tile_bbox[:, j], o, inv, best_t, active)
-        if not bool(passed.any()):
+        # Sweep only the lanes whose box test passed: the same per-lane
+        # arithmetic as a sweep of every lane, at the cost of the tile's
+        # real work.
+        lanes = passed.nonzero()[:, 0]
+        if lanes.numel() == 0:
             continue
         swept += passed
         s = j * tile
         rows = tri_data[:_ROWS, s : s + tile]
         ok, t, u, v = _transform_hit([rows[r][None, :] for r in range(_ROWS)],
-                                     (ox, oy, oz), (dx, dy, dz))
+                                     tuple(c[lanes] for c in (ox, oy, oz)),
+                                     tuple(c[lanes] for c in (dx, dy, dz)))
         if prev is not None:
-            ok = ok & ((ids[None, :] + s) != prev[:, None])
+            ok = ok & ((ids[None, :] + s) != prev[lanes, None])
         t = torch.where(ok, t, INF)
         tile_min = t.min(dim=1).values
         cand = torch.where(t <= tile_min[:, None], ids[None, :], tile).min(dim=1).values
         cand_c = cand.clamp_max(tile - 1)[:, None]
-        better = passed & (tile_min < best_t)
-        best_t = torch.where(better, tile_min, best_t)
-        best_i = torch.where(better, s + cand, best_i)
-        best_u = torch.where(better, u.gather(1, cand_c)[:, 0], best_u)
-        best_v = torch.where(better, v.gather(1, cand_c)[:, 0], best_v)
+        better = tile_min < best_t[lanes]
+        win = lanes[better]
+        best_t[win] = tile_min[better]
+        best_i[win] = s + cand[better]
+        best_u[win] = u.gather(1, cand_c)[better, 0]
+        best_v[win] = v.gather(1, cand_c)[better, 0]
     return best_t, best_i, best_u, best_v, swept
 
 

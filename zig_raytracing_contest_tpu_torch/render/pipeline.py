@@ -36,6 +36,7 @@ from .wavefront import (
     regime,
     render_wave_rows,
     shade_bank,
+    trace_walk,
     whole_path_regime,
 )
 
@@ -111,8 +112,10 @@ def prepare_scene(in_path: str, config: Config, camera_name=None, width=None,
             geometry, materials, scene_bbox(geometry.positions), device,
             backend=config.backend,
         )
-        log.info("Intersection backend: %s on %s (%s)",
-                 regime(scene, config.ext_flags), scene.device, shade_bank(scene))
+        walk = (trace_walk(scene, config.ext_flags) if scene.device.type == "cuda"
+                else "flat (plain twins)")
+        log.info("Intersection backend: %s on %s (%s); walk: %s",
+                 regime(scene, config.ext_flags), scene.device, shade_bank(scene), walk)
 
     return scene, camera, timers
 

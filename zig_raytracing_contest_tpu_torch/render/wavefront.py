@@ -73,6 +73,17 @@ def regime(scene: TorchScene, ext: ExtFlags | None = None) -> str:
     return name + ", sorted" if sorts_every_bounce(scene) else name
 
 
+def trace_walk(scene: TorchScene, ext: ExtFlags | None = None) -> str:
+    """How the card's kernels find each bounce's nearest hit, for logs and
+    reports: in the whole path ``fused.whole_path_walk`` ("tile heap" or
+    "flat"), in the per-bounce pipeline "tile heap" (trace_emit_kernel) or,
+    streaming, "group heap" (trace_stream_kernel).  The CPU twins take the
+    flat tile loop for every scene."""
+    if whole_path_regime(scene, ext):
+        return fused.whole_path_walk(scene)
+    return "group heap" if mxu_intersect.streams_bank(scene) else "tile heap"
+
+
 def shade_bank(scene: TorchScene) -> str:
     """Which shade of the JAX package the scene's bank takes: "resident
     bank" (one kernel) or "3-stage bank" (prep, gather, shade).  The port's

@@ -63,20 +63,39 @@ PAGE_TILE_W = 64
 PAGE_TILE_H = PAGE_TEXELS // PAGE_TILE_W  # 32
 
 
-def tiled_texel_capacity(color_desc: np.ndarray) -> int:
-    """Texel capacity of the JAX package's tiled page layout
-    (``_tiled_texel_map``'s ``padded_total``): textures that fit one
-    64×32 page tile pack row-major at the front, padded to a page; each
-    larger texture takes whole page tiles; the total pads to a page."""
+def tiled_texel_map(num_texels: int, color_desc: np.ndarray):
+    """Row-major texel index → position in the JAX package's tiled page
+    layout (a copy of its ``_tiled_texel_map``).  Returns ``(q, off_map,
+    padded_total)``: q (P,) int64 the tiled position of each row-major
+    texel, off_map (T,) int64 each texture's tiled base, and the layout's
+    texel capacity."""
     desc = np.asarray(color_desc, np.int64)
-    ws, hs = desc[:, 1], desc[:, 2]
+    offs, ws, hs = desc[:, 0], desc[:, 1], desc[:, 2]
     small = (ws <= PAGE_TILE_W) & (hs <= PAGE_TILE_H)
-    pos = int((ws[small] * hs[small]).sum())
+    off_map = np.zeros(len(offs), np.int64)
+    pos = 0
+    for i in np.nonzero(small)[0]:
+        off_map[i] = pos
+        pos += ws[i] * hs[i]
     pos = -(-pos // PAGE_TEXELS) * PAGE_TEXELS
-    big = ~small
-    pos += int(((-(-ws[big] // PAGE_TILE_W)) * (-(-hs[big] // PAGE_TILE_H))).sum()
-               * PAGE_TEXELS)
-    return -(-pos // PAGE_TEXELS) * PAGE_TEXELS
+    tiles_x = -(-ws // PAGE_TILE_W)
+    for i in np.nonzero(~small)[0]:
+        off_map[i] = pos
+        pos += tiles_x[i] * (-(-hs[i] // PAGE_TILE_H)) * PAGE_TEXELS
+    padded_total = int(-(-pos // PAGE_TEXELS) * PAGE_TEXELS)
+
+    p = np.arange(num_texels, dtype=np.int64)
+    t = np.searchsorted(offs, p, side="right") - 1
+    local = p - offs[t]
+    y, x = np.divmod(local, ws[t])
+    q_big = (
+        off_map[t]
+        + ((y // PAGE_TILE_H) * tiles_x[t] + x // PAGE_TILE_W) * PAGE_TEXELS
+        + (y % PAGE_TILE_H) * PAGE_TILE_W
+        + x % PAGE_TILE_W
+    )
+    q = np.where(small[t], off_map[t] + local, q_big)
+    return q, off_map, padded_total
 
 
 def bank_is_resident(num_texels: int, color_desc: np.ndarray) -> bool:
@@ -85,7 +104,7 @@ def bank_is_resident(num_texels: int, color_desc: np.ndarray) -> bool:
     PAGED_MAX_TEXELS (build_device_scene's paged-bank decision)."""
     if num_texels <= ONEHOT_MAX_TEXELS:
         return True
-    return tiled_texel_capacity(color_desc) <= PAGED_MAX_TEXELS
+    return tiled_texel_map(0, color_desc)[2] <= PAGED_MAX_TEXELS
 
 
 # shade_table column layout
@@ -302,6 +321,24 @@ def _unpack_color_bank(packed: np.ndarray) -> np.ndarray:
                     axis=1).astype(np.float32)
 
 
+def _row_major_records(rec: np.ndarray, color_desc: np.ndarray,
+                       off_map: np.ndarray) -> np.ndarray:
+    """(24, Tp) packed records whose descriptor offsets are tiled bank
+    bases (``off_map``) → the same records with row-major offsets (the
+    inverse of the JAX package's ``build_packed_record`` remap)."""
+    desc = np.asarray(color_desc, np.int64)
+    order = np.argsort(off_map, kind="stable")
+    out = rec.copy()
+    for col in (PCOL_BASE, PCOL_EMIS):
+        tiled = rec[col].astype(np.int64)
+        k = np.searchsorted(off_map[order], tiled)
+        t = order[np.minimum(k, len(order) - 1)]
+        if not np.array_equal(off_map[t], tiled):
+            raise ValueError("a record's descriptor offset is no texture's tiled base")
+        out[col] = desc[t, 0].astype(np.float32)
+    return out
+
+
 def from_jax_scene(arrays: dict, device="cuda") -> TorchScene:
     """TorchScene on ``device`` (the CPU only when asked) from a JAX
     ``DeviceScene``'s arrays taken as NumPy.
@@ -312,27 +349,33 @@ def from_jax_scene(arrays: dict, device="cuda") -> TorchScene:
     one-hot bank cut back to its P real texels, or None past
     ONEHOT_MAX_TEXELS), ``color_packed_t`` (the (2, P) u16×2-packed bank),
     ``tiled_layout`` (bool: the bake chose the tiled page layout),
-    ``grid.bbox_min``, ``grid.bbox_max`` and ``emissive_all_dummy`` (bool).
-    Both packages then trace and shade identical state.
+    ``color_desc`` (the materials' (T, 7) texture descriptors; read only
+    with ``tiled_layout``), ``grid.bbox_min``, ``grid.bbox_max`` and
+    ``emissive_all_dummy`` (bool).  Both packages then trace and shade
+    identical state.
 
-    The bank is the one-hot bank when there is one (a resident bank), else
-    the unpacked u16×2 bank (the 3-stage shade's).  A paged bank's records
-    and bank hold tiled texel offsets, which the port's row-major shade
-    does not read: it raises ``ValueError``."""
+    The bank is the one-hot bank when there is one, else the unpacked
+    u16×2 bank.  A paged bake (``tiled_layout``) keeps its packed bank and
+    its records' descriptor offsets in the tiled page layout: the layout
+    is mapped back to row-major (``tiled_texel_map``) for the bank, and
+    each record's base and emissive offsets from their texture's tiled
+    base to its row-major one.  A one-hot or paged bank is resident."""
     def f32(key):
         return torch.from_numpy(np.array(arrays[key], np.float32))
 
-    if arrays.get("tiled_layout"):
-        raise ValueError(
-            "the JAX scene holds a paged bank: its shade_table_t and "
-            "color_packed_t use tiled texel offsets, and the port reads "
-            "row-major ones (ROADMAP queue 1 item 3)"
-        )
     onehot = arrays.get("color_u16f_t")
+    tiled = bool(arrays.get("tiled_layout"))
+    rec = np.array(arrays["shade_table_t"], np.float32)
     if onehot is not None:
-        bank = torch.from_numpy(np.array(onehot, np.float32).T.copy())
+        bank = np.array(onehot, np.float32).T.copy()
     else:
-        bank = torch.from_numpy(_unpack_color_bank(arrays["color_packed_t"]))
+        bank = _unpack_color_bank(arrays["color_packed_t"])
+    if tiled:
+        desc = np.asarray(arrays["color_desc"], np.int64)
+        num_texels = int((desc[:, 0] + desc[:, 1] * desc[:, 2]).max())
+        q, off_map, _ = tiled_texel_map(num_texels, desc)
+        bank = bank[q]
+        rec = _row_major_records(rec, desc, off_map)
     return TorchScene(
         tri_data=f32("mxu.tri_data"),
         tile_bbox=f32("mxu.tile_bbox"),
@@ -340,12 +383,12 @@ def from_jax_scene(arrays: dict, device="cuda") -> TorchScene:
         group_bbox=f32("mxu.group_bbox"),
         group_tree_bbox=f32("mxu.group_tree_bbox"),
         perm=torch.from_numpy(np.array(arrays["mxu.perm"], np.int64)),
-        rec_table=f32("shade_table_t"),
-        bank=bank,
+        rec_table=torch.from_numpy(rec),
+        bank=torch.from_numpy(bank),
         bbox_min=f32("grid.bbox_min"),
         bbox_max=f32("grid.bbox_max"),
         tile=int(arrays["mxu.tile"]),
         emissive_dummy=bool(arrays["emissive_all_dummy"]),
         group_tiles=int(arrays["mxu.group_tiles"]),
-        bank_resident=onehot is not None,
+        bank_resident=onehot is not None or tiled,
     ).to(device)
