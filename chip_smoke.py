@@ -63,15 +63,13 @@ Then a Duck-class textured GLB through the whole path, and the probes:
 
 h. the port's Duck-class GLB (scene/duck.py, 9586 triangles in 75 tiles, a
    327,685-texel bank) at the official frame's settings: its bake line and
-   walk (the tile heap); path_trace_gen and path_trace_fused against their
-   twins at 2^16 rays and on a full wave, single-bounce calls lane by lane
-   with tied lanes recomputed, bounces 2-3 to the share TIE_SHARE of the
-   lanes and segments within 0.5%; each kernel timed at the full wave
-   beside its twin, its bound from the tiles swept and boxes tested per
-   live ray; the A/B of path_trace_kernel with the tile heap and with a
-   null heap (the flat loop) on the same bounce-1 wave; a 320×180 frame,
-   kernels vs twins, under the golden gates; the frame: a warmup and 5
-   timed renders, launch counts checked; one profile;
+   walk (the flat tile loop); path_trace_gen and path_trace_fused against
+   their twins at 2^16 rays and on a full wave (bounce 0, bounce 1 after
+   the sort, bounces 2-3 after the resort), as in phase 4; each kernel
+   timed at the full wave beside its twin, its bound from the tiles swept
+   and boxes tested per live ray; a 320×180 frame, kernels vs twins, under
+   the golden gates; the frame: a warmup and 5 timed renders, launch
+   counts checked; one profile;
 i. the probe kernels: texel_fetch_kernel against its plain version on the
    paged-fetch check's three banks × three index patterns and a clamp
    texture, then on the Duck bank at the bounce-0 wave's body-texture
@@ -82,9 +80,7 @@ Run from the repository root: ``python3 chip_smoke.py``.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, its largest difference from the twin,
 its time beside the twin's, and the least time the card could take for the
-same work (its bound).  ``python3 chip_smoke.py --official-only`` runs
-phases 1-3 and 6 alone (copied into another checkout, it times that
-checkout's official frame on the same card: an A/B of two commits).
+same work (its bound).
 """
 
 from __future__ import annotations
@@ -777,82 +773,12 @@ def bank_phases(card, timing, errs, bounds, launches) -> None:
     tmp.cleanup()
 
 
-def compare_one_bounce(name, scene, st_in, bounce, prev, k, t, par=None):
-    """One bounce of a whole-path kernel against its twin on the same input
-    state ``st_in``.  Where the winners agree: rows 12-15 and the winner
-    exactly, value rows as ``compare``.  Where they differ (a tie at the
-    nearest t: the tile-heap walk keeps the first triangle it swept, the
-    twin's flat loop the lower index), the kernel's winner is recomputed
-    with the twin's arithmetic: a front-facing hit at the twin's t, not the
-    previous hit, and the lane equal to the twin's shade of that winner
-    (and its key with ``par``); tied lanes stay under TIE_SHARE.  Returns
-    the largest |diff| of rows 0-11 where the winners agree."""
-    import torch
-
-    from zig_raytracing_contest_tpu_torch.ops.mxu_intersect import (
-        nearest_hit_ref,
-        records_ref,
-        triangle_hit_ref,
-    )
-    from zig_raytracing_contest_tpu_torch.render import fused
-
-    (ks, ki), (ts, ti) = k, t
-    same = ki == ti
-    exact, val = lanes_off(ks, ts)
-    n_exact, n_val = int((exact & same).sum()), int((val & same).sum())
-    err = float((ks[0:12, same] - ts[0:12, same]).abs().max()) if bool(same.any()) else 0.0
-    lane = (~same).nonzero()[:, 0]
-    n_bad_tie = 0
-    if lane.numel():
-        o, d, w = st_in[0:3, lane], st_in[3:6, lane], ki[lane]
-        hit, tw, uw, vw = triangle_hit_ref(scene.tri_data, o, d, w)
-        pv = None if prev is None else prev[lane].long()
-        tt = nearest_hit_ref(scene.tri_data, scene.tile_bbox, scene.tile, o, d,
-                             st_in[12, lane] > 0, pv)[0]
-        want = fused.shade_ref(st_in[:, lane], tw, uw, vw,
-                               records_ref(scene.rec_table, tw, w.long()), scene.bank,
-                               bounce, scene.emissive_dummy)
-        if par is not None:
-            want[15] = fused.sort_key_ref(want, par).view(torch.float32)
-        ex, va = lanes_off(ks[:, lane], want)
-        good = hit & (tw == tt) & ~ex & ~va
-        if pv is not None:
-            good &= w.long() != pv
-        n_bad_tie = int((~good).sum())
-    R = ks.shape[1]
-    print(f"  {name}: rays {R}, mismatched rows 12-15: {n_exact}, rows 0-11 beyond "
-          f"tolerance: {n_val}, max |diff| rows 0-11: {err:.3e}; tied lanes "
-          f"{lane.numel()} (of which not the twin's shade of a hit at its t: {n_bad_tie})")
-    if n_exact or n_val or n_bad_tie or lane.numel() > TIE_SHARE * R:
-        fail(f"{name} disagrees with its plain twin")
-    return err
-
-
-def compare_bounces(name, k, t):
-    """A multi-bounce whole-path call against its twin: a tie decorrelates
-    a ray for its later bounces, so lanes off the ``compare`` rule stay
-    under TIE_SHARE and the segments within 0.5%.  Returns the largest
-    |diff| of rows 0-11 on the other lanes."""
-    exact, val = lanes_off(k, t)
-    off = exact | val
-    seg_k, seg_t = float(k[14].sum()), float(t[14].sum())
-    seg_rel = abs(seg_k - seg_t) / max(seg_t, 1.0)
-    err = float((k[0:12, ~off] - t[0:12, ~off]).abs().max())
-    print(f"  {name}: rays {k.shape[1]}, lanes off the rule: {int(off.sum())}, segments "
-          f"{int(seg_k)} vs {int(seg_t)} ({seg_rel:.4%}), max |diff| rows 0-11 elsewhere: "
-          f"{err:.3e}")
-    if int(off.sum()) > TIE_SHARE * k.shape[1] or seg_rel >= 0.005:
-        fail(f"{name} disagrees with its plain twin")
-    return err
-
-
 def duck_phases(card, timing, errs, bounds, launches) -> dict:
-    """Phase h: the Duck-class GLB through the whole path, walking the tile
-    heap.  Returns what phase i reads: the scene, the gen parameters and
+    """Phase h: the Duck-class GLB through the whole path (the flat tile
+    loop).  Returns what phase i reads: the scene, the gen parameters and
     the bounce-0 full wave (input and kernel output)."""
     import torch
 
-    from zig_raytracing_contest_tpu_torch import kernels
     from zig_raytracing_contest_tpu_torch.config import Config
     from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
     from zig_raytracing_contest_tpu_torch.render import fused
@@ -883,8 +809,8 @@ def duck_phases(card, timing, errs, bounds, launches) -> dict:
           f"{regime(scene)}, {shade_bank(scene)}, walk {walk}, camera {cam.width}x"
           f"{cam.height}; loaded in {timers.phases['load'] + timers.phases['preprocess']:.2f}"
           f" s, baked in {timers.phases['compile']:.2f} s")
-    if (nt, walk, regime(scene), cam.width) != (D_TILES, "tile heap", "whole path", 1920):
-        fail("the Duck scene does not bake to 75 tiles walked in the whole path at 1920x1080")
+    if (nt, walk, regime(scene), cam.width) != (D_TILES, "flat", "whole path", 1920):
+        fail("the Duck scene does not bake to 75 tiles in the whole path at 1920x1080")
 
     par = build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
     num_slots, tiles_x = slot_geometry(1920, 1080, True)
@@ -903,30 +829,29 @@ def duck_phases(card, timing, errs, bounds, launches) -> dict:
         k0 = fused.path_trace_gen(*args, emit_key=True, emit_idx=True)
         t0 = fused.path_trace_gen_ref(*args, emit_key=True, emit_idx=True)
         torch.cuda.synchronize()
-        errs["path_trace_gen_duck"] = max(errs["path_trace_gen_duck"], compare_one_bounce(
-            "Duck path_trace_gen (bounce 0, key, idx)", scene, st0, 0, None, k0, t0, par))
+        errs["path_trace_gen_duck"] = max(errs["path_trace_gen_duck"], compare(
+            "Duck path_trace_gen (bounce 0, key, idx)", *k0, *t0))
         key = k0[0][15].contiguous().view(torch.int32)
         _, st, (idx_s,) = sort_state_payload(key, k0[0], (k0[1],))
         k1 = fused.path_trace_fused(scene, st, 1, bounce0=1, prev=idx_s, emit_idx=True)
         t1 = fused.path_trace_fused_ref(scene, st, 1, bounce0=1, prev=idx_s, emit_idx=True)
         torch.cuda.synchronize()
-        errs["path_trace_duck"] = max(errs["path_trace_duck"], compare_one_bounce(
-            "Duck path_trace_fused (bounce 1 after the sort, prev)", scene, st, 1, idx_s,
-            k1, t1))
+        errs["path_trace_duck"] = max(errs["path_trace_duck"], compare(
+            "Duck path_trace_fused (bounce 1 after the sort, prev)", *k1, *t1))
         _, st2, (idx2,) = sort_state_payload(ray_sort_key(scene, k1[0]), k1[0], (k1[1],))
         k3 = fused.path_trace_fused(scene, st2, 2, bounce0=2, prev=idx2)
         t3 = fused.path_trace_fused_ref(scene, st2, 2, bounce0=2, prev=idx2)
         torch.cuda.synchronize()
-        errs["path_trace_duck"] = max(errs["path_trace_duck"], compare_bounces(
-            "Duck path_trace_fused (bounces 2-3 after the resort, prev)", k3, t3))
+        errs["path_trace_duck"] = max(errs["path_trace_duck"], compare(
+            "Duck path_trace_fused (bounces 2-3 after the resort, prev)", k3, None, t3, None))
     del t0, t1, k3, t3, st2, idx2
 
     # the least work of the timed calls on this run's data: tiles swept ×
-    # 128 triangle tests and boxes tested, each the fewer of the walk's
-    # count (trace_emit_aux: the same walk_heap, aux rows 5-6) and the flat
-    # twin's, plus the shade of each live ray and the generation of each
-    # ray; bytes: the scene's arrays and heap once, the state out (and in)
-    sc_b = scene_bytes(scene) + scene.tree_bbox.numel() * 4
+    # 128 triangle tests and boxes tested, each the fewer of a tile-heap
+    # walk's count (trace_emit_aux, aux rows 5-6) and the flat loop's (the
+    # twin's), plus the shade of each live ray and the generation of each
+    # ray; bytes: the scene's arrays once, the state out (and in)
+    sc_b = scene_bytes(scene)
 
     def work(state, prev):
         live = state[12] > 0
@@ -959,31 +884,8 @@ def duck_phases(card, timing, errs, bounds, launches) -> dict:
         k_ms, p_ms, rays, _ = timing[name]
         print(f"  {name} at {rays} rays: kernel {k_ms:.3f} ms, plain twin {p_ms:.3f} ms, "
               f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}); live rays {int(w[2])}, "
-              f"tiles swept per live ray: walk {w[3]:.2f}, flat {w[4]:.2f} ({card})")
-
-    # A/B: the same bounce-1 wave through path_trace_kernel with the tile
-    # heap and with a null heap (the flat loop)
-    outs = {tree: (torch.empty_like(st), torch.empty_like(idx_s)) for tree in (True, False)}
-
-    def launch(tree):
-        return lambda: kernels.launch_path_trace(scene, st, idx_s, 1, 1, *outs[tree],
-                                                 tree=tree)
-
-    ab = {True: [], False: []}
-    for tree in (True, False, False, True):
-        ab[tree].append(cuda_ms(launch(tree), 5))
-    (kt, it), (kf, iff) = outs[True], outs[False]
-    same = it == iff
-    eq = torch.equal(kt[:, same].view(torch.int32), kf[:, same].view(torch.int32))
-    ties = (~same).nonzero()[:, 0]
-    hit_t = triangle_hit_ref_t(scene, st, ties, it)
-    hit_f = triangle_hit_ref_t(scene, st, ties, iff)
-    print(f"  A/B path_trace_kernel, bounce 1 at {full_wave} rays: tile heap "
-          f"{ab[True][0]:.3f}, {ab[True][1]:.3f} ms; flat loop {ab[False][0]:.3f}, "
-          f"{ab[False][1]:.3f} ms; lanes whose winners differ {ties.numel()} ({card})")
-    if not eq or ties.numel() > TIE_SHARE * full_wave or not torch.equal(hit_t, hit_f):
-        fail("the tile-heap walk and the flat loop disagree beyond ties")
-    del outs, kt, kf
+              f"tiles swept per live ray: tile-heap walk {w[3]:.2f}, flat loop {w[4]:.2f} "
+              f"({card})")
 
     # a small Duck frame, kernels vs twins
     s_cfg = Config(num_samples=SPP, max_bounce=MAX_BOUNCE, seed=SEED)
@@ -1011,15 +913,6 @@ def nearest_hit_ref_swept(scene, state, live, prev) -> float:
     pv = None if prev is None else prev.long()
     return float(nearest_hit_ref(scene.tri_data, scene.tile_bbox, scene.tile, state[0:3],
                                  state[3:6], live, pv)[4].sum())
-
-
-def triangle_hit_ref_t(scene, state, lane, idx):
-    """t of each ray ``lane`` of ``state`` against its triangle ``idx[lane]``."""
-    from zig_raytracing_contest_tpu_torch.ops.mxu_intersect import triangle_hit_ref
-
-    hit, t, _, _ = triangle_hit_ref(scene.tri_data, state[0:3, lane], state[3:6, lane],
-                                    idx[lane])
-    return t.masked_fill(~hit, float("nan"))
 
 
 def probe_phases(card, timing, errs, bounds, launches, duck) -> None:
@@ -1128,16 +1021,8 @@ def official_frame(render_scene, scene, cam, cfg, card) -> dict:
     return got
 
 
-def main(argv=None) -> int:
-    import argparse
-
+def main() -> int:
     import torch
-
-    ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA card")
-    ap.add_argument("--official-only", action="store_true",
-                    help="phases 1-3 and 6 only: build, then time the official frame "
-                         "(for an A/B of two checkouts on one card)")
-    args = ap.parse_args(argv)
 
     # 1. the card
     if not torch.cuda.is_available():
@@ -1182,10 +1067,6 @@ def main(argv=None) -> int:
     print(f"scene: tri_data {tuple(scene.tri_data.shape)}, tiles "
           f"{scene.tile_bbox.shape[1]}, texels {scene.bank.shape[0]}, "
           f"emissive_dummy {scene.emissive_dummy}")
-    if args.official_only:
-        official_frame(render_scene, scene, cam, cfg, card)
-        tmp.cleanup()
-        return 0
 
     # 4. kernels vs twins on the card
     par = build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)

@@ -157,43 +157,13 @@ def test_trace_stream_kernel_matches_twin_on_cuda(tmp_path, monkeypatch):
     assert kernels.LAUNCHES["trace_emit"] == 0
 
 
-def _hold_one_bounce(scene, st_in, bounce, prev, k, ki, t, ti):
-    """A single-bounce whole-path call against its twin: where the winners
-    agree, rows 12-15 and the winner exactly and rows 0-11 to f32 rounding;
-    where they differ (a tie: the tile-heap walk keeps the first triangle
-    it swept at the nearest t, the flat loop the lower index), the
-    kernel's winner is hit at the twin's t and the lane equals the twin's
-    shade of that winner.  Returns the number of tied lanes."""
-    from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
-    from zig_raytracing_contest_tpu_torch.render import fused
-
-    same = ki == ti
-    assert torch.equal(k[12:16, same].view(torch.int32), t[12:16, same].view(torch.int32))
-    torch.testing.assert_close(k[0:12, same], t[0:12, same], rtol=3e-6, atol=1e-5)
-    lane = (~same).nonzero()[:, 0]
-    if lane.numel():
-        o, d, w = st_in[0:3, lane], st_in[3:6, lane], ki[lane]
-        hit, tw, uw, vw = mi.triangle_hit_ref(scene.tri_data, o, d, w)
-        tt = mi.nearest_hit_ref(scene.tri_data, scene.tile_bbox, scene.tile, o, d,
-                                st_in[12, lane] > 0,
-                                None if prev is None else prev[lane].long())[0]
-        assert bool(hit.all()) and torch.equal(tw, tt)
-        want = fused.shade_ref(st_in[:, lane], tw, uw, vw,
-                               mi.records_ref(scene.rec_table, tw, w.long()), scene.bank,
-                               bounce, scene.emissive_dummy)
-        assert torch.equal(k[12:15, lane].view(torch.int32), want[12:15].view(torch.int32))
-        torch.testing.assert_close(k[0:12, lane], want[0:12], rtol=3e-6, atol=1e-5)
-    return int(lane.numel())
-
-
 @pytest.mark.cuda
 def test_whole_path_tree_walk_matches_twins_on_cuda(tmp_path):
-    """The whole-path kernels on a Duck-class scene of 21 tiles walk the
-    tile heap: one bounce of path_trace_gen and of path_trace_fused held to
-    the twins lane by lane, ties recomputed (under 0.1% of the lanes); three
-    bounces to the same rows on all but 0.1% of the lanes and segments
-    within 0.5%; and path_trace_kernel with a null heap (the flat loop)
-    equal to the walk where their winners agree."""
+    """The whole-path kernels on a Duck-class scene of 21 tiles, past the
+    JAX kernels' TREE_MIN_TILES = 16, take the flat tile loop as the twins
+    do: bounce 0 (key, idx), bounce 1 and bounces 1-3 held to the twins with
+    rows 12-15 and the winner index exactly and value rows to f32 rounding
+    (direction rows 1e-5), as on the bench scene."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
     from zig_raytracing_contest_tpu_torch import kernels
@@ -201,13 +171,14 @@ def test_whole_path_tree_walk_matches_twins_on_cuda(tmp_path):
     from zig_raytracing_contest_tpu_torch.render.wavefront import (
         build_gen_par,
         sort_state_payload,
+        trace_walk,
     )
     from zig_raytracing_contest_tpu_torch.scene.duck import write_duck_glb
 
     path = write_duck_glb(tmp_path / "duck.glb", tex_size=64, detail=0.5)
     cfg = Config(num_samples=3, max_bounce=4)
     scene, cam, _ = prepare_scene(str(path), cfg, height=108, device="cuda")
-    assert scene.tile_bbox.shape[1] == 21 and fused.whole_path_walk(scene) == "tile heap"
+    assert scene.tile_bbox.shape[1] == 21 and trace_walk(scene) == "flat"
     par = build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
     gen = fused.GenParams(3, 192, 192, 108, tiles_x=6)
     R = 24 * 1024 * 3
@@ -215,26 +186,17 @@ def test_whole_path_tree_walk_matches_twins_on_cuda(tmp_path):
     kernels.reset_launches()
     k, ki = fused.path_trace_gen(*args, emit_key=True, emit_idx=True)
     t, ti = fused.path_trace_gen_ref(*args, emit_key=True, emit_idx=True)
-    st0 = fused.gen_rays_ref(par, args[2], R, gen)
-    tied = _hold_one_bounce(scene, st0, 0, None, k, ki, t, ti)
     _, st, (idx,) = sort_state_payload(k[15].contiguous().view(torch.int32), k, (ki,))
     k1, ki1 = fused.path_trace_fused(scene, st, 1, bounce0=1, prev=idx, emit_idx=True)
     t1, ti1 = fused.path_trace_fused_ref(scene, st, 1, bounce0=1, prev=idx, emit_idx=True)
-    tied += _hold_one_bounce(scene, st, 1, idx, k1, ki1, t1, ti1)
-    assert tied <= 2e-3 * R
     k3 = fused.path_trace_fused(scene, st, 3, bounce0=1, prev=idx)
     t3 = fused.path_trace_fused_ref(scene, st, 3, bounce0=1, prev=idx)
-    off = ((k3[12:16].view(torch.int32) != t3[12:16].view(torch.int32)).any(dim=0)
-           | ~torch.isclose(k3[0:12], t3[0:12], rtol=3e-6, atol=1e-5).all(dim=0))
-    assert int(off.sum()) <= 1e-3 * R
-    assert abs(float(k3[14].sum() - t3[14].sum())) <= 0.005 * float(t3[14].sum())
+    assert torch.equal(ki, ti) and torch.equal(ki1, ti1)
+    for a, b in ((k, t), (k1, t1), (k3, t3)):
+        # (row 13 holds RNG streams as f32 bit patterns, some of them NaN)
+        assert torch.equal(a[12:16].view(torch.int32), b[12:16].view(torch.int32))
+        torch.testing.assert_close(a[0:12], b[0:12], rtol=3e-6, atol=1e-5)
     assert kernels.LAUNCHES["path_trace_gen"] == 1 and kernels.LAUNCHES["path_trace"] == 2
-    # the same bounce through the flat loop (a null heap)
-    flat, fi = torch.empty_like(k1), torch.empty_like(ki1)
-    kernels.launch_path_trace(scene, st, idx, 1, 1, flat, fi, tree=False)
-    same = fi == ki1
-    assert float(same.float().mean()) > 0.998
-    assert torch.equal(flat[:, same].view(torch.int32), k1[:, same].view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -1,10 +1,11 @@
-"""The whole path on a Duck-class scene: the tile-heap walk, a paged bank,
-and the two probes of this path, against the JAX package.
+"""The whole path on a Duck-class scene: the JAX kernels' tile-heap walk, a
+paged bank, and the two probes of this path, against the JAX package.
 
 The fixture is the port's Duck-class GLB (scene/duck.py) at reduced detail
 (``detail=0.5``, a 64×64 body texture): 2622 triangles in 21 tiles, so the
-whole-path kernels walk the tile heap (TREE_MIN_TILES = 16), and 69,637
-texels, so the JAX package bakes a paged bank in the tiled page layout.
+JAX whole-path kernels walk their tile heap (TREE_MIN_TILES = 16) where the
+port's take the flat tile loop, and 69,637 texels, so the JAX package
+bakes a paged bank in the tiled page layout.
 Inputs come from NumPy seeds; each test states its tolerance.  Run on the
 CPU: ``JAX_PLATFORMS=cpu python -m pytest tests/test_torch_whole_tree.py``.
 """
@@ -12,6 +13,7 @@ CPU: ``JAX_PLATFORMS=cpu python -m pytest tests/test_torch_whole_tree.py``.
 import dataclasses
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -38,7 +40,7 @@ from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as tmi
 from zig_raytracing_contest_tpu_torch.probes import check_fetch, sort_key
 from zig_raytracing_contest_tpu_torch.render import fused
 from zig_raytracing_contest_tpu_torch.render.pipeline import prepare_scene, render_scene
-from zig_raytracing_contest_tpu_torch.render.wavefront import build_gen_par
+from zig_raytracing_contest_tpu_torch.render.wavefront import build_gen_par, trace_walk
 from zig_raytracing_contest_tpu_torch.scene.duck import write_duck_glb
 from zig_raytracing_contest_tpu_torch.scene.geometry import load_geometry
 from zig_raytracing_contest_tpu_torch.scene.gltf import load_gltf
@@ -85,10 +87,10 @@ def duck(tmp_path_factory):
 
 def test_fixture_walks_the_tree_with_a_paged_bank(duck):
     _, js, _, _, ts, _ = duck
-    assert ts.tile_bbox.shape[1] >= tmi.TREE_MIN_TILES
+    assert ts.tile_bbox.shape[1] >= jmi.TREE_MIN_TILES
     assert ts.bank.shape[0] > jtypes.ONEHOT_MAX_TEXELS
     assert js.color_paged_t is not None and js.tiled_layout is not None
-    assert fused.whole_path_walk(ts) == "tile heap" and ts.bank_resident
+    assert trace_walk(ts) == "flat" and ts.bank_resident
 
 
 @pytest.mark.parametrize("kw", [dict(detail=DETAIL, tex_size=TEX), dict()],
@@ -197,7 +199,7 @@ def test_duck_glb_matches_golden(tmp_path):
     cfg = Config(grid_resolution=(32, 32, 32), num_samples=4, max_bounce=3, seed=12345)
     scene, cam, _ = prepare_scene(str(glb), cfg, height=90, device="cpu")
     assert cam.width == 160 and scene.tile_bbox.shape[1] == 75
-    assert fused.whole_path_walk(scene) == "tile heap" and scene.bank_resident
+    assert trace_walk(scene) == "flat" and scene.bank_resident
     img, _ = render_scene(scene, cam, cfg)
     golden = np.asarray(Image.open(ASSETS / "golden_duck.png"))
     diff = np.abs(img.astype(int) - golden.astype(int))
@@ -225,7 +227,10 @@ def test_walk_rule_matches_jax(num_tiles):
     """(f) The port's walk rule against the JAX kernel's: the JAX whole-path
     kernel (interpret mode) on a wall of ``num_tiles`` tiles, with its tile
     heap replaced by always-miss boxes, hits the wall only when it takes
-    the flat loop; the port walks the tile heap exactly when JAX does."""
+    the flat loop, below TREE_MIN_TILES = 16 tiles.  The port's whole-path
+    kernels take the flat loop at every tile count (on the H100 it beat the
+    walk from 21 to 249 tiles), so the port's trace, which never reads the
+    heap, hits every lane of the wall on either side of 16."""
     v0, e1, e2 = _wall(num_tiles)
     tris = jmi.bake_triangles(v0, e1, e2, tile=128)
     assert tris.tile_bbox.shape[1] == num_tiles
@@ -239,10 +244,14 @@ def test_walk_rule_matches_jax(num_tiles):
         blind, jnp.asarray(state), jnp.zeros((24, tris.tri_data.shape[1]), jnp.float32),
         jnp.zeros((4, 128), jnp.float32), 1, True, interpret=True, lane_block=R)
     jax_tree = not bool((np.asarray(out)[12] > 0).any())
+    assert jax_tree == (num_tiles >= jmi.TREE_MIN_TILES == 16)
     port = tmi.bake_triangles(v0, e1, e2, tile=128)
-    walk = fused.whole_path_walk(dataclasses.make_dataclass("S", ["tile_bbox"])(
-        torch.from_numpy(port.tile_bbox)))
-    assert (walk == "tile heap") == jax_tree == (num_tiles >= 16)
+    scene = SimpleNamespace(tri_data=torch.from_numpy(port.tri_data), bank_resident=True)
+    assert trace_walk(scene) == "flat"
+    t = tmi.nearest_hit_ref(scene.tri_data, torch.from_numpy(port.tile_bbox), 128,
+                            torch.from_numpy(state[0:3]), torch.from_numpy(state[3:6]),
+                            torch.ones(R, dtype=torch.bool))[0]
+    torch.testing.assert_close(t, torch.ones(R), rtol=0, atol=1e-6)
 
 
 def _jax_corners(bank_u16, desc, base, demand):

@@ -143,13 +143,13 @@ def load():
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.zrc_path_trace_gen.restype = i32
             lib.zrc_path_trace_gen.argtypes = [
-                ctypes.POINTER(ZrcScene), ctypes.POINTER(ZrcHeap),
-                ctypes.POINTER(ZrcGen), i32, i32, ptr, ptr, i32, i32, ptr,
+                ctypes.POINTER(ZrcScene), ctypes.POINTER(ZrcGen), i32, i32,
+                ptr, ptr, i32, i32, ptr,
             ]
             lib.zrc_path_trace.restype = i32
             lib.zrc_path_trace.argtypes = [
-                ctypes.POINTER(ZrcScene), ctypes.POINTER(ZrcHeap), ptr, ptr, i32,
-                i32, ptr, ptr, i32, i32, ptr,
+                ctypes.POINTER(ZrcScene), ptr, ptr, i32, i32, ptr, ptr, i32,
+                i32, ptr,
             ]
             lib.zrc_trace_emit.restype = i32
             lib.zrc_trace_emit.argtypes = [
@@ -204,20 +204,10 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {lib.zrc_error_string(err).decode()}")
 
 
-def _whole_path_heap(scene, tree: bool, device) -> ZrcHeap:
-    """The heap the whole-path kernels walk: the tile heap
-    (``scene.tree_bbox``) when ``tree``, else a null heap (the flat tile
-    loop)."""
-    if not tree:
-        return ZrcHeap(None, None, 0, 0, 0)
-    return _heap(scene.tree_bbox, None, 0, scene.tile_bbox.shape[1], device)
-
-
 def launch_path_trace_gen(scene, par, meta, gen, max_bounce: int,
-                          emit_key: bool, state_out, idx_out, tree: bool) -> None:
+                          emit_key: bool, state_out, idx_out) -> None:
     """Launch path_trace_gen_kernel into ``state_out`` (16, R) and
-    ``idx_out`` (R,) int32; ``tree``: walk the tile heap, else the flat
-    tile loop."""
+    ``idx_out`` (R,) int32."""
     lib = load()
     dev = scene.device
     R = state_out.shape[1]
@@ -227,14 +217,12 @@ def launch_path_trace_gen(scene, par, meta, gen, max_bounce: int,
     if R >= 1 << 23:
         raise ValueError(f"wave of {R} rays: slot math is exact below 2^23")
     sc = _scene_struct(scene, dev)
-    hp = _whole_path_heap(scene, tree, dev)
     g = ZrcGen(par.data_ptr(), int(meta[1]), int(meta[2]), int(meta[4]),
                int(meta[3]) & 0xFFFFFFFF, gen.spp, gen.width, gen.img_w,
                gen.img_h, gen.tiles_x)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.zrc_path_trace_gen(
-        ctypes.byref(sc), ctypes.byref(hp), ctypes.byref(g), int(max_bounce),
-        int(emit_key),
+        ctypes.byref(sc), ctypes.byref(g), int(max_bounce), int(emit_key),
         state_out.data_ptr(), idx_out.data_ptr(), R, dev.index or 0, stream,
     )
     _raise_on(lib, err, "path_trace_gen_kernel")
@@ -242,9 +230,9 @@ def launch_path_trace_gen(scene, par, meta, gen, max_bounce: int,
 
 
 def launch_path_trace(scene, state_in, prev, bounce0: int, max_bounce: int,
-                      state_out, idx_out, tree: bool) -> None:
+                      state_out, idx_out) -> None:
     """Launch path_trace_kernel: ``state_in`` (16, R) → ``state_out``;
-    ``prev`` (R,) int32 or None; ``tree`` as in ``launch_path_trace_gen``."""
+    ``prev`` (R,) int32 or None."""
     lib = load()
     dev = scene.device
     R = state_in.shape[1]
@@ -254,10 +242,9 @@ def launch_path_trace(scene, state_in, prev, bounce0: int, max_bounce: int,
     if prev is not None:
         _check(prev, "prev", torch.int32, (R,), dev)
     sc = _scene_struct(scene, dev)
-    hp = _whole_path_heap(scene, tree, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.zrc_path_trace(
-        ctypes.byref(sc), ctypes.byref(hp), state_in.data_ptr(),
+        ctypes.byref(sc), state_in.data_ptr(),
         None if prev is None else prev.data_ptr(), int(bounce0),
         int(max_bounce), state_out.data_ptr(), idx_out.data_ptr(), R,
         dev.index or 0, stream,

@@ -22,27 +22,27 @@
 //   gen_ray        <- fused._gen_rays (:844)
 //   trace_nearest  <- mxu_intersect._trace_body_resident (:1027), flat tile
 //                     loop with _cull_any (:782) and _tile_update (:443);
-//                     the whole-path kernels below TREE_MIN_TILES tiles
+//                     the whole-path kernels, for every scene
 //   walk_heap      <- mxu_intersect._tree_traverse (:1191) with
 //                     _cull_entry_batch (:786), a per-ray binary walk of
-//                     the tile heap (the whole-path kernels from
-//                     TREE_MIN_TILES = 16 tiles up, and trace_emit) or of
-//                     the group heap (trace_stream), whose leaves re-cull
-//                     and sweep their group's tiles (visit_group /
-//                     process_group :1418-1517; it also covers
-//                     _front_to_back_groups :869, which visits a block's
-//                     groups nearest first below 16 groups)
+//                     the tile heap (trace_emit) or of the group heap
+//                     (trace_stream), whose leaves re-cull and sweep their
+//                     group's tiles (visit_group / process_group
+//                     :1418-1517; it also covers _front_to_back_groups
+//                     :869, which visits a block's groups nearest first
+//                     below 16 groups)
 //   shade_surface  <- fused._shade1_body (:595): _prep_math (:110, non-tiled)
 //                     and _shade_live (:245)
 //   emit_sort_key  <- fused._emit_sort_key (:915)
 //
-// Which loop each kernel takes: the whole-path kernels walk the tile heap
-// when the launcher passes one (scenes of at least TREE_MIN_TILES = 16
-// tiles, the JAX kernels' rule) and take the flat tile loop when it passes
-// a null heap.  The per-bounce kernels serve scenes past 2^15 padded
-// triangles: trace_emit walks the tile heap, trace_stream (past 2^17
-// padded triangles) the heap of 8-tile groups, and the winner record is
-// one direct load per ray
+// Which loop each kernel takes: the whole-path kernels take the flat tile
+// loop for every scene they serve (at most 2^15 padded triangles, 256
+// tiles).  The JAX kernels walk their tile heap from 16 tiles up; on the
+// H100 that walk was slower than the flat loop at every tile count of the
+// whole path (PERF.md), so it is not carried here.  The per-bounce kernels
+// serve scenes past 2^15 padded triangles: trace_emit walks the tile heap,
+// trace_stream (past 2^17 padded triangles) the heap of 8-tile groups, and
+// the winner record is one direct load per ray
 // after the walk (the JAX kernels' deferred _extract_winner_records :590).
 // What bounds them on this card: both traces are bound by operations (~41
 // f32 operations per triangle of every swept tile, ~24 per box) over a
@@ -576,26 +576,16 @@ __device__ int emit_sort_key(const float* par, const float s[S_ROWS]) {
 
 // ------------------------------------------------------------- kernels
 
-// Bounces [bounce0, bounce0 + n) of one ray, each traced by the walk of
-// the tile heap ``hp`` (kTree) or by the flat tile loop.  Two instantiations
-// keep the flat kernels free of the walk's registers and stack.  ``prev`` is
-// excluded at the first bounce (-1: none); each later bounce excludes the
-// one before.  Returns the last traced winner (``idx`` if the ray never
-// traced).
-template <bool kTree>
-__device__ int run_bounces(const ZrcScene& sc, const ZrcHeap& hp, float s[S_ROWS],
-                           int bounce0, int n, int prev, int idx) {
+// Bounces [bounce0, bounce0 + n) of one ray.  ``prev`` is excluded at the
+// first bounce (-1: none); each later bounce excludes the one before.
+// Returns the last traced winner (``idx`` if the ray never traced).
+__device__ int run_bounces(const ZrcScene& sc, float s[S_ROWS], int bounce0,
+                           int n, int prev, int idx) {
     for (int b = bounce0; b < bounce0 + n; ++b) {
         if (!(s[S_ALIVE] > 0.0f)) break;
         float o[3] = {s[S_OX], s[S_OX + 1], s[S_OX + 2]};
         float d[3] = {s[S_DX], s[S_DX + 1], s[S_DX + 2]};
-        Hit h;
-        if (kTree) {
-            int swept, tested;
-            h = walk_heap<false>(sc, hp, o, d, prev, swept, tested);
-        } else {
-            h = trace_nearest(sc, o, d, prev);
-        }
+        Hit h = trace_nearest(sc, o, d, prev);
         shade_bounce(sc, s, h, b);
         idx = h.idx;
         prev = idx;
@@ -603,25 +593,21 @@ __device__ int run_bounces(const ZrcScene& sc, const ZrcHeap& hp, float s[S_ROWS
     return idx;
 }
 
-template <bool kTree>
-__global__ void path_trace_gen_kernel(ZrcScene sc, ZrcHeap hp, ZrcGen g,
-                                      int max_bounce,
+__global__ void path_trace_gen_kernel(ZrcScene sc, ZrcGen g, int max_bounce,
                                       int emit_key, float* __restrict__ state_out,
                                       int* __restrict__ idx_out, int R) {
     int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= R) return;
     float s[S_ROWS];
     gen_ray(g, i, s);
-    int idx = run_bounces<kTree>(sc, hp, s, 0, max_bounce, -1, 0);
+    int idx = run_bounces(sc, s, 0, max_bounce, -1, 0);
     if (emit_key) s[S_KEY] = __int_as_float(emit_sort_key(g.par, s));
 #pragma unroll
     for (int f = 0; f < S_ROWS; ++f) state_out[(size_t)f * R + i] = s[f];
     if (idx_out) idx_out[i] = idx;
 }
 
-template <bool kTree>
-__global__ void path_trace_kernel(ZrcScene sc, ZrcHeap hp,
-                                  const float* __restrict__ state_in,
+__global__ void path_trace_kernel(ZrcScene sc, const float* __restrict__ state_in,
                                   const int* __restrict__ prev, int bounce0,
                                   int max_bounce, float* __restrict__ state_out,
                                   int* __restrict__ idx_out, int R) {
@@ -631,7 +617,7 @@ __global__ void path_trace_kernel(ZrcScene sc, ZrcHeap hp,
 #pragma unroll
     for (int f = 0; f < S_ROWS; ++f) s[f] = state_in[(size_t)f * R + i];
     int p = prev ? prev[i] : -1;
-    int idx = run_bounces<kTree>(sc, hp, s, bounce0, max_bounce, p, prev ? p : 0);
+    int idx = run_bounces(sc, s, bounce0, max_bounce, p, prev ? p : 0);
 #pragma unroll
     for (int f = 0; f < S_ROWS; ++f) state_out[(size_t)f * R + i] = s[f];
     if (idx_out) idx_out[i] = idx;
@@ -807,39 +793,28 @@ __global__ void sort_key_kernel(const float* __restrict__ state,
 
 static const int kThreads = 128;
 
-// The whole-path kernels walk ``hp`` (the tile heap: the kTree
-// instantiation), or take the flat tile loop when hp->tree is null.
-extern "C" int zrc_path_trace_gen(const ZrcScene* sc, const ZrcHeap* hp,
-                                  const ZrcGen* g, int max_bounce, int emit_key,
-                                  float* state_out, int* idx_out, int R, int device,
-                                  void* stream) {
+extern "C" int zrc_path_trace_gen(const ZrcScene* sc, const ZrcGen* g,
+                                  int max_bounce, int emit_key, float* state_out,
+                                  int* idx_out, int R, int device, void* stream) {
     if (R <= 0) return 0;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     int blocks = (R + kThreads - 1) / kThreads;
-    if (hp->tree)
-        path_trace_gen_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-            *sc, *hp, *g, max_bounce, emit_key, state_out, idx_out, R);
-    else
-        path_trace_gen_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-            *sc, *hp, *g, max_bounce, emit_key, state_out, idx_out, R);
+    path_trace_gen_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        *sc, *g, max_bounce, emit_key, state_out, idx_out, R);
     return (int)cudaGetLastError();
 }
 
-extern "C" int zrc_path_trace(const ZrcScene* sc, const ZrcHeap* hp,
-                              const float* state_in, const int* prev, int bounce0,
-                              int max_bounce, float* state_out, int* idx_out, int R,
-                              int device, void* stream) {
+extern "C" int zrc_path_trace(const ZrcScene* sc, const float* state_in,
+                              const int* prev, int bounce0, int max_bounce,
+                              float* state_out, int* idx_out, int R, int device,
+                              void* stream) {
     if (R <= 0) return 0;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     int blocks = (R + kThreads - 1) / kThreads;
-    if (hp->tree)
-        path_trace_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-            *sc, *hp, state_in, prev, bounce0, max_bounce, state_out, idx_out, R);
-    else
-        path_trace_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-            *sc, *hp, state_in, prev, bounce0, max_bounce, state_out, idx_out, R);
+    path_trace_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        *sc, state_in, prev, bounce0, max_bounce, state_out, idx_out, R);
     return (int)cudaGetLastError();
 }
 

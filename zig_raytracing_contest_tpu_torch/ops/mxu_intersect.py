@@ -6,8 +6,7 @@ is, so the port's arrays equal the JAX package's (tests/test_torch_bake.py),
 and ``nearest_hit_ref`` is the plain PyTorch twin of the resident trace
 body's flat tile loop (``_trace_body_resident`` with ``_cull_any`` and
 ``_tile_update``).  The CUDA kernels (kernels/path_trace.cu) run the same
-arithmetic per ray; the whole-path kernels walk the tile heap from
-TREE_MIN_TILES tiles up.  ``trace_emit_aux`` is the per-bounce pipeline's
+arithmetic per ray.  ``trace_emit_aux`` is the per-bounce pipeline's
 nearest hit: its CUDA kernels walk the tile heap (``tree_bbox``) of a
 resident scene or the group heap (``group_tree_bbox``) of a streaming one,
 its twin ``trace_emit_aux_ref`` is the flat loop plus the record load.
@@ -56,11 +55,6 @@ REC_EMIT_MAX_TRIS = 1 << 15
 # it in padded triangles, trace_emit_aux launches the streaming kernel.
 # Read at call time, so a test can lower it.
 VMEM_RESIDENT_MAX_TRIS = 1 << 17
-# Whole-path scenes with at least this many tiles walk the tile heap
-# (tree_bbox) in the whole-path kernels, fewer take the flat tile loop (the
-# JAX package's TREE_MIN_TILES rule of _trace_body_resident).  Read at call
-# time (render/fused.whole_path_walk), so a test can change it.
-TREE_MIN_TILES = 16
 
 
 @dataclass(frozen=True)

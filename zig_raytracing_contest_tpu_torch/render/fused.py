@@ -20,9 +20,7 @@ kernels/path_trace.cu for tensors on a CUDA device, and the plain PyTorch
 twin (``path_trace_gen_ref`` / ``path_trace_fused_ref`` / ``shade_fused_ref``,
 composed from ``gen_rays_ref``, ``nearest_hit_ref``, ``shade_ref`` and
 ``sort_key_ref``) for tensors on the CPU.  The device decides; there is no
-fallback from one to the other.  The whole-path kernels walk the tile heap
-from mxu_intersect.TREE_MIN_TILES tiles up (``whole_path_walk``); the twins
-keep the flat tile loop.
+fallback from one to the other.
 
 State layout (16, R) f32, one ray per column:
   [ox, oy, oz, dx, dy, dz, tr, tg, tb, rr, rg, rb,
@@ -41,7 +39,6 @@ from typing import NamedTuple
 import torch
 
 from .. import kernels
-from ..ops import mxu_intersect
 from ..ops.mxu_intersect import nearest_hit_ref, records_ref
 from ..ops.rng import _TWO_PI, _bits, _u01, f32_to_streams, ray_streams, streams_to_f32
 from ..scene.types import PCOL_BASE, PCOL_EMIS, PCOL_NRM, PCOL_UV, TorchScene
@@ -377,16 +374,6 @@ def shade_fused_ref(scene: TorchScene, state, aux, tri, bounce: int, rec=None):
 # ---------------------------------------------------------------------------
 
 
-def whole_path_walk(scene: TorchScene) -> str:
-    """How the whole-path kernels find each bounce's nearest hit: "tile
-    heap" (a per-ray walk of ``scene.tree_bbox``) from
-    mxu_intersect.TREE_MIN_TILES tiles up, else "flat" (every tile's box in
-    order), the JAX package's rule (``_trace_body_resident``).  The twins
-    take the flat loop for every scene; both find the same nearest t."""
-    nt = scene.tile_bbox.shape[1]
-    return "tile heap" if nt >= mxu_intersect.TREE_MIN_TILES else "flat"
-
-
 def _device_kind(scene: TorchScene) -> str:
     kind = scene.device.type
     if kind not in ("cpu", "cuda"):
@@ -404,16 +391,14 @@ def path_trace_gen(scene: TorchScene, par, meta, wave_size: int,
     seeds the continuation's previous-hit exclusion.
 
     ``par`` (32,) f32 on the scene's device (PAR_* rows); ``meta`` 8 ints
-    (META_* rows).  On the card the kernel takes ``whole_path_walk``'s
-    walk; where two triangles tie at the nearest t the tile-heap walk keeps
-    the first it swept, the twin's flat loop the lower index."""
+    (META_* rows)."""
     if _device_kind(scene) == "cpu":
         return path_trace_gen_ref(scene, par, meta, wave_size, max_bounce,
                                   gen, emit_key, emit_idx)
     state = torch.empty((16, wave_size), dtype=torch.float32, device=scene.device)
     idx = torch.empty(wave_size, dtype=torch.int32, device=scene.device)
     kernels.launch_path_trace_gen(scene, par, meta, gen, max_bounce, emit_key,
-                                  state, idx, tree=whole_path_walk(scene) == "tile heap")
+                                  state, idx)
     return (state, idx) if emit_idx else state
 
 
@@ -429,8 +414,7 @@ def path_trace_fused(scene: TorchScene, state16, max_bounce: int,
     R = state16.shape[1]
     state = torch.empty((16, R), dtype=torch.float32, device=scene.device)
     idx = torch.empty(R, dtype=torch.int32, device=scene.device)
-    kernels.launch_path_trace(scene, state16, prev, bounce0, max_bounce, state, idx,
-                              tree=whole_path_walk(scene) == "tile heap")
+    kernels.launch_path_trace(scene, state16, prev, bounce0, max_bounce, state, idx)
     return (state, idx) if emit_idx else state
 
 

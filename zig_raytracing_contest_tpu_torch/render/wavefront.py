@@ -75,12 +75,13 @@ def regime(scene: TorchScene, ext: ExtFlags | None = None) -> str:
 
 def trace_walk(scene: TorchScene, ext: ExtFlags | None = None) -> str:
     """How the card's kernels find each bounce's nearest hit, for logs and
-    reports: in the whole path ``fused.whole_path_walk`` ("tile heap" or
-    "flat"), in the per-bounce pipeline "tile heap" (trace_emit_kernel) or,
-    streaming, "group heap" (trace_stream_kernel).  The CPU twins take the
-    flat tile loop for every scene."""
+    reports: in the whole path "flat" (the tile loop: on the H100 it beat a
+    walk of the tile heap at every tile count the whole path serves), in
+    the per-bounce pipeline "tile heap" (trace_emit_kernel) or, streaming,
+    "group heap" (trace_stream_kernel).  The CPU twins take the flat tile
+    loop for every scene."""
     if whole_path_regime(scene, ext):
-        return fused.whole_path_walk(scene)
+        return "flat"
     return "group heap" if mxu_intersect.streams_bank(scene) else "tile heap"
 
 
