@@ -9,8 +9,8 @@ user does: the official bench frame (the bench scene, 1920×1080, 3 spp,
 Phases, each of which exits non-zero when it fails:
 
 1. require a CUDA device; print the card's name and power limit;
-2. build the kernels from kernels/path_trace.cu (nvcc) and print the build
-   time and ptxas report;
+2. build the kernels from kernels/path_trace.cu and kernels/probes.cu (one
+   nvcc each, side by side) and print the build time and ptxas report;
 3. build the bench scene with the port's own procedural module;
 4. hold each kernel against its plain PyTorch twin on the card, on the same
    inputs and in the main path's order (bounce 0, sort, bounce 1, resort,
@@ -74,7 +74,21 @@ i. the probe kernels: texel_fetch_kernel against its plain version on the
    paged-fetch check's three banks × three index patterns and a clamp
    texture, then on the Duck bank at the bounce-0 wave's body-texture
    hits; sort_key_kernel against sort_key_ref and the host key on 256
-   lanes and on the Duck's bounce-0 wave; each timed.
+   lanes and on the Duck's bounce-0 wave; each timed;
+
+then the trace micro-benchmarks:
+
+j. trace_emit_kernel's tile-heap walk against the flat loop lane by lane on
+   the side-90 terrain's bounce-0 wave (pixel tile 920, 522,240 rays): each
+   differing lane's two winners recomputed alone, and a failure unless
+   every one is a tie at equal t; then micro_trace_kernel (18 variants),
+   micro_bf16_kernel (f32 and bf16 at 16,384 and 65,536 iterations) and
+   probe_gather_kernel (two forms at reps 1, 64, 512) against their plain
+   versions, bit for bit, through the probes' own checks with the launch
+   counts; every variant timed (the micro_trace ones beside
+   trace_emit_aux on the same bank and rays; the bf16 sweep's slope per
+   sweep and its error against f32; the gather's slope per pair beside
+   two torch.gather calls) and the gather kernels' SASS instructions counted.
 
 Run from the repository root: ``python3 chip_smoke.py``.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
@@ -104,8 +118,10 @@ S_SIDE, TEX_W, TEX_H = 500, 2048, 1024
 # the Duck-class GLB's detail, body texture side and bake (tests/test_golden.py)
 D_DETAIL, D_TEX, D_TILES = 1.0, 512, 75
 SOURCE = "zig_raytracing_contest_tpu_torch/kernels/path_trace.cu"
+PROBES_SOURCE = "zig_raytracing_contest_tpu_torch/kernels/probes.cu"
 # (entry, kernel, TPU kernel it replaces); each entry's numbers are keyed
-# by the entry, its launches by the kernel (kernels.LAUNCHES)
+# by the entry, its launches by the kernel (kernels.LAUNCHES); the kernels
+# of PROBE_KERNELS are built from PROBES_SOURCE, the others from SOURCE
 KERNELS = [
     ("path_trace_gen", "path_trace_gen_kernel",
      "zig_raytracing_contest_tpu/render/fused.py:1031"),
@@ -129,12 +145,25 @@ KERNELS = [
      "zig_raytracing_contest_tpu/render/fused.py:1111"),
     ("texel_fetch", "texel_fetch_kernel", "scripts/check_paged_tpu.py:57"),
     ("sort_key", "sort_key_kernel", "tests/test_fused.py:988"),
+    ("micro_trace_none", "micro_trace_kernel", "scripts/micro_trace.py:156"),
+    ("micro_trace_lane", "micro_trace_kernel", "scripts/micro_trace.py:156"),
+    ("micro_trace_warp", "micro_trace_kernel", "scripts/micro_trace.py:156"),
+    ("micro_bf16_f32", "micro_bf16_kernel", "scripts/micro_bf16.py:74"),
+    ("micro_bf16_bf16", "micro_bf16_kernel", "scripts/micro_bf16.py:74"),
+    ("probe_gather_smem", "probe_gather_kernel", "scripts/probe_gather.py:36"),
+    ("probe_gather_shfl", "probe_gather_kernel", "scripts/probe_gather.py:36"),
 ]
+PROBE_KERNELS = ("micro_trace_kernel", "micro_bf16_kernel", "probe_gather_kernel")
 # The card's peaks (NVIDIA H100 SXM data sheet): f32 outside the tensor
 # cores and device memory bandwidth.  A kernel's bound is the larger of its
 # operations over the first and its bytes over the second.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# Rates the data sheet's table lacks, from NVIDIA's H100 Tensor Core GPU
+# Architecture white paper (H100 SXM5): bf16 outside the tensor cores
+# (packed bf16x2) and 32-bit integer operations.
+PEAK_BF16_FLOPS = 133.8e12
+PEAK_I32_OPS = 33.5e12
 # f32 operations, counted from kernels/path_trace.cu: one triangle test of
 # sweep_tile (six 3-term transforms, t, u, v, det, u + v), one slab test of
 # a box (6 subtractions, 6 products, 12 min/max), one ray generation, one
@@ -251,18 +280,9 @@ def compare_trace(name, scene, state, prev, k, t):
 
 
 def cuda_ms(fn, reps: int) -> float:
-    import torch
+    from zig_raytracing_contest_tpu_torch.utils import timing
 
-    fn()  # warm
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return timing.cuda_ms(fn, reps)
 
 
 def profile_frame(render_scene, scene, cam, cfg, card) -> None:
@@ -1005,6 +1025,153 @@ def probe_phases(card, timing, errs, bounds, launches, duck) -> None:
     duck["tmp"].cleanup()
 
 
+def trace_probe_phases(card, timing, errs, bounds, launches, library) -> None:
+    """Phase j: the tile-heap walk against the flat loop lane by lane on
+    the wave where they once chose different winners, then the three trace
+    micro-benchmark kernels against their plain versions, and their
+    times."""
+    import torch
+
+    from zig_raytracing_contest_tpu_torch import kernels
+    from zig_raytracing_contest_tpu_torch.probes import (
+        micro_bf16,
+        micro_trace,
+        probe_gather,
+        walk_check,
+    )
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    for line in ptxas_report(kernels.BUILD_INFO["log"], PROBE_KERNELS):
+        print("  " + line)
+    # trace_emit_kernel (the walk) against nearest_hit_ref (the flat loop)
+    # on the side-90 terrain's bounce-0 wave from pixel tile 920
+    for label, res, notes in walk_check.run_checks(dev):
+        n_tie = sum(row["tie"] for row in res["lanes"])
+        print(f"  walk vs flat, {label}: {len(res['lanes'])} of {res['rays']} lanes "
+              f"differ ({res['live']} live), {n_tie} ties at equal t")
+        for row, note in zip(res["lanes"], notes):
+            print("    " + walk_check.format_lane(row))
+            print("      " + note)
+        if n_tie != len(res["lanes"]):
+            fail("the tile-heap walk and the flat loop find different nearest t")
+
+    # the probes' own checks, launch counts set to 0 just before
+    kernels.reset_launches()
+    trace = micro_trace.run_checks(dev)
+    sweeps = micro_bf16.run_checks(dev)
+    gathers = probe_gather.run_checks(dev)
+    torch.cuda.synchronize()
+    got = dict(kernels.LAUNCHES)
+    for label, n, bad, tied, err in trace:
+        print(f"  micro_trace {label}: {bad} of {n} lanes differ, {tied} tied, max |diff| "
+              f"rows 0-2 {err:.3e}")
+    for label, n, bad in sweeps:
+        print(f"  micro_bf16 {label}: {bad} of {n} lanes differ")
+    for label, n, bad in gathers:
+        print(f"  probe_gather {label}: {bad} of {n} elements differ")
+    if (any(r[2] for r in trace) or any(r[3] for r in trace[:-1])
+            or any(r[2] for r in sweeps) or any(r[2] for r in gathers)):
+        fail("a trace probe kernel disagrees with its plain version")
+    want = {"micro_trace": len(trace) - 1, "micro_bf16": len(sweeps),
+            "probe_gather": len(gathers)}
+    if any(got[k] != n for k, n in want.items()):
+        fail(f"trace probe launches {got}, expected {want}")
+    for entry in ("micro_trace_none", "micro_trace_lane", "micro_trace_warp"):
+        launches[entry] = got["micro_trace"]
+    launches["micro_bf16_f32"] = launches["micro_bf16_bf16"] = got["micro_bf16"]
+    launches["probe_gather_smem"] = launches["probe_gather_shfl"] = got["probe_gather"]
+
+    # micro_trace: every variant beside the yardstick; the entries at u/v
+    # on and 256 threads.  Bound: R rays x 1024 triangle tests without a
+    # cull; with one, the tiles the lane cull lets each ray sweep x 256
+    # tests plus one box test per ray and tile; bytes: 8 state floats in,
+    # 9 out per ray, the 13 bank rows and the boxes once.
+    tm = micro_trace.time_variants(dev)
+    R, ms = tm["rays"], tm["ms"]
+    for key, k_ms in ms.items():
+        print(f"  micro_trace {micro_trace.label(key)}: {k_ms:.4f} ms at {R} rays ({card})")
+    nbytes = R * (8 + 9) * 4 + 13 * 2048 * 4 + 6 * 4 * 4
+    errs_t = {cull: max(r[4] for r in trace if f"cull={cull} " in r[0])
+              for cull in micro_trace.CULLS}
+    for cull in micro_trace.CULLS:
+        entry = f"micro_trace_{cull}"
+        ops = (R * micro_trace.T * OPS_TRI if cull == "none" else
+               tm["tiles_swept"] * micro_trace.TILE * OPS_TRI + tm["boxes"] * OPS_BOX)
+        bounds[entry] = bound(ops, nbytes)
+        timing[entry] = (ms[True, cull, 256], ms["plain", cull], R, R)
+        errs[entry] = errs_t[cull]
+        print(f"  {entry}: kernel {timing[entry][0]:.4f} ms (u/v, 256 threads), plain "
+              f"{timing[entry][1]:.3f} ms, bound {bounds[entry][0]:.4f} ms "
+              f"({bounds[entry][1]}); trace_emit_aux {ms['trace_emit_aux']:.4f} ms ({card})")
+    print(f"  micro_trace lane cull: {tm['tiles_swept'] / R:.3f} tiles swept per ray of 4")
+
+    # micro_bf16: the slope per (128 x 512) sweep; entries at ITERS_HI.
+    # Bound per sweep: 65,536 tests of 30 transform operations in the
+    # working type and a 12-operation f32 tail.
+    sw = micro_bf16.time_sweeps(dev)
+    tests = micro_bf16.K * micro_bf16.LB
+    lo, hi = micro_bf16.ITERS_LO, micro_bf16.ITERS_HI
+    nbytes = 13 * micro_bf16.NT * micro_bf16.K * 4 + micro_bf16.LB * (6 * 4 + 4)
+    for name, entry, rate in (("float32", "micro_bf16_f32", PEAK_F32_FLOPS),
+                              ("bfloat16", "micro_bf16_bf16", PEAK_BF16_FLOPS)):
+        r = sw[name]
+        per_sweep = tests * (30 * PEAK_F32_FLOPS / rate + 12)  # in f32 operations
+        bounds[entry] = bound(hi * per_sweep, nbytes)
+        timing[entry] = (r["ms"][hi], r["plain_ms"], micro_bf16.LB, micro_bf16.LB)
+        errs[entry] = 0.0
+        print(f"  micro_bf16 {name}: t({lo}) {r['ms'][lo]:.4f} ms, t({hi}) "
+              f"{r['ms'][hi]:.4f} ms -> {r['us_per_sweep']:.6f} us per (128x512) sweep, "
+              f"bound {per_sweep / PEAK_F32_FLOPS * 1e6:.6f} us per sweep, "
+              f"{bounds[entry][0]:.4f} ms at {hi}; plain {r['plain_ms']:.3f} ms ({card})")
+    rel, flips = sw["bf16_error"]
+    print(f"  micro_bf16 bf16 best t against f32: max relative error {rel:.3e} where both "
+          f"hit, {flips} of {micro_bf16.LB} lanes flip between a hit and none")
+
+    # probe_gather: device time per call (queued behind a spin) and SM
+    # cycles of the reps loop at reps 1, 64, 512, each one's slope per pair, the
+    # library's pair (two torch.gather calls); entries at reps 1, whose
+    # function is one pair.  Bound: 16 KB in and out, 2 int32 additions per
+    # element and rep.
+    pgt = probe_gather.time_forms(dev)
+    for form in probe_gather.FORMS:
+        entry = f"probe_gather_{form}"
+        f_ms = pgt[form]["ms"]
+        bounds[entry] = bound(2 * 1024 * PEAK_F32_FLOPS / PEAK_I32_OPS, 4 * 1024 * 4)
+        timing[entry] = (f_ms[1], pgt["plain_ms"], 1024, 1024)
+        errs[entry] = 0.0
+        library[entry] = pgt["library_ms"]
+        print(f"  probe_gather {form}, device time per call: " + ", ".join(
+            f"reps={r} {f_ms[r] * 1e3:.3f} us" for r in probe_gather.REPS)
+            + f" -> {pgt[form]['us_per_pair'] * 1e3:.3f} ns per gather pair; SM cycles of "
+            "the reps loop: " + ", ".join(
+                f"reps={r} {c}" for r, c in pgt[form]["cycles"].items())
+            + f" -> {pgt[form]['cycles_per_pair']:.1f} per pair ({card})")
+    print(f"  probe_gather plain (reps=1) {pgt['plain_ms'] * 1e3:.3f} us; two torch.gather "
+          f"calls {pgt['library_ms'] * 1e3:.3f} us per pair ({card})")
+    sass_report(kernels.library_path("probes"))
+    print(f"phase j: {time.perf_counter() - t0:.1f} s")
+
+
+def sass_report(lib) -> None:
+    """Shared-memory loads and stores, shuffles, barriers and branches in
+    the SASS of each probe_gather kernel (cuobjdump)."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                              check=True, timeout=120).stdout
+    except (OSError, subprocess.SubprocessError) as exc:
+        print(f"  probe_gather SASS: not read ({exc})")
+        return
+    for form in ("smem", "shfl"):
+        name = f"probe_gather_{form}_kernel"
+        body = sass.split(name, 1)[-1].split("Function :", 1)[0] if name in sass else ""
+        counts = {op: body.count(f" {op}") for op in ("LDS", "STS", "SHFL", "BAR", "BRA")}
+        print(f"  {name} SASS: {counts}")
+
+
 def official_frame(render_scene, scene, cam, cfg, card) -> dict:
     """Phase 6: the official frame through the main path, a warmup and 5
     timed renders; returns the launch counts of the 6 renders."""
@@ -1024,6 +1191,7 @@ def official_frame(render_scene, scene, cam, cfg, card) -> dict:
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     # 1. the card
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA card")
@@ -1164,14 +1332,18 @@ def main() -> int:
     bank_phases(card, timing, errs, bounds, launches)
     duck = duck_phases(card, timing, errs, bounds, launches)
     probe_phases(card, timing, errs, bounds, launches, duck)
+    library = {}
+    trace_probe_phases(card, timing, errs, bounds, launches, library)
 
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [
-        {"name": kname, "route": "cuda", "source": SOURCE, "replaces": replaces,
-         "launches": launches[entry], "max_abs_err": errs[entry],
+        {"name": kname, "route": "cuda",
+         "source": PROBES_SOURCE if kname in PROBE_KERNELS else SOURCE,
+         "replaces": replaces, "launches": launches[entry], "max_abs_err": errs[entry],
          "ms": timing[entry][0], "plain_ms": timing[entry][1],
          "rays": timing[entry][2], "plain_rays": timing[entry][3],
          "bound_ms": bounds[entry][0], "bound_by": bounds[entry][1],
-         "library_ms": None}
+         "library_ms": library.get(entry)}
         for entry, kname, replaces in KERNELS
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -215,3 +215,54 @@ def test_probe_kernels_match_plain_on_cuda():
     keys = sort_key.run_checks("cuda")
     assert all(n_ref == n_host == 0 for _, _, n_ref, n_host in keys), keys
     assert kernels.LAUNCHES["texel_fetch"] == 10 and kernels.LAUNCHES["sort_key"] == 1
+
+
+@pytest.mark.cuda
+def test_trace_probe_kernels_match_plain_on_cuda():
+    """micro_trace_kernel in its 18 variants (u/v extraction, cull none /
+    lane / warp, 128 / 256 / 512 threads) on the probe's 2^18 rays, with no
+    lane off and no tie (both sweep the flat loop in ascending order);
+    micro_bf16_kernel in f32 and bf16 at 16,384 and 65,536 iterations and
+    probe_gather_kernel in both forms at reps 1, 64 and 512, each bit for
+    bit equal to its plain version; the launch counts of the checks; the
+    gather's cycle count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    from zig_raytracing_contest_tpu_torch import kernels
+    from zig_raytracing_contest_tpu_torch.probes import micro_bf16, micro_trace, probe_gather
+
+    kernels.reset_launches()
+    trace = micro_trace.run_checks("cuda")
+    assert len(trace) == 19 and all(bad == 0 for _, _, bad, _, _ in trace), trace
+    assert all(tied == 0 for _, _, _, tied, _ in trace[:18]), trace
+    sweeps = micro_bf16.run_checks("cuda")
+    assert len(sweeps) == 4 and all(bad == 0 for _, _, bad in sweeps), sweeps
+    gathers = probe_gather.run_checks("cuda")
+    assert len(gathers) == 6 and all(bad == 0 for _, _, bad in gathers), gathers
+    assert kernels.LAUNCHES["micro_trace"] == 18
+    assert kernels.LAUNCHES["micro_bf16"] == 4 and kernels.LAUNCHES["probe_gather"] == 6
+    # the SM cycles of the gather's reps loop grow with the reps
+    page = [torch.from_numpy(a).cuda() for a in probe_gather.make_inputs()]
+    for form in probe_gather.FORMS:
+        c1, c512 = (probe_gather.loop_cycles(*page, r, form) for r in (1, 512))
+        assert 0 < c1 < c512, (form, c1, c512)
+
+
+@pytest.mark.cuda
+def test_tile_heap_walk_matches_flat_loop_on_cuda():
+    """trace_emit_kernel's walk of the tile heap against the flat loop on
+    the whole-path frame's bounce-0 wave of the side-90 terrain (127 tiles,
+    pixel tile 920, 522,240 rays): every lane where the two differ is a
+    tie, both winners hit alone at one t; lane 94331 (a ray through the
+    diagonal of a terrain quad, whose two triangles lie in tiles 89 and 90)
+    is one of them, with the walk's winner 11530 and the flat loop's 11519
+    (tests/test_torch_probes.py holds it against the JAX package)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    from zig_raytracing_contest_tpu_torch.probes import walk_check
+
+    ((label, res, _),) = walk_check.run_checks("cuda", explain_lanes=False)
+    assert res["rays"] == 522240 and res["live"] > 0, label
+    assert all(row["tie"] for row in res["lanes"]), res["lanes"]
+    lanes = {row["lane"]: row for row in res["lanes"]}
+    assert lanes[94331]["walk"][1] == 11530 and lanes[94331]["flat"][1] == 11519

@@ -106,6 +106,10 @@ def test_port_imports_neither_jax_nor_pillow():
         "import zig_raytracing_contest_tpu_torch.kernels\n"
         "import zig_raytracing_contest_tpu_torch.probes.check_fetch\n"
         "import zig_raytracing_contest_tpu_torch.probes.sort_key\n"
+        "import zig_raytracing_contest_tpu_torch.probes.micro_trace\n"
+        "import zig_raytracing_contest_tpu_torch.probes.micro_bf16\n"
+        "import zig_raytracing_contest_tpu_torch.probes.probe_gather\n"
+        "import zig_raytracing_contest_tpu_torch.probes.walk_check\n"
         "import zig_raytracing_contest_tpu_torch.scene.duck\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'PIL'"
         ", 'zig_raytracing_contest_tpu'))\n"

@@ -1,10 +1,12 @@
-"""Build and bind the CUDA kernels of path_trace.cu, and count their launches.
+"""Build and bind the CUDA kernels, and count their launches.
 
-At first use the source is compiled with ``nvcc`` into a shared library
-with a plain C interface, under ``kernels/_build/`` (keyed on a hash of the
-source and the flags), and loaded with ``ctypes``.  The wrappers take
-tensors, check them, and launch on PyTorch's current stream; they allocate
-nothing and do not synchronise.
+Two sources: ``path_trace.cu`` (the renderer's kernels and the probes of
+its device functions) and ``probes.cu`` (the trace micro-benchmarks).  At
+first use each is compiled with ``nvcc`` into a shared library with a
+plain C interface, under ``kernels/_build/`` (keyed on a hash of the source
+and the flags), the two compilers running side by side, and loaded with
+``ctypes``.  The wrappers take tensors, check them, and launch on
+PyTorch's current stream; they allocate nothing and do not synchronise.
 
 Flags: ``-O3 -arch=sm_90a --fmad=false``.  ``--fmad=false`` keeps every
 a*b+c rounded twice, as the PyTorch twins round it; without it nvcc fuses
@@ -26,21 +28,23 @@ from pathlib import Path
 import torch
 
 _DIR = Path(__file__).resolve().parent
-SOURCE = _DIR / "path_trace.cu"
+SOURCES = {"path_trace": _DIR / "path_trace.cu", "probes": _DIR / "probes.cu"}
 BUILD_DIR = _DIR / "_build"
 NVCC_FLAGS = ["-O3", "-arch=sm_90a", "--fmad=false", "-Xptxas=-v",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
-_lib = None
-# What the last build did: seconds spent (0.0 when the library was already
-# built) and nvcc's report (ptxas registers / spills per kernel).
+_libs: dict = {}
+# What the last build did: wall seconds of the side-by-side compiles (0.0
+# when every library was already built) and nvcc's reports (ptxas
+# registers / spills per kernel), source after source.
 BUILD_INFO = {"seconds": None, "log": ""}
 
 # Launches per CUDA kernel, counted by the launchers below right after a
 # launch is accepted; the twins never count.
 LAUNCHES = {"path_trace_gen": 0, "path_trace": 0, "trace_emit": 0,
-            "trace_stream": 0, "shade": 0, "texel_fetch": 0, "sort_key": 0}
+            "trace_stream": 0, "shade": 0, "texel_fetch": 0, "sort_key": 0,
+            "micro_trace": 0, "micro_bf16": 0, "probe_gather": 0}
 
 
 def reset_launches() -> None:
@@ -106,40 +110,51 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (CUDA_HOME/bin/nvcc or PATH)")
 
 
-def library_path() -> Path:
+def library_path(name: str) -> Path:
     key = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    return BUILD_DIR / f"libzrc_path_trace_{key}.so"
+    return BUILD_DIR / f"libzrc_{name}_{key}.so"
 
 
-def build() -> Path:
-    """Compile path_trace.cu unless the library for this source exists."""
-    out = library_path()
-    if out.exists():
+def build(required=tuple(SOURCES)) -> dict:
+    """Compile every source whose library does not exist yet, one nvcc
+    process each, all started together; raise if one of ``required``
+    failed (another source's failure is raised when it is required).
+    Returns name -> library path."""
+    outs = {name: library_path(name) for name in SOURCES}
+    todo = {name: out for name, out in outs.items() if not out.exists()}
+    if not todo:
         BUILD_INFO.update(seconds=0.0, log="")
-        return out
+        return outs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
-        )
-    os.replace(tmp, out)
-    BUILD_INFO.update(seconds=time.perf_counter() - t0,
-                      log=res.stdout + res.stderr)
-    return out
+    procs = {}
+    for name, out in todo.items():
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        procs[name] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    logs, failed = [], {}
+    for name, (cmd, tmp, proc) in procs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed[name] = f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{stderr}"
+            continue
+        os.replace(tmp, todo[name])
+        logs.append(stdout + stderr)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, log="".join(logs))
+    if any(name in failed for name in required):
+        raise RuntimeError("\n".join(failed.values()))
+    return outs
 
 
 def load():
-    """The loaded kernel library (built at first call)."""
-    global _lib
+    """The loaded library of path_trace.cu (every library built at first
+    call)."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+        if "path_trace" not in _libs:
+            lib = ctypes.CDLL(str(build(("path_trace",))["path_trace"]))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.zrc_path_trace_gen.restype = i32
             lib.zrc_path_trace_gen.argtypes = [
@@ -169,8 +184,29 @@ def load():
             lib.zrc_sort_key.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
             lib.zrc_error_string.restype = ctypes.c_char_p
             lib.zrc_error_string.argtypes = [i32]
-            _lib = lib
-        return _lib
+            _libs["path_trace"] = lib
+        return _libs["path_trace"]
+
+
+def load_probes():
+    """The loaded library of probes.cu (every library built at first
+    call)."""
+    with _lock:
+        if "probes" not in _libs:
+            lib = ctypes.CDLL(str(build(("probes",))["probes"]))
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            lib.zrc_micro_trace.restype = i32
+            lib.zrc_micro_trace.argtypes = [
+                ptr, i32, ptr, i32, i32, ptr, i32, i32, i32, ptr, ptr, i32, i32, ptr,
+            ]
+            lib.zrc_micro_bf16.restype = i32
+            lib.zrc_micro_bf16.argtypes = [ptr, i32, ptr, i32, i32, i32, i32, ptr, i32, ptr]
+            lib.zrc_probe_gather.restype = i32
+            lib.zrc_probe_gather.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr, i32, ptr]
+            lib.zrc_probes_error_string.restype = ctypes.c_char_p
+            lib.zrc_probes_error_string.argtypes = [i32]
+            _libs["probes"] = lib
+        return _libs["probes"]
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -380,3 +416,99 @@ def launch_sort_key(state, par, key_out) -> None:
                            dev.index or 0, stream)
     _raise_on(lib, err, "sort_key_kernel")
     LAUNCHES["sort_key"] += 1
+
+
+# ------------------------------------------------------------- probes.cu
+
+MICRO_TRACE_CULLS = ("none", "lane", "warp")
+MICRO_TRACE_MAX_TILE = 256
+MICRO_BF16_TILE = 128
+PROBE_GATHER_FORMS = ("smem", "shfl")
+
+
+def _raise_on_probe(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{what} launch failed: {lib.zrc_probes_error_string(err).decode()}")
+
+
+def launch_micro_trace(tri_data, tile_bbox, tile: int, state, cull: str,
+                       extract_uv: bool, threads: int, aux_out, idx_out) -> None:
+    """Launch micro_trace_kernel: the nearest hit of every column of
+    ``state`` (16, R) over the flat loop of the field-major (16, Tp)
+    ``tri_data`` in tiles of ``tile`` with boxes ``tile_bbox`` (6, nt), into
+    ``aux_out`` (8, R) and ``idx_out`` (1, R) int32; ``cull`` one of
+    MICRO_TRACE_CULLS, ``threads`` per block 128, 256 or 512."""
+    lib = load_probes()
+    dev = state.device
+    R, tp, nt = state.shape[1], tri_data.shape[1], tile_bbox.shape[1]
+    _check(tri_data, "tri_data", torch.float32, (16, tp), dev)
+    _check(tile_bbox, "tile_bbox", torch.float32, (6, nt), dev)
+    _check(state, "state", torch.float32, (16, R), dev)
+    _check(aux_out, "aux_out", torch.float32, (8, R), dev)
+    _check(idx_out, "idx_out", torch.int32, (1, R), dev)
+    if cull not in MICRO_TRACE_CULLS:
+        raise ValueError(f"cull {cull!r} not one of {MICRO_TRACE_CULLS}")
+    if threads not in (128, 256, 512):
+        raise ValueError(f"{threads} threads per block: 128, 256 or 512")
+    if not 0 < tile <= MICRO_TRACE_MAX_TILE or nt * tile > tp:
+        raise ValueError(f"{nt} tiles of {tile} do not fit a bank of {tp} triangles "
+                         f"(tile at most {MICRO_TRACE_MAX_TILE})")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.zrc_micro_trace(
+        tri_data.data_ptr(), tp, tile_bbox.data_ptr(), nt, tile, state.data_ptr(),
+        MICRO_TRACE_CULLS.index(cull), int(extract_uv), threads, aux_out.data_ptr(),
+        idx_out.data_ptr(), R, dev.index or 0, stream)
+    _raise_on_probe(lib, err, "micro_trace_kernel")
+    LAUNCHES["micro_trace"] += 1
+
+
+def launch_micro_bf16(bank, state, iters: int, splits: int, best_out) -> None:
+    """Launch micro_bf16_kernel: ``iters`` sweeps of the (13, nt·128)
+    ``bank`` (sweep i over tile i mod nt) against the rays of ``state`` (6,
+    L) f32 or bf16 (the transform's working type), each lane's positive hit
+    t min-folded into ``best_out`` (1, L) f32, which must hold +inf (or a
+    bound) before the launch: the iterations are cut into ``splits`` chunks
+    run by separate blocks, folded with atomicMin on the f32 bits."""
+    lib = load_probes()
+    dev = state.device
+    L = state.shape[1]
+    nt = bank.shape[1] // MICRO_BF16_TILE
+    _check(bank, "bank", torch.float32, (13, nt * MICRO_BF16_TILE), dev)
+    if state.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"state has dtype {state.dtype}, expected float32 or bfloat16")
+    _check(state, "state", state.dtype, (6, L), dev)
+    _check(best_out, "best_out", torch.float32, (1, L), dev)
+    if nt < 1 or iters < 0 or splits < 1:
+        raise ValueError(f"bank of {nt} tiles, {iters} iterations, {splits} splits")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.zrc_micro_bf16(bank.data_ptr(), nt, state.data_ptr(),
+                             int(state.dtype == torch.bfloat16), L, int(iters),
+                             int(splits), best_out.data_ptr(), dev.index or 0, stream)
+    _raise_on_probe(lib, err, "micro_bf16_kernel")
+    LAUNCHES["micro_bf16"] += 1
+
+
+def launch_probe_gather(page, col, row, reps: int, form: str, out, cycles=None) -> None:
+    """Launch probe_gather_kernel: ``out`` (8, 128) int32 = the sum over r <
+    ``reps`` of take(take(page + r, col, axis=1), row, axis=0) for the (8,
+    128) int32 ``page``, ``col`` and ``row``; ``form`` "smem" (the page in
+    shared memory, indexed loads) or "shfl" (one warp, __shfl_sync).  With
+    ``cycles`` (1,) int64, the SM clock cycles of the reps loop."""
+    lib = load_probes()
+    dev = page.device
+    for name, t in (("page", page), ("col", col), ("row", row), ("out", out)):
+        _check(t, name, torch.int32, (8, 128), dev)
+    if cycles is not None:
+        _check(cycles, "cycles", torch.int64, (1,), dev)
+    if form not in PROBE_GATHER_FORMS:
+        raise ValueError(f"form {form!r} not one of {PROBE_GATHER_FORMS}")
+    if reps < 0:
+        raise ValueError(f"{reps} repetitions")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.zrc_probe_gather(page.data_ptr(), col.data_ptr(), row.data_ptr(), int(reps),
+                               PROBE_GATHER_FORMS.index(form), out.data_ptr(),
+                               None if cycles is None else cycles.data_ptr(),
+                               dev.index or 0, stream)
+    _raise_on_probe(lib, err, "probe_gather_kernel")
+    LAUNCHES["probe_gather"] += 1

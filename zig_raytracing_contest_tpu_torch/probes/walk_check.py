@@ -1,0 +1,306 @@
+"""The per-bounce trace's tile-heap walk against the flat tile loop, lane by lane.
+
+``trace_emit_kernel`` (kernels/path_trace.cu, ``walk_heap``) finds each
+ray's nearest hit by a per-ray walk of the tile heap, nearest child first;
+its plain twin ``mxu_intersect.nearest_hit_ref`` sweeps the tiles in
+ascending order.  Both cull a tile whose box the ray enters at or behind
+the running best t, so they visit tiles in different orders and must still
+find the same nearest t; where two triangles are hit at that same t, the
+walk keeps the first it swept and the flat loop the lower index (the tie
+rule of ROADMAP.md's parity rules).
+
+``differing_lanes`` runs both on one state and, for every lane whose t or
+winner differs, recomputes both winners alone with ``triangle_hit_ref``:
+a lane where both are hit at one t is a tie; any other is a fault of the
+walk.  ``walk_heap_ref`` repeats the kernel's walk for one ray in NumPy
+float32 (each operation rounded once, as the kernel, built with
+``--fmad=false``, rounds it) and lists the tiles it sweeps with the best t
+at each, which shows how a differing lane arose.
+
+The wave is the whole-path frame's bounce-0 wave of 522,240 rays from pixel
+tile 920 (1920x1080, 3 spp, 32x32 tiled slot order) and its bounce-1 wave
+(``path_trace_gen``'s output sorted on its key, with the previous hit).
+``run_checks`` takes the terrain of side 90 (``large_scene(side=90)``, 127
+tiles of 128); ``--all`` adds the Duck-class GLB at details 0.5, 1.0, 1.4
+and 1.85 and the terrains of sides 60 and 126 (21 to 249 tiles).  Run on
+the card:
+
+    python -m zig_raytracing_contest_tpu_torch.probes.walk_check [--all]
+
+(``--device cpu`` runs the twin against itself on a 4096-ray slice.)
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import tempfile
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..ops import mxu_intersect as mi
+from ..render import fused
+from ..render.pipeline import prepare_scene, slot_geometry
+from ..render.wavefront import build_gen_par, sort_state_payload
+
+SPP, WAVE, SEED = 3, 1 << 19, 0
+BASE_SLOT = 1024 * 920
+TERRAIN_SIDE = 90
+ALL_SCENES = (("terrain", 90), ("duck", 0.5), ("duck", 1.0), ("duck", 1.4),
+              ("duck", 1.85), ("terrain", 60), ("terrain", 126))
+CPU_RAYS = 4096  # the wave's first lanes on the CPU (the twin is slow there)
+
+
+def scene_path(kind: str, size, tmp: Path) -> tuple[str, dict]:
+    """(path, prepare_scene keywords) of one scene at 1920x1080."""
+    if kind == "terrain":
+        from ..scene.procedural import large_scene
+
+        path = large_scene(tmp / f"terrain_{size}.gltf", side=int(size))
+        return str(path), {"camera_name": "Camera 1", "width": 1920, "height": 1080}
+    from ..scene.duck import write_duck_glb
+
+    path = write_duck_glb(tmp / f"duck_{size}.glb", tex_size=512, detail=size)
+    return str(path), {"height": 1080}
+
+
+def load(kind: str, size, tmp: Path, device):
+    """(scene, camera) of one scene on ``device``."""
+    path, kw = scene_path(kind, size, tmp)
+    cfg = Config(grid_resolution=(8, 8, 8), num_samples=SPP, max_bounce=4,
+                 wave_size=WAVE, seed=SEED)
+    scene, cam, _ = prepare_scene(path, cfg, device=device, **kw)
+    return scene, cam
+
+
+def wave_rays(rays: int | None = None) -> int:
+    """Rays of the whole-path frame's full wave (or ``rays``)."""
+    return rays or WAVE // (SPP * 1024) * (SPP * 1024)
+
+
+def bounce0_state(scene, cam, rays: int | None = None):
+    """(state, (par, meta, gen)): the first ``rays`` lanes (default all) of
+    the bounce-0 wave from pixel tile 920, as path_trace_gen makes them,
+    and the generator's arguments."""
+    par = build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
+    _, tiles_x = slot_geometry(cam.width, cam.height, True)
+    gen = fused.GenParams(spp=SPP, width=cam.width, img_w=cam.width, img_h=cam.height,
+                          tiles_x=tiles_x)
+    meta = (BASE_SLOT, BASE_SLOT % cam.width, BASE_SLOT // cam.width, SEED,
+            BASE_SLOT // 1024, 0, 0, 0)
+    return fused.gen_rays_ref(par, meta, wave_rays(rays), gen), (par, meta, gen)
+
+
+def bounce1_state(scene, cam, rays: int | None = None):
+    """(state, prev) of the bounce-1 wave: path_trace_gen's bounce 0 sorted
+    on its key, with each ray's winner as the previous hit."""
+    _, (par, meta, gen) = bounce0_state(scene, cam, rays)
+    st, idx = fused.path_trace_gen(scene, par, meta, wave_rays(rays), 1, gen,
+                                   emit_key=True, emit_idx=True)
+    _, st1, (prev,) = sort_state_payload(st[15].contiguous().view(torch.int32), st, (idx,))
+    return st1, prev
+
+
+def differing_lanes(scene, state: torch.Tensor, prev: torch.Tensor | None = None) -> dict:
+    """The walk (``trace_emit_aux``: trace_emit_kernel on a CUDA scene)
+    against the flat loop (``nearest_hit_ref``) on ``state``: the live rays
+    and, per lane whose t or winner differs, both (t, idx) pairs and both
+    winners recomputed alone (hit, t)."""
+    aux, idx, _ = mi.trace_emit_aux(scene, state, None, prev)
+    live = state[12] > 0
+    t_f, i_f, _, _, _ = mi.nearest_hit_ref(
+        scene.tri_data, scene.tile_bbox, scene.tile, state[0:3], state[3:6], live,
+        None if prev is None else prev.long())
+    t_w, i_w = aux[2], idx.long()
+    lanes = ((t_w != t_f) | (i_w != i_f)).nonzero()[:, 0]
+    rows = []
+    if lanes.numel():
+        o, d = state[0:3, lanes], state[3:6, lanes]
+        hw, tw, _, _ = mi.triangle_hit_ref(scene.tri_data, o, d, i_w[lanes])
+        hf, tf, _, _ = mi.triangle_hit_ref(scene.tri_data, o, d, i_f[lanes])
+        for k, lane in enumerate(lanes.tolist()):
+            rows.append({
+                "lane": lane,
+                "walk": (float(t_w[lane]), int(i_w[lane])),
+                "flat": (float(t_f[lane]), int(i_f[lane])),
+                "walk_winner_alone": (bool(hw[k]), float(tw[k])),
+                "flat_winner_alone": (bool(hf[k]), float(tf[k])),
+                "tie": bool(hw[k] and hf[k] and tw[k] == tf[k] and t_w[lane] == t_f[lane]),
+                "ray": [float(x) for x in state[0:6, lane].tolist()],
+            })
+    return {"rays": state.shape[1], "live": int(live.sum()), "lanes": rows}
+
+
+def _nan_min(a, b):
+    return np.float32(np.nan) if (a != a or b != b) else min(a, b)
+
+
+def _nan_max(a, b):
+    return np.float32(np.nan) if (a != a or b != b) else max(a, b)
+
+
+def _slab(box, o, inv):
+    """(tmin, tmax) of the kernel's slab test of the (6,) ``box``."""
+    t1 = [(box[a] - o[a]) * inv[a] for a in range(3)]
+    t2 = [(box[3 + a] - o[a]) * inv[a] for a in range(3)]
+    tmin = _nan_max(_nan_max(_nan_min(t1[0], t2[0]), _nan_min(t1[1], t2[1])),
+                    _nan_min(t1[2], t2[2]))
+    tmax = _nan_min(_nan_min(_nan_max(t1[0], t2[0]), _nan_max(t1[1], t2[1])),
+                    _nan_max(t1[2], t2[2]))
+    return tmin, tmax
+
+
+def walk_heap_ref(tri_data: np.ndarray, tile_bbox: np.ndarray, tree: np.ndarray,
+                  tile: int, o, d, prev: int = -1) -> dict:
+    """``walk_heap`` of kernels/path_trace.cu for one ray, in NumPy float32:
+    the nearest hit (t, idx, u, v) and the tiles swept in order, each with
+    the best t before its sweep."""
+    f32 = np.float32
+    o = [f32(x) for x in o]
+    d = [f32(x) for x in d]
+    with np.errstate(all="ignore"):
+        inv = [f32(1.0) / x for x in d]
+    nt, p2 = tile_bbox.shape[1], tree.shape[1] // 2
+    best = {"t": f32(np.inf), "idx": 0, "u": f32(0), "v": f32(0)}
+    swept = []
+
+    def entry(n):
+        with np.errstate(all="ignore"):
+            tmin, tmax = _slab(tree[:, n], o, inv)
+        if tmin > tmax or tmax <= 0 or tmin >= best["t"]:
+            return f32(np.inf)
+        return tmin if tmin >= 0 else f32(0)
+
+    def sweep(j):
+        swept.append((j, float(best["t"])))
+        m = tri_data[:13, j * tile:(j + 1) * tile].astype(f32)
+        with np.errstate(all="ignore"):
+            ou = m[0] * o[0] + m[1] * o[1] + m[2] * o[2] + m[9]
+            ov = m[3] * o[0] + m[4] * o[1] + m[5] * o[2] + m[10]
+            ow = m[6] * o[0] + m[7] * o[1] + m[8] * o[2] + m[11]
+            du = m[0] * d[0] + m[1] * d[1] + m[2] * d[2]
+            dv = m[3] * d[0] + m[4] * d[1] + m[5] * d[2]
+            dw = m[6] * d[0] + m[7] * d[1] + m[8] * d[2]
+            t = -ow / dw
+            u = ou + t * du
+            v = ov + t * dv
+            ok = ((-dw * m[12] >= f32(mi.MT_EPSILON)) & (u >= 0) & (v >= 0)
+                  & (u + v <= 1) & (t > 0))
+        ok &= np.arange(j * tile, (j + 1) * tile) != prev
+        for k in np.nonzero(ok)[0]:
+            if t[k] < best["t"]:
+                best.update(t=t[k], idx=j * tile + int(k), u=u[k], v=v[k])
+
+    stack = []
+    node = 1 if entry(1) < np.inf else 0
+    while node:
+        if node >= p2:
+            if node - p2 < nt:
+                sweep(node - p2)
+            node = 0
+        else:
+            c = 2 * node
+            e0, e1 = entry(c), entry(c + 1)
+            if e0 < np.inf and e1 < np.inf:
+                right_first = e1 < e0
+                stack.append((c if right_first else c + 1, e0 if right_first else e1))
+                node = c + 1 if right_first else c
+            else:
+                node = c if e0 < np.inf else (c + 1 if e1 < np.inf else 0)
+        while node == 0 and stack:
+            n, e = stack.pop()
+            if e < best["t"]:
+                node = n
+    return {"t": float(best["t"]), "idx": best["idx"], "u": float(best["u"]),
+            "v": float(best["v"]), "swept": swept}
+
+
+def flat_tile_entries(tile_bbox: np.ndarray, o, d, tiles) -> dict:
+    """The kernel's slab tmin of each tile in ``tiles`` for one ray."""
+    f32 = np.float32
+    o = [f32(x) for x in o]
+    with np.errstate(all="ignore"):
+        inv = [f32(1.0) / f32(x) for x in d]
+        return {j: float(_slab(tile_bbox[:, j], o, inv)[0]) for j in tiles}
+
+
+def explain(scene, row: dict, prev: int = -1) -> str:
+    """How one differing lane arose: the walk's tiles in order with the
+    best t before each, and the box entries of both winners' tiles."""
+    tri = scene.tri_data.cpu().numpy()
+    bb = scene.tile_bbox.cpu().numpy()
+    tree = scene.tree_bbox.cpu().numpy()
+    o, d = row["ray"][0:3], row["ray"][3:6]
+    w = walk_heap_ref(tri, bb, tree, scene.tile, o, d, prev)
+    tw, tf = row["walk"][1] // scene.tile, row["flat"][1] // scene.tile
+    ent = flat_tile_entries(bb, o, d, sorted({tw, tf}))
+    return (f"walk_heap_ref (t {w['t']!r}, idx {w['idx']}) swept "
+            f"{[(j, t) for j, t in w['swept']]}; box entry of the walk's winner tile "
+            f"{tw}: {ent[tw]!r}, of the flat winner's tile {tf}: {ent[tf]!r}")
+
+
+def format_lane(row: dict) -> str:
+    hw, tw = row["walk_winner_alone"]
+    hf, tf = row["flat_winner_alone"]
+    bits = " ".join(f"{np.float32(x).view(np.uint32):08x}" for x in row["ray"])
+    return (f"lane {row['lane']}: walk (t {row['walk'][0]!r}, idx {row['walk'][1]}), "
+            f"flat (t {row['flat'][0]!r}, idx {row['flat'][1]}); alone: walk winner hit "
+            f"{hw} at {tw!r}, flat winner hit {hf} at {tf!r}; "
+            f"{'a tie at equal t' if row['tie'] else 'NOT a tie'}; ray o, d bits {bits}")
+
+
+def run_checks(device, scenes=(("terrain", TERRAIN_SIDE),), bounces=(0,),
+               explain_lanes: bool = True) -> list:
+    """Each (scene, bounce) wave on ``device``: a list of (label, result of
+    ``differing_lanes``, explanation lines).  On the CPU the wave is cut to
+    its first CPU_RAYS lanes."""
+    device = torch.device(device)
+    rays = CPU_RAYS if device.type == "cpu" else None
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind, size in scenes:
+            scene, cam = load(kind, size, Path(tmp), device)
+            for bounce in bounces:
+                if bounce == 0:
+                    state, prev = bounce0_state(scene, cam, rays)[0], None
+                else:
+                    state, prev = bounce1_state(scene, cam, rays)
+                res = differing_lanes(scene, state, prev)
+                notes = []
+                if explain_lanes:
+                    for row in res["lanes"]:
+                        p = -1 if prev is None else int(prev[row["lane"]])
+                        notes.append(explain(scene, row, p))
+                label = (f"{kind} {size} ({scene.tile_bbox.shape[1]} tiles), bounce "
+                         f"{bounce}")
+                out.append((label, res, notes))
+    return out
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--all", action="store_true",
+                   help="all seven whole-path scenes, bounces 0 and 1")
+    args = p.parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        p.error("--device cuda: PyTorch sees no CUDA card; pass --device cpu")
+    scenes = ALL_SCENES if args.all else (("terrain", TERRAIN_SIDE),)
+    faults = 0
+    for label, res, notes in run_checks(args.device, scenes, (0, 1) if args.all else (0,)):
+        n_tie = sum(r["tie"] for r in res["lanes"])
+        n_bad = len(res["lanes"]) - n_tie
+        faults += n_bad
+        print(f"{'FAIL' if n_bad else 'PASS'} {label}: {len(res['lanes'])} of {res['rays']} "
+              f"lanes differ ({res['live']} live), {n_tie} ties at equal t, {n_bad} not")
+        for row, note in zip(res["lanes"], notes):
+            print("  " + format_lane(row))
+            print("    " + note)
+    return 1 if faults else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,6 +10,8 @@ import logging
 import time
 from contextlib import contextmanager
 
+import torch
+
 log = logging.getLogger("zig_raytracing_contest_tpu_torch")
 
 
@@ -44,3 +46,42 @@ class PhaseTimers:
         self.phases["total"] = total
         log.info("Done in %s", _fmt(total))
         return total
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn`` over ``reps`` back-to-back calls
+    after one warmup call, between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def best_ms(fn, reps: int, rounds: int = 5) -> float:
+    """The least of ``rounds`` ``cuda_ms`` readings."""
+    return min(cuda_ms(fn, reps) for _ in range(rounds))
+
+
+def queued_ms(fn, reps: int, lead_cycles: int = 20_000_000) -> float:
+    """Mean device milliseconds per call of ``fn`` over ``reps`` calls
+    after one warmup call, the calls queued behind a spin of
+    ``lead_cycles`` SM clock cycles (~10 ms) so that they run back to back:
+    CUDA events around calls shorter than the host's launch gap would time
+    the gap."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(lead_cycles)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
