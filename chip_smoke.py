@@ -105,6 +105,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 SPP = 3
@@ -120,8 +121,9 @@ D_DETAIL, D_TEX, D_TILES = 1.0, 512, 75
 SOURCE = "zig_raytracing_contest_tpu_torch/kernels/path_trace.cu"
 PROBES_SOURCE = "zig_raytracing_contest_tpu_torch/kernels/probes.cu"
 # (entry, kernel, TPU kernel it replaces); each entry's numbers are keyed
-# by the entry, its launches by the kernel (kernels.LAUNCHES); the kernels
-# of PROBE_KERNELS are built from PROBES_SOURCE, the others from SOURCE
+# by the entry, its launches by the kernel (kernels.LAUNCHES; the probes of
+# PROBES_SOURCE by the entry, one key per variant); the kernels of
+# PROBE_KERNELS are built from PROBES_SOURCE, the others from SOURCE
 KERNELS = [
     ("path_trace_gen", "path_trace_gen_kernel",
      "zig_raytracing_contest_tpu/render/fused.py:1031"),
@@ -279,12 +281,6 @@ def compare_trace(name, scene, state, prev, k, t):
     return err
 
 
-def cuda_ms(fn, reps: int) -> float:
-    from zig_raytracing_contest_tpu_torch.utils import timing
-
-    return timing.cuda_ms(fn, reps)
-
-
 def profile_frame(render_scene, scene, cam, cfg, card) -> None:
     """Where one frame's time goes: torch.profiler's CUDA kernel time by
     name against the frame's wall time (the rest is device idle)."""
@@ -313,11 +309,13 @@ def profile_frame(render_scene, scene, cam, cfg, card) -> None:
         print(f"  {ms:8.3f} ms  x{n:<5d} {key[:80]}")
 
 
-def ptxas_report(log: str, names) -> list:
+def ptxas_report(names) -> list:
     """nvcc -Xptxas=-v lines (registers, stack, spills) of the kernels whose
-    mangled names contain one of ``names``."""
+    mangled names contain one of ``names``, from this run's builds."""
+    from zig_raytracing_contest_tpu_torch import kernels
+
     out, cur = [], None
-    for line in log.splitlines():
+    for line in "".join(b["log"] for b in kernels.BUILD_INFO.values()).splitlines():
         if "Compiling entry function" in line:
             cur = next((n for n in names if n in line), None)
         elif cur and ("registers" in line or "spill" in line):
@@ -329,17 +327,17 @@ def large_phases(card, timing, errs, bounds, launches) -> None:
     """Phases a-e: the --large frame through the per-bounce pipeline."""
     import torch
 
-    from zig_raytracing_contest_tpu_torch import kernels
     from zig_raytracing_contest_tpu_torch.config import Config
     from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
     from zig_raytracing_contest_tpu_torch.render import fused, wavefront
     from zig_raytracing_contest_tpu_torch.render.pipeline import prepare_scene, render_scene
     from zig_raytracing_contest_tpu_torch.render.wavefront import regime
     from zig_raytracing_contest_tpu_torch.scene.procedural import large_scene
+    from zig_raytracing_contest_tpu_torch.utils.timing import cuda_ms
 
     dev = torch.device("cuda", 0)
     # a. the per-bounce kernels' ptxas report; the scene, through the port
-    for line in ptxas_report(kernels.BUILD_INFO["log"], ("trace_emit_kernel", "shade_kernel")):
+    for line in ptxas_report(("trace_emit_kernel", "shade_kernel")):
         print("  " + line)
     tmp = tempfile.TemporaryDirectory()
     path = large_scene(Path(tmp.name) / "large.gltf")
@@ -617,9 +615,10 @@ def stream_phases(card, timing, errs, bounds, launches) -> None:
     from zig_raytracing_contest_tpu_torch.render.pipeline import prepare_scene, render_scene
     from zig_raytracing_contest_tpu_torch.render.wavefront import regime, shade_bank
     from zig_raytracing_contest_tpu_torch.scene.procedural import large_scene
+    from zig_raytracing_contest_tpu_torch.utils.timing import cuda_ms
 
     dev = torch.device("cuda", 0)
-    for line in ptxas_report(kernels.BUILD_INFO["log"], ("trace_stream_kernel",)):
+    for line in ptxas_report(("trace_stream_kernel",)):
         print("  " + line)
     tmp = tempfile.TemporaryDirectory()
     t0 = time.perf_counter()
@@ -733,6 +732,7 @@ def bank_phases(card, timing, errs, bounds, launches) -> None:
     from zig_raytracing_contest_tpu_torch.render.pipeline import prepare_scene, render_scene
     from zig_raytracing_contest_tpu_torch.render.wavefront import regime, shade_bank
     from zig_raytracing_contest_tpu_torch.scene.procedural import large_scene
+    from zig_raytracing_contest_tpu_torch.utils.timing import cuda_ms
 
     dev = torch.device("cuda", 0)
     tmp = tempfile.TemporaryDirectory()
@@ -816,6 +816,7 @@ def duck_phases(card, timing, errs, bounds, launches) -> dict:
         trace_walk,
     )
     from zig_raytracing_contest_tpu_torch.scene.duck import write_duck_glb
+    from zig_raytracing_contest_tpu_torch.utils.timing import cuda_ms
 
     dev = torch.device("cuda", 0)
     tmp = tempfile.TemporaryDirectory()
@@ -945,6 +946,7 @@ def probe_phases(card, timing, errs, bounds, launches, duck) -> None:
     from zig_raytracing_contest_tpu_torch.render import fused
     from zig_raytracing_contest_tpu_torch.render.wavefront import ray_sort_key
     from zig_raytracing_contest_tpu_torch.scene.types import PCOL_BASE
+    from zig_raytracing_contest_tpu_torch.utils.timing import cuda_ms
 
     dev = torch.device("cuda", 0)
     # the probes' own entry points, launch counts set to 0 just before
@@ -1042,7 +1044,7 @@ def trace_probe_phases(card, timing, errs, bounds, launches, library) -> None:
 
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    for line in ptxas_report(kernels.BUILD_INFO["log"], PROBE_KERNELS):
+    for line in ptxas_report(PROBE_KERNELS):
         print("  " + line)
     # trace_emit_kernel (the walk) against nearest_hit_ref (the flat loop)
     # on the side-90 terrain's bounce-0 wave from pixel tile 920
@@ -1073,14 +1075,14 @@ def trace_probe_phases(card, timing, errs, bounds, launches, library) -> None:
     if (any(r[2] for r in trace) or any(r[3] for r in trace[:-1])
             or any(r[2] for r in sweeps) or any(r[2] for r in gathers)):
         fail("a trace probe kernel disagrees with its plain version")
-    want = {"micro_trace": len(trace) - 1, "micro_bf16": len(sweeps),
-            "probe_gather": len(gathers)}
-    if any(got[k] != n for k, n in want.items()):
+    # one launch per check: 6 per cull, 2 per working type, 3 per form
+    want = {f"micro_trace_{c}": sum(v[1] == c for v in micro_trace.variants())
+            for c in micro_trace.CULLS}
+    want.update({f"micro_bf16_{n}": 2 for n in ("f32", "bf16")})
+    want.update({f"probe_gather_{f}": len(probe_gather.REPS) for f in probe_gather.FORMS})
+    if any(got[entry] != n for entry, n in want.items()):
         fail(f"trace probe launches {got}, expected {want}")
-    for entry in ("micro_trace_none", "micro_trace_lane", "micro_trace_warp"):
-        launches[entry] = got["micro_trace"]
-    launches["micro_bf16_f32"] = launches["micro_bf16_bf16"] = got["micro_bf16"]
-    launches["probe_gather_smem"] = launches["probe_gather_shfl"] = got["probe_gather"]
+    launches.update({entry: got[entry] for entry in want})
 
     # micro_trace: every variant beside the yardstick; the entries at u/v
     # on and 256 threads.  Bound: R rays x 1024 triangle tests without a
@@ -1108,7 +1110,9 @@ def trace_probe_phases(card, timing, errs, bounds, launches, library) -> None:
 
     # micro_bf16: the slope per (128 x 512) sweep; entries at ITERS_HI.
     # Bound per sweep: 65,536 tests of 30 transform operations in the
-    # working type and a 12-operation f32 tail.
+    # working type and a 12-operation f32 tail.  The plain version computes
+    # the same output by sweeping the 64 distinct tiles once (a min is
+    # idempotent): its ms is that of 64 sweeps, not of ITERS_HI.
     sw = micro_bf16.time_sweeps(dev)
     tests = micro_bf16.K * micro_bf16.LB
     lo, hi = micro_bf16.ITERS_LO, micro_bf16.ITERS_HI
@@ -1123,7 +1127,8 @@ def trace_probe_phases(card, timing, errs, bounds, launches, library) -> None:
         print(f"  micro_bf16 {name}: t({lo}) {r['ms'][lo]:.4f} ms, t({hi}) "
               f"{r['ms'][hi]:.4f} ms -> {r['us_per_sweep']:.6f} us per (128x512) sweep, "
               f"bound {per_sweep / PEAK_F32_FLOPS * 1e6:.6f} us per sweep, "
-              f"{bounds[entry][0]:.4f} ms at {hi}; plain {r['plain_ms']:.3f} ms ({card})")
+              f"{bounds[entry][0]:.4f} ms at {hi}; plain {r['plain_ms']:.3f} ms (64 "
+              f"sweeps, {r['plain_us_per_sweep']:.3f} us each) ({card})")
     rel, flips = sw["bf16_error"]
     print(f"  micro_bf16 bf16 best t against f32: max relative error {rel:.3e} where both "
           f"hit, {flips} of {micro_bf16.LB} lanes flip between a hit and none")
@@ -1216,14 +1221,20 @@ def main() -> int:
         sort_state_payload,
     )
     from zig_raytracing_contest_tpu_torch.scene.procedural import bench_scene
+    from zig_raytracing_contest_tpu_torch.utils.timing import cuda_ms
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(kernels.SOURCES)) as pool:
+        list(pool.map(kernels.build, kernels.SOURCES))
     kernels.load()
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {kernels.BUILD_INFO['seconds']} s)")
-    for line in kernels.BUILD_INFO["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("  " + line.strip())
+    kernels.load_probes()
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc " + ", ".join(
+        f"{name} {b['seconds']:.2f} s" for name, b in kernels.BUILD_INFO.items()) + ")")
+    for b in kernels.BUILD_INFO.values():
+        for line in b["log"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print("  " + line.strip())
 
     # 3. the bench scene, through the port
     tmp = tempfile.TemporaryDirectory()

@@ -224,8 +224,8 @@ def test_trace_probe_kernels_match_plain_on_cuda():
     lane off and no tie (both sweep the flat loop in ascending order);
     micro_bf16_kernel in f32 and bf16 at 16,384 and 65,536 iterations and
     probe_gather_kernel in both forms at reps 1, 64 and 512, each bit for
-    bit equal to its plain version; the launch counts of the checks; the
-    gather's cycle count."""
+    bit equal to its plain version; the launch counts of the checks, per
+    variant, and none for empty work; the gather's cycle count."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
     from zig_raytracing_contest_tpu_torch import kernels
@@ -239,8 +239,13 @@ def test_trace_probe_kernels_match_plain_on_cuda():
     assert len(sweeps) == 4 and all(bad == 0 for _, _, bad in sweeps), sweeps
     gathers = probe_gather.run_checks("cuda")
     assert len(gathers) == 6 and all(bad == 0 for _, _, bad in gathers), gathers
-    assert kernels.LAUNCHES["micro_trace"] == 18
-    assert kernels.LAUNCHES["micro_bf16"] == 4 and kernels.LAUNCHES["probe_gather"] == 6
+    assert all(kernels.LAUNCHES[f"micro_trace_{c}"] == 6 for c in micro_trace.CULLS)
+    assert kernels.LAUNCHES["micro_bf16_f32"] == kernels.LAUNCHES["micro_bf16_bf16"] == 2
+    assert all(kernels.LAUNCHES[f"probe_gather_{f}"] == 3 for f in probe_gather.FORMS)
+    # empty work launches nothing and counts nothing
+    bank, states = micro_bf16.device_inputs("cuda")
+    assert torch.isinf(micro_bf16.micro_bf16(bank, states[torch.float32], 0)).all()
+    assert kernels.LAUNCHES["micro_bf16_f32"] == 2
     # the SM cycles of the gather's reps loop grow with the reps
     page = [torch.from_numpy(a).cuda() for a in probe_gather.make_inputs()]
     for form in probe_gather.FORMS:

@@ -2,11 +2,12 @@
 
 Two sources: ``path_trace.cu`` (the renderer's kernels and the probes of
 its device functions) and ``probes.cu`` (the trace micro-benchmarks).  At
-first use each is compiled with ``nvcc`` into a shared library with a
-plain C interface, under ``kernels/_build/`` (keyed on a hash of the source
-and the flags), the two compilers running side by side, and loaded with
-``ctypes``.  The wrappers take tensors, check them, and launch on
-PyTorch's current stream; they allocate nothing and do not synchronise.
+first use each is compiled on its own with ``nvcc`` into a shared library
+with a plain C interface, under ``kernels/_build/`` (keyed on a hash of the
+source and the flags), and loaded with ``ctypes``: ``load()`` builds
+path_trace.cu, ``load_probes()`` probes.cu.  The wrappers take tensors,
+check them, and launch on PyTorch's current stream; they allocate nothing
+and do not synchronise.
 
 Flags: ``-O3 -arch=sm_90a --fmad=false``.  ``--fmad=false`` keeps every
 a*b+c rounded twice, as the PyTorch twins round it; without it nvcc fuses
@@ -35,16 +36,21 @@ NVCC_FLAGS = ["-O3", "-arch=sm_90a", "--fmad=false", "-Xptxas=-v",
 
 _lock = threading.Lock()
 _libs: dict = {}
-# What the last build did: wall seconds of the side-by-side compiles (0.0
-# when every library was already built) and nvcc's reports (ptxas
-# registers / spills per kernel), source after source.
-BUILD_INFO = {"seconds": None, "log": ""}
+# The compiles this process ran, by source: {"seconds": wall seconds of the
+# nvcc run, "log": its report (ptxas registers / spills per kernel)}.
+BUILD_INFO: dict = {}
 
 # Launches per CUDA kernel, counted by the launchers below right after a
-# launch is accepted; the twins never count.
+# launch is accepted; the twins never count.  The probes count per variant:
+# micro_trace per cull, micro_bf16 per working type, probe_gather per form.
 LAUNCHES = {"path_trace_gen": 0, "path_trace": 0, "trace_emit": 0,
             "trace_stream": 0, "shade": 0, "texel_fetch": 0, "sort_key": 0,
-            "micro_trace": 0, "micro_bf16": 0, "probe_gather": 0}
+            "micro_trace_none": 0, "micro_trace_lane": 0, "micro_trace_warp": 0,
+            "micro_bf16_f32": 0, "micro_bf16_bf16": 0,
+            "probe_gather_smem": 0, "probe_gather_shfl": 0}
+# What a C entry point returns when its work is empty and it launched
+# nothing (a CUDA error is positive, success 0)
+NOTHING_LAUNCHED = -1
 
 
 def reset_launches() -> None:
@@ -117,44 +123,32 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"libzrc_{name}_{key}.so"
 
 
-def build(required=tuple(SOURCES)) -> dict:
-    """Compile every source whose library does not exist yet, one nvcc
-    process each, all started together; raise if one of ``required``
-    failed (another source's failure is raised when it is required).
-    Returns name -> library path."""
-    outs = {name: library_path(name) for name in SOURCES}
-    todo = {name: out for name, out in outs.items() if not out.exists()}
-    if not todo:
-        BUILD_INFO.update(seconds=0.0, log="")
-        return outs
+def build(name: str) -> Path:
+    """The library of source ``name``, compiled by nvcc if it does not
+    exist yet (raises if nvcc fails).  Builds of different sources may run
+    at once, from separate threads."""
+    out = library_path(name)
+    if out.exists():
+        return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
     t0 = time.perf_counter()
-    procs = {}
-    for name, out in todo.items():
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
-        procs[name] = (cmd, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    logs, failed = [], {}
-    for name, (cmd, tmp, proc) in procs.items():
-        stdout, stderr = proc.communicate()
-        if proc.returncode != 0:
-            failed[name] = f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{stderr}"
-            continue
-        os.replace(tmp, todo[name])
-        logs.append(stdout + stderr)
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, log="".join(logs))
-    if any(name in failed for name in required):
-        raise RuntimeError("\n".join(failed.values()))
-    return outs
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stderr}")
+    os.replace(tmp, out)
+    BUILD_INFO[name] = {"seconds": time.perf_counter() - t0,
+                        "log": proc.stdout + proc.stderr}
+    return out
 
 
 def load():
-    """The loaded library of path_trace.cu (every library built at first
-    call)."""
+    """The loaded library of path_trace.cu (built at first call)."""
     with _lock:
         if "path_trace" not in _libs:
-            lib = ctypes.CDLL(str(build(("path_trace",))["path_trace"]))
+            lib = ctypes.CDLL(str(build("path_trace")))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.zrc_path_trace_gen.restype = i32
             lib.zrc_path_trace_gen.argtypes = [
@@ -189,18 +183,17 @@ def load():
 
 
 def load_probes():
-    """The loaded library of probes.cu (every library built at first
-    call)."""
+    """The loaded library of probes.cu (built at first call)."""
     with _lock:
         if "probes" not in _libs:
-            lib = ctypes.CDLL(str(build(("probes",))["probes"]))
+            lib = ctypes.CDLL(str(build("probes")))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.zrc_micro_trace.restype = i32
             lib.zrc_micro_trace.argtypes = [
                 ptr, i32, ptr, i32, i32, ptr, i32, i32, i32, ptr, ptr, i32, i32, ptr,
             ]
             lib.zrc_micro_bf16.restype = i32
-            lib.zrc_micro_bf16.argtypes = [ptr, i32, ptr, i32, i32, i32, i32, ptr, i32, ptr]
+            lib.zrc_micro_bf16.argtypes = [ptr, i32, ptr, i32, i32, i32, ptr, i32, ptr]
             lib.zrc_probe_gather.restype = i32
             lib.zrc_probe_gather.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr, i32, ptr]
             lib.zrc_probes_error_string.restype = ctypes.c_char_p
@@ -235,9 +228,15 @@ def _scene_struct(scene, device):
     )
 
 
-def _raise_on(lib, err: int, what: str) -> None:
+def _launched(err: int, message, what: str) -> bool:
+    """True when a C entry point launched its kernel, False when its work
+    was empty; raises on a CUDA error (``message``: the source's error
+    string function)."""
+    if err == NOTHING_LAUNCHED:
+        return False
     if err != 0:
-        raise RuntimeError(f"{what} launch failed: {lib.zrc_error_string(err).decode()}")
+        raise RuntimeError(f"{what} launch failed: {message(err).decode()}")
+    return True
 
 
 def launch_path_trace_gen(scene, par, meta, gen, max_bounce: int,
@@ -261,8 +260,8 @@ def launch_path_trace_gen(scene, par, meta, gen, max_bounce: int,
         ctypes.byref(sc), ctypes.byref(g), int(max_bounce), int(emit_key),
         state_out.data_ptr(), idx_out.data_ptr(), R, dev.index or 0, stream,
     )
-    _raise_on(lib, err, "path_trace_gen_kernel")
-    LAUNCHES["path_trace_gen"] += 1
+    if _launched(err, lib.zrc_error_string, "path_trace_gen_kernel"):
+        LAUNCHES["path_trace_gen"] += 1
 
 
 def launch_path_trace(scene, state_in, prev, bounce0: int, max_bounce: int,
@@ -285,8 +284,8 @@ def launch_path_trace(scene, state_in, prev, bounce0: int, max_bounce: int,
         int(max_bounce), state_out.data_ptr(), idx_out.data_ptr(), R,
         dev.index or 0, stream,
     )
-    _raise_on(lib, err, "path_trace_kernel")
-    LAUNCHES["path_trace"] += 1
+    if _launched(err, lib.zrc_error_string, "path_trace_kernel"):
+        LAUNCHES["path_trace"] += 1
 
 
 def _heap(tree, gbox, group_tiles: int, leaves: int, device) -> ZrcHeap:
@@ -328,8 +327,8 @@ def _launch_trace(scene, heap: ZrcHeap, state, prev, table, aux_out, idx_out,
         dev.index or 0, stream,
     )
     name = "trace_stream" if heap.gbox else "trace_emit"
-    _raise_on(lib, err, f"{name}_kernel")
-    LAUNCHES[name] += 1
+    if _launched(err, lib.zrc_error_string, f"{name}_kernel"):
+        LAUNCHES[name] += 1
 
 
 def launch_trace_emit(scene, state, prev, table, aux_out, idx_out, rec_out) -> None:
@@ -370,8 +369,8 @@ def launch_shade(scene, state_in, aux, rec, bounce: int, state_out) -> None:
         ctypes.byref(sc), state_in.data_ptr(), aux.data_ptr(), rec.data_ptr(),
         int(bounce), state_out.data_ptr(), R, dev.index or 0, stream,
     )
-    _raise_on(lib, err, "shade_kernel")
-    LAUNCHES["shade"] += 1
+    if _launched(err, lib.zrc_error_string, "shade_kernel"):
+        LAUNCHES["shade"] += 1
 
 
 def launch_texel_fetch(bank, texture, base, demand, out) -> None:
@@ -397,8 +396,8 @@ def launch_texel_fetch(bank, texture, base, demand, out) -> None:
     err = lib.zrc_texel_fetch(ctypes.byref(sc), ctypes.byref(tex), base.data_ptr(),
                               demand.data_ptr(), out.data_ptr(), B, dev.index or 0,
                               stream)
-    _raise_on(lib, err, "texel_fetch_kernel")
-    LAUNCHES["texel_fetch"] += 1
+    if _launched(err, lib.zrc_error_string, "texel_fetch_kernel"):
+        LAUNCHES["texel_fetch"] += 1
 
 
 def launch_sort_key(state, par, key_out) -> None:
@@ -414,8 +413,8 @@ def launch_sort_key(state, par, key_out) -> None:
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.zrc_sort_key(state.data_ptr(), par.data_ptr(), key_out.data_ptr(), R,
                            dev.index or 0, stream)
-    _raise_on(lib, err, "sort_key_kernel")
-    LAUNCHES["sort_key"] += 1
+    if _launched(err, lib.zrc_error_string, "sort_key_kernel"):
+        LAUNCHES["sort_key"] += 1
 
 
 # ------------------------------------------------------------- probes.cu
@@ -424,12 +423,6 @@ MICRO_TRACE_CULLS = ("none", "lane", "warp")
 MICRO_TRACE_MAX_TILE = 256
 MICRO_BF16_TILE = 128
 PROBE_GATHER_FORMS = ("smem", "shfl")
-
-
-def _raise_on_probe(lib, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(
-            f"{what} launch failed: {lib.zrc_probes_error_string(err).decode()}")
 
 
 def launch_micro_trace(tri_data, tile_bbox, tile: int, state, cull: str,
@@ -459,16 +452,16 @@ def launch_micro_trace(tri_data, tile_bbox, tile: int, state, cull: str,
         tri_data.data_ptr(), tp, tile_bbox.data_ptr(), nt, tile, state.data_ptr(),
         MICRO_TRACE_CULLS.index(cull), int(extract_uv), threads, aux_out.data_ptr(),
         idx_out.data_ptr(), R, dev.index or 0, stream)
-    _raise_on_probe(lib, err, "micro_trace_kernel")
-    LAUNCHES["micro_trace"] += 1
+    if _launched(err, lib.zrc_probes_error_string, "micro_trace_kernel"):
+        LAUNCHES[f"micro_trace_{cull}"] += 1
 
 
-def launch_micro_bf16(bank, state, iters: int, splits: int, best_out) -> None:
+def launch_micro_bf16(bank, state, iters: int, best_out) -> None:
     """Launch micro_bf16_kernel: ``iters`` sweeps of the (13, nt·128)
     ``bank`` (sweep i over tile i mod nt) against the rays of ``state`` (6,
     L) f32 or bf16 (the transform's working type), each lane's positive hit
     t min-folded into ``best_out`` (1, L) f32, which must hold +inf (or a
-    bound) before the launch: the iterations are cut into ``splits`` chunks
+    bound) before the launch: the kernel cuts the iterations into chunks
     run by separate blocks, folded with atomicMin on the f32 bits."""
     lib = load_probes()
     dev = state.device
@@ -479,14 +472,14 @@ def launch_micro_bf16(bank, state, iters: int, splits: int, best_out) -> None:
         raise ValueError(f"state has dtype {state.dtype}, expected float32 or bfloat16")
     _check(state, "state", state.dtype, (6, L), dev)
     _check(best_out, "best_out", torch.float32, (1, L), dev)
-    if nt < 1 or iters < 0 or splits < 1:
-        raise ValueError(f"bank of {nt} tiles, {iters} iterations, {splits} splits")
+    if nt < 1 or iters < 0:
+        raise ValueError(f"bank of {nt} tiles, {iters} iterations")
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.zrc_micro_bf16(bank.data_ptr(), nt, state.data_ptr(),
                              int(state.dtype == torch.bfloat16), L, int(iters),
-                             int(splits), best_out.data_ptr(), dev.index or 0, stream)
-    _raise_on_probe(lib, err, "micro_bf16_kernel")
-    LAUNCHES["micro_bf16"] += 1
+                             best_out.data_ptr(), dev.index or 0, stream)
+    if _launched(err, lib.zrc_probes_error_string, "micro_bf16_kernel"):
+        LAUNCHES[f"micro_bf16_{'bf16' if state.dtype == torch.bfloat16 else 'f32'}"] += 1
 
 
 def launch_probe_gather(page, col, row, reps: int, form: str, out, cycles=None) -> None:
@@ -510,5 +503,5 @@ def launch_probe_gather(page, col, row, reps: int, form: str, out, cycles=None) 
                                PROBE_GATHER_FORMS.index(form), out.data_ptr(),
                                None if cycles is None else cycles.data_ptr(),
                                dev.index or 0, stream)
-    _raise_on_probe(lib, err, "probe_gather_kernel")
-    LAUNCHES["probe_gather"] += 1
+    if _launched(err, lib.zrc_probes_error_string, "probe_gather_kernel"):
+        LAUNCHES[f"probe_gather_{form}"] += 1

@@ -789,14 +789,16 @@ __global__ void sort_key_kernel(const float* __restrict__ state,
 
 // ------------------------------------------------------------ launchers
 // Plain C entry points for ctypes (kernels/__init__.py).  They launch on
-// the caller's stream, allocate nothing, and return cudaGetLastError().
+// the caller's stream, allocate nothing, and return cudaGetLastError(), or
+// ZRC_NOTHING_LAUNCHED when the work is empty.
 
 static const int kThreads = 128;
+#define ZRC_NOTHING_LAUNCHED (-1)
 
 extern "C" int zrc_path_trace_gen(const ZrcScene* sc, const ZrcGen* g,
                                   int max_bounce, int emit_key, float* state_out,
                                   int* idx_out, int R, int device, void* stream) {
-    if (R <= 0) return 0;
+    if (R <= 0) return ZRC_NOTHING_LAUNCHED;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     int blocks = (R + kThreads - 1) / kThreads;
@@ -809,7 +811,7 @@ extern "C" int zrc_path_trace(const ZrcScene* sc, const float* state_in,
                               const int* prev, int bounce0, int max_bounce,
                               float* state_out, int* idx_out, int R, int device,
                               void* stream) {
-    if (R <= 0) return 0;
+    if (R <= 0) return ZRC_NOTHING_LAUNCHED;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     int blocks = (R + kThreads - 1) / kThreads;
@@ -825,7 +827,7 @@ extern "C" int zrc_trace_emit(const ZrcScene* sc, const ZrcHeap* hp,
                               const float* table, int table_cols, float* aux,
                               int* idx_out, float* rec_out, int R, int device,
                               void* stream) {
-    if (R <= 0) return 0;
+    if (R <= 0) return ZRC_NOTHING_LAUNCHED;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     int blocks = (R + kThreads - 1) / kThreads;
@@ -841,7 +843,7 @@ extern "C" int zrc_trace_emit(const ZrcScene* sc, const ZrcHeap* hp,
 extern "C" int zrc_shade(const ZrcScene* sc, const float* state_in,
                          const float* aux, const float* rec, int bounce,
                          float* state_out, int R, int device, void* stream) {
-    if (R <= 0) return 0;
+    if (R <= 0) return ZRC_NOTHING_LAUNCHED;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     int blocks = (R + kThreads - 1) / kThreads;
@@ -853,7 +855,7 @@ extern "C" int zrc_shade(const ZrcScene* sc, const float* state_in,
 extern "C" int zrc_texel_fetch(const ZrcScene* sc, const ZrcTexture* tx,
                                const int* base, const bool* demand, float* out,
                                int B, int device, void* stream) {
-    if (B <= 0) return 0;
+    if (B <= 0) return ZRC_NOTHING_LAUNCHED;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     int blocks = (B + kThreads - 1) / kThreads;
@@ -864,7 +866,7 @@ extern "C" int zrc_texel_fetch(const ZrcScene* sc, const ZrcTexture* tx,
 
 extern "C" int zrc_sort_key(const float* state, const float* par, int* key, int R,
                             int device, void* stream) {
-    if (R <= 0) return 0;
+    if (R <= 0) return ZRC_NOTHING_LAUNCHED;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     int blocks = (R + kThreads - 1) / kThreads;

@@ -33,7 +33,8 @@
 // thread each, would occupy 4 of the 132 SMs, and the price per sweep
 // would then be the latency of one thread's loop.  The fold is a min over
 // positive t, which is exact and does not depend on its order, so the
-// iterations are cut into chunks run by separate blocks (grid.y), each
+// iterations are cut into BF16_SPLITS chunks run by separate blocks (grid.y:
+// 4 x 256 blocks of 128 lanes fill the 132 SMs several times over), each
 // block a chunk for 128 lanes, and each thread folds its chunk's minimum
 // into the output with one atomicMin on the f32 bits (non-negative floats
 // and +inf order as their bit patterns do).  atomicMin and not a second
@@ -73,6 +74,8 @@
 #define MT_EPSILON 1e-8f
 #define MICRO_MAX_TILE 256
 #define BF16_TILE 128
+#define BF16_SPLITS 256
+#define ZRC_NOTHING_LAUNCHED (-1)
 
 __device__ __forceinline__ float nan_min(float a, float b) {
     return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
@@ -405,7 +408,8 @@ __global__ void probe_gather_shfl_kernel(const int* __restrict__ page,
 
 // ------------------------------------------------------------ launchers
 // Plain C entry points for ctypes (kernels/__init__.py).  They launch on
-// the caller's stream, allocate nothing, and return cudaGetLastError().
+// the caller's stream, allocate nothing, and return cudaGetLastError(), or
+// ZRC_NOTHING_LAUNCHED when the work is empty.
 
 template <int kCull>
 static void launch_micro_trace_cull(bool uv, int blocks, int threads, cudaStream_t st,
@@ -424,7 +428,7 @@ extern "C" int zrc_micro_trace(const float* tri, int tp, const float* bbox, int 
                                int tile, const float* state, int cull, int extract_uv,
                                int threads, float* aux, int* idx, int R, int device,
                                void* stream) {
-    if (R <= 0) return 0;
+    if (R <= 0) return ZRC_NOTHING_LAUNCHED;
     if (tile <= 0 || tile > MICRO_MAX_TILE) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
@@ -446,12 +450,12 @@ extern "C" int zrc_micro_trace(const float* tri, int tp, const float* bbox, int 
 }
 
 extern "C" int zrc_micro_bf16(const float* bank, int nt, const void* state, int bf16,
-                              int lanes, int iters, int splits, float* best, int device,
+                              int lanes, int iters, float* best, int device,
                               void* stream) {
-    if (lanes <= 0 || iters <= 0) return 0;
+    if (lanes <= 0 || iters <= 0) return ZRC_NOTHING_LAUNCHED;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    int chunks = splits < iters ? splits : iters;
+    int chunks = BF16_SPLITS < iters ? BF16_SPLITS : iters;
     int chunk = (iters + chunks - 1) / chunks;
     dim3 grid((lanes + BF16_TILE - 1) / BF16_TILE, (iters + chunk - 1) / chunk);
     cudaStream_t st = (cudaStream_t)stream;

@@ -232,15 +232,18 @@ _RAY_CHUNK = 1 << 15
 
 def nearest_hit_ref(tri_data: torch.Tensor, tile_bbox: torch.Tensor, tile: int,
                     o: torch.Tensor, d: torch.Tensor, active: torch.Tensor,
-                    prev: torch.Tensor | None = None):
+                    prev: torch.Tensor | None = None, widen=None):
     """Nearest front-facing hit over the flat tile loop.
 
     ``o``/``d``: (3, R) f32; ``active``: (R,) bool; ``prev``: optional (R,)
     int64 Morton index each ray may not hit again (the previous hit).  Each
     real tile is culled per ray against its box and the running best, then
-    folded with the tie rule above.  Returns (t, idx, u, v, swept): t = +inf,
-    idx = u = v = 0 where nothing was hit; ``swept`` (R,) f32 counts the
-    tiles whose box each ray passed (the work a per-ray kernel sweeps).
+    folded with the tie rule above.  ``widen``, when given, maps each
+    tile's per-ray pass mask to the rays that sweep the tile (a cull
+    variant of the trace micro-benchmark; rays are handed to it in chunks
+    of a multiple of 32 from ray 0).  Returns (t, idx, u, v, swept): t =
+    +inf, idx = u = v = 0 where nothing was hit; ``swept`` (R,) f32 counts
+    the tiles each ray swept (the work a per-ray kernel does).
     """
     R = o.shape[1]
     out = [torch.empty(R, dtype=dt, device=o.device)
@@ -250,7 +253,7 @@ def nearest_hit_ref(tri_data: torch.Tensor, tile_bbox: torch.Tensor, tile: int,
         sl = slice(c0, min(c0 + _RAY_CHUNK, R))
         res = _nearest_hit_chunk(
             tri_data, tile_bbox, tile, o[:, sl], d[:, sl], active[sl],
-            None if prev is None else prev[sl],
+            None if prev is None else prev[sl], widen,
         )
         for dst, src in zip(out, res):
             dst[sl] = src
@@ -283,7 +286,7 @@ def triangle_hit_ref(tri_data: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
     return _transform_hit(m, o, d)
 
 
-def _nearest_hit_chunk(tri_data, tile_bbox, tile, o, d, active, prev):
+def _nearest_hit_chunk(tri_data, tile_bbox, tile, o, d, active, prev, widen):
     R = o.shape[1]
     dev = o.device
     best_t = torch.full((R,), INF, dtype=torch.float32, device=dev)
@@ -297,6 +300,8 @@ def _nearest_hit_chunk(tri_data, tile_bbox, tile, o, d, active, prev):
     ids = torch.arange(tile, device=dev)
     for j in range(tile_bbox.shape[1]):
         passed = cull_mask_ref(tile_bbox[:, j], o, inv, best_t, active)
+        if widen is not None:
+            passed = widen(passed)
         # Sweep only the lanes whose box test passed: the same per-lane
         # arithmetic as a sweep of every lane, at the cost of the tile's
         # real work.

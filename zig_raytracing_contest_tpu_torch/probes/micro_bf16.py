@@ -9,11 +9,12 @@ min fold of the positive t into ``best`` (1, 512) f32.  A sweep's price is
 the slope of the time between ITERS_LO and ITERS_HI iterations, in which a
 launch's fixed cost cancels.
 
-``micro_bf16_kernel`` (kernels/probes.cu) cuts the iterations into SPLITS
+``micro_bf16_kernel`` (kernels/probes.cu) cuts the iterations into 256
 chunks run by separate blocks and folds each lane's minimum with atomicMin
 on the f32 bits; ``micro_bf16_ref`` is the plain version.  Sweep i reads
 tile i mod 64 and a min is idempotent, so ``iters`` sweeps give the min
-over the first min(iters, 64) tiles: the plain version computes that.
+over the first min(iters, 64) tiles: the plain version computes that, so
+its time is that of 64 sweeps whatever ``iters`` is.
 Run on the card:
 
     python -m zig_raytracing_contest_tpu_torch.probes.micro_bf16
@@ -36,7 +37,6 @@ K = kernels.MICRO_BF16_TILE  # triangles per tile
 NT = 64  # distinct tiles in the bank
 LB = 512  # lanes (rays)
 ITERS_LO, ITERS_HI = 16384, 65536
-SPLITS = 256  # blocks along the iterations: 4 x 256 blocks of 128 lanes
 DTYPES = (torch.float32, torch.bfloat16)
 _CHUNK_TILES = 8  # tiles per step of the plain version
 
@@ -80,20 +80,18 @@ def micro_bf16_ref(bank: torch.Tensor, state: torch.Tensor, iters: int) -> torch
     return best[None, :]
 
 
-def micro_bf16(bank: torch.Tensor, state: torch.Tensor, iters: int,
-               splits: int = SPLITS) -> torch.Tensor:
+def micro_bf16(bank: torch.Tensor, state: torch.Tensor, iters: int) -> torch.Tensor:
     """``iters`` sweeps of ``bank`` (13, nt·128) f32 against the rays of
     ``state`` (6, L) f32 or bf16, the transform in ``state``'s type: the
     min positive t per lane, (1, L) f32.  A CUDA state launches
-    micro_bf16_kernel with the iterations in ``splits`` chunks, a CPU state
-    runs ``micro_bf16_ref``."""
+    micro_bf16_kernel, a CPU state runs ``micro_bf16_ref``."""
     if state.device.type == "cpu":
         return micro_bf16_ref(bank, state, iters)
     if state.device.type != "cuda":
         raise ValueError(f"no micro_bf16 kernel for device {state.device}")
     best = torch.full((1, state.shape[1]), float("inf"), dtype=torch.float32,
                       device=state.device)
-    kernels.launch_micro_bf16(bank, state, iters, splits, best)
+    kernels.launch_micro_bf16(bank, state, iters, best)
     return best
 
 
@@ -132,8 +130,9 @@ def run_checks(device) -> list:
 def time_sweeps(device="cuda") -> dict:
     """Card times per working type: the kernel at ITERS_LO and ITERS_HI
     iterations (best of 5 single launches), the slope per (128 x 512)
-    sweep in microseconds, the plain version (one call), and the bf16
-    best t's error against f32."""
+    sweep in microseconds, the plain version (one call, which sweeps the
+    64 distinct tiles once) and its time per sweep, and the bf16 best t's
+    error against f32."""
     device = torch.device(device)
     bank, states = device_inputs(device)
     res = {}
@@ -141,10 +140,12 @@ def time_sweeps(device="cuda") -> dict:
         name = str(dt).split(".")[1]
         ms = {it: best_ms(lambda it=it: micro_bf16(bank, states[dt], it), 1)
               for it in (ITERS_LO, ITERS_HI)}
+        plain_ms = cuda_ms(lambda: micro_bf16_ref(bank, states[dt], ITERS_HI), 1)
         res[name] = {
             "ms": ms,
             "us_per_sweep": (ms[ITERS_HI] - ms[ITERS_LO]) * 1e3 / (ITERS_HI - ITERS_LO),
-            "plain_ms": cuda_ms(lambda: micro_bf16_ref(bank, states[dt], ITERS_HI), 1),
+            "plain_ms": plain_ms,
+            "plain_us_per_sweep": plain_ms * 1e3 / NT,
         }
     res["bf16_error"] = bf16_error(micro_bf16_ref(bank, states[torch.float32], NT),
                                    micro_bf16_ref(bank, states[torch.bfloat16], NT))
@@ -167,7 +168,8 @@ def main(argv=None) -> int:
             r = res[name]
             print(f"{name}: t({ITERS_LO})={r['ms'][ITERS_LO]:.4f} ms  "
                   f"t({ITERS_HI})={r['ms'][ITERS_HI]:.4f} ms  -> "
-                  f"{r['us_per_sweep']:.5f} us per (128x{LB}) sweep")
+                  f"{r['us_per_sweep']:.5f} us per (128x{LB}) sweep; plain "
+                  f"{r['plain_us_per_sweep']:.3f} us per sweep")
         rel, flips = res["bf16_error"]
         print(f"bf16 best t against f32: max relative error {rel:.3e}, {flips} of {LB} "
               f"lanes flip")

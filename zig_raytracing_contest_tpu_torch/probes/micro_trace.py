@@ -14,7 +14,7 @@ lane block does), and the threads per block of ``micro_trace_kernel``
 script's MXU transforms (``mxu``, ``mxu2``) have no counterpart.
 
 ``micro_trace_ref`` is the plain version (the tile loop of
-``mxu_intersect.nearest_hit_ref``, with the variant's cull); the yardstick
+``mxu_intersect.nearest_hit_ref``, widened to the variant's cull); the yardstick
 is the per-bounce trace ``mxu_intersect.trace_emit_aux`` on the same bank
 and rays (trace_emit_kernel, a walk of the 4-tile heap).  Run on the card:
 
@@ -71,61 +71,39 @@ def make_state(seed: int = 1) -> np.ndarray:
     return st
 
 
+def _sweep_all(passed: torch.Tensor) -> torch.Tensor:
+    """Cull ``none``: every ray sweeps every tile."""
+    return torch.ones_like(passed)
+
+
+def _sweep_warp(passed: torch.Tensor) -> torch.Tensor:
+    """Cull ``warp``: every ray of a 32-ray group one of whose rays passes."""
+    groups = torch.nn.functional.pad(passed, (0, -passed.shape[0] % WARP)).view(-1, WARP)
+    return groups.any(dim=1, keepdim=True).expand(-1, WARP).reshape(-1)[:passed.shape[0]]
+
+
+_WIDEN = {"none": _sweep_all, "lane": None, "warp": _sweep_warp}
+
+
 def micro_trace_ref(tri_data: torch.Tensor, tile_bbox: torch.Tensor, tile: int,
                     state: torch.Tensor, extract_uv: bool = True, cull: str = "lane",
                     return_swept: bool = False):
     """Plain version of ``micro_trace``: (aux (8, R), idx (1, R) int32) and,
-    with ``return_swept``, the tiles each ray swept (R,) f32.  The loop of
-    ``mxu_intersect.nearest_hit_ref``, every tile swept for the rays the
+    with ``return_swept``, the tiles each ray swept (R,) f32.  The flat loop
+    of ``mxu_intersect.nearest_hit_ref``, every tile swept for the rays the
     cull lets through (``none``: every ray, alive or not, as the TPU
     kernel's unmasked update; ``lane``: the live rays whose slab test
     passes; ``warp``: every ray of a 32-ray group one of whose rays
     passes)."""
     if cull not in CULLS:
         raise ValueError(f"cull {cull!r} not one of {CULLS}")
-    n = state.shape[1]
-    dev = state.device
-    o, d = state[0:3], state[3:6]
-    active = state[12] > 0.0
-    inv = [1.0 / d[a] for a in range(3)]
-    best_t = torch.full((n,), mi.INF, dtype=torch.float32, device=dev)
-    best_i = torch.zeros(n, dtype=torch.int64, device=dev)
-    best_u = torch.zeros(n, dtype=torch.float32, device=dev)
-    best_v = torch.zeros(n, dtype=torch.float32, device=dev)
-    swept = torch.zeros(n, dtype=torch.float32, device=dev)
-    ids = torch.arange(tile, device=dev)
-    for j in range(tile_bbox.shape[1]):
-        if cull == "none":
-            passed = torch.ones(n, dtype=torch.bool, device=dev)
-        else:
-            passed = mi.cull_mask_ref(tile_bbox[:, j], o, inv, best_t, active)
-            if cull == "warp":
-                pad = -n % WARP
-                groups = torch.nn.functional.pad(passed, (0, pad)).view(-1, WARP)
-                passed = groups.any(dim=1, keepdim=True).expand(-1, WARP).reshape(-1)[:n]
-        lanes = passed.nonzero()[:, 0]
-        if lanes.numel() == 0:
-            continue
-        swept += passed
-        s = j * tile
-        rows = tri_data[:13, s:s + tile]
-        ok, t, u, v = mi._transform_hit([rows[r][None, :] for r in range(13)],
-                                        tuple(o[a][lanes, None] for a in range(3)),
-                                        tuple(d[a][lanes, None] for a in range(3)))
-        t = torch.where(ok, t, mi.INF)
-        tile_min = t.min(dim=1).values
-        cand = torch.where(t <= tile_min[:, None], ids[None, :], tile).min(dim=1).values
-        cand_c = cand.clamp_max(tile - 1)[:, None]
-        better = tile_min < best_t[lanes]
-        win = lanes[better]
-        best_t[win] = tile_min[better]
-        best_i[win] = s + cand[better]
-        best_u[win] = u.gather(1, cand_c)[better, 0]
-        best_v[win] = v.gather(1, cand_c)[better, 0]
-    zero = torch.zeros_like(best_t)
-    aux = torch.stack([best_u if extract_uv else zero, best_v if extract_uv else zero,
-                       best_t, state[13], state[12], zero, zero, zero])
-    out = aux, best_i.to(torch.int32)[None, :]
+    t, idx, u, v, swept = mi.nearest_hit_ref(tri_data, tile_bbox, tile, state[0:3],
+                                             state[3:6], state[12] > 0.0,
+                                             widen=_WIDEN[cull])
+    zero = torch.zeros_like(t)
+    aux = torch.stack([u if extract_uv else zero, v if extract_uv else zero, t,
+                       state[13], state[12], zero, zero, zero])
+    out = aux, idx.to(torch.int32)[None, :]
     return out + (swept,) if return_swept else out
 
 

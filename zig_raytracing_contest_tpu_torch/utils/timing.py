@@ -63,22 +63,28 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def best_ms(fn, reps: int, rounds: int = 5) -> float:
-    """The least of ``rounds`` ``cuda_ms`` readings."""
-    return min(cuda_ms(fn, reps) for _ in range(rounds))
+# readings of which best_ms keeps the least
+ROUNDS = 5
+# SM clock cycles (~10 ms) of the spin that queued_ms puts ahead of its calls
+LEAD_CYCLES = 20_000_000
 
 
-def queued_ms(fn, reps: int, lead_cycles: int = 20_000_000) -> float:
+def best_ms(fn, reps: int) -> float:
+    """The least of ROUNDS ``cuda_ms`` readings."""
+    return min(cuda_ms(fn, reps) for _ in range(ROUNDS))
+
+
+def queued_ms(fn, reps: int) -> float:
     """Mean device milliseconds per call of ``fn`` over ``reps`` calls
-    after one warmup call, the calls queued behind a spin of
-    ``lead_cycles`` SM clock cycles (~10 ms) so that they run back to back:
+    after one warmup call, the calls queued behind a spin of LEAD_CYCLES
+    SM clock cycles so that they run back to back:
     CUDA events around calls shorter than the host's launch gap would time
     the gap."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(lead_cycles)
+    torch.cuda._sleep(LEAD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
