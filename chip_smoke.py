@@ -25,15 +25,18 @@ Phases, each of which exits non-zero when it fails:
 
 then the ``--large`` frame:
 
-a. the ptxas report of the per-bounce kernels; build the scene with the
-   port's procedural module and print its bake and regime;
+a. the ptxas report of the per-bounce kernels (registers, stack frame,
+   spills of both traces and the shade); build the scene with the port's
+   procedural module and print its bake and regime;
 b. hold trace_emit_aux and shade_fused against their twins on the card:
    one wave of 2^16 rays at bounce 0 in raster order, then a sort and
    bounce 1 with the previous hit; then the full wave of the frame
    (bounce 0 sorted, bounce 1 with the previous hit), the twins on the same
    inputs (bounce 0's trace on 2^16 lanes spread over the wave, the rest on
-   every lane); time each kernel at the full wave and each twin at 2^16
-   rays;
+   every lane); trace_emit_kernel on 1024 lanes spread over the full
+   bounce-1 wave against probes/walk_check.walk_heap_ref's replay of its
+   walk, bit for bit in t, u, v, idx, tiles swept and boxes tested; time
+   each kernel at the full wave and each twin at 2^16 rays;
 c. render the scene at 160×90 with the kernels and with the twins, sorted
    and unsorted, and hold them to the golden gates;
 d. render the ``--large`` frame: a warmup, then 5 timed renders; the
@@ -47,7 +50,9 @@ f. the 500k-triangle terrain (``large_scene(side=500)``, the 500k row of
    load and bake seconds and regime (streaming, sorted); trace_emit_aux
    (trace_stream_kernel) and shade_fused against their twins at 2^16 rays
    (bounce 0, then sorted bounce 1) and on the full wave (the trace on 2^16
-   lanes spread over it); the kernel timed at the full bounce-1 wave beside
+   lanes spread over it); trace_stream_kernel against walk_heap_ref's
+   replay of its group-heap walk on 1024 lanes of the bounce-1 wave, bit
+   for bit, as in phase b; the kernel timed at the full bounce-1 wave beside
    trace_emit_kernel on the same inputs (the two walks' A/B); the frame: a
    warmup and 5 timed renders, launch counts checked; one profile;
 g. a 2-Mtexel bank: the ``--large`` geometry with its terrain texture
@@ -182,6 +187,8 @@ RTOL, ATOL, DIR_ATOL = 3e-6, 1e-6, 1e-5
 # trace_emit_aux kernel vs twin: the share of lanes whose winners may differ
 # (two triangles hit at the same t; each such lane is checked on its own)
 TIE_SHARE = 1e-4
+# lanes of a full bounce-1 wave held to walk_heap_ref's replay bit for bit
+WALK_LANES = 1024
 
 
 def fail(msg: str) -> None:
@@ -281,6 +288,30 @@ def compare_trace(name, scene, state, prev, k, t):
     return err
 
 
+def walk_exact(name, scene, state, prev, aux, idx, groups: bool) -> None:
+    """A per-bounce trace kernel's output on a (16, R) wave against
+    walk_check.walk_heap_ref's replay of its walk (the group heap when
+    ``groups``, else the tile heap) on WALK_LANES lanes spread over the
+    wave: u, v, t bits, idx, tiles swept and boxes tested must all be
+    equal, tie lanes included."""
+    import numpy as np
+    import torch
+
+    from zig_raytracing_contest_tpu_torch.probes import walk_check
+
+    R = state.shape[1]
+    lanes = (torch.arange(WALK_LANES) * (R // WALK_LANES)).tolist()
+    t0 = time.perf_counter()
+    want = walk_check.walk_lanes(scene, state, prev, lanes, groups)
+    off = walk_check.lanes_off_walk(aux, idx, want, lanes)
+    live = int((state[12, lanes] > 0).sum())
+    print(f"  {name} vs walk_heap_ref: {off} of {WALK_LANES} lanes differ in t, u, v, idx, "
+          f"swept or tested ({live} live, {np.isfinite(want['t']).sum()} hit; "
+          f"replay {time.perf_counter() - t0:.1f} s)")
+    if off:
+        fail(f"{name} does not take walk_heap_ref's walk")
+
+
 def profile_frame(render_scene, scene, cam, cfg, card) -> None:
     """Where one frame's time goes: torch.profiler's CUDA kernel time by
     name against the frame's wall time (the rest is device idle)."""
@@ -329,6 +360,7 @@ def large_phases(card, timing, errs, bounds, launches) -> None:
 
     from zig_raytracing_contest_tpu_torch.config import Config
     from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
+    from zig_raytracing_contest_tpu_torch.probes.trace_ab import bounce_waves
     from zig_raytracing_contest_tpu_torch.render import fused, wavefront
     from zig_raytracing_contest_tpu_torch.render.pipeline import prepare_scene, render_scene
     from zig_raytracing_contest_tpu_torch.render.wavefront import regime
@@ -337,7 +369,7 @@ def large_phases(card, timing, errs, bounds, launches) -> None:
 
     dev = torch.device("cuda", 0)
     # a. the per-bounce kernels' ptxas report; the scene, through the port
-    for line in ptxas_report(("trace_emit_kernel", "shade_kernel")):
+    for line in ptxas_report(("trace_emit_kernel", "trace_stream_kernel", "shade_kernel")):
         print("  " + line)
     tmp = tempfile.TemporaryDirectory()
     path = large_scene(Path(tmp.name) / "large.gltf")
@@ -362,8 +394,8 @@ def large_phases(card, timing, errs, bounds, launches) -> None:
     # the full wave of the main path (bounce 0 sorted, then bounce 1), held
     # against the twins on the same inputs: bounce 0's trace on 2^16 lanes
     # spread over the wave, every other call on every lane
-    (stf, af, idf, rf, sf), (stf1, prevf, af1, idf1, rf1, sf1) = per_bounce_waves(
-        scene, cam, full)
+    (stf, af, idf, rf, sf), (stf1, prevf, af1, idf1, rf1, sf1) = bounce_waves(
+        scene, cam, full, L_SPP, SEED)
     torch.cuda.synchronize()
     lane = torch.arange(small, device=dev) * (full // small)
     st_l = stf[:, lane].contiguous()
@@ -375,6 +407,8 @@ def large_phases(card, timing, errs, bounds, launches) -> None:
     tw1 = mi.trace_emit_aux_ref(scene, stf1, table, prevf)
     e3 = compare_trace("trace_emit_aux (full wave, bounce 1, prev)", scene, stf1, prevf,
                        (af1, idf1, rf1), tw1)
+    walk_exact("trace_emit_kernel (full wave, bounce 1, prev)", scene, stf1, prevf, af1,
+               idf1, False)
     es3 = compare("shade_fused (full wave, bounce 1)", sf1, None,
                   fused.shade_fused_ref(scene, stf1, af1, idf1, 1, rf1), None)
     errs["trace_emit"] = max(e0, e1, e2, e3)
@@ -518,33 +552,6 @@ def frame_gate(render_scene, scene, cam, cfg, what) -> None:
         fail(f"{what}: kernels and twins disagree beyond the golden gates")
 
 
-def big_texture_scene(path: Path, seed: int) -> Path:
-    """Replace the terrain texture (the only image) of the ``--large`` scene
-    written at ``path`` by a TEX_W x TEX_H opaque RGBA noise image drawn
-    from ``seed``: about 2.1M texels, whose tiled capacity is past 2^20, so
-    the bank has no resident form (the JAX package's 3-stage shade)."""
-    import numpy as np
-
-    from zig_raytracing_contest_tpu_torch.utils.image_io import encode_srgb_png_bytes
-
-    doc = json.loads(path.read_text())
-    bin_path = path.parent / doc["buffers"][0]["uri"]
-    blob = bytearray(bin_path.read_bytes())
-    blob.extend(b"\0" * (-len(blob) % 4))
-    rgba = np.random.default_rng(seed).integers(0, 256, (TEX_H, TEX_W, 4), np.uint8)
-    rgba[..., 3] = 255
-    png = encode_srgb_png_bytes(rgba)
-    doc["bufferViews"].append({"buffer": 0, "byteOffset": len(blob),
-                               "byteLength": len(png)})
-    blob.extend(png)
-    (image,) = doc["images"]
-    image["bufferView"] = len(doc["bufferViews"]) - 1
-    doc["buffers"][0]["byteLength"] = len(blob)
-    bin_path.write_bytes(bytes(blob))
-    path.write_text(json.dumps(doc))
-    return path
-
-
 def small_wave_checks(scene, cam, tag: str):
     """trace_emit_aux and shade_fused against their twins on a 2^16-ray wave
     at bounce 0 (raster order, from pixel row 300) and, after a sort with
@@ -579,31 +586,6 @@ def small_wave_checks(scene, cam, tag: str):
     return e0, e1, es0, es1, (st1, prev1, k1)
 
 
-def per_bounce_waves(scene, cam, full):
-    """The main path's first two bounces of one full wave on the kernels
-    (gen, sort, trace, shade, sort with the previous hit, trace, shade).
-    Returns (stf, af, idf, rf, sf) of bounce 0 and (stf1, prevf, af1, idf1,
-    rf1, sf1) of bounce 1."""
-    from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
-    from zig_raytracing_contest_tpu_torch.render import fused
-    from zig_raytracing_contest_tpu_torch.render.wavefront import (
-        build_gen_par,
-        gen_rays_raster,
-        ray_sort_key,
-        sort_state_payload,
-    )
-
-    par = build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
-    stf = gen_rays_raster(par, SEED, 0, full, L_SPP, L_W)
-    _, stf, _ = sort_state_payload(ray_sort_key(scene, stf), stf)
-    af, idf, rf = mi.trace_emit_aux(scene, stf, scene.rec_table)
-    sf = fused.shade_fused(scene, stf, af, idf, 0, rf)
-    _, stf1, (prevf,) = sort_state_payload(ray_sort_key(scene, sf), sf, (idf,))
-    af1, idf1, rf1 = mi.trace_emit_aux(scene, stf1, scene.rec_table, prevf)
-    sf1 = fused.shade_fused(scene, stf1, af1, idf1, 1, rf1)
-    return (stf, af, idf, rf, sf), (stf1, prevf, af1, idf1, rf1, sf1)
-
-
 def stream_phases(card, timing, errs, bounds, launches) -> None:
     """Phase f: the 500k-triangle terrain through the streaming trace."""
     import torch
@@ -611,6 +593,7 @@ def stream_phases(card, timing, errs, bounds, launches) -> None:
     from zig_raytracing_contest_tpu_torch import kernels
     from zig_raytracing_contest_tpu_torch.config import Config
     from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
+    from zig_raytracing_contest_tpu_torch.probes.trace_ab import bounce_waves
     from zig_raytracing_contest_tpu_torch.render import fused
     from zig_raytracing_contest_tpu_torch.render.pipeline import prepare_scene, render_scene
     from zig_raytracing_contest_tpu_torch.render.wavefront import regime, shade_bank
@@ -618,7 +601,7 @@ def stream_phases(card, timing, errs, bounds, launches) -> None:
     from zig_raytracing_contest_tpu_torch.utils.timing import cuda_ms
 
     dev = torch.device("cuda", 0)
-    for line in ptxas_report(("trace_stream_kernel",)):
+    for line in ptxas_report(("trace_stream_kernel", "trace_emit_kernel")):
         print("  " + line)
     tmp = tempfile.TemporaryDirectory()
     t0 = time.perf_counter()
@@ -645,8 +628,8 @@ def stream_phases(card, timing, errs, bounds, launches) -> None:
     table = scene.rec_table
     small, full = 1 << 16, L_W * L_H * L_SPP
     e0, e1, es0, es1, (st1, prev1, _) = small_wave_checks(scene, cam, "500k, ")
-    (stf, af, idf, rf, sf), (stf1, prevf, af1, idf1, rf1, sf1) = per_bounce_waves(
-        scene, cam, full)
+    (stf, af, idf, rf, sf), (stf1, prevf, af1, idf1, rf1, sf1) = bounce_waves(
+        scene, cam, full, L_SPP, SEED)
     torch.cuda.synchronize()
     lane = torch.arange(small, device=dev) * (full // small)
     st_l = stf[:, lane].contiguous()
@@ -659,6 +642,8 @@ def stream_phases(card, timing, errs, bounds, launches) -> None:
     tw1 = mi.trace_emit_aux_ref(scene, st_l1, table, pv_l1)
     e3 = compare_trace(f"trace_emit_aux (500k, full wave, bounce 1, prev, {small} lanes)",
                        scene, st_l1, pv_l1, (af1[:, lane], idf1[lane], rf1[:, lane]), tw1)
+    walk_exact("trace_stream_kernel (500k, full wave, bounce 1, prev)", scene, stf1, prevf,
+               af1, idf1, True)
     es3 = compare("shade_fused (500k, full wave, bounce 1)", sf1, None,
                   fused.shade_fused_ref(scene, stf1, af1, idf1, 1, rf1), None)
     errs["trace_stream"] = max(e0, e1, e2, e3)
@@ -728,15 +713,16 @@ def bank_phases(card, timing, errs, bounds, launches) -> None:
     import torch
 
     from zig_raytracing_contest_tpu_torch.config import Config
+    from zig_raytracing_contest_tpu_torch.probes.trace_ab import bounce_waves
     from zig_raytracing_contest_tpu_torch.render import fused
     from zig_raytracing_contest_tpu_torch.render.pipeline import prepare_scene, render_scene
     from zig_raytracing_contest_tpu_torch.render.wavefront import regime, shade_bank
-    from zig_raytracing_contest_tpu_torch.scene.procedural import large_scene
+    from zig_raytracing_contest_tpu_torch.scene.procedural import big_texture_scene, large_scene
     from zig_raytracing_contest_tpu_torch.utils.timing import cuda_ms
 
     dev = torch.device("cuda", 0)
     tmp = tempfile.TemporaryDirectory()
-    path = big_texture_scene(large_scene(Path(tmp.name) / "bank.gltf"), SEED)
+    path = big_texture_scene(large_scene(Path(tmp.name) / "bank.gltf"), SEED, TEX_W, TEX_H)
     cfg = Config(grid_resolution=(128, 128, 128), num_samples=L_SPP,
                  max_bounce=L_BOUNCES, wave_size=L_WAVE, seed=SEED)
     scene, cam, timers = prepare_scene(str(path), cfg, camera_name="Camera 1", width=L_W,
@@ -750,8 +736,8 @@ def bank_phases(card, timing, errs, bounds, launches) -> None:
         fail(f"2-Mtexel scene renders {reg}, {bank}; expected per-bounce, sorted, "
              "3-stage bank")
     small, full = 1 << 16, L_W * L_H * L_SPP
-    (stf, af, idf, rf, sf), (stf1, _, af1, idf1, rf1, sf1) = per_bounce_waves(
-        scene, cam, full)
+    (stf, af, idf, rf, sf), (stf1, _, af1, idf1, rf1, sf1) = bounce_waves(
+        scene, cam, full, L_SPP, SEED)
     torch.cuda.synchronize()
     es0 = compare("shade_fused (2-Mtexel bank, full wave, bounce 0)", sf, None,
                   fused.shade_fused_ref(scene, stf, af, idf, 0, rf), None)

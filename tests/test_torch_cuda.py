@@ -271,3 +271,44 @@ def test_tile_heap_walk_matches_flat_loop_on_cuda():
     assert all(row["tie"] for row in res["lanes"]), res["lanes"]
     lanes = {row["lane"]: row for row in res["lanes"]}
     assert lanes[94331]["walk"][1] == 11530 and lanes[94331]["flat"][1] == 11519
+
+
+@pytest.mark.cuda
+def test_trace_kernels_equal_walk_replay_on_cuda(tmp_path, monkeypatch):
+    """trace_emit_kernel (tile heap, 37 tiles) and trace_stream_kernel (the
+    same terrain forced to stream: 5 groups) against walk_check's replay of
+    their walk (walk_heap_ref), at bounce 0 (sorted) and bounce 1 with the
+    previous hit: u, v, t bits, idx, tiles swept and boxes tested equal on
+    2048 lanes spread over the wave, tie lanes included (the replay breaks a
+    tie as the kernels do, by the walk's order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    from zig_raytracing_contest_tpu_torch import kernels
+    from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
+    from zig_raytracing_contest_tpu_torch.probes import walk_check
+    from zig_raytracing_contest_tpu_torch.render.wavefront import (
+        build_gen_par,
+        gen_rays_raster,
+        ray_sort_key,
+        sort_state_payload,
+    )
+
+    path = tproc.large_scene(tmp_path / "l.gltf", side=48)
+    cfg = Config(num_samples=2, max_bounce=3)
+    scene, cam, _ = prepare_scene(str(path), cfg, camera_name="Camera 1",
+                                  width=96, height=64, device="cuda")
+    par = build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
+    state = gen_rays_raster(par, 0, 0, 96 * 64 * 2, 2, 96)
+    _, state, _ = sort_state_payload(ray_sort_key(scene, state), state)
+    R = state.shape[1]
+    lanes = list(range(0, R, R // 2048))[:2048]
+    kernels.reset_launches()
+    for groups in (False, True):
+        if groups:
+            monkeypatch.setattr(mi, "VMEM_RESIDENT_MAX_TRIS", 4096)
+        for prev in (None, mi.trace_emit_aux_ref(scene, state)[1]):
+            aux, idx, _ = mi.trace_emit_aux(scene, state, None, prev)
+            want = walk_check.walk_lanes(scene, state, prev, lanes, groups)
+            assert int((torch.from_numpy(want["t"]) < float("inf")).sum()) > 200
+            assert walk_check.lanes_off_walk(aux, idx, want, lanes) == 0, (groups, prev)
+    assert kernels.LAUNCHES["trace_emit"] == kernels.LAUNCHES["trace_stream"] == 2

@@ -51,6 +51,9 @@ LAUNCHES = {"path_trace_gen": 0, "path_trace": 0, "trace_emit": 0,
 # What a C entry point returns when its work is empty and it launched
 # nothing (a CUDA error is positive, success 0)
 NOTHING_LAUNCHED = -1
+# The deepest heap the per-bounce traces walk: 2^TREE_STACK leaves
+# (path_trace.cu's per-thread stack)
+TREE_STACK = 24
 
 
 def reset_launches() -> None:
@@ -68,6 +71,8 @@ class ZrcScene(ctypes.Structure):
         ("tile", ctypes.c_int),
         ("num_texels", ctypes.c_int),
         ("emissive_dummy", ctypes.c_int),
+        ("tri_rows", ctypes.c_void_p),
+        ("tp", ctypes.c_int),
     ]
 
 
@@ -116,23 +121,26 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (CUDA_HOME/bin/nvcc or PATH)")
 
 
-def library_path(name: str) -> Path:
-    key = hashlib.sha256(
-        SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"libzrc_{name}_{key}.so"
+def library_path(name: str, src: Path | None = None, build_dir: Path = BUILD_DIR) -> Path:
+    """Where the library of source ``name`` (or of the file ``src``) is
+    built: keyed on a hash of the source and the flags."""
+    src = SOURCES[name] if src is None else src
+    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return build_dir / f"libzrc_{name}_{key}.so"
 
 
-def build(name: str) -> Path:
-    """The library of source ``name``, compiled by nvcc if it does not
-    exist yet (raises if nvcc fails).  Builds of different sources may run
-    at once, from separate threads."""
-    out = library_path(name)
+def build(name: str, src: Path | None = None, build_dir: Path = BUILD_DIR) -> Path:
+    """The library of source ``name`` (or of the file ``src``, built into
+    ``build_dir``), compiled by nvcc if it does not exist yet (raises if nvcc
+    fails).  Builds of different sources may run at once, from separate
+    threads."""
+    src = SOURCES[name] if src is None else Path(src)
+    out = library_path(name, src, build_dir)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -142,6 +150,27 @@ def build(name: str) -> Path:
     BUILD_INFO[name] = {"seconds": time.perf_counter() - t0,
                         "log": proc.stdout + proc.stderr}
     return out
+
+
+def _bind_trace(lib) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.zrc_trace_emit.restype = i32
+    lib.zrc_trace_emit.argtypes = [
+        ctypes.POINTER(ZrcScene), ctypes.POINTER(ZrcHeap), ptr, ptr, ptr,
+        i32, ptr, ptr, ptr, i32, i32, ptr,
+    ]
+    lib.zrc_error_string.restype = ctypes.c_char_p
+    lib.zrc_error_string.argtypes = [i32]
+
+
+def load_trace_library(src: Path, build_dir: Path):
+    """Another build of a path_trace.cu whose ``zrc_trace_emit`` takes the
+    same arguments (an earlier commit's, to compare with): built into
+    ``build_dir`` and loaded, for the ``lib`` argument of
+    ``launch_trace_emit`` / ``launch_trace_stream``."""
+    lib = ctypes.CDLL(str(build("path_trace_other", Path(src), Path(build_dir))))
+    _bind_trace(lib)
+    return lib
 
 
 def load():
@@ -160,11 +189,7 @@ def load():
                 ctypes.POINTER(ZrcScene), ptr, ptr, i32, i32, ptr, ptr, i32,
                 i32, ptr,
             ]
-            lib.zrc_trace_emit.restype = i32
-            lib.zrc_trace_emit.argtypes = [
-                ctypes.POINTER(ZrcScene), ctypes.POINTER(ZrcHeap), ptr, ptr, ptr,
-                i32, ptr, ptr, ptr, i32, i32, ptr,
-            ]
+            _bind_trace(lib)
             lib.zrc_shade.restype = i32
             lib.zrc_shade.argtypes = [
                 ctypes.POINTER(ZrcScene), ptr, ptr, ptr, i32, ptr, i32, i32, ptr,
@@ -176,8 +201,6 @@ def load():
             ]
             lib.zrc_sort_key.restype = i32
             lib.zrc_sort_key.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
-            lib.zrc_error_string.restype = ctypes.c_char_p
-            lib.zrc_error_string.argtypes = [i32]
             _libs["path_trace"] = lib
         return _libs["path_trace"]
 
@@ -220,11 +243,13 @@ def _scene_struct(scene, device):
     _check(rec, "rec", torch.float32, (tp, 24), device)
     _check(tile_bbox, "tile_bbox", torch.float32, (6, tile_bbox.shape[1]), device)
     _check(bank, "bank", torch.float32, (bank.shape[0], 4), device)
+    _check(scene.tri_data, "tri_data", torch.float32, (16, tp), device)
     if tile_bbox.shape[1] * scene.tile > tp:
         raise ValueError("tile_bbox covers more triangles than the bank holds")
     return ZrcScene(
         tri.data_ptr(), tile_bbox.data_ptr(), rec.data_ptr(), bank.data_ptr(),
         tile_bbox.shape[1], scene.tile, bank.shape[0], int(scene.emissive_dummy),
+        scene.tri_data.data_ptr(), tp,
     )
 
 
@@ -293,19 +318,23 @@ def _heap(tree, gbox, group_tiles: int, leaves: int, device) -> ZrcHeap:
     (tiles, or the groups of ``gbox`` (6, ng))."""
     p2 = tree.shape[1] // 2
     _check(tree, "heap", torch.float32, (6, 2 * p2), device)
-    if p2 & (p2 - 1) or p2 < leaves or p2 > 1 << 30:
+    if p2 & (p2 - 1) or p2 < leaves or p2 > 1 << TREE_STACK:
         raise ValueError(f"heap of {p2} leaves does not fit {leaves} leaves")
     if gbox is None:
         return ZrcHeap(tree.data_ptr(), None, p2, 0, 0)
     _check(gbox, "group_bbox", torch.float32, (6, leaves), device)
+    if group_tiles < 1:
+        raise ValueError(f"groups of {group_tiles} tiles")
     return ZrcHeap(tree.data_ptr(), gbox.data_ptr(), p2, leaves, group_tiles)
 
 
 def _launch_trace(scene, heap: ZrcHeap, state, prev, table, aux_out, idx_out,
-                  rec_out) -> None:
+                  rec_out, lib=None) -> None:
     """Launch the walk of ``heap``: trace_stream_kernel when it has group
-    boxes, else trace_emit_kernel."""
-    lib = load()
+    boxes, else trace_emit_kernel; from ``lib`` (``load_trace_library``,
+    not counted) when given."""
+    counted = lib is None
+    lib = load() if lib is None else lib
     dev = scene.device
     R = state.shape[1]
     _check(state, "state", torch.float32, (16, R), dev)
@@ -327,20 +356,22 @@ def _launch_trace(scene, heap: ZrcHeap, state, prev, table, aux_out, idx_out,
         dev.index or 0, stream,
     )
     name = "trace_stream" if heap.gbox else "trace_emit"
-    if _launched(err, lib.zrc_error_string, f"{name}_kernel"):
+    if _launched(err, lib.zrc_error_string, f"{name}_kernel") and counted:
         LAUNCHES[name] += 1
 
 
-def launch_trace_emit(scene, state, prev, table, aux_out, idx_out, rec_out) -> None:
+def launch_trace_emit(scene, state, prev, table, aux_out, idx_out, rec_out,
+                      lib=None) -> None:
     """Launch trace_emit_kernel (the walk of ``scene.tree_bbox``):
     ``state`` (16, R) → ``aux_out`` (8, R), ``idx_out`` (R,) int32 and,
     when ``table`` (24, Tp) is given, ``rec_out`` (24, R); ``prev`` (R,)
-    int32 or None."""
+    int32 or None; ``lib``: another build (``load_trace_library``)."""
     heap = _heap(scene.tree_bbox, None, 0, scene.tile_bbox.shape[1], scene.device)
-    _launch_trace(scene, heap, state, prev, table, aux_out, idx_out, rec_out)
+    _launch_trace(scene, heap, state, prev, table, aux_out, idx_out, rec_out, lib)
 
 
-def launch_trace_stream(scene, state, prev, table, aux_out, idx_out, rec_out) -> None:
+def launch_trace_stream(scene, state, prev, table, aux_out, idx_out, rec_out,
+                        lib=None) -> None:
     """Launch trace_stream_kernel (the walk of ``scene.group_tree_bbox``,
     each reached group's tiles culled and swept); arguments as
     ``launch_trace_emit``."""
@@ -350,7 +381,7 @@ def launch_trace_stream(scene, state, prev, table, aux_out, idx_out, rec_out) ->
         raise ValueError(f"{ng} groups of {scene.group_tiles} do not cover {nt} tiles")
     heap = _heap(scene.group_tree_bbox, scene.group_bbox, scene.group_tiles, ng,
                  scene.device)
-    _launch_trace(scene, heap, state, prev, table, aux_out, idx_out, rec_out)
+    _launch_trace(scene, heap, state, prev, table, aux_out, idx_out, rec_out, lib)
 
 
 def launch_shade(scene, state_in, aux, rec, bounce: int, state_out) -> None:
@@ -390,7 +421,7 @@ def launch_texel_fetch(bank, texture, base, demand, out) -> None:
     if w < 1 or h < 1 or off < 0 or off + w * h > bank.shape[0]:
         raise ValueError(f"texture {tuple(texture)} does not lie in a bank of "
                          f"{bank.shape[0]} texels")
-    sc = ZrcScene(None, None, None, bank.data_ptr(), 0, 0, bank.shape[0], 0)
+    sc = ZrcScene(None, None, None, bank.data_ptr(), 0, 0, bank.shape[0], 0, None, 0)
     tex = ZrcTexture(off, w, h, rep_u, rep_v)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.zrc_texel_fetch(ctypes.byref(sc), ctypes.byref(tex), base.data_ptr(),

@@ -1,5 +1,6 @@
 // CUDA kernels for Hopper (sm_90a): ray generation, nearest hit, shading
-// and the beam-sort key, one thread per ray.
+// and the beam-sort key, one thread per ray; the per-bounce traces sweep
+// each tile a ray reaches with a whole warp.
 //
 // Replaces the Pallas kernels of the JAX package:
 //   path_trace_gen_kernel  <- zig_raytracing_contest_tpu/render/fused.py:1031
@@ -23,14 +24,16 @@
 //   trace_nearest  <- mxu_intersect._trace_body_resident (:1027), flat tile
 //                     loop with _cull_any (:782) and _tile_update (:443);
 //                     the whole-path kernels, for every scene
-//   walk_heap      <- mxu_intersect._tree_traverse (:1191) with
+//   advance_walk   <- mxu_intersect._tree_traverse (:1191) with
 //                     _cull_entry_batch (:786), a per-ray binary walk of
 //                     the tile heap (trace_emit) or of the group heap
-//                     (trace_stream), whose leaves re-cull and sweep their
-//                     group's tiles (visit_group / process_group
+//                     (trace_stream), whose leaves re-cull their group and
+//                     cull its tiles (visit_group / process_group
 //                     :1418-1517; it also covers _front_to_back_groups
 //                     :869, which visits a block's groups nearest first
 //                     below 16 groups)
+//   warp_sweep     <- mxu_intersect._intersect_tile (:287) and
+//                     _tile_update (:443) for one ray, a warp on one tile
 //   shade_surface  <- fused._shade1_body (:595): _prep_math (:110, non-tiled)
 //                     and _shade_live (:245)
 //   emit_sort_key  <- fused._emit_sort_key (:915)
@@ -42,18 +45,38 @@
 // whole path (PERF.md), so it is not carried here.  The per-bounce kernels
 // serve scenes past 2^15 padded triangles: trace_emit walks the tile heap,
 // trace_stream (past 2^17 padded triangles) the heap of 8-tile groups, and
-// the winner record is one direct load per ray
-// after the walk (the JAX kernels' deferred _extract_winner_records :590).
-// What bounds them on this card: both traces are bound by operations (~41
-// f32 operations per triangle of every swept tile, ~24 per box) over a
-// state of 64 bytes in and 132 out per ray; the walk keeps each ray's
-// stack in registers/local memory and sweeps only the tiles its own slab
-// tests reach, nearest first, so the running best culls the rest.  The
-// TPU's streaming kernel DMAs each surviving group's tiles through a
+// the winner record is one direct load per ray after the walk (the JAX
+// kernels' deferred _extract_winner_records :590).
+// What bounds the two traces on this card: operations, ~42 f32 operations
+// per triangle of every swept tile and ~24 per box tested, over a state of
+// 64 bytes in and 132 out per ray.  A triangle test issues ~85-95
+// instructions (no FMA under --fmad=false, an IEEE divide), so with every
+// lane busy the reachable ceiling is ~1/4 of that bound.  Bounce-1 rays are
+// incoherent.  With one thread per ray doing everything (the earlier
+// design, commit 542c68f) the warp issued the union of its 32 lanes' tile
+// sweeps (128-256 serial tests per lane) while the other lanes waited,
+// each thread kept a 32-entry stack in local memory, and lanes loaded
+// different tiles' 64-byte rows at each float4 load (16 L1 wavefronts a
+// load).  A warp that walks one ray at a
+// time (the whole warp on each decision) made the walk's control serial:
+// 1.9x slower than that on the beam-sorted bounce 0 (PERF.md).  So here
+// each lane walks its own ray (advance_walk: its stack in shared memory,
+// 24 entries of node and entry t per thread), in rounds: every lane walks
+// to the next tile its ray must sweep, then the warp sweeps the asked
+// tiles one after the other, each with all 32 lanes (warp_sweep: tile/32
+// triangles per lane, read from the field-major rows, so a load is 128
+// contiguous bytes), and hands the result to the asking lane.  Control
+// runs 32 rays wide, sweeps 32 triangles wide, and no lane sweeps alone.
+// The visit order and the arithmetic are the per-ray walk's, so t, u, v,
+// idx and the counts are the same bits as before.  Measured on an NVIDIA
+// H100 80GB HBM3 at 700 W (PERF.md, probes/trace_ab.py, same rays):
+// --large bounce 1 6.27 ms (the earlier design: 15.72), 500k bounce 1
+// 12.61 ms (57.44), against bounds of 0.73 and 1.44 ms.  The TPU's
+// streaming kernel DMAs each surviving group's tiles through a
 // double-buffered VMEM scratch because its core cannot read the bank in
-// HBM directly; here a thread reads its tiles' triangles straight from
-// device memory (through L1/L2), so the two walks differ only in the heap
-// they walk and the leaf they visit.
+// HBM directly; here the warp reads a tile's rows from device memory
+// through L1/L2, so the two traces differ only in the heap they walk and
+// the leaf they visit.
 // shade_kernel is bound by bytes: 256 bytes of state, aux and record per
 // ray in and 64 out, coalesced (thread i owns column i), against ~150
 // operations per live ray.
@@ -79,6 +102,7 @@
 // (t, index) that the JAX kernels compute per tile and across tiles.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -91,6 +115,8 @@ struct ZrcScene {
     int tile;                // triangles per tile
     int num_texels;          // P
     int emissive_dummy;      // every emissive texture is 1x1
+    const float* tri_rows;   // (16, Tp) f32: the same transforms, field-major
+    int tp;                  // Tp
 };
 
 struct ZrcGen {
@@ -268,34 +294,122 @@ __device__ Hit trace_nearest(const ZrcScene& sc, const float o[3],
     return h;
 }
 
-// ------------------------------------------------------------ walk_heap
-// Per-ray depth-first walk of an implicit heap (mxu_intersect._build_heap:
+// ---------------------------------------------------------- trace walk
+// The per-bounce traces walk an implicit heap (mxu_intersect._build_heap:
 // node n's children are 2n and 2n+1, leaf p2 + j is tile or group j; empty
-// subtrees hold the always-miss box).  The heap depth is log2(p2): at most
-// 10 for resident tile heaps and for group heaps (STREAM_MAX_TILES / 8 =
-// 1024 groups), 13 for a streaming bake's tile heap; the walk pushes at
-// most one node per level.
-#define TREE_STACK 32
+// subtrees hold the always-miss box), each lane the walk of its own ray,
+// and sweep tiles as a warp: a lane that reaches a tile hands it to the
+// warp, whose 32 lanes split the tile's triangles.  The heap depth is
+// log2(p2) <= TREE_STACK (the launcher's bound); the walk pushes at most
+// one node per level.
+#define FULL_MASK 0xffffffffu
+#define TRACE_THREADS 128  // threads per block of the two traces
+#define TREE_STACK 24
 
-// Entry t of heap node n for the ray, or +inf when the slab test of
-// _cull_mask culls it against ``best`` (a NaN never culls).  A negative or
-// NaN entry (origin inside the box, or on a slab plane) reads 0, as in
-// _cull_entry_batch.
+// NaN-propagating min / max in one instruction each (sm_80+).  The walk
+// uses them only in comparisons, where they decide as nan_min / nan_max do
+// (the two differ at most in the sign of a zero result).
+__device__ __forceinline__ float min_nan(float a, float b) {
+    float r;
+    asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+    float r;
+    asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
+}
+
+// One ray: origin, direction, its reciprocal, and the Morton index it may
+// not hit (-1: none).
+struct TraceRay {
+    float o[3];
+    float d[3];
+    float inv[3];
+    int prev;
+};
+
+// (tmin, tmax) of the slab test of column n of a (6, stride) box array,
+// with the roundings of tile_passes / _cull_mask.
+__device__ __forceinline__ void slab(const float* bb, int stride, int n,
+                                     const TraceRay& r, float& tmin, float& tmax) {
+    float tx1 = (__ldg(bb + 0 * stride + n) - r.o[0]) * r.inv[0];
+    float tx2 = (__ldg(bb + 3 * stride + n) - r.o[0]) * r.inv[0];
+    float ty1 = (__ldg(bb + 1 * stride + n) - r.o[1]) * r.inv[1];
+    float ty2 = (__ldg(bb + 4 * stride + n) - r.o[1]) * r.inv[1];
+    float tz1 = (__ldg(bb + 2 * stride + n) - r.o[2]) * r.inv[2];
+    float tz2 = (__ldg(bb + 5 * stride + n) - r.o[2]) * r.inv[2];
+    tmin = max_nan(max_nan(min_nan(tx1, tx2), min_nan(ty1, ty2)), min_nan(tz1, tz2));
+    tmax = min_nan(min_nan(max_nan(tx1, tx2), max_nan(ty1, ty2)), max_nan(tz1, tz2));
+}
+
+// The cull of _cull_mask against the running best t (a NaN never culls).
+__device__ __forceinline__ bool box_passes(const float* bb, int stride, int n,
+                                           const TraceRay& r, float best, float& tmin) {
+    float tmax;
+    slab(bb, stride, n, r, tmin, tmax);
+    return !((tmin > tmax) || (tmax <= 0.0f) || (tmin >= best));
+}
+
+// Entry t of heap node n for the ray, or +inf when the box is culled
+// against ``best``; a negative or NaN entry (origin inside the box, or on
+// a slab plane) reads 0, as in _cull_entry_batch.
 __device__ __forceinline__ float node_entry(const float* tree, int stride, int n,
-                                            const float o[3], const float inv[3],
-                                            float best) {
-    float tx1 = (__ldg(tree + 0 * stride + n) - o[0]) * inv[0];
-    float tx2 = (__ldg(tree + 3 * stride + n) - o[0]) * inv[0];
-    float ty1 = (__ldg(tree + 1 * stride + n) - o[1]) * inv[1];
-    float ty2 = (__ldg(tree + 4 * stride + n) - o[1]) * inv[1];
-    float tz1 = (__ldg(tree + 2 * stride + n) - o[2]) * inv[2];
-    float tz2 = (__ldg(tree + 5 * stride + n) - o[2]) * inv[2];
-    float tmin = nan_max(nan_max(nan_min(tx1, tx2), nan_min(ty1, ty2)),
-                         nan_min(tz1, tz2));
-    float tmax = nan_min(nan_min(nan_max(tx1, tx2), nan_max(ty1, ty2)),
-                         nan_max(tz1, tz2));
-    if ((tmin > tmax) || (tmax <= 0.0f) || (tmin >= best)) return INFINITY;
+                                            const TraceRay& r, float best) {
+    float tmin;
+    if (!box_passes(tree, stride, n, r, best, tmin)) return INFINITY;
     return tmin >= 0.0f ? tmin : 0.0f;
+}
+
+// Sweep tile j for one ray (``r``, the same on every lane of the warp):
+// lane l tests triangles l, l + 32, ... in ascending order with
+// sweep_tile's arithmetic and keeps the first at its smallest t; the warp
+// then takes the smallest t over its lanes and, at that t, the lowest index
+// (two min reductions), which is the winner of the ascending loop, and
+// replaces ``h`` only on a strictly smaller t.  Returns whether it did.
+__device__ __forceinline__ bool warp_sweep(const ZrcScene& sc, int j, const TraceRay& r,
+                                           int lane, Hit& h) {
+    const int s = j * sc.tile;
+    float bt = INFINITY, bu = 0.0f, bv = 0.0f;
+    int bi = 0;
+#pragma unroll 4
+    for (int k = lane; k < sc.tile; k += 32) {
+        int gi = s + k;
+        float m[13];  // rows of tri_rows: neighbouring lanes, neighbouring words
+#pragma unroll
+        for (int f = 0; f < 13; ++f) m[f] = __ldg(sc.tri_rows + (size_t)f * sc.tp + gi);
+        float ou = m[0] * r.o[0] + m[1] * r.o[1] + m[2] * r.o[2] + m[9];
+        float ov = m[3] * r.o[0] + m[4] * r.o[1] + m[5] * r.o[2] + m[10];
+        float ow = m[6] * r.o[0] + m[7] * r.o[1] + m[8] * r.o[2] + m[11];
+        float du = m[0] * r.d[0] + m[1] * r.d[1] + m[2] * r.d[2];
+        float dv = m[3] * r.d[0] + m[4] * r.d[1] + m[5] * r.d[2];
+        float dw = m[6] * r.d[0] + m[7] * r.d[1] + m[8] * r.d[2];
+        float n_sq = m[12];
+        float t = -ow / dw;
+        float u = ou + t * du;
+        float v = ov + t * dv;
+        float det = -dw * n_sq;
+        bool ok = (det >= MT_EPSILON) && (u >= 0.0f) && (v >= 0.0f) &&
+                  (u + v <= 1.0f) && (t > 0.0f) && (gi != r.prev);
+        if (ok && t < bt) {
+            bt = t;
+            bu = u;
+            bv = v;
+            bi = gi;
+        }
+    }
+    if (!__any_sync(FULL_MASK, bt < h.t)) return false;
+    // a hit has t > 0, so its bits order as its value; +inf marks none
+    unsigned tb = __float_as_uint(bt);
+    unsigned t_min = __reduce_min_sync(FULL_MASK, tb);
+    int i_min = __reduce_min_sync(FULL_MASK, tb == t_min ? bi : INT_MAX);
+    int src = __ffs(__ballot_sync(FULL_MASK, tb == t_min && bi == i_min)) - 1;
+    h.t = __uint_as_float(t_min);
+    h.idx = i_min;
+    h.u = __shfl_sync(FULL_MASK, bu, src);
+    h.v = __shfl_sync(FULL_MASK, bv, src);
+    return true;
 }
 
 // The heap a per-bounce trace walks: the tile heap (``gbox`` null: leaf
@@ -310,74 +424,76 @@ struct ZrcHeap {
     int group_tiles;
 };
 
-// Nearest front-facing hit by the tree walk: both children of a node are
-// tested against the running best t; the nearer descends, the farther is
-// pushed with its entry t and skipped when popped at or behind the best.
-// A tile leaf is swept; a group leaf re-culls its box against the running
-// best (visit_group), then culls and sweeps its real tiles in ascending
-// order (process_group: tiles >= nt in the last group are never read).
-// ``swept`` counts the tiles swept, ``tested`` the boxes tested (heap
-// nodes, group re-culls, tile boxes).  The nearest t does not depend on
-// the visit order; which of two triangles at the same t wins does (the
-// first swept), as in _tree_traverse.
+// Where one lane's walk stands.  Its stack lives in shared memory, entry s
+// at stack_n / stack_e[s * TRACE_THREADS + threadIdx.x].
+struct LaneWalk {
+    int node;   // the node to visit next (0: pop)
+    int sp;     // stack entries
+    int gk;     // the next tile of the group being visited to cull
+    int gend;   // and the end of its real tiles
+    int req;    // the tile the lane asks the warp to sweep (-1: none)
+    bool done;
+};
+
+// Advance one lane's walk, in the order of the per-ray walk of
+// _tree_traverse, to its next tile sweep (``w.req``) or to its end
+// (``w.done``), against its running best t.  Both children of a node are
+// tested against the best; the nearer descends, the farther is pushed with
+// its entry t and skipped when popped at or behind the best.  A tile leaf
+// asks for a sweep; a group leaf re-culls its box against the best
+// (visit_group), then culls its real tiles in ascending order, each against
+// the best of its turn, asking for a sweep of each that passes
+// (process_group: tiles >= nt in the last group are never read).
+// ``tested`` counts the boxes tested (heap nodes, group re-culls, tile
+// boxes).
 template <bool kGroups>
-__device__ Hit walk_heap(const ZrcScene& sc, const ZrcHeap& hp,
-                         const float o[3], const float d[3], int prev,
-                         int& swept, int& tested) {
-    float inv[3] = {1.0f / d[0], 1.0f / d[1], 1.0f / d[2]};
-    Hit h = {INFINITY, 0.0f, 0.0f, 0};
+__device__ void advance_walk(const ZrcScene& sc, const ZrcHeap& hp, const TraceRay& r,
+                             float best, LaneWalk& w, int* stack_n, float* stack_e,
+                             int& tested) {
     const int p2 = hp.p2;
     const int stride = 2 * p2;
-    int stack_n[TREE_STACK];
-    float stack_e[TREE_STACK];
-    int sp = 0;
-    swept = 0;
-    tested = 1;
-    int node = node_entry(hp.tree, stride, 1, o, inv, h.t) < INFINITY ? 1 : 0;
-    while (node) {
-        if (node >= p2) {
-            int j = node - p2;
+    const int me = threadIdx.x;
+    float tmin;
+    while (!w.done && w.req < 0) {
+        if (kGroups && w.gk < w.gend) {
+            ++tested;
+            int jt = w.gk++;
+            if (box_passes(sc.tile_bbox, sc.nt, jt, r, best, tmin)) w.req = jt;
+        } else if (w.node >= p2) {
+            int j = w.node - p2;
+            w.node = 0;
             if (!kGroups) {
-                if (j < sc.nt) {
-                    sweep_tile(sc, j, o, d, prev, h);
-                    ++swept;
-                }
+                if (j < sc.nt) w.req = j;
             } else if (j < hp.ng) {
                 ++tested;
-                if (tile_passes(hp.gbox, hp.ng, j, o, inv, h.t)) {
-                    int j1 = min((j + 1) * hp.group_tiles, sc.nt);
-                    for (int jt = j * hp.group_tiles; jt < j1; ++jt) {
-                        ++tested;
-                        if (!tile_passes(sc.tile_bbox, sc.nt, jt, o, inv, h.t))
-                            continue;
-                        sweep_tile(sc, jt, o, d, prev, h);
-                        ++swept;
-                    }
+                if (box_passes(hp.gbox, hp.ng, j, r, best, tmin)) {
+                    w.gk = j * hp.group_tiles;
+                    w.gend = min(w.gk + hp.group_tiles, sc.nt);
                 }
             }
-            node = 0;
-        } else {
-            int c = 2 * node;
-            float e0 = node_entry(hp.tree, stride, c, o, inv, h.t);
-            float e1 = node_entry(hp.tree, stride, c + 1, o, inv, h.t);
+        } else if (w.node > 0) {
+            int c = 2 * w.node;
+            float e0 = node_entry(hp.tree, stride, c, r, best);
+            float e1 = node_entry(hp.tree, stride, c + 1, r, best);
             tested += 2;
             bool p0 = e0 < INFINITY, p1 = e1 < INFINITY;
             if (p0 && p1) {
                 bool right_first = e1 < e0;
-                stack_n[sp] = right_first ? c : c + 1;
-                stack_e[sp] = right_first ? e0 : e1;
-                ++sp;
-                node = right_first ? c + 1 : c;
+                stack_n[w.sp * TRACE_THREADS + me] = right_first ? c : c + 1;
+                stack_e[w.sp * TRACE_THREADS + me] = right_first ? e0 : e1;
+                ++w.sp;
+                w.node = right_first ? c + 1 : c;
             } else {
-                node = p0 ? c : (p1 ? c + 1 : 0);
+                w.node = p0 ? c : (p1 ? c + 1 : 0);
             }
-        }
-        while (node == 0 && sp > 0) {
-            --sp;
-            if (stack_e[sp] < h.t) node = stack_n[sp];
+        } else if (w.sp > 0) {
+            --w.sp;
+            if (stack_e[w.sp * TRACE_THREADS + me] < best)
+                w.node = stack_n[w.sp * TRACE_THREADS + me];
+        } else {
+            w.done = true;
         }
     }
-    return h;
 }
 
 // -------------------------------------------------------- shade_bounce
@@ -633,25 +749,66 @@ __global__ void path_trace_kernel(ZrcScene sc, const float* __restrict__ state_i
 // streams, alive, tiles swept, boxes tested, 0], idx (R,) Morton index and,
 // when ``rec_out`` is given, the winner's 24-float record read from the
 // field-major (24, table_cols) ``table`` (zeros on a miss).  A dead ray
-// traces nothing: t = +inf, idx = 0.
+// traces nothing: t = +inf, idx = 0.  Thread i owns column i (coalesced
+// loads and stores) and walks its ray (advance_walk); in rounds, every lane
+// of the warp walks to its next tile, then the warp sweeps the tiles the
+// lanes asked for, one after the other, all 32 lanes on each
+// (warp_sweep), until every walk has ended.  Launched with TRACE_THREADS
+// threads per block.
 template <bool kGroups>
-__device__ void trace_emit_ray(const ZrcScene& sc, const ZrcHeap& hp, int i,
-                               const float* __restrict__ state,
-                               const int* __restrict__ prev,
-                               const float* __restrict__ table, int table_cols,
-                               float* __restrict__ aux, int* __restrict__ idx_out,
-                               float* __restrict__ rec_out, int R) {
+__device__ void trace_warp(const ZrcScene& sc, const ZrcHeap& hp,
+                           const float* __restrict__ state,
+                           const int* __restrict__ prev,
+                           const float* __restrict__ table, int table_cols,
+                           float* __restrict__ aux, int* __restrict__ idx_out,
+                           float* __restrict__ rec_out, int R) {
+    __shared__ int stack_n[TREE_STACK * TRACE_THREADS];
+    __shared__ float stack_e[TREE_STACK * TRACE_THREADS];
     const size_t n = (size_t)R;
-    float alive = state[S_ALIVE * n + i];
+    const int lane = threadIdx.x & 31;
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    const bool in = i < R;
+    float alive = in ? state[S_ALIVE * n + i] : 0.0f;
+    TraceRay mine = {};
+    mine.prev = -1;
     Hit h = {INFINITY, 0.0f, 0.0f, 0};
+    LaneWalk w = {0, 0, 0, 0, -1, true};
     int swept = 0, tested = 0;
     if (alive > 0.0f) {
-        float o[3] = {state[(S_OX + 0) * n + i], state[(S_OX + 1) * n + i],
-                      state[(S_OX + 2) * n + i]};
-        float d[3] = {state[(S_DX + 0) * n + i], state[(S_DX + 1) * n + i],
-                      state[(S_DX + 2) * n + i]};
-        h = walk_heap<kGroups>(sc, hp, o, d, prev ? prev[i] : -1, swept, tested);
+        for (int a = 0; a < 3; ++a) {
+            mine.o[a] = state[(S_OX + a) * n + i];
+            mine.d[a] = state[(S_DX + a) * n + i];
+            mine.inv[a] = 1.0f / mine.d[a];
+        }
+        if (prev) mine.prev = prev[i];
+        tested = 1;
+        w.node = node_entry(hp.tree, 2 * hp.p2, 1, mine, INFINITY) < INFINITY ? 1 : 0;
+        w.done = false;
     }
+    while (true) {
+        advance_walk<kGroups>(sc, hp, mine, h.t, w, stack_n, stack_e, tested);
+        unsigned asks = __ballot_sync(FULL_MASK, w.req >= 0);
+        if (!asks) break;
+        do {
+            int k = __ffs(asks) - 1;
+            asks &= asks - 1u;
+            TraceRay r;
+            for (int a = 0; a < 3; ++a) {
+                r.o[a] = __shfl_sync(FULL_MASK, mine.o[a], k);
+                r.d[a] = __shfl_sync(FULL_MASK, mine.d[a], k);
+            }
+            r.prev = __shfl_sync(FULL_MASK, mine.prev, k);
+            int j = __shfl_sync(FULL_MASK, w.req, k);
+            Hit hk = {__shfl_sync(FULL_MASK, h.t, k), 0.0f, 0.0f, 0};
+            bool better = warp_sweep(sc, j, r, lane, hk);
+            if (lane == k) {
+                if (better) h = hk;
+                ++swept;
+                w.req = -1;
+            }
+        } while (asks);
+    }
+    if (!in) return;
     aux[0 * n + i] = h.u;
     aux[1 * n + i] = h.v;
     aux[2 * n + i] = h.t;
@@ -670,29 +827,23 @@ __device__ void trace_emit_ray(const ZrcScene& sc, const ZrcHeap& hp, int i,
 }
 
 // Resident scenes: the walk of the tile heap.
-__global__ void trace_emit_kernel(ZrcScene sc, ZrcHeap hp,
+__global__ void __launch_bounds__(TRACE_THREADS, 8) trace_emit_kernel(ZrcScene sc, ZrcHeap hp,
                                   const float* __restrict__ state,
                                   const int* __restrict__ prev,
                                   const float* __restrict__ table, int table_cols,
                                   float* __restrict__ aux, int* __restrict__ idx_out,
                                   float* __restrict__ rec_out, int R) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= R) return;
-    trace_emit_ray<false>(sc, hp, i, state, prev, table, table_cols, aux,
-                          idx_out, rec_out, R);
+    trace_warp<false>(sc, hp, state, prev, table, table_cols, aux, idx_out, rec_out, R);
 }
 
 // Streaming scenes: the walk of the group heap.
-__global__ void trace_stream_kernel(ZrcScene sc, ZrcHeap hp,
+__global__ void __launch_bounds__(TRACE_THREADS, 8) trace_stream_kernel(ZrcScene sc, ZrcHeap hp,
                                     const float* __restrict__ state,
                                     const int* __restrict__ prev,
                                     const float* __restrict__ table, int table_cols,
                                     float* __restrict__ aux, int* __restrict__ idx_out,
                                     float* __restrict__ rec_out, int R) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= R) return;
-    trace_emit_ray<true>(sc, hp, i, state, prev, table, table_cols, aux,
-                         idx_out, rec_out, R);
+    trace_warp<true>(sc, hp, state, prev, table, table_cols, aux, idx_out, rec_out, R);
 }
 
 // One bounce of shading of a (16, R) state from the trace's aux and
@@ -821,21 +972,23 @@ extern "C" int zrc_path_trace(const ZrcScene* sc, const float* state_in,
 }
 
 // A heap with group boxes launches trace_stream_kernel, else
-// trace_emit_kernel.
+// trace_emit_kernel, TRACE_THREADS threads per block.
 extern "C" int zrc_trace_emit(const ZrcScene* sc, const ZrcHeap* hp,
                               const float* state, const int* prev,
                               const float* table, int table_cols, float* aux,
                               int* idx_out, float* rec_out, int R, int device,
                               void* stream) {
     if (R <= 0) return ZRC_NOTHING_LAUNCHED;
+    if (hp->p2 < 1 || hp->p2 > (1 << TREE_STACK) || (hp->gbox && hp->group_tiles < 1))
+        return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    int blocks = (R + kThreads - 1) / kThreads;
+    int blocks = (R + TRACE_THREADS - 1) / TRACE_THREADS;
     if (hp->gbox)
-        trace_stream_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        trace_stream_kernel<<<blocks, TRACE_THREADS, 0, (cudaStream_t)stream>>>(
             *sc, *hp, state, prev, table, table_cols, aux, idx_out, rec_out, R);
     else
-        trace_emit_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        trace_emit_kernel<<<blocks, TRACE_THREADS, 0, (cudaStream_t)stream>>>(
             *sc, *hp, state, prev, table, table_cols, aux, idx_out, rec_out, R);
     return (int)cudaGetLastError();
 }

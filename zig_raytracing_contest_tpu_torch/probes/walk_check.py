@@ -1,7 +1,8 @@
 """The per-bounce trace's tile-heap walk against the flat tile loop, lane by lane.
 
-``trace_emit_kernel`` (kernels/path_trace.cu, ``walk_heap``) finds each
-ray's nearest hit by a per-ray walk of the tile heap, nearest child first;
+``trace_emit_kernel`` (kernels/path_trace.cu, ``advance_walk`` with
+``warp_sweep``) finds each ray's nearest hit by a per-ray walk of the tile
+heap, nearest child first;
 its plain twin ``mxu_intersect.nearest_hit_ref`` sweeps the tiles in
 ascending order.  Both cull a tile whose box the ray enters at or behind
 the running best t, so they visit tiles in different orders and must still
@@ -15,7 +16,10 @@ a lane where both are hit at one t is a tie; any other is a fault of the
 walk.  ``walk_heap_ref`` repeats the kernel's walk for one ray in NumPy
 float32 (each operation rounded once, as the kernel, built with
 ``--fmad=false``, rounds it) and lists the tiles it sweeps with the best t
-at each, which shows how a differing lane arose.
+at each, which shows how a differing lane arose; it also repeats
+``trace_stream_kernel``'s walk of the group heap, and ``walk_lanes`` /
+``lanes_off_walk`` hold either kernel to it bit for bit (chip_smoke.py).
+``warp_sweep_ref`` models the kernels' split of a tile over a warp.
 
 The wave is the whole-path frame's bounce-0 wave of 522,240 rays from pixel
 tile 920 (1920x1080, 3 spp, 32x32 tiled slot order) and its bounce-1 wave
@@ -153,11 +157,77 @@ def _slab(box, o, inv):
     return tmin, tmax
 
 
+def _transform(tri_data: np.ndarray, lo: int, hi: int, o, d, prev: int):
+    """(ok, t, u, v) of triangles lo .. hi - 1 for one ray, with the
+    kernel's arithmetic (sweep_tile) in NumPy float32."""
+    f32 = np.float32
+    m = tri_data[:13, lo:hi].astype(f32)
+    with np.errstate(all="ignore"):
+        ou = m[0] * o[0] + m[1] * o[1] + m[2] * o[2] + m[9]
+        ov = m[3] * o[0] + m[4] * o[1] + m[5] * o[2] + m[10]
+        ow = m[6] * o[0] + m[7] * o[1] + m[8] * o[2] + m[11]
+        du = m[0] * d[0] + m[1] * d[1] + m[2] * d[2]
+        dv = m[3] * d[0] + m[4] * d[1] + m[5] * d[2]
+        dw = m[6] * d[0] + m[7] * d[1] + m[8] * d[2]
+        t = -ow / dw
+        u = ou + t * du
+        v = ov + t * dv
+        ok = ((-dw * m[12] >= f32(mi.MT_EPSILON)) & (u >= 0) & (v >= 0)
+              & (u + v <= 1) & (t > 0))
+    ok &= np.arange(lo, hi) != prev
+    return ok, t, u, v
+
+
+def sweep_tile_ref(tri_data: np.ndarray, tile: int, j: int, o, d, prev: int,
+                   best: dict) -> None:
+    """``sweep_tile``: tile j's triangles in ascending index, each hit
+    replacing ``best`` (t, idx, u, v) only on a strictly smaller t."""
+    ok, t, u, v = _transform(tri_data, j * tile, (j + 1) * tile, o, d, prev)
+    for k in np.nonzero(ok)[0]:
+        if t[k] < best["t"]:
+            best.update(t=t[k], idx=j * tile + int(k), u=u[k], v=v[k])
+
+
+def warp_sweep_ref(tri_data: np.ndarray, tile: int, j: int, o, d, prev: int,
+                   best: dict) -> None:
+    """``warp_sweep``: the same tile split over 32 lanes (lane l takes
+    triangles l, l + 32, ... in ascending order, keeping the first at its
+    smallest t), then the warp's two min reductions (the smallest t bits
+    over the lanes, then the lowest index among the lanes at that t); the
+    winner replaces ``best`` only on a strictly smaller t."""
+    ok, t, u, v = _transform(tri_data, j * tile, (j + 1) * tile, o, d, prev)
+    lane_best = []
+    for lane in range(32):
+        bt, bi, bu, bv = np.float32(np.inf), 0, np.float32(0), np.float32(0)
+        for k in range(lane, tile, 32):
+            if ok[k] and t[k] < bt:
+                bt, bi, bu, bv = t[k], j * tile + k, u[k], v[k]
+        lane_best.append((bt, bi, bu, bv))
+    if not any(bt < best["t"] for bt, _, _, _ in lane_best):
+        return
+    bits = [int(np.float32(bt).view(np.uint32)) for bt, _, _, _ in lane_best]
+    t_min = min(bits)
+    i_min = min(lane_best[lane][1] if bits[lane] == t_min else 2**31 - 1
+                for lane in range(32))
+    (src,) = [lane for lane in range(32)
+              if bits[lane] == t_min and lane_best[lane][1] == i_min]
+    bt, bi, bu, bv = lane_best[src]
+    best.update(t=bt, idx=bi, u=bu, v=bv)
+
+
 def walk_heap_ref(tri_data: np.ndarray, tile_bbox: np.ndarray, tree: np.ndarray,
-                  tile: int, o, d, prev: int = -1) -> dict:
-    """``walk_heap`` of kernels/path_trace.cu for one ray, in NumPy float32:
-    the nearest hit (t, idx, u, v) and the tiles swept in order, each with
-    the best t before its sweep."""
+                  tile: int, o, d, prev: int = -1, gbox: np.ndarray | None = None,
+                  group_tiles: int = 0) -> dict:
+    """The walk of trace_emit_kernel / trace_stream_kernel
+    (kernels/path_trace.cu: ``advance_walk``, each tile swept by
+    ``warp_sweep``) for one ray, in NumPy float32: the tile heap ``tree``
+    (``gbox`` None: leaf p2 + j is tile j) or the group heap (leaf p2 + g is
+    group g, box ``gbox[:, g]``, tiles g·group_tiles .. min((g + 1)·
+    group_tiles, nt) - 1, each culled against the running best and swept
+    in ascending order once the group's box passes).  Returns the nearest
+    hit (t, idx, u, v), the tiles swept in order, each with the best t
+    before its sweep, and ``tested``, the boxes tested as the kernel counts
+    them (heap nodes, group re-culls, every real tile of a passing group)."""
     f32 = np.float32
     o = [f32(x) for x in o]
     d = [f32(x) for x in d]
@@ -166,44 +236,43 @@ def walk_heap_ref(tri_data: np.ndarray, tile_bbox: np.ndarray, tree: np.ndarray,
     nt, p2 = tile_bbox.shape[1], tree.shape[1] // 2
     best = {"t": f32(np.inf), "idx": 0, "u": f32(0), "v": f32(0)}
     swept = []
+    tested = 1
+
+    def passes(box):
+        with np.errstate(all="ignore"):
+            tmin, tmax = _slab(box, o, inv)
+        return not (tmin > tmax or tmax <= 0 or tmin >= best["t"]), tmin
 
     def entry(n):
-        with np.errstate(all="ignore"):
-            tmin, tmax = _slab(tree[:, n], o, inv)
-        if tmin > tmax or tmax <= 0 or tmin >= best["t"]:
+        ok, tmin = passes(tree[:, n])
+        if not ok:
             return f32(np.inf)
         return tmin if tmin >= 0 else f32(0)
 
     def sweep(j):
         swept.append((j, float(best["t"])))
-        m = tri_data[:13, j * tile:(j + 1) * tile].astype(f32)
-        with np.errstate(all="ignore"):
-            ou = m[0] * o[0] + m[1] * o[1] + m[2] * o[2] + m[9]
-            ov = m[3] * o[0] + m[4] * o[1] + m[5] * o[2] + m[10]
-            ow = m[6] * o[0] + m[7] * o[1] + m[8] * o[2] + m[11]
-            du = m[0] * d[0] + m[1] * d[1] + m[2] * d[2]
-            dv = m[3] * d[0] + m[4] * d[1] + m[5] * d[2]
-            dw = m[6] * d[0] + m[7] * d[1] + m[8] * d[2]
-            t = -ow / dw
-            u = ou + t * du
-            v = ov + t * dv
-            ok = ((-dw * m[12] >= f32(mi.MT_EPSILON)) & (u >= 0) & (v >= 0)
-                  & (u + v <= 1) & (t > 0))
-        ok &= np.arange(j * tile, (j + 1) * tile) != prev
-        for k in np.nonzero(ok)[0]:
-            if t[k] < best["t"]:
-                best.update(t=t[k], idx=j * tile + int(k), u=u[k], v=v[k])
+        sweep_tile_ref(tri_data, tile, j, o, d, prev, best)
 
     stack = []
     node = 1 if entry(1) < np.inf else 0
     while node:
         if node >= p2:
-            if node - p2 < nt:
-                sweep(node - p2)
+            j = node - p2
+            if gbox is None:
+                if j < nt:
+                    sweep(j)
+            elif j < gbox.shape[1]:
+                tested += 1
+                if passes(gbox[:, j])[0]:
+                    for jt in range(j * group_tiles, min((j + 1) * group_tiles, nt)):
+                        tested += 1
+                        if passes(tile_bbox[:, jt])[0]:
+                            sweep(jt)
             node = 0
         else:
             c = 2 * node
             e0, e1 = entry(c), entry(c + 1)
+            tested += 2
             if e0 < np.inf and e1 < np.inf:
                 right_first = e1 < e0
                 stack.append((c if right_first else c + 1, e0 if right_first else e1))
@@ -215,7 +284,53 @@ def walk_heap_ref(tri_data: np.ndarray, tile_bbox: np.ndarray, tree: np.ndarray,
             if e < best["t"]:
                 node = n
     return {"t": float(best["t"]), "idx": best["idx"], "u": float(best["u"]),
-            "v": float(best["v"]), "swept": swept}
+            "v": float(best["v"]), "swept": swept, "tested": tested}
+
+
+def walk_lanes(scene, state: torch.Tensor, prev: torch.Tensor | None, lanes,
+               groups: bool) -> dict:
+    """``walk_heap_ref`` on each lane of ``lanes`` of a (16, R) ``state``
+    (``prev`` (R,) or None) over the scene's group heap (``groups``: as
+    trace_stream_kernel) or tile heap (as trace_emit_kernel): (len(lanes),)
+    NumPy arrays t, u, v (f32), idx, swept, tested (int), what aux rows 2,
+    0, 1, rows 5-6 and idx of those kernels hold (a dead lane: t = +inf,
+    the rest 0)."""
+    tri = scene.tri_data.cpu().numpy()
+    bb = scene.tile_bbox.cpu().numpy()
+    if groups:
+        tree = scene.group_tree_bbox.cpu().numpy()
+        heap = {"gbox": scene.group_bbox.cpu().numpy(), "group_tiles": scene.group_tiles}
+    else:
+        tree, heap = scene.tree_bbox.cpu().numpy(), {}
+    lanes = [int(x) for x in lanes]
+    st = state[:, lanes].cpu().numpy()
+    pv = [-1] * len(lanes) if prev is None else prev[lanes].cpu().tolist()
+    out = {k: np.zeros(len(lanes), np.float32) for k in ("t", "u", "v")}
+    out.update({k: np.zeros(len(lanes), np.int64) for k in ("idx", "swept", "tested")})
+    out["t"][:] = np.inf
+    for n in range(len(lanes)):
+        if not st[12, n] > 0:
+            continue
+        w = walk_heap_ref(tri, bb, tree, scene.tile, st[0:3, n], st[3:6, n], int(pv[n]),
+                          **heap)
+        for k in ("t", "u", "v", "idx", "tested"):
+            out[k][n] = w[k]
+        out["swept"][n] = len(w["swept"])
+    return out
+
+
+def lanes_off_walk(aux: torch.Tensor, idx: torch.Tensor, want: dict, lanes) -> int:
+    """Lanes of ``lanes`` where a trace kernel's aux rows 0-2 (bits), 5-6 or
+    idx differ from ``walk_lanes``' ``want``."""
+    lanes = torch.as_tensor([int(x) for x in lanes], dtype=torch.long)
+    a = aux[:, lanes.to(aux.device)].cpu()
+    got_bits = a[0:3].contiguous().view(torch.int32).numpy()
+    want_bits = np.stack([want["u"], want["v"], want["t"]]).view(np.int32)
+    off = (got_bits != want_bits).any(axis=0)
+    off |= a[5].numpy() != want["swept"]
+    off |= a[6].numpy() != want["tested"]
+    off |= idx[lanes.to(idx.device)].cpu().numpy() != want["idx"]
+    return int(off.sum())
 
 
 def flat_tile_entries(tile_bbox: np.ndarray, o, d, tiles) -> dict:

@@ -443,3 +443,29 @@ def large_scene(path: str | Path, side: int = 224, seed: int = 7):
 
     b.add_camera_node((0, 4.5, 9.5), (0, 0.5, 0), yfov=0.9, name="Camera 1")
     return b.write_gltf(path)
+
+
+def big_texture_scene(path: str | Path, seed: int, width: int = 2048,
+                      height: int = 1024) -> Path:
+    """Replace the only image of the glTF scene written at ``path`` (the
+    ``large_scene`` terrain's texture) by a ``width`` x ``height`` opaque
+    RGBA noise image drawn from ``seed``, in place.  At 2048 x 1024 the
+    bank holds about 2.1M texels, whose tiled capacity is past 2^20, so it
+    has no resident form (the JAX package's 3-stage shade)."""
+    path = Path(path)
+    doc = json.loads(path.read_text())
+    bin_path = path.parent / doc["buffers"][0]["uri"]
+    blob = bytearray(bin_path.read_bytes())
+    blob.extend(b"\0" * (-len(blob) % 4))
+    rgba = np.random.default_rng(seed).integers(0, 256, (height, width, 4), np.uint8)
+    rgba[..., 3] = 255
+    png = encode_srgb_png_bytes(rgba)
+    doc["bufferViews"].append({"buffer": 0, "byteOffset": len(blob),
+                               "byteLength": len(png)})
+    blob.extend(png)
+    (image,) = doc["images"]
+    image["bufferView"] = len(doc["bufferViews"]) - 1
+    doc["buffers"][0]["byteLength"] = len(blob)
+    bin_path.write_bytes(bytes(blob))
+    path.write_text(json.dumps(doc))
+    return path
