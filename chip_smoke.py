@@ -12,10 +12,13 @@ Phases, each of which exits non-zero when it fails:
 2. build the kernels from kernels/path_trace.cu and kernels/probes.cu (one
    nvcc each, side by side) and print the build time and ptxas report;
 3. build the bench scene with the port's own procedural module;
-4. hold each kernel against its plain PyTorch twin on the card, on the same
+4. print the whole-path kernels' ptxas lines (a spill fails the run); hold
+   each kernel against its plain PyTorch twin on the card, on the same
    inputs and in the main path's order (bounce 0, sort, bounce 1, resort,
    bounces 2-3): one wave of 2^16 rays, then one full wave of the main path
-   (522240 rays), timing both at the full wave;
+   (522240 rays), timing the three calls at the full wave beside their
+   bounds; the lane occupancy of the one-thread-per-ray flat loop on 64
+   warps of each bounce's wave (walk_check.flat_occupancy);
 5. render a 320×180, 3 spp, 4-bounce frame with the kernels and with the
    twins and hold them to the golden gates;
 6. render the official frame: a warmup, then 5 timed renders; the kernel
@@ -72,7 +75,8 @@ h. the port's Duck-class GLB (scene/duck.py, 9586 triangles in 75 tiles, a
    their twins at 2^16 rays and on a full wave (bounce 0, bounce 1 after
    the sort, bounces 2-3 after the resort), as in phase 4; each kernel
    timed at the full wave beside its twin, its bound from the tiles swept
-   and boxes tested per live ray; a 320×180 frame, kernels vs twins, under
+   and boxes tested per live ray (the bounces 2-3 call too); the lane
+   occupancy as in phase 4; a 320×180 frame, kernels vs twins, under
    the golden gates; the frame: a warmup and 5 timed renders, launch
    counts checked; one profile;
 i. the probe kernels: texel_fetch_kernel against its plain version on the
@@ -134,6 +138,8 @@ KERNELS = [
      "zig_raytracing_contest_tpu/render/fused.py:1031"),
     ("path_trace", "path_trace_kernel",
      "zig_raytracing_contest_tpu/render/fused.py:1111"),
+    ("path_trace_b23", "path_trace_kernel",
+     "zig_raytracing_contest_tpu/render/fused.py:1111"),
     ("trace_emit", "trace_emit_kernel",
      "zig_raytracing_contest_tpu/ops/mxu_intersect.py:1555"),
     ("trace_emit_norec", "trace_emit_kernel",
@@ -149,6 +155,8 @@ KERNELS = [
     ("path_trace_gen_duck", "path_trace_gen_kernel",
      "zig_raytracing_contest_tpu/render/fused.py:1031"),
     ("path_trace_duck", "path_trace_kernel",
+     "zig_raytracing_contest_tpu/render/fused.py:1111"),
+    ("path_trace_duck_b23", "path_trace_kernel",
      "zig_raytracing_contest_tpu/render/fused.py:1111"),
     ("texel_fetch", "texel_fetch_kernel", "scripts/check_paged_tpu.py:57"),
     ("sort_key", "sort_key_kernel", "tests/test_fused.py:988"),
@@ -352,6 +360,40 @@ def ptxas_report(names) -> list:
         elif cur and ("registers" in line or "spill" in line):
             out.append(f"{cur}: {line.strip()}")
     return out
+
+
+def whole_path_ptxas() -> None:
+    """The whole-path kernels' ptxas lines; a spill fails the run."""
+    import re
+
+    for line in ptxas_report(("path_trace_gen_kernel", "path_trace_kernel")):
+        print("  " + line)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill and spill.groups() != ("0", "0"):
+            fail(f"a whole-path kernel spills: {line}")
+
+
+def occupancy(what, scene, waves) -> None:
+    """How busy the one-thread-per-ray flat loop kept a warp's lanes, per
+    wave of ``waves`` ((bounce, state, prev)), on 64 warps spread over it
+    (walk_check.flat_occupancy, a NumPy replay): tiles passed per live ray
+    against tiles swept per warp, and the serial triangle iterations a warp
+    runs in that loop against the kernel's (lane-parallel tiles, warp
+    sweeps of the tiles fewer than LANE_LOOP_MIN lanes pass): the ceiling
+    of what the warp sweeps can gain."""
+    from zig_raytracing_contest_tpu_torch.probes import walk_check
+
+    t0 = time.perf_counter()
+    for bounce, state, prev in waves:
+        occ = walk_check.flat_occupancy(scene, state, prev)
+        it0, it1 = occ["iters"]
+        print(f"  {what} bounce {bounce}, lane occupancy of the flat loop ({occ['warps']} "
+              f"warps, {occ['lanes']} lanes, {occ['live']} live): tiles passed per live ray "
+              f"{occ['passed']:.2f}, tiles swept per warp {occ['swept']:.2f}, share of "
+              f"sweep lanes busy {occ['busy']:.3f}; serial triangle iterations per warp: "
+              f"lane loop {it0:.1f}, at LANE_LOOP_MIN {occ['lane_loop_min']} {it1:.1f} "
+              f"({it0 / max(it1, 1e-9):.2f}x)")
+    print(f"  ({what} occupancy replay {time.perf_counter() - t0:.1f} s)")
 
 
 def large_phases(card, timing, errs, bounds, launches) -> None:
@@ -824,7 +866,7 @@ def duck_phases(card, timing, errs, bounds, launches) -> dict:
     gen = fused.GenParams(spp=SPP, width=1920, img_w=1920, img_h=1080, tiles_x=tiles_x)
     quantum = SPP * 1024
     full_wave = WAVE // quantum * quantum
-    errs["path_trace_gen_duck"] = errs["path_trace_duck"] = 0.0
+    errs["path_trace_gen_duck"] = errs["path_trace_duck"] = errs["path_trace_duck_b23"] = 0.0
     keep = {}
     # both waves start at 32x32 pixel tile 920 (tile row 15, column 20), so
     # they cross the duck in the middle of the frame
@@ -849,9 +891,11 @@ def duck_phases(card, timing, errs, bounds, launches) -> dict:
         k3 = fused.path_trace_fused(scene, st2, 2, bounce0=2, prev=idx2)
         t3 = fused.path_trace_fused_ref(scene, st2, 2, bounce0=2, prev=idx2)
         torch.cuda.synchronize()
-        errs["path_trace_duck"] = max(errs["path_trace_duck"], compare(
-            "Duck path_trace_fused (bounces 2-3 after the resort, prev)", k3, None, t3, None))
-    del t0, t1, k3, t3, st2, idx2
+        e23 = compare("Duck path_trace_fused (bounces 2-3 after the resort, prev)", k3, None,
+                      t3, None)
+        errs["path_trace_duck"] = max(errs["path_trace_duck"], e23)
+        errs["path_trace_duck_b23"] = max(errs["path_trace_duck_b23"], e23)
+    del t0, t1, k3, t3
 
     # the least work of the timed calls on this run's data: tiles swept ×
     # 128 triangle tests and boxes tested, each the fewer of a tile-heap
@@ -871,12 +915,22 @@ def duck_phases(card, timing, errs, bounds, launches) -> dict:
 
     w0 = work(st0, None)
     w1 = work(st, idx_s)
+    # the bounces 2-3 call: bounce 2's work and, from the kernel's bounce-2
+    # output, bounce 3's
+    s3, i3 = fused.path_trace_fused(scene, st2, 1, bounce0=2, prev=idx2, emit_idx=True)
+    w2, w3 = work(st2, idx2), work(s3, i3)
+    n23 = max(w2[2] + w3[2], 1.0)
+    w23 = (w2[0] + w3[0], w2[1] + w3[1], w2[2] + w3[2],
+           (w2[3] * w2[2] + w3[3] * w3[2]) / n23, (w2[4] * w2[2] + w3[4] * w3[2]) / n23)
     bounds["path_trace_gen_duck"] = bound(
         w0[0] * 128 * OPS_TRI + w0[1] * OPS_BOX + w0[2] * OPS_SHADE + full_wave * OPS_GEN,
         sc_b + full_wave * (16 + 1) * 4)
     bounds["path_trace_duck"] = bound(
         w1[0] * 128 * OPS_TRI + w1[1] * OPS_BOX + w1[2] * OPS_SHADE,
         sc_b + full_wave * (16 + 1 + 16 + 1) * 4)
+    bounds["path_trace_duck_b23"] = bound(
+        w23[0] * 128 * OPS_TRI + w23[1] * OPS_BOX + w23[2] * OPS_SHADE,
+        sc_b + full_wave * (16 + 1 + 16) * 4)
     timing["path_trace_gen_duck"] = (
         cuda_ms(lambda: fused.path_trace_gen(*args, emit_key=True, emit_idx=True), 5),
         cuda_ms(lambda: fused.path_trace_gen_ref(*args, emit_key=True, emit_idx=True), 2),
@@ -887,12 +941,20 @@ def duck_phases(card, timing, errs, bounds, launches) -> dict:
         cuda_ms(lambda: fused.path_trace_fused_ref(scene, st, 1, bounce0=1, prev=idx_s,
                                                    emit_idx=True), 2),
         full_wave, full_wave)
-    for name, w in (("path_trace_gen_duck", w0), ("path_trace_duck", w1)):
+    timing["path_trace_duck_b23"] = (
+        cuda_ms(lambda: fused.path_trace_fused(scene, st2, 2, bounce0=2, prev=idx2), 5),
+        cuda_ms(lambda: fused.path_trace_fused_ref(scene, st2, 2, bounce0=2, prev=idx2), 1),
+        full_wave, full_wave)
+    for name, w in (("path_trace_gen_duck", w0), ("path_trace_duck", w1),
+                    ("path_trace_duck_b23", w23)):
         k_ms, p_ms, rays, _ = timing[name]
         print(f"  {name} at {rays} rays: kernel {k_ms:.3f} ms, plain twin {p_ms:.3f} ms, "
               f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}); live rays {int(w[2])}, "
               f"tiles swept per live ray: tile-heap walk {w[3]:.2f}, flat loop {w[4]:.2f} "
               f"({card})")
+
+    occupancy("Duck", scene, ((0, st0, None), (1, st, idx_s), (2, st2, idx2), (3, s3, i3)))
+    del s3, i3, st2, idx2
 
     # a small Duck frame, kernels vs twins
     s_cfg = Config(num_samples=SPP, max_bounce=MAX_BOUNCE, seed=SEED)
@@ -907,7 +969,7 @@ def duck_phases(card, timing, errs, bounds, launches) -> dict:
     if got["path_trace"] == 0:
         fail("Duck frame: the main path launched no path_trace_kernel")
     launches["path_trace_gen_duck"] = got["path_trace_gen"]
-    launches["path_trace_duck"] = got["path_trace"]
+    launches["path_trace_duck"] = launches["path_trace_duck_b23"] = got["path_trace"]
     profile_frame(render_scene, scene, cam, cfg, card)
     keep.update(scene=scene, par=par, tmp=tmp, st0=st0, k0=k0[0])
     return keep
@@ -1234,13 +1296,14 @@ def main() -> int:
           f"emissive_dummy {scene.emissive_dummy}")
 
     # 4. kernels vs twins on the card
+    whole_path_ptxas()
     par = build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
     _, tiles_x = slot_geometry(1920, 1080, True)
     gen = fused.GenParams(spp=SPP, width=1920, img_w=1920, img_h=1080,
                           tiles_x=tiles_x)
     quantum = SPP * 1024
     full_wave = WAVE // quantum * quantum
-    errs = {"path_trace_gen": 0.0, "path_trace": 0.0}
+    errs = {"path_trace_gen": 0.0, "path_trace": 0.0, "path_trace_b23": 0.0}
     timing, bounds = {}, {}
     for R, slot_base in ((1 << 16, 1024 * 900), (full_wave, 5 * (full_wave // SPP))):
         meta = (slot_base, slot_base % 1920, slot_base // 1920, SEED,
@@ -1264,8 +1327,10 @@ def main() -> int:
         k3 = fused.path_trace_fused(scene, st2, 2, bounce0=2, prev=idx2)
         t3 = fused.path_trace_fused_ref(scene, st2, 2, bounce0=2, prev=idx2)
         torch.cuda.synchronize()
-        errs["path_trace"] = max(errs["path_trace"], compare(
-            "path_trace_fused (bounces 2-3 after the resort, prev)", k3, None, t3, None))
+        e23 = compare("path_trace_fused (bounces 2-3 after the resort, prev)", k3, None, t3,
+                      None)
+        errs["path_trace"] = max(errs["path_trace"], e23)
+        errs["path_trace_b23"] = max(errs["path_trace_b23"], e23)
         if R == full_wave:
             # the work of the timed calls, counted by the twin: tiles whose
             # box each live ray passes (the flat loop sweeps those)
@@ -1296,6 +1361,27 @@ def main() -> int:
                 cuda_ms(lambda: fused.path_trace_fused_ref(scene, st, 1, bounce0=1,
                                                            prev=idx_s, emit_idx=True), 2),
             )
+            # the bounces 2-3 call, counted as bounce 1's: the tiles the twin
+            # sweeps at bounce 2 and, from the kernel's bounce-2 output, at 3
+            s3, i3 = fused.path_trace_fused(scene, st2, 1, bounce0=2, prev=idx2,
+                                            emit_idx=True)
+            sw23 = n23 = 0.0
+            for sb, pb in ((st2, idx2), (s3, i3)):
+                lb = sb[12] > 0
+                sw23 += float(nearest_hit_ref(scene.tri_data, scene.tile_bbox, scene.tile,
+                                              sb[0:3], sb[3:6], lb, pb)[4].sum())
+                n23 += float(lb.sum())
+            bounds["path_trace_b23"] = bound(
+                sw23 * 128 * OPS_TRI + n23 * (nt * OPS_BOX + OPS_SHADE),
+                sc_b + R * (16 + 1 + 16) * 4)
+            timing["path_trace_b23"] = (
+                cuda_ms(lambda: fused.path_trace_fused(scene, st2, 2, bounce0=2, prev=idx2), 5),
+                cuda_ms(lambda: fused.path_trace_fused_ref(scene, st2, 2, bounce0=2,
+                                                           prev=idx2), 1),
+            )
+            occupancy("official", scene, ((0, g0, None), (1, st, idx_s), (2, st2, idx2),
+                                          (3, s3, i3)))
+            del s3, i3
     for name in list(timing):
         k_ms, p_ms = timing[name]
         timing[name] = (k_ms, p_ms, full_wave, full_wave)
@@ -1321,7 +1407,8 @@ def main() -> int:
 
     # 6. the official frame, through the main path
     got = official_frame(render_scene, scene, cam, cfg, card)
-    launches = {"path_trace_gen": got["path_trace_gen"], "path_trace": got["path_trace"]}
+    launches = {"path_trace_gen": got["path_trace_gen"], "path_trace": got["path_trace"],
+                "path_trace_b23": got["path_trace"]}
     profile_frame(render_scene, scene, cam, cfg, card)
 
     large_phases(card, timing, errs, bounds, launches)

@@ -312,3 +312,51 @@ def test_trace_kernels_equal_walk_replay_on_cuda(tmp_path, monkeypatch):
             assert int((torch.from_numpy(want["t"]) < float("inf")).sum()) > 200
             assert walk_check.lanes_off_walk(aux, idx, want, lanes) == 0, (groups, prev)
     assert kernels.LAUNCHES["trace_emit"] == kernels.LAUNCHES["trace_stream"] == 2
+
+
+@pytest.mark.cuda
+def test_whole_path_kernels_with_dead_lanes_on_cuda(tmp_path):
+    """The whole-path kernels where their warps are mostly idle: a wave of
+    R = 24,653 slots (R % 128 = 77, so the last block is short) over an
+    image 20 pixels tall, whose padding slots are born dead (most of the
+    wave); then bounces 1-3 of the sorted wave with 80% of its rays killed.
+    Rows 12-15 and the winner index exactly, value rows to f32 rounding
+    (direction rows 1e-5), against the twins, on the Duck-class scene of 21
+    tiles (its warps sweep tiles both lane-parallel and by the warp)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    from zig_raytracing_contest_tpu_torch import kernels
+    from zig_raytracing_contest_tpu_torch.render import fused
+    from zig_raytracing_contest_tpu_torch.render.wavefront import (
+        build_gen_par,
+        sort_state_payload,
+    )
+    from zig_raytracing_contest_tpu_torch.scene.duck import write_duck_glb
+
+    path = write_duck_glb(tmp_path / "duck.glb", tex_size=64, detail=0.5)
+    cfg = Config(num_samples=3, max_bounce=4)
+    scene, cam, _ = prepare_scene(str(path), cfg, height=108, device="cuda")
+    assert scene.tile_bbox.shape[1] == 21
+    par = build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
+    gen = fused.GenParams(3, 192, 192, 20, tiles_x=6)
+    R = 8 * 1024 * 3 + 77
+    assert R % 128 == 77
+    args = (scene, par, (0, 0, 0, 5, 0, 0, 0, 0), R, 1, gen)
+    kernels.reset_launches()
+    k, ki = fused.path_trace_gen(*args, emit_key=True, emit_idx=True)
+    t, ti = fused.path_trace_gen_ref(*args, emit_key=True, emit_idx=True)
+    live = int((t[12] > 0).sum())
+    assert 0 < live < R // 2
+    _, st, (idx,) = sort_state_payload(k[15].contiguous().view(torch.int32), k, (ki,))
+    st = st.clone()
+    gen_kill = torch.Generator().manual_seed(3)
+    st[12] = torch.where(torch.rand(R, generator=gen_kill).to(st.device) < 0.8, 0.0, st[12])
+    assert 0 < int((st[12] > 0).sum()) < live
+    k3, ki3 = fused.path_trace_fused(scene, st, 3, bounce0=1, prev=idx, emit_idx=True)
+    t3, ti3 = fused.path_trace_fused_ref(scene, st, 3, bounce0=1, prev=idx, emit_idx=True)
+    assert torch.equal(ki, ti) and torch.equal(ki3, ti3)
+    for a, b in ((k, t), (k3, t3)):
+        # (row 13 holds RNG streams as f32 bit patterns, some of them NaN)
+        assert torch.equal(a[12:16].view(torch.int32), b[12:16].view(torch.int32))
+        torch.testing.assert_close(a[0:12], b[0:12], rtol=3e-6, atol=1e-5)
+    assert kernels.LAUNCHES["path_trace_gen"] == 1 and kernels.LAUNCHES["path_trace"] == 1

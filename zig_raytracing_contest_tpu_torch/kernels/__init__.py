@@ -36,8 +36,9 @@ NVCC_FLAGS = ["-O3", "-arch=sm_90a", "--fmad=false", "-Xptxas=-v",
 
 _lock = threading.Lock()
 _libs: dict = {}
-# The compiles this process ran, by source: {"seconds": wall seconds of the
-# nvcc run, "log": its report (ptxas registers / spills per kernel)}.
+# The compiles this process ran, by source name (another file: "name path"):
+# {"seconds": wall seconds of the nvcc run, "log": its report (ptxas
+# registers / spills per kernel)}.
 BUILD_INFO: dict = {}
 
 # Launches per CUDA kernel, counted by the launchers below right after a
@@ -132,8 +133,9 @@ def library_path(name: str, src: Path | None = None, build_dir: Path = BUILD_DIR
 def build(name: str, src: Path | None = None, build_dir: Path = BUILD_DIR) -> Path:
     """The library of source ``name`` (or of the file ``src``, built into
     ``build_dir``), compiled by nvcc if it does not exist yet (raises if nvcc
-    fails).  Builds of different sources may run at once, from separate
-    threads."""
+    fails).  Builds of different sources, or of one into different
+    directories, may run at once, from separate threads."""
+    key = _build_key(name, src)
     src = SOURCES[name] if src is None else Path(src)
     out = library_path(name, src, build_dir)
     if out.exists():
@@ -147,13 +149,35 @@ def build(name: str, src: Path | None = None, build_dir: Path = BUILD_DIR) -> Pa
         raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
                            f"{proc.stderr}")
     os.replace(tmp, out)
-    BUILD_INFO[name] = {"seconds": time.perf_counter() - t0,
-                        "log": proc.stdout + proc.stderr}
+    BUILD_INFO[key] = {"seconds": time.perf_counter() - t0,
+                       "log": proc.stdout + proc.stderr}
     return out
 
 
+def _build_key(name: str, src) -> str:
+    return name if src is None else f"{name} {Path(src)}"
+
+
+def build_log(name: str, src: Path | None = None) -> str:
+    """The nvcc report of this process's build of ``name`` (or of the file
+    ``src``), empty if this process did not build it."""
+    return BUILD_INFO.get(_build_key(name, src), {}).get("log", "")
+
+
 def _bind_trace(lib) -> None:
+    """Bind the entry points of path_trace.cu that another build of it is
+    compared on: the whole-path kernels and the per-bounce traces."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.zrc_path_trace_gen.restype = i32
+    lib.zrc_path_trace_gen.argtypes = [
+        ctypes.POINTER(ZrcScene), ctypes.POINTER(ZrcGen), i32, i32,
+        ptr, ptr, i32, i32, ptr,
+    ]
+    lib.zrc_path_trace.restype = i32
+    lib.zrc_path_trace.argtypes = [
+        ctypes.POINTER(ZrcScene), ptr, ptr, i32, i32, ptr, ptr, i32,
+        i32, ptr,
+    ]
     lib.zrc_trace_emit.restype = i32
     lib.zrc_trace_emit.argtypes = [
         ctypes.POINTER(ZrcScene), ctypes.POINTER(ZrcHeap), ptr, ptr, ptr,
@@ -164,10 +188,12 @@ def _bind_trace(lib) -> None:
 
 
 def load_trace_library(src: Path, build_dir: Path):
-    """Another build of a path_trace.cu whose ``zrc_trace_emit`` takes the
-    same arguments (an earlier commit's, to compare with): built into
-    ``build_dir`` and loaded, for the ``lib`` argument of
-    ``launch_trace_emit`` / ``launch_trace_stream``."""
+    """Another build of a path_trace.cu whose ``zrc_path_trace_gen``,
+    ``zrc_path_trace`` and ``zrc_trace_emit`` take the same arguments (an
+    earlier commit's, to compare with): built into ``build_dir`` and
+    loaded, for the ``lib`` argument of ``launch_path_trace_gen``,
+    ``launch_path_trace``, ``launch_trace_emit`` and
+    ``launch_trace_stream``."""
     lib = ctypes.CDLL(str(build("path_trace_other", Path(src), Path(build_dir))))
     _bind_trace(lib)
     return lib
@@ -179,16 +205,6 @@ def load():
         if "path_trace" not in _libs:
             lib = ctypes.CDLL(str(build("path_trace")))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.zrc_path_trace_gen.restype = i32
-            lib.zrc_path_trace_gen.argtypes = [
-                ctypes.POINTER(ZrcScene), ctypes.POINTER(ZrcGen), i32, i32,
-                ptr, ptr, i32, i32, ptr,
-            ]
-            lib.zrc_path_trace.restype = i32
-            lib.zrc_path_trace.argtypes = [
-                ctypes.POINTER(ZrcScene), ptr, ptr, i32, i32, ptr, ptr, i32,
-                i32, ptr,
-            ]
             _bind_trace(lib)
             lib.zrc_shade.restype = i32
             lib.zrc_shade.argtypes = [
@@ -265,10 +281,12 @@ def _launched(err: int, message, what: str) -> bool:
 
 
 def launch_path_trace_gen(scene, par, meta, gen, max_bounce: int,
-                          emit_key: bool, state_out, idx_out) -> None:
+                          emit_key: bool, state_out, idx_out, lib=None) -> None:
     """Launch path_trace_gen_kernel into ``state_out`` (16, R) and
-    ``idx_out`` (R,) int32."""
-    lib = load()
+    ``idx_out`` (R,) int32; from ``lib`` (``load_trace_library``, not
+    counted) when given."""
+    counted = lib is None
+    lib = load() if lib is None else lib
     dev = scene.device
     R = state_out.shape[1]
     _check(par, "par", torch.float32, (32,), dev)
@@ -285,15 +303,16 @@ def launch_path_trace_gen(scene, par, meta, gen, max_bounce: int,
         ctypes.byref(sc), ctypes.byref(g), int(max_bounce), int(emit_key),
         state_out.data_ptr(), idx_out.data_ptr(), R, dev.index or 0, stream,
     )
-    if _launched(err, lib.zrc_error_string, "path_trace_gen_kernel"):
+    if _launched(err, lib.zrc_error_string, "path_trace_gen_kernel") and counted:
         LAUNCHES["path_trace_gen"] += 1
 
 
 def launch_path_trace(scene, state_in, prev, bounce0: int, max_bounce: int,
-                      state_out, idx_out) -> None:
+                      state_out, idx_out, lib=None) -> None:
     """Launch path_trace_kernel: ``state_in`` (16, R) → ``state_out``;
-    ``prev`` (R,) int32 or None."""
-    lib = load()
+    ``prev`` (R,) int32 or None; ``lib`` as ``launch_path_trace_gen``."""
+    counted = lib is None
+    lib = load() if lib is None else lib
     dev = scene.device
     R = state_in.shape[1]
     _check(state_in, "state_in", torch.float32, (16, R), dev)
@@ -309,7 +328,7 @@ def launch_path_trace(scene, state_in, prev, bounce0: int, max_bounce: int,
         int(max_bounce), state_out.data_ptr(), idx_out.data_ptr(), R,
         dev.index or 0, stream,
     )
-    if _launched(err, lib.zrc_error_string, "path_trace_kernel"):
+    if _launched(err, lib.zrc_error_string, "path_trace_kernel") and counted:
         LAUNCHES["path_trace"] += 1
 
 

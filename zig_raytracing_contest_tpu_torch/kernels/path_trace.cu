@@ -1,6 +1,6 @@
 // CUDA kernels for Hopper (sm_90a): ray generation, nearest hit, shading
-// and the beam-sort key, one thread per ray; the per-bounce traces sweep
-// each tile a ray reaches with a whole warp.
+// and the beam-sort key, one thread per ray; the traces sweep a tile that
+// few lanes of a warp reach with the whole warp.
 //
 // Replaces the Pallas kernels of the JAX package:
 //   path_trace_gen_kernel  <- zig_raytracing_contest_tpu/render/fused.py:1031
@@ -21,9 +21,10 @@
 //                             around fused._emit_sort_key :915)
 // with the shared device functions
 //   gen_ray        <- fused._gen_rays (:844)
-//   trace_nearest  <- mxu_intersect._trace_body_resident (:1027), flat tile
-//                     loop with _cull_any (:782) and _tile_update (:443);
-//                     the whole-path kernels, for every scene
+//   trace_nearest_warp <- mxu_intersect._trace_body_resident (:1027), the
+//                     flat tile loop with _cull_any (:782) and _tile_update
+//                     (:443), for the 32 rays of a warp; the whole-path
+//                     kernels, for every scene
 //   advance_walk   <- mxu_intersect._tree_traverse (:1191) with
 //                     _cull_entry_batch (:786), a per-ray binary walk of
 //                     the tile heap (trace_emit) or of the group heap
@@ -81,17 +82,34 @@
 // ray in and 64 out, coalesced (thread i owns column i), against ~150
 // operations per live ray.
 //
-// What bounds it on this card: the trace, ~40 f32 operations per ray per
-// triangle of every tile whose box the ray's slab test passes; the state
-// (16 floats in, 16 out per ray) is a few bytes per operation.  Triangles,
-// tile boxes and the texel bank are read-only and shared by all rays, so
-// they stay in L1/L2 (the official scene has 1024 padded triangles of 64 B).
-// Design: one thread per ray with its state in registers, looping over its
-// bounces and stopping when it dies, so dead rays cost nothing.  The TPU
-// kernel's one-hot matmuls become direct loads: the winner's 24-float
-// record is read once after the tile loop (a miss reads zeros), texels are
-// float4 loads from the row-major (P, 4) bank.  No shared-memory staging,
-// wgmma or TMA yet.
+// The whole-path kernels (path_trace_gen_kernel, path_trace_kernel): what
+// bounds them is the trace, ~42 f32 operations per ray per triangle of
+// every tile whose box the ray's slab test passes; the state (16 floats in,
+// 16 out per ray) is a few bytes per operation.  Triangles, tile boxes and
+// the texel bank are read-only and shared by all rays, so they stay in
+// L1/L2 (the official scene has 1024 padded triangles of 64 B).  Each
+// thread owns one ray, its state in registers, over its bounces; the
+// warp's lanes stay to the end (a dead ray or a lane past R traces and
+// shades nothing, but joins every ballot), so the 32 rays of a warp run
+// the flat tile loop together (trace_nearest_warp).  Per tile each lane
+// culls the box against its own best t and the warp ballots the passes.
+// The one-thread-per-ray loop (commit 048022c) let every lane that passed
+// sweep the tile's 128 triangles while the lanes that culled it waited: on
+// the Duck's bounces 1-3 only 74%, 72% and 33% of the lanes of a sweep had
+// a ray that passed the tile (walk_check.flat_occupancy).  Here a tile that
+// at least LANE_LOOP_MIN lanes pass is still swept that way (its loads are
+// broadcasts: the lanes read the same row at once; unrolled by 4); a tile
+// fewer lanes pass is swept once per passing lane by the whole warp
+// (warp_sweep: tile/32 triangles a lane from the field-major rows, then
+// two min reductions), in ascending lane order.  Coherent bounce-0 warps,
+// whose lanes pass the same tiles, keep the lane loop.  Both sweeps pass
+// over a back-facing triangle before the divide.  At most 64 registers
+// (8 blocks an SM), no spills.  The same bits as the one-thread-per-ray
+// loop, in less time at every bounce of the official and Duck waves
+// (PERF.md, probes/path_ab.py).  The TPU kernel's one-hot matmuls become
+// direct loads: the winner's 24-float record is read once after the tile
+// loop (a miss reads zeros), texels are float4 loads from the row-major
+// (P, 4) bank.  No shared-memory staging, wgmma or TMA.
 //
 // Parity with the PyTorch twins (render/fused.py): every a*b+c is rounded
 // twice, as PyTorch's separate elementwise ops round it; the library builds
@@ -218,7 +236,7 @@ __device__ void gen_ray(const ZrcGen& g, int i, float s[S_ROWS]) {
     s[S_KEY] = 0.0f;
 }
 
-// ------------------------------------------------------- trace_nearest
+// ----------------------------------------------------- tile tests
 
 struct Hit {
     float t;  // +inf on a miss
@@ -248,11 +266,16 @@ __device__ __forceinline__ bool tile_passes(const float* bb, int nt, int j,
 
 // Sweep the triangles of tile j in ascending Morton index, in the transform
 // form (mxu_intersect._intersect_tile), skipping Morton index ``prev`` (-1:
-// none); a hit replaces ``h`` only on a strictly smaller t.
+// none); a hit replaces ``h`` only on a strictly smaller t.  A triangle the
+// ray sees from behind (det below MT_EPSILON) is passed over before the
+// divide: its t, u and v would be discarded.  The lanes of a warp test the
+// same triangle at once and mostly see it from the same side, so a warp
+// skips the divide and u, v of most back-facing triangles.
 __device__ __forceinline__ void sweep_tile(const ZrcScene& sc, int j,
                                            const float o[3], const float d[3],
                                            int prev, Hit& h) {
     int s = j * sc.tile;
+#pragma unroll 4
     for (int k = 0; k < sc.tile; ++k) {
         int gi = s + k;
         const float4* m4 = sc.tri + 4 * (size_t)gi;
@@ -266,11 +289,12 @@ __device__ __forceinline__ void sweep_tile(const ZrcScene& sc, int j,
         float du = a.x * d[0] + a.y * d[1] + a.z * d[2];
         float dv = a.w * d[0] + b.x * d[1] + b.y * d[2];
         float dw = b.z * d[0] + b.w * d[1] + c.x * d[2];
+        float det = -dw * n_sq;
+        if (!(det >= MT_EPSILON)) continue;
         float t = -ow / dw;
         float u = ou + t * du;
         float v = ov + t * dv;
-        float det = -dw * n_sq;
-        bool ok = (det >= MT_EPSILON) && (u >= 0.0f) && (v >= 0.0f) &&
+        bool ok = (u >= 0.0f) && (v >= 0.0f) &&
                   (u + v <= 1.0f) && (t > 0.0f) && (gi != prev);
         if (ok && t < h.t) {
             h.t = t;
@@ -279,19 +303,6 @@ __device__ __forceinline__ void sweep_tile(const ZrcScene& sc, int j,
             h.idx = gi;
         }
     }
-}
-
-// Nearest front-facing hit over the flat tile loop, skipping Morton index
-// ``prev`` (-1: none).
-__device__ Hit trace_nearest(const ZrcScene& sc, const float o[3],
-                             const float d[3], int prev) {
-    float inv[3] = {1.0f / d[0], 1.0f / d[1], 1.0f / d[2]};
-    Hit h = {INFINITY, 0.0f, 0.0f, 0};
-    for (int j = 0; j < sc.nt; ++j) {
-        if (!tile_passes(sc.tile_bbox, sc.nt, j, o, inv, h.t)) continue;
-        sweep_tile(sc, j, o, d, prev, h);
-    }
-    return h;
 }
 
 // ---------------------------------------------------------- trace walk
@@ -368,6 +379,10 @@ __device__ __forceinline__ float node_entry(const float* tree, int stride, int n
 // then takes the smallest t over its lanes and, at that t, the lowest index
 // (two min reductions), which is the winner of the ascending loop, and
 // replaces ``h`` only on a strictly smaller t.  Returns whether it did.
+// ``kBackFirst`` passes over a back-facing triangle before the divide, as
+// sweep_tile does (the whole-path kernels; in the per-bounce traces the
+// branch cost 2-5% at bounce 0, PERF.md).
+template <bool kBackFirst>
 __device__ __forceinline__ bool warp_sweep(const ZrcScene& sc, int j, const TraceRay& r,
                                            int lane, Hit& h) {
     const int s = j * sc.tile;
@@ -386,10 +401,11 @@ __device__ __forceinline__ bool warp_sweep(const ZrcScene& sc, int j, const Trac
         float dv = m[3] * r.d[0] + m[4] * r.d[1] + m[5] * r.d[2];
         float dw = m[6] * r.d[0] + m[7] * r.d[1] + m[8] * r.d[2];
         float n_sq = m[12];
+        float det = -dw * n_sq;
+        if (kBackFirst && !(det >= MT_EPSILON)) continue;
         float t = -ow / dw;
         float u = ou + t * du;
         float v = ov + t * dv;
-        float det = -dw * n_sq;
         bool ok = (det >= MT_EPSILON) && (u >= 0.0f) && (v >= 0.0f) &&
                   (u + v <= 1.0f) && (t > 0.0f) && (gi != r.prev);
         if (ok && t < bt) {
@@ -410,6 +426,55 @@ __device__ __forceinline__ bool warp_sweep(const ZrcScene& sc, int j, const Trac
     h.u = __shfl_sync(FULL_MASK, bu, src);
     h.v = __shfl_sync(FULL_MASK, bv, src);
     return true;
+}
+
+// Tiles of the flat loop that at least this many lanes of a warp pass are
+// swept lane-parallel (sweep_tile on each passing lane); a tile fewer lanes
+// pass is swept by the whole warp once per passing lane (warp_sweep).  0 or
+// 1: always the lane loop (the one-thread-per-ray loop); 33: always the
+// warp.  Set by measurement on the official and Duck waves (PERF.md).
+#define LANE_LOOP_MIN 20
+
+// Nearest front-facing hit of the warp's 32 rays over the flat tile loop,
+// each skipping its Morton index ``prev`` (-1: none); every lane of the
+// warp calls it, an ``active`` one for its ray.  Tiles go in ascending
+// order; each lane culls tile j against its own best after tile j - 1, so
+// a ray sees its tiles and its triangles in the order of the one-ray loop
+// and replaces its best only on a strictly smaller t, whichever way a tile
+// is swept: the same t, u, v and winner.
+__device__ Hit trace_nearest_warp(const ZrcScene& sc, bool active, const float o[3],
+                                  const float d[3], int prev, int lane) {
+    TraceRay r;
+    for (int a = 0; a < 3; ++a) {
+        r.o[a] = o[a];
+        r.d[a] = d[a];
+        r.inv[a] = 1.0f / d[a];
+    }
+    r.prev = prev;
+    Hit h = {INFINITY, 0.0f, 0.0f, 0};
+    for (int j = 0; j < sc.nt; ++j) {
+        bool mine = active && tile_passes(sc.tile_bbox, sc.nt, j, r.o, r.inv, h.t);
+        unsigned pass = __ballot_sync(FULL_MASK, mine);
+        if (!pass) continue;
+        if (__popc(pass) >= LANE_LOOP_MIN) {
+            if (mine) sweep_tile(sc, j, r.o, r.d, prev, h);
+            continue;
+        }
+        do {
+            int k = __ffs(pass) - 1;
+            pass &= pass - 1u;
+            TraceRay rk;
+            for (int a = 0; a < 3; ++a) {
+                rk.o[a] = __shfl_sync(FULL_MASK, r.o[a], k);
+                rk.d[a] = __shfl_sync(FULL_MASK, r.d[a], k);
+            }
+            rk.prev = __shfl_sync(FULL_MASK, prev, k);
+            Hit hk = {__shfl_sync(FULL_MASK, h.t, k), 0.0f, 0.0f, 0};
+            bool better = warp_sweep<true>(sc, j, rk, lane, hk);
+            if (lane == k && better) h = hk;
+        } while (pass);
+    }
+    return h;
 }
 
 // The heap a per-bounce trace walks: the tile heap (``gbox`` null: leaf
@@ -692,48 +757,65 @@ __device__ int emit_sort_key(const float* par, const float s[S_ROWS]) {
 
 // ------------------------------------------------------------- kernels
 
-// Bounces [bounce0, bounce0 + n) of one ray.  ``prev`` is excluded at the
-// first bounce (-1: none); each later bounce excludes the one before.
-// Returns the last traced winner (``idx`` if the ray never traced).
+// Bounces [bounce0, bounce0 + n) of the lane's ray, for every lane of the
+// warp (the trace is the warp's): a lane whose ray is dead, or that has no
+// ray, traces and shades nothing.  ``prev`` is excluded at the first bounce
+// (-1: none); each later bounce excludes the one before.  Returns the last
+// traced winner (``idx`` if the ray never traced).
 __device__ int run_bounces(const ZrcScene& sc, float s[S_ROWS], int bounce0,
                            int n, int prev, int idx) {
+    const int lane = threadIdx.x & 31;
     for (int b = bounce0; b < bounce0 + n; ++b) {
-        if (!(s[S_ALIVE] > 0.0f)) break;
+        bool live = s[S_ALIVE] > 0.0f;
+        if (!__any_sync(FULL_MASK, live)) break;
         float o[3] = {s[S_OX], s[S_OX + 1], s[S_OX + 2]};
         float d[3] = {s[S_DX], s[S_DX + 1], s[S_DX + 2]};
-        Hit h = trace_nearest(sc, o, d, prev);
-        shade_bounce(sc, s, h, b);
-        idx = h.idx;
-        prev = idx;
+        Hit h = trace_nearest_warp(sc, live, o, d, prev, lane);
+        if (live) {
+            shade_bounce(sc, s, h, b);
+            idx = h.idx;
+            prev = idx;
+        }
     }
     return idx;
 }
 
-__global__ void path_trace_gen_kernel(ZrcScene sc, ZrcGen g, int max_bounce,
+// Threads per block of every kernel but the two per-bounce traces.
+constexpr int kThreads = 128;
+
+// The whole-path kernels hold 8 blocks an SM (at most 64 registers a
+// thread: 32 of its 64 warps), without spills (PERF.md).  A lane past R is
+// born dead.
+__global__ void __launch_bounds__(kThreads, 8) path_trace_gen_kernel(
+                                      ZrcScene sc, ZrcGen g, int max_bounce,
                                       int emit_key, float* __restrict__ state_out,
                                       int* __restrict__ idx_out, int R) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= R) return;
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    const bool in = i < R;
     float s[S_ROWS];
     gen_ray(g, i, s);
+    if (!in) s[S_ALIVE] = 0.0f;
     int idx = run_bounces(sc, s, 0, max_bounce, -1, 0);
+    if (!in) return;
     if (emit_key) s[S_KEY] = __int_as_float(emit_sort_key(g.par, s));
 #pragma unroll
     for (int f = 0; f < S_ROWS; ++f) state_out[(size_t)f * R + i] = s[f];
     if (idx_out) idx_out[i] = idx;
 }
 
-__global__ void path_trace_kernel(ZrcScene sc, const float* __restrict__ state_in,
+__global__ void __launch_bounds__(kThreads, 8) path_trace_kernel(
+                                  ZrcScene sc, const float* __restrict__ state_in,
                                   const int* __restrict__ prev, int bounce0,
                                   int max_bounce, float* __restrict__ state_out,
                                   int* __restrict__ idx_out, int R) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= R) return;
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    const bool in = i < R;
     float s[S_ROWS];
 #pragma unroll
-    for (int f = 0; f < S_ROWS; ++f) s[f] = state_in[(size_t)f * R + i];
-    int p = prev ? prev[i] : -1;
+    for (int f = 0; f < S_ROWS; ++f) s[f] = in ? state_in[(size_t)f * R + i] : 0.0f;
+    int p = in && prev ? prev[i] : -1;
     int idx = run_bounces(sc, s, bounce0, max_bounce, p, prev ? p : 0);
+    if (!in) return;
 #pragma unroll
     for (int f = 0; f < S_ROWS; ++f) state_out[(size_t)f * R + i] = s[f];
     if (idx_out) idx_out[i] = idx;
@@ -800,7 +882,7 @@ __device__ void trace_warp(const ZrcScene& sc, const ZrcHeap& hp,
             r.prev = __shfl_sync(FULL_MASK, mine.prev, k);
             int j = __shfl_sync(FULL_MASK, w.req, k);
             Hit hk = {__shfl_sync(FULL_MASK, h.t, k), 0.0f, 0.0f, 0};
-            bool better = warp_sweep(sc, j, r, lane, hk);
+            bool better = warp_sweep<false>(sc, j, r, lane, hk);
             if (lane == k) {
                 if (better) h = hk;
                 ++swept;
@@ -943,7 +1025,6 @@ __global__ void sort_key_kernel(const float* __restrict__ state,
 // the caller's stream, allocate nothing, and return cudaGetLastError(), or
 // ZRC_NOTHING_LAUNCHED when the work is empty.
 
-static const int kThreads = 128;
 #define ZRC_NOTHING_LAUNCHED (-1)
 
 extern "C" int zrc_path_trace_gen(const ZrcScene* sc, const ZrcGen* g,

@@ -103,14 +103,14 @@ def compare(scene, state, prev, other) -> dict:
             "ms": ms, "swept": float(at[5][live].mean()), "tested": float(at[6][live].mean())}
 
 
-def print_ptxas(name: str, log: str) -> None:
-    """The ptxas lines (registers, stack frame, spills) of the two traces in
-    a build's log."""
+def print_ptxas(name: str, log: str,
+                kernel_names=("trace_emit_kernel", "trace_stream_kernel")) -> None:
+    """The ptxas lines (registers, stack frame, spills) of the kernels
+    ``kernel_names`` (default: the two traces) in a build's log."""
     cur = None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            cur = next((k for k in ("trace_emit_kernel", "trace_stream_kernel") if k in line),
-                       None)
+            cur = next((k for k in kernel_names if k in line), None)
         elif cur and ("registers" in line or "spill" in line):
             print(f"  {name} {cur}: {line.strip()}")
 
@@ -140,10 +140,9 @@ def main(argv=None) -> int:
         for k, src in enumerate(args.against):
             others[src.name] = kernels.load_trace_library(
                 src, (args.build_dir or Path(tmp) / "b") / str(k))
-            log = kernels.BUILD_INFO.pop("path_trace_other")["log"]
-            print_ptxas(src.name, log)
+            print_ptxas(src.name, kernels.build_log("path_trace_other", src))
         kernels.load()
-        print_ptxas("this", kernels.BUILD_INFO.get("path_trace", {}).get("log", ""))
+        print_ptxas("this", kernels.build_log("path_trace"))
         cfg = Config(grid_resolution=(128, 128, 128), num_samples=SPP, max_bounce=BOUNCES,
                      wave_size=WAVE, seed=SEED)
         for label, path in scene_paths(Path(tmp)):

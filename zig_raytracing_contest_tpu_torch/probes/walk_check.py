@@ -19,7 +19,10 @@ float32 (each operation rounded once, as the kernel, built with
 at each, which shows how a differing lane arose; it also repeats
 ``trace_stream_kernel``'s walk of the group heap, and ``walk_lanes`` /
 ``lanes_off_walk`` hold either kernel to it bit for bit (chip_smoke.py).
-``warp_sweep_ref`` models the kernels' split of a tile over a warp.
+``warp_sweep_ref`` models the kernels' split of a tile over a warp, and
+``flat_warp_ref`` the whole-path kernels' flat loop of one warp (each tile
+swept lane-parallel or by the warp, by how many lanes pass it);
+``flat_occupancy`` reads from it how busy that loop keeps a warp's lanes.
 
 The wave is the whole-path frame's bounce-0 wave of 522,240 rays from pixel
 tile 920 (1920x1080, 3 spp, 32x32 tiled slot order) and its bounce-1 wave
@@ -37,6 +40,7 @@ the card:
 from __future__ import annotations
 
 import argparse
+import re
 import sys
 import tempfile
 from pathlib import Path
@@ -213,6 +217,147 @@ def warp_sweep_ref(tri_data: np.ndarray, tile: int, j: int, o, d, prev: int,
               if bits[lane] == t_min and lane_best[lane][1] == i_min]
     bt, bi, bu, bv = lane_best[src]
     best.update(t=bt, idx=bi, u=bu, v=bv)
+
+
+# What flat_occupancy prices a warp sweep at, in lane-loop triangle
+# iterations beyond its tile/32 tests a lane: the two min reductions, the
+# shuffles of the asking ray and the any-vote (path_trace.cu warp_sweep).
+WARP_SWEEP_EXTRA = 2
+
+
+def lane_loop_min() -> int:
+    """The LANE_LOOP_MIN of kernels/path_trace.cu (its #define)."""
+    from .. import kernels
+
+    src = kernels.SOURCES["path_trace"].read_text()
+    (value,) = re.findall(r"^#define LANE_LOOP_MIN (\d+)$", src, re.M)
+    return int(value)
+
+
+def flat_warp_ref(tri_data: np.ndarray, tile_bbox: np.ndarray, tile: int, o, d,
+                  live, prev, lane_loop_min: int) -> dict:
+    """The flat tile loop of one warp (kernels/path_trace.cu
+    ``trace_nearest_warp``) in NumPy float32: ``o``, ``d`` (3, n) and
+    ``live`` (n,), ``prev`` (n,) (-1: none) for the warp's n <= 32 lanes
+    (a short warp's missing lanes have no ray).  Tiles in ascending order:
+    each live lane culls tile j against its own best (the kernel's slab
+    test), then, when at least ``lane_loop_min`` lanes pass, each passing
+    lane sweeps it (``sweep_tile_ref``), else the warp sweeps it once for
+    each passing lane in ascending lane order (``warp_sweep_ref``).
+    Returns per lane t, u, v (f32), idx and ``passed`` (tiles it passed,
+    int), and per warp ``pops`` (the passing lanes of each tile that any
+    lane passed), ``lane_tiles`` (tiles swept lane-parallel) and
+    ``warp_sweeps`` (warp sweeps run)."""
+    f32 = np.float32
+    o = np.asarray(o, f32)
+    d = np.asarray(d, f32)
+    live = np.asarray(live, bool)
+    n = live.shape[0]
+    if n > 32:
+        raise ValueError(f"a warp has at most 32 lanes, not {n}")
+    with np.errstate(all="ignore"):
+        inv = f32(1.0) / d
+    best = [{"t": f32(np.inf), "idx": 0, "u": f32(0), "v": f32(0)} for _ in range(n)]
+    passed = np.zeros(n, np.int64)
+    pops, lane_tiles, warp_sweeps = [], 0, 0
+    for j in range(tile_bbox.shape[1]):
+        box = tile_bbox[:, j].astype(f32)
+        bt = np.array([b["t"] for b in best], f32)
+        with np.errstate(all="ignore"):
+            t1 = [(box[a] - o[a]) * inv[a] for a in range(3)]
+            t2 = [(box[3 + a] - o[a]) * inv[a] for a in range(3)]
+            # np.minimum / np.maximum propagate NaN as nan_min / nan_max do
+            lo = [np.minimum(t1[a], t2[a]) for a in range(3)]
+            hi = [np.maximum(t1[a], t2[a]) for a in range(3)]
+            tmin = np.maximum(np.maximum(lo[0], lo[1]), lo[2])
+            tmax = np.minimum(np.minimum(hi[0], hi[1]), hi[2])
+            mine = live & ~((tmin > tmax) | (tmax <= 0) | (tmin >= bt))
+        lanes = np.nonzero(mine)[0]
+        if not lanes.size:
+            continue
+        passed += mine
+        pops.append(int(lanes.size))
+        if lanes.size >= lane_loop_min:
+            lane_tiles += 1
+            sweep = sweep_tile_ref
+        else:
+            warp_sweeps += int(lanes.size)
+            sweep = warp_sweep_ref
+        for k in lanes:
+            sweep(tri_data, tile, j, o[:, k], d[:, k], int(prev[k]), best[k])
+    return {"t": np.array([b["t"] for b in best], f32),
+            "u": np.array([b["u"] for b in best], f32),
+            "v": np.array([b["v"] for b in best], f32),
+            "idx": np.array([b["idx"] for b in best], np.int64),
+            "passed": passed, "pops": pops, "lane_tiles": lane_tiles,
+            "warp_sweeps": warp_sweeps}
+
+
+def flat_warps(scene, state: torch.Tensor, prev: torch.Tensor | None, warps,
+               lane_loop_min: int) -> dict:
+    """``flat_warp_ref`` on each warp w of ``warps`` of a (16, R) ``state``
+    (lanes 32w .. 32w + 31, fewer in a short last warp; ``prev`` (R,) or
+    None): the lanes, per lane t, u, v, idx, passed as NumPy arrays (what a
+    whole-path trace gives them), and the warps' pops, lane_tiles and
+    warp_sweeps summed (pops concatenated)."""
+    tri = scene.tri_data.cpu().numpy()
+    bb = scene.tile_bbox.cpu().numpy()
+    R = state.shape[1]
+    lanes = [ln for w in warps for ln in range(32 * int(w), min(32 * int(w) + 32, R))]
+    st = state[:, lanes].cpu().numpy()
+    pv = np.full(len(lanes), -1) if prev is None else prev[lanes].cpu().numpy()
+    out = {k: [] for k in ("t", "u", "v", "idx", "passed", "pops")}
+    out.update(lane_tiles=0, warp_sweeps=0)
+    at = 0
+    for w in warps:
+        n = min(32 * int(w) + 32, R) - 32 * int(w)
+        sl = slice(at, at + n)
+        at += n
+        res = flat_warp_ref(tri, bb, scene.tile, st[0:3, sl], st[3:6, sl], st[12, sl] > 0,
+                            pv[sl], lane_loop_min)
+        for k in ("t", "u", "v", "idx", "passed", "pops"):
+            out[k].append(np.asarray(res[k]))
+        out["lane_tiles"] += res["lane_tiles"]
+        out["warp_sweeps"] += res["warp_sweeps"]
+    for k in ("t", "u", "v", "idx", "passed", "pops"):
+        out[k] = np.concatenate(out[k]) if out[k] else np.zeros(0)
+    out["lanes"] = np.array(lanes, np.int64)
+    return out
+
+
+def flat_occupancy(scene, state: torch.Tensor, prev: torch.Tensor | None,
+                   warps: int = 64, loop_min: int | None = None) -> dict:
+    """How busy the whole-path trace keeps a warp's lanes on one wave:
+    ``flat_warps`` on ``warps`` warps spread evenly over the (16, R)
+    ``state``.  ``passed``: tiles passed per live ray; ``swept``: tiles a
+    warp swept in the one-thread-per-ray loop (any lane passed); ``busy``:
+    the share of lane-iterations of those sweeps that tested a passing
+    lane's triangles (passed tiles over 32 x swept tiles); ``iters``:
+    serial triangle iterations per warp, that loop's (swept x tile)
+    against this loop's at ``loop_min`` (default the kernel's
+    LANE_LOOP_MIN): each lane-parallel tile ``tile`` iterations, each warp
+    sweep tile/32 + WARP_SWEEP_EXTRA.  Every way of sweeping gives the same
+    bests, so the same culls: the replay runs the lane loop and prices the
+    other from its passing-lane counts."""
+    L = lane_loop_min() if loop_min is None else loop_min
+    R = state.shape[1]
+    nw = -(-R // 32)
+    picks = sorted({int(k * nw // warps) for k in range(warps)})
+    res = flat_warps(scene, state, prev, picks, 0)
+    live = state[12, res["lanes"]].cpu().numpy() > 0
+    pops = np.asarray(res["pops"], np.int64)
+    tile, n = scene.tile, len(picks)
+    lane_tiles = int((pops >= L).sum())
+    warp_sweeps = int(pops[pops < L].sum())
+    return {
+        "warps": n, "lanes": len(res["lanes"]), "live": int(live.sum()),
+        "passed": float(res["passed"][live].sum()) / max(int(live.sum()), 1),
+        "swept": pops.size / n,
+        "busy": float(pops.sum()) / max(32.0 * pops.size, 1.0),
+        "iters": (pops.size * tile / n,
+                  (lane_tiles * tile + warp_sweeps * (tile / 32 + WARP_SWEEP_EXTRA)) / n),
+        "lane_loop_min": L,
+    }
 
 
 def walk_heap_ref(tri_data: np.ndarray, tile_bbox: np.ndarray, tree: np.ndarray,
