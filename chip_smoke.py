@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's two paths (zig_raytracing_contest_tpu_torch) the way a
-user does: the official bench frame (the bench scene, 1920×1080, 3 spp,
-4 bounces, waves of 2^19 rays) through the whole-path kernels, and the
+Drives the port's paths (zig_raytracing_contest_tpu_torch) the way a user
+does: the official bench frame (the bench scene, 1920×1080, 3 spp, 4
+bounces, waves of 2^19 rays) through the whole-path kernels, the
 ``--large`` frame of bench.py (a 100,362-triangle terrain, 1280×720, 2 spp,
-3 bounces, one wave of 1,843,200 rays) through the per-bounce pipeline.
+3 bounces, one wave of 1,843,200 rays) through the per-bounce pipeline,
+and the XLA shading path: the same terrain through the grid backend, and
+the extensions (NEE, Russian roulette, PBR).
 Phases, each of which exits non-zero when it fails:
 
 1. require a CUDA device; print the card's name and power limit;
@@ -98,6 +100,28 @@ j. trace_emit_kernel's tile-heap walk against the flat loop lane by lane on
    trace_emit_aux on the same bank and rays; the bf16 sweep's slope per
    sweep and its error against f32; the gather's slope per pair beside
    two torch.gather calls) and the gather kernels' SASS instructions counted.
+
+then the XLA shading path, which a grid scene and the extensions take:
+
+k. the ``--large`` terrain with ``backend: "grid"`` at the default 128³
+   grid and the ``--large`` frame's settings: the grid build's seconds, D
+   (duplicated references) and C (cells); bounces 0 and 1 of the frame's
+   one wave through the grid walk (its ms, loop iterations and live rays)
+   and through trace_emit_kernel on the MXU bake of the same terrain, every
+   lane where the two differ in t or triangle explained (the same triangle,
+   a tie or an edge decision) or the run fails; the frame: a warmup and 5
+   timed renders (no CUDA kernel launched), one profile, and its gate
+   against the per-bounce MXU frame (diff > 2 on < 2% of channels,
+   tests/test_render.py's bound);
+l. the extensions: the Cornell box at 1920×1080, 4 bounces, held to the
+   statistics of tests/test_extensions.py (NEE's mean within 6% of the
+   plain mean at 48 spp, its seed-to-seed noise under 0.8× the plain
+   noise at 2 spp, RR's mean within 6% at 32 spp with fewer segments), each
+   frame's Mrays/s; the ``--large`` terrain with nee, russian_roulette and
+   pbr at its frame settings: a warmup and 5 timed renders (the launch
+   counts of trace_emit_kernel, which the XLA path's nearest hits and
+   shadow rays run), one profile, and a 320×180 frame with the kernels
+   against the twins under the golden gates.
 
 Run from the repository root: ``python3 chip_smoke.py``.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
@@ -197,6 +221,15 @@ RTOL, ATOL, DIR_ATOL = 3e-6, 1e-6, 1e-5
 TIE_SHARE = 1e-4
 # lanes of a full bounce-1 wave held to walk_heap_ref's replay bit for bit
 WALK_LANES = 1024
+# the grid of phase k (the Config default); the grid walk against
+# trace_emit_kernel: two tied triangles within TIE_RTOL·t + TIE_ATOL (4 f32
+# ULP at the --large terrain's largest coordinate, 11); a barycentric
+# within EDGE_UV of an edge is a decision the other form may flip (the
+# transform form's barycentrics carry ulp(|M·o + c|), ~1.5e-5 for a
+# 0.1-unit terrain triangle 20 units away, ~1e-4 on a grazing ray); ties
+# and edge decisions together on at most EDGE_SHARE of the lanes
+G_RES = (128, 128, 128)
+TIE_RTOL, TIE_ATOL, EDGE_UV, EDGE_SHARE = 1e-5, 4e-6, 1e-3, 1e-4
 
 
 def fail(msg: str) -> None:
@@ -1225,6 +1258,238 @@ def sass_report(lib) -> None:
         print(f"  {name} SASS: {counts}")
 
 
+def grid_differences(what, card, t_g, tri_g, u_g, v_g, aux, tri_k) -> None:
+    """Lanes where the grid walk (Möller–Trumbore) and trace_emit_kernel (the
+    transform form) differ in t or triangle, each explained or the run
+    fails: the same triangle (the two forms of the test round differently;
+    a grazing ray's t is ill-conditioned in both), a tie (two triangles
+    within TIE_RTOL·t + TIE_ATOL of each other), or an edge decision (the
+    nearer winner within EDGE_UV of an edge of its triangle in its own
+    test, so the other test's rounding put the ray past it); ties and
+    edge decisions on at most EDGE_SHARE of the lanes."""
+    import torch
+
+    t_k, u_k, v_k = aux[2], aux[0], aux[1]
+    hit_g, hit_k = torch.isfinite(t_g), torch.isfinite(t_k)
+    differ = (t_g != t_k) | ((tri_g != tri_k) & (hit_g | hit_k))
+    both = hit_g & hit_k
+    same_tri = differ & both & (tri_g == tri_k)
+    rel = ((t_g - t_k).abs() / torch.minimum(t_g, t_k))[same_tri]
+    close = both & ((t_g - t_k).abs() <= TIE_RTOL * torch.minimum(t_g, t_k) + TIE_ATOL)
+    tie = differ & close & (tri_g != tri_k)
+    g_near = torch.where(hit_k, t_g < t_k, hit_g)
+    u_n, v_n = torch.where(g_near, u_g, u_k), torch.where(g_near, v_g, v_k)
+    edge_dist = torch.minimum(torch.minimum(u_n, v_n), 1.0 - u_n - v_n)
+    edge = differ & ~same_tri & ~tie & (edge_dist.abs() <= EDGE_UV)
+    bad = differ & ~same_tri & ~tie & ~edge
+    near_edge = edge_dist[edge].abs()
+    print(f"  {what}: grid vs trace_emit_kernel on the same rays: {int(differ.sum())} of "
+          f"{t_g.numel()} lanes differ in t or triangle: {int(same_tri.sum())} the same "
+          f"triangle (the two forms of the test round differently; |dt|/t at most "
+          f"{float(rel.max()) if rel.numel() else 0.0:.3e}, beyond {TIE_RTOL:g} on "
+          f"{int((rel > TIE_RTOL).sum())}), {int(tie.sum())} ties (two triangles within "
+          f"{TIE_RTOL:g}·t + {TIE_ATOL:g}), {int(edge.sum())} edge decisions (the nearer "
+          f"winner within {EDGE_UV:g} of an edge; at most "
+          f"{float(near_edge.max()) if near_edge.numel() else 0.0:.3e}), {int(bad.sum())} "
+          f"unexplained ({card})")
+    if int(tie.sum() + edge.sum()) > EDGE_SHARE * t_g.numel():
+        fail(f"{what}: ties and edge decisions on more than {EDGE_SHARE:g} of the lanes")
+    if int(bad.sum()):
+        lane = int(bad.nonzero()[0, 0])
+        fail(f"{what}: lane {lane} differs unexplained: grid t {float(t_g[lane])} tri "
+             f"{int(tri_g[lane])}, kernel t {float(t_k[lane])} tri {int(tri_k[lane])}")
+
+
+def grid_phases(card) -> None:
+    """Phase k: the --large terrain through the grid backend (the XLA
+    shading path with the DDA grid walk, plain PyTorch on the card)."""
+    import torch
+
+    from zig_raytracing_contest_tpu_torch.config import Config
+    from zig_raytracing_contest_tpu_torch.grid.builder import build_grid
+    from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
+    from zig_raytracing_contest_tpu_torch.render import wavefront as wf
+    from zig_raytracing_contest_tpu_torch.render.pipeline import prepare_scene, render_scene
+    from zig_raytracing_contest_tpu_torch.scene.geometry import load_geometry
+    from zig_raytracing_contest_tpu_torch.scene.gltf import load_gltf
+    from zig_raytracing_contest_tpu_torch.scene.procedural import large_scene
+    from zig_raytracing_contest_tpu_torch.utils.timing import cuda_ms
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    tmp = tempfile.TemporaryDirectory()
+    path = large_scene(Path(tmp.name) / "large.gltf")
+    geo = load_geometry(load_gltf(str(path)))
+    t0 = time.perf_counter()
+    gb = build_grid(geo.positions, G_RES)
+    print(f"phase k: grid build {time.perf_counter() - t0:.2f} s (NumPy, host), resolution "
+          f"{G_RES}: D {len(gb.dup_to_tri)} duplicated references of {geo.num_triangles} "
+          f"triangles, C {gb.stats['num_cells']} cells ({gb.stats['empty_cells']} empty, "
+          f"at most {gb.stats['max_tris']} references)")
+    del gb
+    kw = dict(grid_resolution=G_RES, num_samples=L_SPP, max_bounce=L_BOUNCES,
+              wave_size=L_WAVE, seed=SEED)
+    cfg = Config(backend="grid", **kw)
+    scene, cam, timers = prepare_scene(str(path), cfg, camera_name="Camera 1", width=L_W,
+                                       height=L_H, device=dev)
+    reg = wf.regime(scene)
+    print(f"  grid scene: regime {reg}, D {scene.grid.num_refs}, C {scene.grid.num_cells}, "
+          f"grid built and uploaded in {timers.phases['compile']:.2f} s")
+    if reg != "XLA shading, grid" or scene.tri_data is not None:
+        fail(f"the grid scene renders {reg}")
+    mcfg = Config(**kw)
+    mscene, _, _ = prepare_scene(str(path), mcfg, camera_name="Camera 1", width=L_W,
+                                 height=L_H, device=dev)
+    T = geo.num_triangles  # the bake's real triangles are its first T positions
+    morton = torch.empty(T, dtype=torch.int64, device=dev)  # unique id -> Morton
+    morton[mscene.perm[:T]] = torch.arange(T, device=dev)
+
+    # bounces 0 and 1 of the frame's one wave, as render_wave_xla runs them
+    R = L_W * L_H * L_SPP
+    par = wf.build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
+    o, d, streams = wf.xla_primary_rays(par, L_W, L_SPP, 0, R, SEED)
+    live = torch.ones(R, dtype=torch.bool, device=dev)
+    prev = None
+    for bounce in (0, 1):
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = wf.trace_wave(scene, o, d, live, exclude=prev)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        tri_g = scene.grid.dup_to_tri[res.dup_idx]
+        state = torch.zeros((16, R), dtype=torch.float32, device=dev)
+        state[0:3], state[3:6], state[12] = o.T, d.T, live.to(torch.float32)
+        prev_m = None if prev is None else morton[prev].to(torch.int32)
+        k_ms = cuda_ms(lambda: mi.trace_emit_aux(mscene, state, None, prev_m), 3)
+        aux, idx, _ = mi.trace_emit_aux(mscene, state, None, prev_m)
+        tri_k = torch.where(torch.isfinite(aux[2]), mscene.perm[idx.to(torch.int64)], 0)
+        print(f"  grid trace, bounce {bounce}: {statistics.median(runs[1:]):.1f} ms (runs "
+              + ", ".join(f"{r:.1f}" for r in runs) + f"), {res.iterations} loop iterations, "
+              f"{int(live.sum())} live rays of {R}, {int(torch.isfinite(res.t).sum())} hits; "
+              f"trace_emit_kernel on the same rays {k_ms:.3f} ms ({card})")
+        grid_differences(f"bounce {bounce}", card, res.t, tri_g, res.u, res.v, aux, tri_k)
+        del state, aux, idx
+        new_o, new_d, *_, missed, _ = wf.shade_and_scatter(scene, o, d, res.t, res.u, res.v,
+                                                           tri_g, streams, bounce)
+        stepped = live & ~missed
+        o = torch.where(stepped[:, None], new_o, o)
+        d = torch.where(stepped[:, None], new_d, d)
+        live, prev = stepped, tri_g
+    del o, d, streams, live, prev, res, new_o, new_d
+
+    # the frame, through the main path: no CUDA kernel runs on it
+    render_timed(render_scene, scene, cam, cfg, "grid --large", card,
+                 {"trace_emit": 0, "trace_stream": 0, "shade": 0, "path_trace": 0,
+                  "path_trace_gen": 0})
+    profile_frame(render_scene, scene, cam, cfg, card)
+    # against the same frame through the MXU bake's per-bounce path
+    img_g, st_g = render_scene(scene, cam, cfg)
+    img_m, st_m = render_scene(mscene, cam, mcfg)
+    diff = abs(img_g.astype(int) - img_m.astype(int))
+    frac = float((diff > 2).mean())
+    print(f"grid --large vs the MXU per-bounce frame {L_W}x{L_H}: diff>2 on {frac:.4%} of "
+          f"channels, mean |diff| {float(diff.mean()):.4f}, segments {st_g.segments} vs "
+          f"{st_m.segments}")
+    if not frac < 0.02 or img_g.shape != (L_H, L_W, 3):
+        fail("the grid frame and the MXU frame disagree beyond tests/test_render.py's bound")
+    tmp.cleanup()
+    print(f"phase k: {time.perf_counter() - t_phase:.1f} s")
+
+
+def timed_frame(render_scene, scene, cam, cfg, what, card):
+    """One frame, timed to torch.cuda.synchronize(): (image as float64,
+    stats); prints its Mrays/s."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, st = render_scene(scene, cam, cfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"  {what}: {st.segments / dt / 1e6:.3f} Mrays/s ({st.segments} segments in "
+          f"{dt * 1e3:.1f} ms, mean {float(img.mean()):.3f}) ({card})")
+    return img.astype("float64"), st
+
+
+def extension_phases(card, launches) -> None:
+    """Phase l: the extensions through the XLA shading path."""
+    import torch
+
+    from zig_raytracing_contest_tpu_torch import kernels
+    from zig_raytracing_contest_tpu_torch.config import Config
+    from zig_raytracing_contest_tpu_torch.render import wavefront as wf
+    from zig_raytracing_contest_tpu_torch.render.pipeline import prepare_scene, render_scene
+    from zig_raytracing_contest_tpu_torch.scene.procedural import cornell_like_box, large_scene
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    tmp = tempfile.TemporaryDirectory()
+    # (1) the Cornell box (its ceiling is the light) at 1920x1080, 4 bounces:
+    # the statistics of tests/test_extensions.py:56-89 at this size, at its
+    # samples per pixel (the means are of the 8-bit image, whose clamp at 1
+    # biases a noisy estimator's mean at few samples)
+    box = cornell_like_box(Path(tmp.name) / "box.gltf")
+    scene, cam, _ = prepare_scene(str(box), Config(), width=1920, height=1080, device=dev)
+    if scene.lights is None or wf.regime(scene, Config(nee=True).ext_flags) != (
+            "XLA shading, tile heap"):
+        fail("the Cornell box has no lights or does not take the XLA shading path")
+    print(f"phase l: Cornell box 1920x1080, {MAX_BOUNCE} bounces, lights "
+          f"{scene.lights.tri.numel()}; plain frames through the {wf.regime(scene)}")
+
+    def frame(what, **kw):
+        cfg = Config(max_bounce=MAX_BOUNCE, **kw)
+        return timed_frame(render_scene, scene, cam, cfg, what, card)
+
+    kernels.reset_launches()
+    plain, _ = frame("plain 48 spp, seed 3", num_samples=48, seed=3)
+    nee, _ = frame("NEE 48 spp, seed 3", num_samples=48, seed=3, nee=True)
+    rel = abs(plain.mean() - nee.mean()) / max(plain.mean(), 1)
+    noise = {}
+    for name, ext in (("plain", {}), ("NEE", {"nee": True})):
+        a, _ = frame(f"{name} 2 spp, seed 1", num_samples=2, seed=1, **ext)
+        b, _ = frame(f"{name} 2 spp, seed 2", num_samples=2, seed=2, **ext)
+        noise[name] = float(abs(a - b).mean())
+    p5, sp = frame("plain 32 spp, seed 5", num_samples=32, seed=5)
+    rr, sr = frame("RR 32 spp, seed 5", num_samples=32, seed=5, russian_roulette=True)
+    rr_rel = abs(p5.mean() - rr.mean()) / max(p5.mean(), 1)
+    xla_launches = kernels.LAUNCHES["trace_emit"]
+    print(f"  NEE mean vs plain: {rel:.4f} (limit 0.06); seed-to-seed noise at 2 spp: NEE "
+          f"{noise['NEE']:.4f}, plain {noise['plain']:.4f}, ratio "
+          f"{noise['NEE'] / noise['plain']:.4f} (limit 0.8); RR mean vs plain {rr_rel:.4f} "
+          f"(limit 0.06), segments {sr.segments} vs {sp.segments}; trace_emit launches "
+          f"{xla_launches}")
+    if not (rel < 0.06 and noise["NEE"] < 0.8 * noise["plain"] and rr_rel < 0.06
+            and sr.segments < sp.segments):
+        fail("the Cornell box's NEE / RR statistics are off")
+    if xla_launches == 0:
+        fail("the XLA shading path launched no trace kernel")
+    del scene, plain, nee, p5, rr
+
+    # (2) the --large terrain with all three extensions; its ceiling light
+    # gives NEE its lights, so a bounce traces twice (the nearest hit and the
+    # shadow rays)
+    path = large_scene(Path(tmp.name) / "large.gltf")
+    cfg = Config(num_samples=L_SPP, max_bounce=L_BOUNCES, wave_size=L_WAVE, seed=SEED,
+                 nee=True, russian_roulette=True, pbr=True)
+    scene, cam, _ = prepare_scene(str(path), cfg, camera_name="Camera 1", width=L_W,
+                                  height=L_H, device=dev)
+    n_lights = 0 if scene.lights is None else scene.lights.tri.numel()
+    print(f"  --large with nee, russian_roulette, pbr: regime "
+          f"{wf.regime(scene, cfg.ext_flags)}, lights {n_lights}")
+    got = render_timed(render_scene, scene, cam, cfg, "--large extensions", card,
+                       {"trace_emit": 6 * L_BOUNCES * (2 if n_lights else 1),
+                        "trace_stream": 0, "shade": 0})
+    launches["trace_emit_norec"] = xla_launches + got["trace_emit"]
+    profile_frame(render_scene, scene, cam, cfg, card)
+    s_scene, s_cam, _ = prepare_scene(str(path), cfg, camera_name="Camera 1", width=320,
+                                      height=180, device=dev)
+    frame_gate(render_scene, s_scene, s_cam, cfg, "--large extensions 320x180")
+    tmp.cleanup()
+    print(f"phase l: {time.perf_counter() - t_phase:.1f} s")
+
+
 def official_frame(render_scene, scene, cam, cfg, card) -> dict:
     """Phase 6: the official frame through the main path, a warmup and 5
     timed renders; returns the launch counts of the 6 renders."""
@@ -1418,6 +1683,8 @@ def main() -> int:
     probe_phases(card, timing, errs, bounds, launches, duck)
     library = {}
     trace_probe_phases(card, timing, errs, bounds, launches, library)
+    grid_phases(card)
+    extension_phases(card, launches)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [

@@ -179,21 +179,28 @@ def test_bench_scene_matches_bench_py(tmp_path):
 
 
 def test_out_of_slice_scenes_raise(tmp_path, monkeypatch):
-    """The grid backend and scenes past MXU_BACKEND_MAX_TRIANGLES (lowered
-    here) raise, naming the grid fallback's ROADMAP item; scenes past the
-    resident triangle bound and banks past the resident texel bounds (both
-    lowered here) now build, as a streaming bake and a 3-stage bank."""
+    """The grid backend, and scenes past MXU_BACKEND_MAX_TRIANGLES (lowered
+    here) under ``auto``, build a grid scene (no MXU bake), which needs the
+    scene's grid (ValueError without it); ``mxu`` still bakes past the cap.
+    Scenes past the resident triangle bound and banks past the resident
+    texel bounds (both lowered here) build as a streaming bake and a
+    3-stage bank."""
+    from zig_raytracing_contest_tpu_torch.grid.builder import build_grid
     from zig_raytracing_contest_tpu_torch.scene import types as ttypes
 
     path = jproc.cornell_like_box(tmp_path / "box.gltf")
     g = load_gltf(str(path))
     geo, mats = load_geometry(g), load_materials(g)
     bbox = scene_bbox(geo.positions)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    grid = build_grid(geo.positions, (8, 8, 8))
+    with pytest.raises(ValueError, match="grid"):
         build_torch_scene(geo, mats, bbox, device="cpu", backend="grid")
+    scene = build_torch_scene(geo, mats, bbox, device="cpu", backend="grid", grid=grid)
+    assert scene.tri_data is None and scene.grid.num_refs == len(grid.dup_to_tri)
+    assert ttypes.scene_backend(geo.num_triangles) == "mxu"
     monkeypatch.setattr(ttypes, "MXU_BACKEND_MAX_TRIANGLES", geo.num_triangles - 1)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build_torch_scene(geo, mats, bbox, device="cpu")
+    assert ttypes.scene_backend(geo.num_triangles) == "grid"
+    assert build_torch_scene(geo, mats, bbox, device="cpu", grid=grid).tri_data is None
     assert build_torch_scene(geo, mats, bbox, device="cpu", backend="mxu").tile == 128
     monkeypatch.undo()
 

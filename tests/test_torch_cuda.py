@@ -360,3 +360,85 @@ def test_whole_path_kernels_with_dead_lanes_on_cuda(tmp_path):
         assert torch.equal(a[12:16].view(torch.int32), b[12:16].view(torch.int32))
         torch.testing.assert_close(a[0:12], b[0:12], rtol=3e-6, atol=1e-5)
     assert kernels.LAUNCHES["path_trace_gen"] == 1 and kernels.LAUNCHES["path_trace"] == 1
+
+
+def _large_xla_waves(tmp_path, backend, rays, device):
+    """The --large terrain (bench.py --large: side 224, Camera 1 at
+    1280×720, 2 spp) with ``backend``, and its first ``rays`` primary rays
+    as the XLA shading path makes them: (scene, orig, dirs, streams) on
+    ``device``."""
+    from zig_raytracing_contest_tpu_torch.render.wavefront import build_gen_par, xla_primary_rays
+
+    path = tproc.large_scene(tmp_path / "l.gltf")
+    cfg = Config(num_samples=2, max_bounce=3, backend=backend)
+    scene, cam, _ = prepare_scene(str(path), cfg, camera_name="Camera 1", width=1280,
+                                  height=720, device=device)
+    par = build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
+    o, d, streams = xla_primary_rays(par, 1280, 2, 0, rays, 0)
+    return scene, o.contiguous(), d, streams
+
+
+@pytest.mark.cuda
+def test_xla_path_nearest_hit_kernel_matches_twin_on_cuda(tmp_path):
+    """The XLA shading path's nearest hit on a scene with the MXU bake
+    (``trace_any``, which launches trace_emit_kernel) against the flat twin
+    (``plain=True``) on a 65,536-ray bounce-1 wave of the --large terrain,
+    the previous hit excluded: t exactly; where the winners agree u, v and
+    the unique triangle exactly; elsewhere a tie (the kernel's winner hit
+    alone at the twin's t, not the excluded triangle) on under 1e-4 of the
+    lanes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    from zig_raytracing_contest_tpu_torch import kernels
+    from zig_raytracing_contest_tpu_torch.ops.mxu_intersect import triangle_hit_ref
+    from zig_raytracing_contest_tpu_torch.render.wavefront import shade_and_scatter, trace_any
+
+    R = 1 << 16
+    scene, o, d, streams = _large_xla_waves(tmp_path, "auto", R, "cuda")
+    live = torch.ones(R, dtype=torch.bool, device="cuda")
+    t, u, v, tri, prev = trace_any(scene, o, d, live)
+    new_o, new_d, *_, through, missed, _ = shade_and_scatter(scene, o, d, t, u, v, tri,
+                                                             streams, 0)
+    live = ~missed
+    assert 0.5 * R < int(live.sum()) < R
+    kernels.reset_launches()
+    k = trace_any(scene, new_o, new_d, live, exclude=prev)
+    assert kernels.LAUNCHES["trace_emit"] == 1
+    p = trace_any(scene, new_o, new_d, live, exclude=prev, plain=True)
+    torch.cuda.synchronize()
+    assert torch.equal(k[0].view(torch.int32), p[0].view(torch.int32))
+    same = k[4] == p[4]
+    for a, b in ((k[1], p[1]), (k[2], p[2]), (k[3], p[3])):
+        assert torch.equal(a[same], b[same])
+    lane = (~same).nonzero()[:, 0]
+    assert lane.numel() <= 1e-4 * R
+    if lane.numel():
+        w = k[4][lane]
+        hit, t_w, _, _ = triangle_hit_ref(scene.tri_data, new_o[lane].T, new_d[lane].T, w)
+        assert (hit & (t_w == p[0][lane]) & (w != prev[lane])).all()
+
+
+@pytest.mark.cuda
+def test_grid_trace_matches_cpu_on_cuda(tmp_path):
+    """The grid walk (plain PyTorch) on the card against the same walk on
+    the CPU, the --large terrain's 128³ grid: 4096 primary rays, then their
+    bounce-1 rays (scattered on the CPU) with the previous hit excluded: t,
+    u, v and the triangle equal bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the grid walk's card run is the subject")
+    from zig_raytracing_contest_tpu_torch.render.wavefront import shade_and_scatter, trace_any
+
+    R = 4096
+    scene, o, d, streams = _large_xla_waves(tmp_path, "grid", R, "cuda")
+    cpu = scene.to("cpu")
+    o, d, streams = o.cpu(), d.cpu(), streams.cpu()
+    live, prev = torch.ones(R, dtype=torch.bool), None
+    for bounce in range(2):
+        a = trace_any(cpu, o, d, live, exclude=prev)
+        b = trace_any(scene, o.cuda(), d.cuda(), live.cuda(),
+                      exclude=None if prev is None else prev.cuda())
+        for x, y in zip(a, b):
+            assert torch.equal(x, y.cpu())
+        assert int(torch.isfinite(a[0]).sum()) > R // 4
+        o, d, *_, missed, _ = shade_and_scatter(cpu, o, d, *a[:4], streams, bounce)
+        live, prev = ~missed & live, a[4]

@@ -53,7 +53,7 @@ class Config:
     seed: int = 0
     progressive_every: int = 0  # waves between intermediate PNG dumps (0=off)
     backend: str = "auto"  # intersection backend: auto | mxu | grid
-    # Extensions — OFF by default; the port does not render them yet.
+    # Extensions — OFF by default (render/extensions.py; the XLA shading path).
     nee: bool = False
     russian_roulette: bool = False
     pbr: bool = False

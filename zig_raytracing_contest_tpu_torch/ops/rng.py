@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from .linalg import sqrt_rn
+
 MASK32 = 0xFFFFFFFF
 _TWO_PI = 6.283185307179586
 
@@ -55,10 +57,38 @@ def _u01(bits: torch.Tensor) -> torch.Tensor:
     return ((bits >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
 
 
+def uniform(streams: torch.Tensor, tag: int) -> torch.Tensor:
+    """(R,) uniforms in (0, 1) of the (stream, tag) draw."""
+    return _u01(_bits(streams, tag, 0))
+
+
 def uniform2_soa(streams: torch.Tensor, tag: int):
     """Two (R,) uniforms of the (stream, tag) draw: the pixel jitter
     (src/stage3.zig:238)."""
     return _u01(_bits(streams, tag, 0)), _u01(_bits(streams, tag, 1))
+
+
+def uniform2(streams: torch.Tensor, tag: int) -> torch.Tensor:
+    """(R, 2) variant of ``uniform2_soa``."""
+    return torch.stack(uniform2_soa(streams, tag), dim=-1)
+
+
+def normal3_soa(streams: torch.Tensor, tag: int):
+    """Three (R,) standard normals by Box–Muller from four uniform words (the
+    fourth normal is dropped): the Gaussian of the sphere sampling
+    (src/linalg.zig:140-148).  The square roots are correctly rounded; log,
+    cos and sin are libm's, which may differ from XLA's by a few ULP."""
+    u1, u2, u3, u4 = (_u01(_bits(streams, tag, w)) for w in range(4))
+    r1 = sqrt_rn(-2.0 * torch.log(u1))
+    r2 = sqrt_rn(-2.0 * torch.log(u3))
+    a1 = _TWO_PI * u2
+    a2 = _TWO_PI * u4
+    return r1 * torch.cos(a1), r1 * torch.sin(a1), r2 * torch.cos(a2)
+
+
+def normal3(streams: torch.Tensor, tag: int) -> torch.Tensor:
+    """(R, 3) variant of ``normal3_soa``."""
+    return torch.stack(normal3_soa(streams, tag), dim=-1)
 
 
 def streams_to_f32(streams: torch.Tensor) -> torch.Tensor:

@@ -39,6 +39,7 @@ from typing import NamedTuple
 import torch
 
 from .. import kernels
+from ..ops.linalg import sqrt_rn as _sqrt
 from ..ops.mxu_intersect import nearest_hit_ref, records_ref
 from ..ops.rng import _TWO_PI, _bits, _u01, f32_to_streams, ray_streams, streams_to_f32
 from ..scene.types import PCOL_BASE, PCOL_EMIS, PCOL_NRM, PCOL_UV, TorchScene
@@ -73,13 +74,6 @@ PIX_TILE = 32  # tiled order: 32×32-pixel squares = 1024 slots
 # ---------------------------------------------------------------------------
 # Plain PyTorch twins
 # ---------------------------------------------------------------------------
-
-
-def _sqrt(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded f32 sqrt on every device: PyTorch's CPU sqrt of
-    long f32 vectors is not (it misrounds ~0.7% of values), an f64 sqrt
-    rounded to f32 is."""
-    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
 def _texel_pair(c, size_f, is_repeat):

@@ -1,13 +1,13 @@
 """End-to-end render pipeline: scene file → PNG, with phase timing.
 
-The port of ``zig_raytracing_contest_tpu/render/pipeline.py`` for the MXU
-regimes: load → preprocess → compile (scene bake) → render →
-save, each phase timed and logged like the reference's main()
+The port of ``zig_raytracing_contest_tpu/render/pipeline.py``: load →
+preprocess → compile (the grid when the backend needs one, the scene bake)
+→ render → save, each phase timed and logged like the reference's main()
 (src/main.zig:73-143).  Frames render in waves of pixel slots, in 32×32
-tiled order for whole-path scenes and in raster order for per-bounce
-scenes; each wave's radiance is summed per slot into a field-major
-framebuffer, which is mapped back to raster order, averaged and
-gamma-encoded at the end.
+tiled order for whole-path scenes and in raster order for per-bounce and
+XLA-path waves (grid scenes, the extensions); each wave's radiance is
+summed per slot into a field-major framebuffer, which is mapped back to
+raster order, averaged and gamma-encoded at the end.
 
 Every entry point renders on the CUDA card unless the caller passes
 ``device="cpu"``, which runs the kernels' plain PyTorch twins.
@@ -22,13 +22,13 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..grid.builder import scene_bbox
+from ..grid.builder import build_grid, scene_bbox
 from ..ops import linalg
 from ..scene.camera import Camera, load_camera
 from ..scene.geometry import load_geometry
 from ..scene.gltf import load_gltf
 from ..scene.materials import load_materials
-from ..scene.types import TorchScene, build_torch_scene
+from ..scene.types import TorchScene, build_torch_scene, scene_backend
 from ..utils.image_io import write_png
 from ..utils.timing import PhaseTimers
 from .wavefront import (
@@ -84,7 +84,8 @@ class RenderStats:
 
 def prepare_scene(in_path: str, config: Config, camera_name=None, width=None,
                   height=None, device="cuda"):
-    """Host pipeline: parse, extract, bake, upload to ``device``.  Returns
+    """Host pipeline: parse, extract, build the grid when the backend needs
+    one (the NumPy builder), bake, upload to ``device``.  Returns
     (TorchScene, Camera, timers)."""
     timers = PhaseTimers()
 
@@ -108,14 +109,20 @@ def prepare_scene(in_path: str, config: Config, camera_name=None, width=None,
                     )
 
     with timers.phase("compile", "Compiled"):
+        backend = scene_backend(geometry.num_triangles, config.backend)
+        log.info("Backend: %s (config: %s, %d triangles)", backend, config.backend,
+                 geometry.num_triangles)
+        grid = (build_grid(geometry.positions, config.grid_resolution, log=log.info)
+                if backend == "grid" else None)
         scene = build_torch_scene(
             geometry, materials, scene_bbox(geometry.positions), device,
-            backend=config.backend,
+            backend=config.backend, grid=grid,
         )
-        walk = (trace_walk(scene, config.ext_flags) if scene.device.type == "cuda"
+        ext = config.ext_flags
+        walk = (trace_walk(scene, ext) if scene.device.type == "cuda" or scene.tri_data is None
                 else "flat (plain twins)")
         log.info("Intersection backend: %s on %s (%s); walk: %s",
-                 regime(scene, config.ext_flags), scene.device, shade_bank(scene), walk)
+                 regime(scene, ext), scene.device, shade_bank(scene, ext), walk)
 
     return scene, camera, timers
 
@@ -134,18 +141,15 @@ def render_scene(
     ``device``: where to render (default: the scene's device).  A CUDA
     device renders with the CUDA kernels and a CPU device with their plain
     twins; ``plain=True`` runs the twins on any device (the kernels'
-    reference on the card)."""
+    reference on the card).  A grid scene, or an extension in ``config``,
+    renders through the XLA shading path."""
     if device is not None:
         scene = scene.to(device)
     timers = timers or PhaseTimers()
     w, h, spp = camera.width, camera.height, config.num_samples
-    if config.ext_flags.any:
-        raise NotImplementedError(
-            "the rendering extensions (nee, russian_roulette, pbr) are "
-            "ROADMAP queue 1 item 12"
-        )
+    ext = config.ext_flags
     num_pixels = w * h
-    num_slots, tiles_x = slot_geometry(w, h, whole_path_regime(scene))
+    num_slots, tiles_x = slot_geometry(w, h, whole_path_regime(scene, ext))
     total_rays = num_slots * spp
     if total_rays >= 1 << 31:
         raise ValueError(
@@ -179,7 +183,7 @@ def render_scene(
             slot_base = wave * wave_pixels
             rows3, segs = render_wave_rows(
                 scene, par, w, h, spp, config.max_bounce, slot_base,
-                num_slots, wave_size, config.seed, tiles_x, plain=plain,
+                num_slots, wave_size, config.seed, tiles_x, plain=plain, ext=ext,
             )
             fb[:, slot_base : slot_base + wave_pixels] += rows3.reshape(
                 3, wave_pixels, spp

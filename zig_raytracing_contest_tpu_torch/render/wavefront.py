@@ -1,8 +1,9 @@
-"""One wave of the frame: kernel calls, beam sorts and the unsort.
+"""One wave of the frame: kernel calls, beam sorts and the unsort, or the
+XLA shading path.
 
-The port of ``zig_raytracing_contest_tpu/render/wavefront.py``'s MXU
-regimes.  Scenes up to REC_EMIT_MAX_TRIS padded triangles whose texel bank
-has a resident form in the JAX package take the whole path, per wave:
+The port of ``zig_raytracing_contest_tpu/render/wavefront.py``.  Scenes up
+to REC_EMIT_MAX_TRIS padded triangles whose texel bank has a resident form
+in the JAX package take the whole path, per wave:
 
 1. ``path_trace_gen`` makes the primary rays and runs bounce 0, emitting
    the beam-sort key and each ray's winner triangle;
@@ -12,14 +13,23 @@ has a resident form in the JAX package take the whole path, per wave:
 5. ``path_trace_fused`` runs bounces 2 .. max_bounce-1;
 6. an unsort brings radiance and segment counts back to wave order.
 
-Every other scene takes the per-bounce pipeline (the fused branch of
-``render_wave``): raster-order primary rays made here, then per bounce one
-``trace_emit_aux`` and one ``shade_fused`` call; past SORT_MIN_TRIS padded
-triangles the wave is beam-sorted before every bounce and unsorted at the
-end.  Past VMEM_RESIDENT_MAX_TRIS padded triangles the trace streams (its
-kernel walks the group heap), and a bank without a resident form is the
-JAX package's 3-stage shade; the port shades both kinds of bank with one
-kernel.
+Other scenes with the MXU bake take the per-bounce pipeline (the fused
+branch of ``render_wave``): raster-order primary rays made here, then per
+bounce one ``trace_emit_aux`` and one ``shade_fused`` call; past
+SORT_MIN_TRIS padded triangles the wave is beam-sorted before every bounce
+and unsorted at the end.  Past VMEM_RESIDENT_MAX_TRIS padded triangles the
+trace streams (its kernel walks the group heap), and a bank without a
+resident form is the JAX package's 3-stage shade; the port shades both
+kinds of bank with one kernel.
+
+A grid scene, and any scene with an extension on, takes the XLA shading
+path (``render_wave_xla``, the XLA branch of the JAX ``render_wave``):
+(R, 3) ray buffers in raster order, per bounce ``trace_any`` and
+``shade_and_scatter`` (the (R, 32) shade-table gather and the f32
+sampler), then the extensions.  ``trace_any`` finds the nearest hit with
+``trace_emit_aux`` on a scene with the MXU bake, so its kernels run under
+this path too, and with the grid walk ``trace_wave`` (plain PyTorch) on a
+grid scene.
 
 A ray's result does not depend on its lane, so the sorts change speed,
 not the image.  Sorting is PyTorch: a stable ``torch.sort`` of the int32
@@ -29,13 +39,21 @@ package's payload sort on (key, lane).
 
 from __future__ import annotations
 
+import logging
+from typing import NamedTuple
+
 import torch
 
 from ..config import ExtFlags
-from ..ops import mxu_intersect
-from ..ops.rng import ray_streams, streams_to_f32, uniform2_soa
-from ..scene.types import TorchScene
+from ..ops import dda, linalg, mxu_intersect
+from ..ops.rng import normal3, ray_streams, streams_to_f32, uniform, uniform2_soa
+from ..ops.texture import sample_texture
+from ..scene.types import COL_BASE_DESC, COL_EMIS_DESC, COL_NRM, COL_UV, TorchScene
 from . import fused
+from .extensions import pbr_scatter, roulette, sample_direct_light
+
+INF = float("inf")
+log = logging.getLogger("zig_raytracing_contest_tpu_torch")
 
 # Mid-path resorts: absolute bounces after which the wave sorts again.
 MID_RESORT_BOUNCES: tuple = (1,)
@@ -45,13 +63,26 @@ MID_RESORT_BOUNCES: tuple = (1,)
 # time, so a test can lower it.
 SORT_MIN_TRIS = 1 << 16
 
+# Triangles the grid walk tests per ray and loop iteration (the JAX
+# package's TRI_BATCH).
+TRI_BATCH = 4
+# The grid walk drops its finished rays, and stops when none is left, every
+# GRID_CHECK_EVERY iterations: one host sync each time.
+GRID_CHECK_EVERY = 8
+
+
+def xla_path(scene: TorchScene, ext: ExtFlags | None = None) -> bool:
+    """True when the wave takes the XLA shading path: an extension is on,
+    or the scene has no MXU bake (a grid scene)."""
+    return scene.tri_data is None or (ext is not None and ext.any)
+
 
 def whole_path_regime(scene: TorchScene, ext: ExtFlags | None = None) -> bool:
-    """True when the wave renders through the whole-path kernels: no
-    extension is on, the texel bank has a resident form and the padded
+    """True when the wave renders through the whole-path kernels: not the
+    XLA shading path, the texel bank has a resident form and the padded
     triangle bank is within both REC_EMIT_MAX_TRIS and SORT_MIN_TRIS (the
     JAX package's whole_path_regime with use_fused)."""
-    if ext is not None and ext.any:
+    if xla_path(scene, ext):
         return False
     tp = scene.tri_data.shape[1]
     return (scene.bank_resident and tp <= mxu_intersect.REC_EMIT_MAX_TRIS
@@ -65,8 +96,12 @@ def sorts_every_bounce(scene: TorchScene) -> bool:
 
 def regime(scene: TorchScene, ext: ExtFlags | None = None) -> str:
     """The regime a frame of ``scene`` renders in, for logs and reports:
-    "whole path", "per-bounce", "per-bounce, sorted" or "streaming,
-    sorted" (past VMEM_RESIDENT_MAX_TRIS padded triangles)."""
+    "whole path", "per-bounce", "per-bounce, sorted", "streaming, sorted"
+    (past VMEM_RESIDENT_MAX_TRIS padded triangles), or on the XLA shading
+    path "XLA shading, " and its walk ("grid", "tile heap", "group
+    heap")."""
+    if xla_path(scene, ext):
+        return "XLA shading, " + trace_walk(scene, ext)
     if whole_path_regime(scene, ext):
         return "whole path"
     name = "streaming" if mxu_intersect.streams_bank(scene) else "per-bounce"
@@ -77,18 +112,24 @@ def trace_walk(scene: TorchScene, ext: ExtFlags | None = None) -> str:
     """How the card's kernels find each bounce's nearest hit, for logs and
     reports: in the whole path "flat" (the tile loop: on the H100 it beat a
     walk of the tile heap at every tile count the whole path serves), in
-    the per-bounce pipeline "tile heap" (trace_emit_kernel) or, streaming,
-    "group heap" (trace_stream_kernel).  The CPU twins take the flat tile
-    loop for every scene."""
+    the per-bounce pipeline and the XLA shading path "tile heap"
+    (trace_emit_kernel) or, streaming, "group heap" (trace_stream_kernel);
+    on a grid scene "grid" (the DDA walk, plain PyTorch on every device).
+    The CPU twins take the flat tile loop for every scene with the bake."""
+    if scene.tri_data is None:
+        return "grid"
     if whole_path_regime(scene, ext):
         return "flat"
     return "group heap" if mxu_intersect.streams_bank(scene) else "tile heap"
 
 
-def shade_bank(scene: TorchScene) -> str:
+def shade_bank(scene: TorchScene, ext: ExtFlags | None = None) -> str:
     """Which shade of the JAX package the scene's bank takes: "resident
-    bank" (one kernel) or "3-stage bank" (prep, gather, shade).  The port's
-    ``shade_kernel`` serves both."""
+    bank" (one kernel) or "3-stage bank" (prep, gather, shade), which the
+    port's ``shade_kernel`` both serves, or on the XLA shading path "XLA
+    sampler" (``shade_and_scatter`` on the f32 bank)."""
+    if xla_path(scene, ext):
+        return "XLA sampler"
     return "resident bank" if scene.bank_resident else "3-stage bank"
 
 
@@ -203,7 +244,7 @@ def gen_rays_raster(par: torch.Tensor, seed: int, slot_base: int,
     sy = y + jy
     dr = [par[fused.PAR_LLC + a] + par[fused.PAR_RIGHT + a] * sx
           + par[fused.PAR_UP + a] * sy for a in range(3)]
-    inv_len = 1.0 / fused._sqrt(dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2])
+    inv_len = 1.0 / linalg.sqrt_rn(dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2])
     ones = torch.ones(R, dtype=torch.float32, device=dev)
     zeros = torch.zeros(R, dtype=torch.float32, device=dev)
     return torch.stack(
@@ -268,16 +309,269 @@ def render_wave_whole_path(scene: TorchScene, par, width: int, height: int,
                               plain=plain)
 
 
+class TraceResult(NamedTuple):
+    """The grid walk's nearest hits: t (+inf on a miss), u, v, the index of
+    the winning reference into the duplicated triangle arrays (0 on a
+    miss), and the loop's iteration count (the JAX ``while_loop``'s)."""
+
+    t: torch.Tensor
+    u: torch.Tensor
+    v: torch.Tensor
+    dup_idx: torch.Tensor
+    iterations: int
+
+
+def trace_any(scene: TorchScene, orig, direction, active, exclude=None,
+              plain: bool = False):
+    """Nearest hit of each ray (orig, direction: (R, 3); active: (R,) bool)
+    → (t, u, v, tri, prev): ``tri`` the unique triangle id (on a miss 0
+    with the bake, the first reference's triangle on the grid, as in the
+    JAX package), ``prev`` the winner in the backend's own ids, to pass back as
+    ``exclude`` (the previous hit, never hit again) on the next bounce.
+
+    With the MXU bake: ``trace_emit_aux`` (its kernel on the card, the flat
+    twin on the CPU, or with ``plain``), ``prev`` the Morton index the
+    kernel compares; else the grid walk ``trace_wave``, ``prev`` the unique
+    id.  Both find the same nearest hit (the grid only prunes work)."""
+    if scene.tri_data is None:
+        hit = trace_wave(scene, orig, direction, active, exclude=exclude)
+        log.debug("grid walk: %d loop iterations over %d rays", hit.iterations,
+                  orig.shape[0])
+        tri = scene.grid.dup_to_tri[hit.dup_idx]
+        return hit.t, hit.u, hit.v, tri, tri
+    R = orig.shape[0]
+    state = torch.zeros((16, R), dtype=torch.float32, device=orig.device)
+    state[0:3] = orig.T
+    state[3:6] = direction.T
+    state[12] = active.to(torch.float32)
+    trace = mxu_intersect.trace_emit_aux_ref if plain else mxu_intersect.trace_emit_aux
+    aux, idx, _ = trace(scene, state, None, prev=exclude)
+    t = aux[2]
+    tri = torch.where(torch.isfinite(t), scene.perm[idx.to(torch.int64)], 0)
+    return t, aux[0], aux[1], tri, idx
+
+
+def trace_wave(scene: TorchScene, orig, direction, active, exclude=None) -> TraceResult:
+    """Nearest hit of a wave of rays by the grid's DDA and Möller–Trumbore
+    (Scene.traceRay, src/stage3.zig:152-186; the JAX ``trace_wave``).
+
+    Per iteration a ray tests up to TRI_BATCH references of its cell, then
+    steps to the next cell once the cell is exhausted; it is done when its
+    best t is at most the t where it leaves the cell (or when it leaves
+    the grid: +inf <= +inf).  ``exclude`` (R,) is each ray's previous hit
+    in unique triangle space.  The JAX loop runs every lane until the last
+    one is done; here only the rays still walking run: every
+    GRID_CHECK_EVERY iterations the finished ones are dropped (one host
+    sync).  A finished ray's state does not change, so the results are the
+    JAX loop's.  Rays not active, or missing the grid, are misses."""
+    g = scene.grid
+    grid = g.params
+    R = orig.shape[0]
+    dev = orig.device
+    last_cell = g.num_cells - 1
+    out_t = torch.full((R,), INF, dtype=torch.float32, device=dev)
+    out_u = torch.zeros(R, dtype=torch.float32, device=dev)
+    out_v = torch.zeros(R, dtype=torch.float32, device=dev)
+    out_i = torch.zeros(R, dtype=torch.int64, device=dev)
+    entered, state = dda.dda_setup(grid, orig, direction)
+    lanes = (entered & active).nonzero()[:, 0]
+    if lanes.numel() == 0:
+        return TraceResult(out_t, out_u, out_v, out_i, 0)
+
+    o, d = orig[lanes][:, None, :], direction[lanes][:, None, :]
+    st = dda.DDAState(*(f[lanes] for f in state))
+    ex = None if exclude is None else exclude[lanes][:, None]
+    cell_lin = dda.linearize_cell_idx(grid, st.cell).clamp(0, last_cell)
+    cursor, cur_end = g.cell_begin[cell_lin], g.cell_end[cell_lin]
+    n = lanes.numel()
+    best_t = torch.full((n,), INF, dtype=torch.float32, device=dev)
+    best_u = torch.zeros(n, dtype=torch.float32, device=dev)
+    best_v = torch.zeros(n, dtype=torch.float32, device=dev)
+    best_i = torch.zeros(n, dtype=torch.int64, device=dev)
+    done = torch.zeros(n, dtype=torch.bool, device=dev)
+    batch = torch.arange(TRI_BATCH, device=dev)
+    iterations = 0
+    while True:
+        walking = []
+        for _ in range(GRID_CHECK_EVERY):
+            alive = ~done
+            # triangle phase: up to TRI_BATCH tests against the current
+            # cell; the JAX loop's sequential strict-< update keeps the
+            # first of the batch's smallest t, which argmin returns
+            idx = cursor[:, None] + batch
+            has = alive[:, None] & (idx < cur_end[:, None])
+            idx = torch.where(has, idx, 0)
+            valid, t, u, v = linalg.moller_trumbore(o, d, g.tri_v0[idx], g.tri_e1[idx],
+                                                    g.tri_e2[idx])
+            ok = has & valid & (t > 0.0)
+            if ex is not None:
+                ok = ok & (g.dup_to_tri[idx] != ex)
+            t = torch.where(ok, t, INF)
+            k = t.argmin(dim=1, keepdim=True)
+            t_min = t.gather(1, k)[:, 0]
+            better = t_min < best_t
+            best_t = torch.where(better, t_min, best_t)
+            best_u = torch.where(better, u.gather(1, k)[:, 0], best_u)
+            best_v = torch.where(better, v.gather(1, k)[:, 0], best_v)
+            best_i = torch.where(better, idx.gather(1, k)[:, 0], best_i)
+            cursor = cursor + has.sum(dim=1)
+            # cell-advance phase: rays whose cell is exhausted step the DDA
+            need_advance = alive & (cursor >= cur_end)
+            t_cross, st = dda.dda_next(st, active=need_advance)
+            newly_done = need_advance & (best_t <= t_cross)
+            done = done | newly_done
+            moved = need_advance & ~newly_done
+            cell_lin = dda.linearize_cell_idx(grid, st.cell).clamp(0, last_cell)
+            cursor = torch.where(moved, g.cell_begin[cell_lin], cursor)
+            cur_end = torch.where(moved, g.cell_end[cell_lin], cur_end)
+            walking.append((~done).any())
+        out_t[lanes], out_u[lanes], out_v[lanes], out_i[lanes] = best_t, best_u, best_v, best_i
+        keep = (~done).nonzero()[:, 0]
+        if keep.numel() == 0:
+            # the JAX loop stops after the first iteration that leaves no
+            # ray walking
+            iterations += int(torch.stack(walking).sum()) + 1
+            return TraceResult(out_t, out_u, out_v, out_i, iterations)
+        iterations += GRID_CHECK_EVERY
+        lanes, o, d = lanes[keep], o[keep], d[keep]
+        st = dda.DDAState(*(f[keep] for f in st))
+        ex = None if ex is None else ex[keep]
+        cursor, cur_end = cursor[keep], cur_end[keep]
+        best_t, best_u, best_v, best_i = (x[keep] for x in (best_t, best_u, best_v, best_i))
+        done = done[keep]
+
+
+def _interpolate(per_vertex, u, v):
+    """Barycentric interpolation v0·(1-u-v) + v1·u + v2·v
+    (Triangle.Data.interpolate, src/stage3.zig:53-71); per_vertex (R, 3, C)."""
+    w0 = (1.0 - u - v)[:, None]
+    return per_vertex[:, 0] * w0 + per_vertex[:, 1] * u[:, None] + per_vertex[:, 2] * v[:, None]
+
+
+def shade_and_scatter(scene: TorchScene, orig, direction, t, u, v, tri, streams,
+                      bounce: int):
+    """One shading round of the XLA path (traceRayRecursive's body,
+    src/stage3.zig:188-220): the (R, 32) shade-table gather, the base and
+    emissive textures, the alpha test (tag 2b+1) and the diffuse scatter
+    (Gaussian tag 2b+2).  ``tri`` indexes the unique triangles.  Returns
+    (new_orig, new_dir, emissive, albedo, pass_through, missed, normal),
+    all gated by the caller's alive mask."""
+    missed = t == INF
+    rec = scene.shade_table[tri]  # (R, 32)
+    tri_nrm = rec[:, COL_NRM: COL_NRM + 9].reshape(-1, 3, 3)
+    tri_uv = rec[:, COL_UV: COL_UV + 6].reshape(-1, 3, 2)
+    base_desc = rec[:, COL_BASE_DESC: COL_BASE_DESC + 7]
+    emis_desc = rec[:, COL_EMIS_DESC: COL_EMIS_DESC + 7]
+
+    texcoord = _interpolate(tri_uv, u, v)
+    tc_u, tc_v = texcoord[:, 0], texcoord[:, 1]
+    base = sample_texture(scene.color_data, base_desc, tc_u, tc_v)  # (R, 4)
+    albedo = base[:, :3]
+    opacity = base[:, 3]  # the reference's "transparency" is the base alpha
+    emissive = sample_texture(scene.color_data, emis_desc, tc_u, tc_v)[:, :3]
+    normal = _interpolate(tri_nrm, u, v)
+
+    # stochastic alpha: rand > opacity continues straight through
+    # (src/stage3.zig:207-213); both branches consume a bounce
+    pass_through = uniform(streams, 2 * bounce + 1) > opacity
+    # diffuse bounce: normalize(normal + randomUnitVector)
+    # (src/stage3.zig:214-217, src/linalg.zig:140-148)
+    gauss = normal3(streams, 2 * bounce + 2)
+    scattered = linalg.normalize(normal + linalg.normalize(gauss))
+    new_orig = linalg.ray_at(orig, direction, t + fused.FLT_EPSILON)
+    new_dir = torch.where(pass_through[:, None], direction, scattered)
+    return new_orig, new_dir, emissive, albedo, pass_through, missed, normal
+
+
+def xla_primary_rays(par, width: int, spp: int, slot_base: int, wave_size: int,
+                     seed: int):
+    """The XLA shading path's primary rays of one raster-order wave from
+    pixel ``slot_base`` → (orig (R, 3), direction (R, 3), streams (R,)): the
+    jittered pixel through ``normalize`` of the camera basis (the JAX
+    ``render_wave``'s XLA branch)."""
+    local = torch.arange(wave_size, dtype=torch.int64, device=par.device)
+    streams = ray_streams(seed, slot_base * spp + local)
+    _, x, y = wave_pixel_coords(local, spp, width, slot_base)
+    jx, jy = uniform2_soa(streams, 0)
+    sx, sy = x + jx, y + jy
+    cam = [par[p: p + 3] for p in (fused.PAR_ORIGIN, fused.PAR_LLC, fused.PAR_RIGHT,
+                                     fused.PAR_UP)]
+    direction = linalg.normalize(cam[1] + cam[2] * sx[:, None] + cam[3] * sy[:, None])
+    return cam[0].expand(wave_size, 3), direction, streams
+
+
+def render_wave_xla(scene: TorchScene, par, width: int, spp: int, max_bounce: int,
+                    slot_base: int, wave_size: int, seed: int,
+                    ext: ExtFlags | None = None, plain: bool = False) -> torch.Tensor:
+    """One wave of the XLA shading path (the XLA branch of the JAX
+    ``render_wave``) in raster slot order → rows4 (4, R): radiance and the
+    segment count per ray.  ``ext`` switches the extensions on; ``plain``
+    traces with the twin on any device."""
+    ext = ext or ExtFlags()
+    dev = par.device
+    R = wave_size
+    orig, direction, streams = xla_primary_rays(par, width, spp, slot_base, R, seed)
+    alive = torch.ones(R, dtype=torch.bool, device=dev)
+    segments = torch.zeros(R, dtype=torch.int32, device=dev)
+    radiance = torch.zeros((R, 3), dtype=torch.float32, device=dev)
+    throughput = torch.ones((R, 3), dtype=torch.float32, device=dev)
+    # NEE: an emissive hit counts only when the previous segment was not
+    # sampled directly already (render/extensions.py)
+    count_emissive = torch.ones(R, dtype=torch.bool, device=dev)
+    use_nee = ext.nee and scene.lights is not None
+    prev = None  # each ray's previous hit, in the backend's ids
+    for bounce in range(max_bounce):
+        if ext.russian_roulette:
+            throughput, alive = roulette(throughput, streams, bounce, alive)
+        segments = segments + alive.to(torch.int32)
+        t, u, v, tri, prev = trace_any(scene, orig, direction, alive, exclude=prev,
+                                       plain=plain)
+        new_orig, new_dir, emissive, albedo, pass_through, missed, normal = (
+            shade_and_scatter(scene, orig, direction, t, u, v, tri, streams, bounce))
+        add_env = alive & missed
+        radiance = radiance + torch.where(
+            add_env[:, None], throughput * linalg.env_color(direction), 0.0)
+        shaded = alive & ~missed & ~pass_through
+        add_emis = shaded & count_emissive if use_nee else shaded
+        radiance = radiance + torch.where(add_emis[:, None], throughput * emissive, 0.0)
+        take_spec = None
+        if ext.pbr and scene.ext_mr is not None:
+            spec_or_diff, take_spec = pbr_scatter(scene, tri, direction, normal, new_dir,
+                                                  streams, bounce)
+            new_dir = torch.where(pass_through[:, None], direction, spec_or_diff)
+        if use_nee:
+            nee_lanes = shaded if take_spec is None else shaded & ~take_spec
+            radiance = radiance + sample_direct_light(
+                scene, new_orig, normal, albedo, throughput, streams, bounce, nee_lanes,
+                plain=plain)
+            # the next hit's emissive is counted twice only on NEE'd lanes
+            count_emissive = torch.where(shaded, ~nee_lanes, count_emissive)
+        throughput = torch.where(shaded[:, None], throughput * albedo, throughput)
+        stepped = alive & ~missed
+        orig = torch.where(stepped[:, None], new_orig, orig)
+        direction = torch.where(stepped[:, None], new_dir, direction)
+        alive = stepped
+        del t, u, v, tri, new_orig, new_dir, emissive, albedo, normal
+        # rays alive after the last bounce add nothing: depth exhaustion
+        # returns black (src/stage3.zig:189-191)
+    return torch.cat([radiance.T, segments[None].to(torch.float32)])
+
+
 def render_wave_rows(scene: TorchScene, par, width: int, height: int,
                      spp: int, max_bounce: int, slot_base: int, slot_cap: int,
                      wave_size: int, seed: int, tiles_x: int,
-                     plain: bool = False):
+                     plain: bool = False, ext: ExtFlags | None = None):
     """One wave → (rows3 (3, R) radiance in wave-slot order, segments as a
     0-d int64 tensor).  Rays past ``slot_cap`` contribute exact zeros.
     Whole-path scenes take the slot order ``tiles_x`` gives; per-bounce
-    scenes take raster order (``tiles_x`` = 0).  ``plain`` runs the twins
-    on any device."""
-    if whole_path_regime(scene):
+    and XLA-path waves take raster order (``tiles_x`` = 0).  ``plain``
+    runs the twins on any device; ``ext`` the extensions."""
+    if xla_path(scene, ext):
+        if tiles_x:
+            raise ValueError("tiled slot order requires the whole-path regime")
+        rows4 = render_wave_xla(scene, par, width, spp, max_bounce, slot_base,
+                                wave_size, seed, ext, plain)
+    elif whole_path_regime(scene):
         rows4 = render_wave_whole_path(scene, par, width, height, spp,
                                        max_bounce, slot_base, wave_size, seed,
                                        tiles_x, plain)

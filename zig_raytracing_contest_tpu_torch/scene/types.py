@@ -1,13 +1,29 @@
 """Device-side scene of the renderer.
 
-The port of the parts of ``zig_raytracing_contest_tpu/scene/types.py`` that
-the MXU regimes read, up to MXU_BACKEND_MAX_TRIANGLES: the triangle bake
-with its tile and group heaps (128-triangle tiles for resident scenes,
-``_stream_tile`` past VMEM_RESIDENT_MAX_TRIS), the shade table
-(``build_shade_table``), the packed 24-column record
-(``build_packed_record``, non-tiled texel offsets), the texel bank as
-u16-valued f32 RGBA rows, and the ``emissive_all_dummy`` flag.  A
-``TorchScene`` holds these as tensors on one device.
+The port of ``zig_raytracing_contest_tpu/scene/types.py``.  A
+``TorchScene`` holds, as tensors on one device:
+
+* the MXU bake, up to MXU_BACKEND_MAX_TRIANGLES: the triangle transforms
+  with their tile and group heaps (128-triangle tiles for resident scenes,
+  ``_stream_tile`` past VMEM_RESIDENT_MAX_TRIS), the packed 24-column record
+  (``build_packed_record``, non-tiled texel offsets), the texel bank as
+  u16-valued f32 RGBA rows and the ``emissive_all_dummy`` flag;
+* or, for the grid backend (``backend="grid"``, or ``auto`` past
+  MXU_BACKEND_MAX_TRIANGLES), the uniform grid in place of the bake
+  (``GridScene``: the grid parameters, each cell's ``[begin, end)`` and the
+  per-reference Möller–Trumbore triangles, as the JAX ``DeviceScene``
+  holds them);
+* for every scene, what the XLA shading path reads: the unique-space
+  (T, 32) ``shade_table`` (``build_shade_table``), the f32 (P, 4)
+  ``color_data`` bank, and the extensions' data, the emissive-triangle
+  ``lights`` (render/extensions.LightSet) and the per-triangle (metallic,
+  roughness) ``ext_mr``.
+
+One class serves both backends, with the bake's tensors None on a grid
+scene, because the XLA shading path reads one scene object whatever its
+backend: ``render/wavefront.trace_any`` dispatches on ``tri_data is None``
+as the JAX package's dispatches on ``scene.mxu is None``, and the shade
+table, the bank and the extension data are the same on both.
 
 The JAX package's one-hot (4, Pp) bank, paged corner-expanded bank and
 u16×2-packed bank exist because a TPU has no gather unit.  Here every texel
@@ -24,6 +40,9 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
+from ..grid.builder import GridBuild
+from ..ops.dda import GridParams
+from ..ops.linalg import make_mt_triangles
 from ..ops.mxu_intersect import (
     TRI_TILE,
     TRI_TILE_SMALL,
@@ -34,9 +53,21 @@ from ..ops.mxu_intersect import (
 from .geometry import GeometryArrays
 from .materials import MaterialBank
 
-# Past this many triangles the JAX package's auto backend takes the grid
-# fallback (scene/types.py MXU_BACKEND_MAX_TRIANGLES).
+# Past this many triangles the auto backend takes the grid (the JAX
+# package's MXU_BACKEND_MAX_TRIANGLES).  Read at call time, so a test can
+# lower it.
 MXU_BACKEND_MAX_TRIANGLES = 1 << 24
+
+
+def scene_backend(num_triangles: int, backend: str = "auto") -> str:
+    """The intersection backend a scene of ``num_triangles`` takes: "mxu"
+    or "grid" (``auto``: the MXU bake up to MXU_BACKEND_MAX_TRIANGLES, as
+    the JAX package's ``build_device_scene`` decides)."""
+    if backend not in ("auto", "mxu", "grid"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "auto":
+        return "mxu" if num_triangles <= MXU_BACKEND_MAX_TRIANGLES else "grid"
+    return backend
 
 # Streaming bakes keep at most this many tiles: bigger scenes double the
 # tile instead (scene/types.py STREAM_MAX_TILES, _stream_tile).  Read at
@@ -184,8 +215,82 @@ def emissive_all_dummy(materials: MaterialBank) -> bool:
 
 
 @dataclass
+class GridScene:
+    """The grid backend's tensors (the JAX ``DeviceScene``'s grid side).
+
+    params      GridParams of the grid (box, resolution, cell size)
+    cell_begin / cell_end  (C,) int64 — each cell's range of references,
+                C = rx·ry·rz cells, x-fastest, z-major
+    tri_v0 / tri_e1 / tri_e2  (D + 1, 3) f32 — Möller–Trumbore triangles,
+                one per (cell, triangle) reference in cell order, padded
+                by one unreachable row so D is never 0
+    dup_to_tri  (D + 1,) int64 — each reference's unique triangle id
+    """
+
+    params: GridParams
+    cell_begin: torch.Tensor
+    cell_end: torch.Tensor
+    tri_v0: torch.Tensor
+    tri_e1: torch.Tensor
+    tri_e2: torch.Tensor
+    dup_to_tri: torch.Tensor
+
+    def to(self, device) -> "GridScene":
+        return GridScene(*(v.to(device) for v in (
+            self.params, self.cell_begin, self.cell_end, self.tri_v0, self.tri_e1,
+            self.tri_e2, self.dup_to_tri)))
+
+    @property
+    def num_refs(self) -> int:
+        """D: the duplicated references, without the pad row."""
+        return self.dup_to_tri.shape[0] - 1
+
+    @property
+    def num_cells(self) -> int:
+        return self.cell_begin.shape[0]
+
+
+def grid_scene(grid: GridBuild, positions: np.ndarray) -> GridScene:
+    """A host grid build → GridScene (CPU tensors); positions (T, 3, 3)."""
+    dup = grid.dup_to_tri.astype(np.int64)
+    p = np.asarray(positions, np.float32)[dup]  # (D, 3, 3)
+
+    def pad1(a):
+        return np.concatenate([a, np.zeros((1,) + a.shape[1:], a.dtype)], axis=0)
+
+    def f32(a):
+        return torch.from_numpy(np.ascontiguousarray(pad1(a), np.float32))
+
+    v0, e1, e2 = make_mt_triangles(p[:, 0], p[:, 1], p[:, 2])
+    return GridScene(
+        params=GridParams(
+            torch.from_numpy(np.asarray(grid.bbox_min, np.float32)),
+            torch.from_numpy(np.asarray(grid.bbox_max, np.float32)),
+            torch.from_numpy(np.asarray(grid.resolution, np.int64)),
+            torch.from_numpy(np.asarray(grid.cell_size, np.float32)),
+        ),
+        cell_begin=torch.from_numpy(grid.cell_begin.astype(np.int64)),
+        cell_end=torch.from_numpy(grid.cell_end.astype(np.int64)),
+        tri_v0=f32(v0),
+        tri_e1=f32(e1),
+        tri_e2=f32(e2),
+        dup_to_tri=torch.from_numpy(pad1(dup)),
+    )
+
+
+def ext_mr_table(geometry: GeometryArrays, materials: MaterialBank):
+    """(T, 2) f32 (metallic, roughness) per unique triangle, or None."""
+    if materials.mat_metallic is None or geometry.num_triangles == 0:
+        return None
+    return np.stack([materials.mat_metallic[geometry.material_idx],
+                     materials.mat_roughness[geometry.material_idx]],
+                    axis=-1).astype(np.float32)
+
+
+@dataclass
 class TorchScene:
-    """The renderer's scene, as tensors on one device.
+    """The renderer's scene, as tensors on one device.  The bake's fields
+    (tri_data to bank) are None on a grid scene.
 
     tri_data   (16, Tp) f32 — transform bank in Morton order (rows 0-12)
     tile_bbox  (6, nt) f32 — per-real-tile boxes, the flat loop's bounds
@@ -204,6 +309,11 @@ class TorchScene:
     bank_resident   the JAX package would bake a resident (one-hot or
                     paged) bank, so the whole path may take the scene
                     (static); else its shade is the 3-stage one
+    grid       GridScene of the grid backend, or None
+    shade_table (T, 32) f32 — the XLA shading path's records, unique order
+    color_data  (P, 4) f32 — the XLA shading path's dequantized texel bank
+    lights     LightSet of the emissive triangles (NEE), or None
+    ext_mr     (T, 2) f32 — (metallic, roughness) per triangle (pbr), or None
     """
 
     tri_data: torch.Tensor
@@ -220,10 +330,15 @@ class TorchScene:
     emissive_dummy: bool
     group_tiles: int
     bank_resident: bool
+    grid: GridScene | None = None
+    shade_table: torch.Tensor | None = None
+    color_data: torch.Tensor | None = None
+    lights: object | None = None
+    ext_mr: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
-        return self.tri_data.device
+        return self.bbox_min.device
 
     def to(self, device) -> "TorchScene":
         device = torch.device(device)
@@ -235,7 +350,7 @@ class TorchScene:
         kw = {}
         for f in fields(self):
             v = getattr(self, f.name)
-            kw[f.name] = v.to(device) if isinstance(v, torch.Tensor) else v
+            kw[f.name] = v if v is None or isinstance(v, (int, bool)) else v.to(device)
         return TorchScene(**kw)
 
     def kernel_operands(self):
@@ -261,21 +376,14 @@ def bake_tile(num_triangles: int) -> int:
     return _stream_tile(num_triangles)
 
 
-def bake_scene_triangles(geometry: GeometryArrays, backend: str = "auto") -> MXUTriangles:
+def bake_scene_triangles(geometry: GeometryArrays) -> MXUTriangles:
     """The JAX package's triangle bake: 128-triangle tiles while the raw
     count is within VMEM_RESIDENT_MAX_TRIS, else ``_stream_tile`` (256·2^k,
     at most STREAM_MAX_TILES tiles).  The kernels decide streaming on the
     padded count (ops/mxu_intersect.trace_emit_aux)."""
-    T = geometry.num_triangles
-    if backend != "mxu" and T > MXU_BACKEND_MAX_TRIANGLES:
-        raise NotImplementedError(
-            f"{T} triangles exceed MXU_BACKEND_MAX_TRIANGLES = "
-            f"{MXU_BACKEND_MAX_TRIANGLES}: the grid/DDA fallback is ROADMAP "
-            f"queue 1 item 11"
-        )
     pos = geometry.positions
     return bake_triangles(pos[:, 0], pos[:, 1] - pos[:, 0], pos[:, 2] - pos[:, 0],
-                          tile=bake_tile(T))
+                          tile=bake_tile(geometry.num_triangles))
 
 
 def build_torch_scene(
@@ -284,16 +392,35 @@ def build_torch_scene(
     bbox: tuple[np.ndarray, np.ndarray],
     device="cuda",
     backend: str = "auto",
+    grid: GridBuild | None = None,
 ) -> TorchScene:
-    """Host bake → TorchScene on ``device`` (the CPU only when asked)."""
-    if backend not in ("auto", "mxu", "grid"):
-        raise ValueError(f"unknown backend {backend!r}")
-    if backend == "grid":
-        raise NotImplementedError(
-            "backend='grid' (grid/DDA fallback) is ROADMAP queue 1 item 11"
-        )
-    mxu = bake_scene_triangles(geometry, backend)
-    record = build_packed_record(build_shade_table(geometry, materials))
+    """Host bake → TorchScene on ``device`` (the CPU only when asked).
+
+    ``backend`` as ``scene_backend``; the grid backend needs ``grid``, the
+    host build of the scene's grid (``grid.builder.build_grid``)."""
+    from ..render.extensions import build_light_set
+
+    shade_np = build_shade_table(geometry, materials)
+    mr = ext_mr_table(geometry, materials)
+    common = dict(
+        bbox_min=torch.from_numpy(np.asarray(bbox[0], np.float32)),
+        bbox_max=torch.from_numpy(np.asarray(bbox[1], np.float32)),
+        shade_table=torch.from_numpy(shade_np),
+        color_data=torch.from_numpy(np.asarray(materials.color_data, np.float32)),
+        lights=build_light_set(geometry, materials),
+        ext_mr=None if mr is None else torch.from_numpy(mr),
+    )
+    if scene_backend(geometry.num_triangles, backend) == "grid":
+        if grid is None:
+            raise ValueError("the grid backend needs the scene's grid (build_grid)")
+        return TorchScene(
+            tri_data=None, tile_bbox=None, tree_bbox=None, group_bbox=None,
+            group_tree_bbox=None, perm=None, rec_table=None, bank=None, tile=0,
+            emissive_dummy=False, group_tiles=0, bank_resident=False,
+            grid=grid_scene(grid, geometry.positions), **common,
+        ).to(device)
+    mxu = bake_scene_triangles(geometry)
+    record = build_packed_record(shade_np)
     return TorchScene(
         tri_data=torch.from_numpy(mxu.tri_data),
         tile_bbox=torch.from_numpy(mxu.tile_bbox),
@@ -303,13 +430,12 @@ def build_torch_scene(
         perm=torch.from_numpy(mxu.perm.astype(np.int64)),
         rec_table=torch.from_numpy(np.ascontiguousarray(record[mxu.perm].T)),
         bank=torch.from_numpy(materials.color_u16.astype(np.float32)),
-        bbox_min=torch.from_numpy(np.asarray(bbox[0], np.float32)),
-        bbox_max=torch.from_numpy(np.asarray(bbox[1], np.float32)),
         tile=mxu.tile,
         emissive_dummy=emissive_all_dummy(materials),
         group_tiles=mxu.group_tiles,
         bank_resident=bank_is_resident(materials.color_u16.shape[0],
                                        materials.color_desc),
+        **common,
     ).to(device)
 
 
@@ -343,16 +469,22 @@ def from_jax_scene(arrays: dict, device="cuda") -> TorchScene:
     """TorchScene on ``device`` (the CPU only when asked) from a JAX
     ``DeviceScene``'s arrays taken as NumPy.
 
-    Keys: ``mxu.tri_data``, ``mxu.tile_bbox``, ``mxu.tree_bbox``,
-    ``mxu.group_bbox``, ``mxu.group_tree_bbox``, ``mxu.perm``, ``mxu.tile``,
-    ``mxu.group_tiles``, ``shade_table_t``, ``color_u16f_t`` (the (4, P)
-    one-hot bank cut back to its P real texels, or None past
-    ONEHOT_MAX_TEXELS), ``color_packed_t`` (the (2, P) u16×2-packed bank),
-    ``tiled_layout`` (bool: the bake chose the tiled page layout),
-    ``color_desc`` (the materials' (T, 7) texture descriptors; read only
-    with ``tiled_layout``), ``grid.bbox_min``, ``grid.bbox_max`` and
-    ``emissive_all_dummy`` (bool).  Both packages then trace and shade
-    identical state.
+    The MXU bake's keys: ``mxu.tri_data``, ``mxu.tile_bbox``,
+    ``mxu.tree_bbox``, ``mxu.group_bbox``, ``mxu.group_tree_bbox``,
+    ``mxu.perm``, ``mxu.tile``, ``mxu.group_tiles``, ``shade_table_t``,
+    ``color_u16f_t`` (the (4, P) one-hot bank cut back to its P real
+    texels, or None past ONEHOT_MAX_TEXELS), ``color_packed_t`` (the (2, P)
+    u16×2-packed bank), ``tiled_layout`` (bool: the bake chose the tiled
+    page layout), ``color_desc`` (the materials' (T, 7) texture
+    descriptors; read only with ``tiled_layout``) and
+    ``emissive_all_dummy`` (bool).  Without ``mxu.tri_data`` the scene is a
+    grid scene (the JAX scene's ``mxu`` is None).  Always:
+    ``grid.bbox_min`` and ``grid.bbox_max``.  Optional: the grid,
+    ``grid.resolution``, ``grid.cell_size``, ``cell_begin``, ``cell_end``,
+    ``tri_v0``, ``tri_e1``, ``tri_e2`` and ``dup_to_tri`` (required for a
+    grid scene); the XLA shading path's ``shade_table`` and ``color_data``;
+    the extensions' ``ext_mr`` and ``lights`` (a dict of the LightSet's
+    fields, or None).  Both packages then trace and shade identical state.
 
     The bank is the one-hot bank when there is one, else the unpacked
     u16×2 bank.  A paged bake (``tiled_layout``) keeps its packed bank and
@@ -360,9 +492,48 @@ def from_jax_scene(arrays: dict, device="cuda") -> TorchScene:
     is mapped back to row-major (``tiled_texel_map``) for the bank, and
     each record's base and emissive offsets from their texture's tiled
     base to its row-major one.  A one-hot or paged bank is resident."""
+    from ..render.extensions import LightSet
+
     def f32(key):
         return torch.from_numpy(np.array(arrays[key], np.float32))
 
+    def opt(key, dtype=np.float32):
+        v = arrays.get(key)
+        return None if v is None else torch.from_numpy(np.array(v, dtype))
+
+    grid = None
+    if arrays.get("cell_begin") is not None:
+        grid = GridScene(
+            params=GridParams(f32("grid.bbox_min"), f32("grid.bbox_max"),
+                              opt("grid.resolution", np.int64), f32("grid.cell_size")),
+            cell_begin=opt("cell_begin", np.int64),
+            cell_end=opt("cell_end", np.int64),
+            tri_v0=f32("tri_v0"),
+            tri_e1=f32("tri_e1"),
+            tri_e2=f32("tri_e2"),
+            dup_to_tri=opt("dup_to_tri", np.int64),
+        )
+    lights = arrays.get("lights")
+    common = dict(
+        bbox_min=f32("grid.bbox_min"),
+        bbox_max=f32("grid.bbox_max"),
+        grid=grid,
+        shade_table=opt("shade_table"),
+        color_data=opt("color_data"),
+        lights=None if lights is None else LightSet(
+            tri=torch.from_numpy(np.array(lights["tri"], np.int64)),
+            **{k: torch.from_numpy(np.array(lights[k], np.float32))
+               for k in LightSet._fields if k != "tri"}),
+        ext_mr=opt("ext_mr"),
+    )
+    if arrays.get("mxu.tri_data") is None:
+        if grid is None:
+            raise ValueError("a scene without the MXU bake needs the grid's arrays")
+        return TorchScene(
+            tri_data=None, tile_bbox=None, tree_bbox=None, group_bbox=None,
+            group_tree_bbox=None, perm=None, rec_table=None, bank=None, tile=0,
+            emissive_dummy=False, group_tiles=0, bank_resident=False, **common,
+        ).to(device)
     onehot = arrays.get("color_u16f_t")
     tiled = bool(arrays.get("tiled_layout"))
     rec = np.array(arrays["shade_table_t"], np.float32)
@@ -385,10 +556,9 @@ def from_jax_scene(arrays: dict, device="cuda") -> TorchScene:
         perm=torch.from_numpy(np.array(arrays["mxu.perm"], np.int64)),
         rec_table=torch.from_numpy(rec),
         bank=torch.from_numpy(bank),
-        bbox_min=f32("grid.bbox_min"),
-        bbox_max=f32("grid.bbox_max"),
         tile=int(arrays["mxu.tile"]),
         emissive_dummy=bool(arrays["emissive_all_dummy"]),
         group_tiles=int(arrays["mxu.group_tiles"]),
         bank_resident=onehot is not None or tiled,
+        **common,
     ).to(device)
