@@ -89,17 +89,22 @@ i. the probe kernels: texel_fetch_kernel against its plain version on the
 
 then the trace micro-benchmarks:
 
-j. trace_emit_kernel's tile-heap walk against the flat loop lane by lane on
-   the side-90 terrain's bounce-0 wave (pixel tile 920, 522,240 rays): each
-   differing lane's two winners recomputed alone, and a failure unless
-   every one is a tie at equal t; then micro_trace_kernel (18 variants),
-   micro_bf16_kernel (f32 and bf16 at 16,384 and 65,536 iterations) and
-   probe_gather_kernel (two forms at reps 1, 64, 512) against their plain
-   versions, bit for bit, through the probes' own checks with the launch
-   counts; every variant timed (the micro_trace ones beside
-   trace_emit_aux on the same bank and rays; the bf16 sweep's slope per
-   sweep and its error against f32; the gather's slope per pair beside
-   two torch.gather calls) and the gather kernels' SASS instructions counted.
+j. the ptxas lines of micro_trace_kernel and micro_bf16_kernel (a spill
+   fails the run); trace_emit_kernel's tile-heap walk against the flat
+   loop lane by lane on the side-90 terrain's bounce-0 wave (pixel tile
+   920, 522,240 rays): each differing lane's two winners recomputed alone,
+   and a failure unless every one is a tie at equal t; then
+   micro_trace_kernel (18 variants), micro_bf16_kernel (f32 and bf16 at
+   16,384 and 65,536 iterations) and probe_gather_kernel (two forms at
+   reps 1, 64, 512) against their plain versions, bit for bit, through the
+   probes' own checks with the launch counts, then the first two on the
+   staged test's boundary cases; every variant timed (the micro_trace ones
+   beside trace_emit_aux on the same bank and rays; the bf16 sweep's slope
+   per sweep and its error against f32; the gather's slope per pair beside
+   two torch.gather calls), the pairs each stage of the staged test takes
+   (micro_trace_staged_ref, micro_bf16_staged_ref) with the bound they
+   give beside the full-test bound, and the gather kernels' SASS
+   instructions counted.
 
 then the XLA shading path, which a grid scene and the extensions take:
 
@@ -208,6 +213,14 @@ PEAK_I32_OPS = 33.5e12
 # a box (6 subtractions, 6 products, 12 min/max), one ray generation, one
 # surface shade (interpolation, texel indices and filter, scatter, update).
 OPS_TRI, OPS_BOX, OPS_GEN, OPS_SHADE = 42, 24, 30, 170
+# The staged test of the probes.cu trace micro-benchmarks, in the same f32
+# operations: stage 1 (dw, ow, det) for every swept pair, and micro_trace's
+# test against the running best one product more; stage 2 (ou, ov, du,
+# dv, t, u, v, u + v) for the pairs stage 1 passes on; OPS_STAGE1 +
+# OPS_STAGE2 = OPS_TRI.  micro_bf16's working type takes 11 of stage 1's
+# and 22 of stage 2's (the transforms).
+OPS_STAGE1, OPS_PRUNE, OPS_STAGE2 = 13, 1, 29
+BF_STAGE1, BF_STAGE2 = 11, 22
 # f32 operations of one beam-sort key (emit_sort_key: the exit slab test
 # and the two quantizations per axis; its integer bit interleave is not
 # counted)
@@ -383,11 +396,11 @@ def profile_frame(render_scene, scene, cam, cfg, card) -> None:
 
 def ptxas_report(names) -> list:
     """nvcc -Xptxas=-v lines (registers, stack, spills) of the kernels whose
-    mangled names contain one of ``names``, from this run's builds."""
+    mangled names contain one of ``names``, from the builds' reports."""
     from zig_raytracing_contest_tpu_torch import kernels
 
     out, cur = [], None
-    for line in "".join(b["log"] for b in kernels.BUILD_INFO.values()).splitlines():
+    for line in "".join(kernels.build_log(name) for name in kernels.SOURCES).splitlines():
         if "Compiling entry function" in line:
             cur = next((n for n in names if n in line), None)
         elif cur and ("registers" in line or "spill" in line):
@@ -395,15 +408,23 @@ def ptxas_report(names) -> list:
     return out
 
 
-def whole_path_ptxas() -> None:
-    """The whole-path kernels' ptxas lines; a spill fails the run."""
+def ptxas_no_spill(names, what: str) -> None:
+    """The ptxas lines of the kernels ``names``; a spill fails the run."""
     import re
 
-    for line in ptxas_report(("path_trace_gen_kernel", "path_trace_kernel")):
+    lines = ptxas_report(names)
+    if not lines:
+        fail(f"no ptxas report of {what}: its spills cannot be checked")
+    for line in lines:
         print("  " + line)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill and spill.groups() != ("0", "0"):
-            fail(f"a whole-path kernel spills: {line}")
+            fail(f"{what} spills: {line}")
+
+
+def whole_path_ptxas() -> None:
+    """The whole-path kernels' ptxas lines; a spill fails the run."""
+    ptxas_no_spill(("path_trace_gen_kernel", "path_trace_kernel"), "a whole-path kernel")
 
 
 def occupancy(what, scene, waves) -> None:
@@ -1125,7 +1146,9 @@ def trace_probe_phases(card, timing, errs, bounds, launches, library) -> None:
 
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    for line in ptxas_report(PROBE_KERNELS):
+    # the staged kernels' lines: a spill fails the run
+    ptxas_no_spill(("micro_trace_kernel", "micro_bf16_kernel"), "a staged probe kernel")
+    for line in ptxas_report(("probe_gather_kernel",)):
         print("  " + line)
     # trace_emit_kernel (the walk) against nearest_hit_ref (the flat loop)
     # on the side-90 terrain's bounce-0 wave from pixel tile 920
@@ -1164,12 +1187,28 @@ def trace_probe_phases(card, timing, errs, bounds, launches, library) -> None:
     if any(got[entry] != n for entry, n in want.items()):
         fail(f"trace probe launches {got}, expected {want}")
     launches.update({entry: got[entry] for entry in want})
+    # the staged test's boundary cases (after the counts are read)
+    edge_t = micro_trace.boundary_checks(dev)
+    edge_b = micro_bf16.boundary_checks(dev)
+    torch.cuda.synchronize()
+    print(f"  micro_trace boundary cases: {sum(r[2] for r in edge_t)} lanes differ, "
+          f"{sum(r[3] for r in edge_t)} tied, over {len(edge_t)} variants of "
+          f"{edge_t[0][1]} rays; micro_bf16: {sum(r[2] for r in edge_b)} lanes differ over "
+          f"{len(edge_b)} runs of {edge_b[0][1]} lanes")
+    for label, n, bad, *tied in edge_t + edge_b:
+        if bad or any(tied):
+            print(f"    {label}: {bad} of {n} lanes differ, {tied} tied")
+    if any(r[2] or r[3] for r in edge_t) or any(r[2] for r in edge_b):
+        fail("a staged probe kernel disagrees with its plain version on the boundary cases")
 
     # micro_trace: every variant beside the yardstick; the entries at u/v
-    # on and 256 threads.  Bound: R rays x 1024 triangle tests without a
-    # cull; with one, the tiles the lane cull lets each ray sweep x 256
-    # tests plus one box test per ray and tile; bytes: 8 state floats in,
-    # 9 out per ray, the 13 bank rows and the boxes once.
+    # on and 256 threads.  Bound (the staged test): stage 1 for the pairs
+    # the variant's cull sweeps, stage 2 for the pairs stage 1 passes on
+    # (both counted by micro_trace_staged_ref on these rays), one box test
+    # per live ray and tile with a cull; bytes: 8 state floats in, 9 out
+    # per ray, the 13 bank rows and the boxes once.  Beside it the full-test
+    # bound: 42 operations for every pair the lane cull sweeps (R x
+    # 1024 without a cull), and the box tests.
     tm = micro_trace.time_variants(dev)
     R, ms = tm["rays"], tm["ms"]
     for key, k_ms in ms.items():
@@ -1177,38 +1216,67 @@ def trace_probe_phases(card, timing, errs, bounds, launches, library) -> None:
     nbytes = R * (8 + 9) * 4 + 13 * 2048 * 4 + 6 * 4 * 4
     errs_t = {cull: max(r[4] for r in trace if f"cull={cull} " in r[0])
               for cull in micro_trace.CULLS}
+    tris = micro_trace.make_bank(0)
+    tri = torch.from_numpy(tris.tri_data).to(dev)
+    bbox = torch.from_numpy(tris.tile_bbox).to(dev)
+    state = torch.from_numpy(micro_trace.make_state(1)).to(dev)
     for cull in micro_trace.CULLS:
         entry = f"micro_trace_{cull}"
-        ops = (R * micro_trace.T * OPS_TRI if cull == "none" else
-               tm["tiles_swept"] * micro_trace.TILE * OPS_TRI + tm["boxes"] * OPS_BOX)
+        _, n = micro_trace.micro_trace_staged_ref(tri, bbox, tris.tile, state, True, cull)
+        boxes = 0 if cull == "none" else n["boxes"]
+        ops = n["swept"] * (OPS_STAGE1 + OPS_PRUNE) + n["stage2"] * OPS_STAGE2 + boxes * OPS_BOX
+        old_ops = (R * micro_trace.T * OPS_TRI if cull == "none" else
+                   tm["tiles_swept"] * micro_trace.TILE * OPS_TRI + tm["boxes"] * OPS_BOX)
         bounds[entry] = bound(ops, nbytes)
         timing[entry] = (ms[True, cull, 256], ms["plain", cull], R, R)
         errs[entry] = errs_t[cull]
+        print(f"  {entry}: pairs swept {n['swept']} ({n['swept'] / (R * micro_trace.T):.4f} "
+              f"of R x 1024), stage 2 {n['stage2']} ({n['stage2'] / n['swept']:.4f} of the "
+              f"swept), hits {n['hits']}; box tests {boxes}")
         print(f"  {entry}: kernel {timing[entry][0]:.4f} ms (u/v, 256 threads), plain "
               f"{timing[entry][1]:.3f} ms, bound {bounds[entry][0]:.4f} ms "
-              f"({bounds[entry][1]}); trace_emit_aux {ms['trace_emit_aux']:.4f} ms ({card})")
+              f"({bounds[entry][1]}; full-test bound {bound(old_ops, nbytes)[0]:.4f} ms); "
+              f"trace_emit_aux {ms['trace_emit_aux']:.4f} ms ({card})")
     print(f"  micro_trace lane cull: {tm['tiles_swept'] / R:.3f} tiles swept per ray of 4")
+    sb = micro_trace.survivor_balance(tri[:, :micro_trace.T], state)
+    print(f"  micro_trace stage 1 survivors (no best): {sb['share']:.4f} of the pairs; stage-2 "
+          f"rounds a triangle: each lane its own survivors {sb['lane']:.4f} (64-triangle "
+          f"blocks), each lane a triangle's {sb['triangle']:.4f}, full warps {sb['full']:.4f}")
 
     # micro_bf16: the slope per (128 x 512) sweep; entries at ITERS_HI.
-    # Bound per sweep: 65,536 tests of 30 transform operations in the
-    # working type and a 12-operation f32 tail.  The plain version computes
-    # the same output by sweeping the 64 distinct tiles once (a min is
-    # idempotent): its ms is that of 64 sweeps, not of ITERS_HI.
+    # Bound (the staged test, counted by micro_bf16_staged_ref over the
+    # ITERS_HI sweeps): stage 1 for every pair, 11 of its 13 operations in
+    # the working type; stage 2 for the pairs stage 1 passes on, 22 of its
+    # 29.  Beside it the full-test bound: 65,536 tests a sweep of 30
+    # transform operations in the working type and a 12-operation f32 tail.
+    # The plain version computes the same output by sweeping the 64
+    # distinct tiles once (a min is idempotent): its ms is that of 64
+    # sweeps, not of ITERS_HI.
     sw = micro_bf16.time_sweeps(dev)
     tests = micro_bf16.K * micro_bf16.LB
     lo, hi = micro_bf16.ITERS_LO, micro_bf16.ITERS_HI
     nbytes = 13 * micro_bf16.NT * micro_bf16.K * 4 + micro_bf16.LB * (6 * 4 + 4)
-    for name, entry, rate in (("float32", "micro_bf16_f32", PEAK_F32_FLOPS),
-                              ("bfloat16", "micro_bf16_bf16", PEAK_BF16_FLOPS)):
+    bank, states = micro_bf16.device_inputs(dev)
+    for name, entry, dt, rate in (
+            ("float32", "micro_bf16_f32", torch.float32, PEAK_F32_FLOPS),
+            ("bfloat16", "micro_bf16_bf16", torch.bfloat16, PEAK_BF16_FLOPS)):
         r = sw[name]
-        per_sweep = tests * (30 * PEAK_F32_FLOPS / rate + 12)  # in f32 operations
-        bounds[entry] = bound(hi * per_sweep, nbytes)
+        _, n = micro_bf16.micro_bf16_staged_ref(bank, states[dt], hi)
+        w = PEAK_F32_FLOPS / rate  # a working-type operation, in f32 operations
+        ops = (n["swept"] * (BF_STAGE1 * w + OPS_STAGE1 - BF_STAGE1)
+               + n["stage2"] * (BF_STAGE2 * w + OPS_STAGE2 - BF_STAGE2))
+        per_sweep = tests * (30 * w + 12)  # the full test, in f32 operations
+        bounds[entry] = bound(ops, nbytes)
         timing[entry] = (r["ms"][hi], r["plain_ms"], micro_bf16.LB, micro_bf16.LB)
         errs[entry] = 0.0
+        print(f"  micro_bf16 {name}: pairs {n['swept']}, stage 2 {n['stage2']} "
+              f"({n['stage2'] / n['swept']:.4f}), hits {n['hits']} over {hi} sweeps")
         print(f"  micro_bf16 {name}: t({lo}) {r['ms'][lo]:.4f} ms, t({hi}) "
               f"{r['ms'][hi]:.4f} ms -> {r['us_per_sweep']:.6f} us per (128x512) sweep, "
-              f"bound {per_sweep / PEAK_F32_FLOPS * 1e6:.6f} us per sweep, "
-              f"{bounds[entry][0]:.4f} ms at {hi}; plain {r['plain_ms']:.3f} ms (64 "
+              f"bound {bounds[entry][0] / hi * 1e3:.6f} us per sweep, "
+              f"{bounds[entry][0]:.4f} ms at {hi} (full-test bound "
+              f"{per_sweep / PEAK_F32_FLOPS * 1e6:.6f} us per sweep, "
+              f"{bound(hi * per_sweep, nbytes)[0]:.4f} ms); plain {r['plain_ms']:.3f} ms (64 "
               f"sweeps, {r['plain_us_per_sweep']:.3f} us each) ({card})")
     rel, flips = sw["bf16_error"]
     print(f"  micro_bf16 bf16 best t against f32: max relative error {rel:.3e} where both "

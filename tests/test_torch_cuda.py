@@ -254,6 +254,24 @@ def test_trace_probe_kernels_match_plain_on_cuda():
 
 
 @pytest.mark.cuda
+def test_staged_probe_kernels_on_boundary_cases_on_cuda():
+    """micro_trace_kernel in its 18 variants and micro_bf16_kernel in f32
+    and bf16 on the staged test's boundary cases (ow = ±0, ow of dw's sign,
+    det at 1e-8, t a few ulps either side of the best, subnormal and
+    overflowing products bt·|dw|, NaN rows; probes/micro_trace.py
+    ``boundary_inputs``), bit for bit equal to their plain versions, no
+    tie between the winners."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    from zig_raytracing_contest_tpu_torch.probes import micro_bf16, micro_trace
+
+    trace = micro_trace.boundary_checks("cuda")
+    assert len(trace) == 18 and all(bad == tied == 0 for _, _, bad, tied in trace), trace
+    sweeps = micro_bf16.boundary_checks("cuda")
+    assert len(sweeps) == 4 and all(bad == 0 for _, _, bad in sweeps), sweeps
+
+
+@pytest.mark.cuda
 def test_tile_heap_walk_matches_flat_loop_on_cuda():
     """trace_emit_kernel's walk of the tile heap against the flat loop on
     the whole-path frame's bounce-0 wave of the side-90 terrain (127 tiles,

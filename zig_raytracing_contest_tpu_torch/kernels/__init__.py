@@ -148,9 +148,10 @@ def build(name: str, src: Path | None = None, build_dir: Path = BUILD_DIR) -> Pa
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
                            f"{proc.stderr}")
+    log = proc.stdout + proc.stderr
+    _log_path(out).write_text(log)
     os.replace(tmp, out)
-    BUILD_INFO[key] = {"seconds": time.perf_counter() - t0,
-                       "log": proc.stdout + proc.stderr}
+    BUILD_INFO[key] = {"seconds": time.perf_counter() - t0, "log": log}
     return out
 
 
@@ -158,10 +159,22 @@ def _build_key(name: str, src) -> str:
     return name if src is None else f"{name} {Path(src)}"
 
 
-def build_log(name: str, src: Path | None = None) -> str:
-    """The nvcc report of this process's build of ``name`` (or of the file
-    ``src``), empty if this process did not build it."""
-    return BUILD_INFO.get(_build_key(name, src), {}).get("log", "")
+def _log_path(lib: Path) -> Path:
+    """Where a library's nvcc report is kept, beside it."""
+    return lib.with_name(lib.name + ".log")
+
+
+def build_log(name: str, src: Path | None = None, build_dir: Path = BUILD_DIR) -> str:
+    """The nvcc report (ptxas registers / spills per kernel) of the build of
+    ``name`` (or of the file ``src``, built into ``build_dir``): this
+    process's, else the one kept beside the library; empty if it was never
+    built."""
+    info = BUILD_INFO.get(_build_key(name, src))
+    if info:
+        return info["log"]
+    src = SOURCES[name] if src is None else Path(src)
+    log = _log_path(library_path(name, src, build_dir))
+    return log.read_text() if log.exists() else ""
 
 
 def _bind_trace(lib) -> None:
@@ -221,22 +234,39 @@ def load():
         return _libs["path_trace"]
 
 
+def _bind_micro(lib) -> None:
+    """Bind the entry points of probes.cu that another build of it is
+    compared on: the two trace micro-benchmarks."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.zrc_micro_trace.restype = i32
+    lib.zrc_micro_trace.argtypes = [
+        ptr, i32, ptr, i32, i32, ptr, i32, i32, i32, ptr, ptr, i32, i32, ptr,
+    ]
+    lib.zrc_micro_bf16.restype = i32
+    lib.zrc_micro_bf16.argtypes = [ptr, i32, ptr, i32, i32, i32, ptr, i32, ptr]
+    lib.zrc_probes_error_string.restype = ctypes.c_char_p
+    lib.zrc_probes_error_string.argtypes = [i32]
+
+
+def load_probes_library(src: Path, build_dir: Path):
+    """Another build of a probes.cu whose ``zrc_micro_trace`` and
+    ``zrc_micro_bf16`` take the same arguments (an earlier commit's, to
+    compare with): built into ``build_dir`` and loaded, for the ``lib``
+    argument of ``launch_micro_trace`` and ``launch_micro_bf16``."""
+    lib = ctypes.CDLL(str(build("probes_other", Path(src), Path(build_dir))))
+    _bind_micro(lib)
+    return lib
+
+
 def load_probes():
     """The loaded library of probes.cu (built at first call)."""
     with _lock:
         if "probes" not in _libs:
             lib = ctypes.CDLL(str(build("probes")))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.zrc_micro_trace.restype = i32
-            lib.zrc_micro_trace.argtypes = [
-                ptr, i32, ptr, i32, i32, ptr, i32, i32, i32, ptr, ptr, i32, i32, ptr,
-            ]
-            lib.zrc_micro_bf16.restype = i32
-            lib.zrc_micro_bf16.argtypes = [ptr, i32, ptr, i32, i32, i32, ptr, i32, ptr]
+            _bind_micro(lib)
             lib.zrc_probe_gather.restype = i32
             lib.zrc_probe_gather.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr, i32, ptr]
-            lib.zrc_probes_error_string.restype = ctypes.c_char_p
-            lib.zrc_probes_error_string.argtypes = [i32]
             _libs["probes"] = lib
         return _libs["probes"]
 
@@ -476,13 +506,15 @@ PROBE_GATHER_FORMS = ("smem", "shfl")
 
 
 def launch_micro_trace(tri_data, tile_bbox, tile: int, state, cull: str,
-                       extract_uv: bool, threads: int, aux_out, idx_out) -> None:
+                       extract_uv: bool, threads: int, aux_out, idx_out, lib=None) -> None:
     """Launch micro_trace_kernel: the nearest hit of every column of
     ``state`` (16, R) over the flat loop of the field-major (16, Tp)
     ``tri_data`` in tiles of ``tile`` with boxes ``tile_bbox`` (6, nt), into
     ``aux_out`` (8, R) and ``idx_out`` (1, R) int32; ``cull`` one of
-    MICRO_TRACE_CULLS, ``threads`` per block 128, 256 or 512."""
-    lib = load_probes()
+    MICRO_TRACE_CULLS, ``threads`` per block 128, 256 or 512; from ``lib``
+    (``load_probes_library``, not counted) when given."""
+    counted = lib is None
+    lib = load_probes() if lib is None else lib
     dev = state.device
     R, tp, nt = state.shape[1], tri_data.shape[1], tile_bbox.shape[1]
     _check(tri_data, "tri_data", torch.float32, (16, tp), dev)
@@ -502,18 +534,20 @@ def launch_micro_trace(tri_data, tile_bbox, tile: int, state, cull: str,
         tri_data.data_ptr(), tp, tile_bbox.data_ptr(), nt, tile, state.data_ptr(),
         MICRO_TRACE_CULLS.index(cull), int(extract_uv), threads, aux_out.data_ptr(),
         idx_out.data_ptr(), R, dev.index or 0, stream)
-    if _launched(err, lib.zrc_probes_error_string, "micro_trace_kernel"):
+    if _launched(err, lib.zrc_probes_error_string, "micro_trace_kernel") and counted:
         LAUNCHES[f"micro_trace_{cull}"] += 1
 
 
-def launch_micro_bf16(bank, state, iters: int, best_out) -> None:
+def launch_micro_bf16(bank, state, iters: int, best_out, lib=None) -> None:
     """Launch micro_bf16_kernel: ``iters`` sweeps of the (13, nt·128)
     ``bank`` (sweep i over tile i mod nt) against the rays of ``state`` (6,
     L) f32 or bf16 (the transform's working type), each lane's positive hit
     t min-folded into ``best_out`` (1, L) f32, which must hold +inf (or a
     bound) before the launch: the kernel cuts the iterations into chunks
-    run by separate blocks, folded with atomicMin on the f32 bits."""
-    lib = load_probes()
+    run by separate blocks, folded with atomicMin on the f32 bits; from
+    ``lib`` (``load_probes_library``, not counted) when given."""
+    counted = lib is None
+    lib = load_probes() if lib is None else lib
     dev = state.device
     L = state.shape[1]
     nt = bank.shape[1] // MICRO_BF16_TILE
@@ -528,7 +562,7 @@ def launch_micro_bf16(bank, state, iters: int, best_out) -> None:
     err = lib.zrc_micro_bf16(bank.data_ptr(), nt, state.data_ptr(),
                              int(state.dtype == torch.bfloat16), L, int(iters),
                              best_out.data_ptr(), dev.index or 0, stream)
-    if _launched(err, lib.zrc_probes_error_string, "micro_bf16_kernel"):
+    if _launched(err, lib.zrc_probes_error_string, "micro_bf16_kernel") and counted:
         LAUNCHES[f"micro_bf16_{'bf16' if state.dtype == torch.bfloat16 else 'f32'}"] += 1
 
 

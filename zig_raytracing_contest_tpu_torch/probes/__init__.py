@@ -14,7 +14,9 @@ micro-benchmarks, held on their own against their plain PyTorch versions.
 * ``probe_gather``: ``probe_gather_kernel``, a 2-D gather pair from one
   (8, 128) page in shared memory or by shuffles (scripts/probe_gather.py);
 * ``walk_check``: trace_emit_kernel's tile-heap walk against the flat loop
-  lane by lane, with a NumPy replay of the walk for one ray.
+  lane by lane, with a NumPy replay of the walk for one ray;
+* ``probe_ab``, ``trace_ab``, ``path_ab``: this checkout's kernels against
+  another build of their source (bits, and times in alternating pairs).
 
 Each module runs on the card by default: ``python -m
 zig_raytracing_contest_tpu_torch.probes.check_fetch`` (``--device cpu``

@@ -11,7 +11,9 @@ launch's fixed cost cancels.
 
 ``micro_bf16_kernel`` (kernels/probes.cu) cuts the iterations into 256
 chunks run by separate blocks and folds each lane's minimum with atomicMin
-on the f32 bits; ``micro_bf16_ref`` is the plain version.  Sweep i reads
+on the f32 bits; ``micro_bf16_ref`` is the plain version,
+``micro_bf16_staged_ref`` models the kernel's staged test (the same bits,
+and the pairs each stage takes).  Sweep i reads
 tile i mod 64 and a min is idempotent, so ``iters`` sweeps give the min
 over the first min(iters, 64) tiles: the plain version computes that, so
 its time is that of 64 sweeps whatever ``iters`` is.
@@ -31,6 +33,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from . import micro_trace
 from ..utils.timing import best_ms, cuda_ms
 
 K = kernels.MICRO_BF16_TILE  # triangles per tile
@@ -80,6 +83,60 @@ def micro_bf16_ref(bank: torch.Tensor, state: torch.Tensor, iters: int) -> torch
     return best[None, :]
 
 
+def micro_bf16_staged_ref(bank: torch.Tensor, state: torch.Tensor, iters: int):
+    """Plain model of micro_bf16_kernel's staged order: (best (1, L) f32,
+    counts).  Stage 1 (dw, ow in the working type, the det and sign tests)
+    for every pair, stage 2 (ou, ov, du, dv in the working type, t, u, v in
+    f32) for the pairs it passes on, each value computed as
+    ``micro_bf16_ref`` computes it.  counts, over the ``iters`` sweeps
+    (sweep i over tile i mod nt): "swept" pairs, "stage2" pairs and "hits"
+    (pairs the full test accepts)."""
+    dt = state.dtype
+    nt = bank.shape[1] // K
+    ox, oy, oz, dx, dy, dz = (state[a][None, :] for a in range(6))
+    best = torch.full((state.shape[1],), float("inf"), dtype=torch.float32,
+                      device=state.device)
+    counts = {"swept": 0, "stage2": 0, "hits": 0}
+    for j in range(min(iters, nt)):
+        sweeps = (iters - j + nt - 1) // nt  # the sweeps over tile j
+        rows = bank[:, j * K:(j + 1) * K]
+        m = [rows[r][:, None].to(dt) for r in range(12)]
+        dw = (m[6] * dx + m[7] * dy + m[8] * dz).float()
+        ow = (m[6] * ox + m[7] * oy + m[8] * oz + m[11]).float()
+        s1 = micro_trace.front_and_ahead(dw, ow, rows[12][:, None])
+        k, lane = s1.nonzero(as_tuple=True)
+        mk = [x[k, 0] for x in m]
+        pox, poy, poz, pdx, pdy, pdz = (c[0, lane] for c in (ox, oy, oz, dx, dy, dz))
+        ou = (mk[0] * pox + mk[1] * poy + mk[2] * poz + mk[9]).float()
+        ov = (mk[3] * pox + mk[4] * poy + mk[5] * poz + mk[10]).float()
+        du = (mk[0] * pdx + mk[1] * pdy + mk[2] * pdz).float()
+        dv = (mk[3] * pdx + mk[4] * pdy + mk[5] * pdz).float()
+        t = -ow[k, lane] / dw[k, lane]
+        u = ou + t * du
+        v = ov + t * dv
+        ok = (u >= 0) & (v >= 0) & (u + v <= 1) & (t > 0)
+        best.scatter_reduce_(0, lane[ok], t[ok], "amin")
+        counts["swept"] += sweeps * dw.numel()
+        counts["stage2"] += sweeps * int(s1.sum())
+        counts["hits"] += sweeps * int(ok.sum())
+    return best[None, :], counts
+
+
+def boundary_inputs():
+    """The staged test's boundary cases as micro_bf16's inputs (NumPy):
+    (bank (13, 128), state (6, L) f32).  The rays and rows of
+    ``micro_trace.boundary_inputs`` (ray c: o = (0, c, 0), d = (1, 0, 0);
+    dw = M6, ow = c11): ow = ±0, ow of dw's sign, det at 1e-8 and below,
+    subnormal and huge t, an infinite ow and NaN rows; values are exact in
+    bf16 where the case needs them so."""
+    tri_data, _, _, st16 = micro_trace.boundary_inputs()
+    bank = np.zeros((13, K), np.float32)
+    n = min(K, tri_data.shape[1])
+    bank[:, :n] = tri_data[:13, :n]
+    bank[6, n:] = 1.0  # padding: dw = 1, det fails
+    return bank, np.ascontiguousarray(st16[0:6])
+
+
 def micro_bf16(bank: torch.Tensor, state: torch.Tensor, iters: int) -> torch.Tensor:
     """``iters`` sweeps of ``bank`` (13, nt·128) f32 against the rays of
     ``state`` (6, L) f32 or bf16, the transform in ``state``'s type: the
@@ -124,6 +181,22 @@ def run_checks(device) -> list:
             got = micro_bf16(bank, states[dt], iters)
             bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
             out.append((f"{str(dt).split('.')[1]} iters={iters}", LB, bad))
+    return out
+
+
+def boundary_checks(device) -> list:
+    """The kernel against its plain version on the staged test's boundary
+    cases (``boundary_inputs``) in each working type, at 1 and 3 sweeps of
+    the one tile, bit for bit: a list of (label, lanes, mismatched lanes)."""
+    bank, st = (torch.from_numpy(a).to(device) for a in boundary_inputs())
+    out = []
+    for dt in DTYPES:
+        for iters in (1, 3):
+            got = micro_bf16(bank, st.to(dt), iters)
+            want = micro_bf16_ref(bank, st.to(dt), iters)
+            bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+            out.append((f"boundary cases {str(dt).split('.')[1]} iters={iters}",
+                        st.shape[1], bad))
     return out
 
 

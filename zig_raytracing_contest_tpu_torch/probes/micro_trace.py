@@ -14,7 +14,10 @@ lane block does), and the threads per block of ``micro_trace_kernel``
 script's MXU transforms (``mxu``, ``mxu2``) have no counterpart.
 
 ``micro_trace_ref`` is the plain version (the tile loop of
-``mxu_intersect.nearest_hit_ref``, widened to the variant's cull); the yardstick
+``mxu_intersect.nearest_hit_ref``, widened to the variant's cull);
+``micro_trace_staged_ref`` models the kernel's staged test (the same bits,
+and the pairs each stage takes), ``boundary_inputs`` builds the staged
+test's boundary cases; the yardstick
 is the per-bounce trace ``mxu_intersect.trace_emit_aux`` on the same bank
 and rays (trace_emit_kernel, a walk of the 4-tile heap).  Run on the card:
 
@@ -105,6 +108,223 @@ def micro_trace_ref(tri_data: torch.Tensor, tile_bbox: torch.Tensor, tile: int,
                        state[13], state[12], zero, zero, zero])
     out = aux, idx.to(torch.int32)[None, :]
     return out + (swept,) if return_swept else out
+
+
+# The staged test of micro_trace_kernel (kernels/probes.cu): its margin on
+# the running best, 1 + 2^-20, and the least normal float.
+PRUNE_MARGIN = 1.0 + 2.0 ** -20
+FLT_NORMAL_MIN = float(np.finfo(np.float32).tiny)
+# rays per step of the staged model (bounds its (rays, tile) temporaries)
+_STAGED_CHUNK = 1 << 13
+
+
+def front_and_ahead(dw: torch.Tensor, ow: torch.Tensor, n_sq: torch.Tensor) -> torch.Tensor:
+    """Stage 1's verdict on dw and ow (``front_and_ahead``): the det test
+    -dw·|n|² >= 1e-8 and the sign test of t = -ow/dw > 0 (ow nonzero, ow
+    and dw of opposite sign bits; a NaN ow passes it and fails stage 2)."""
+    opposite = (ow.view(torch.int32) ^ dw.view(torch.int32)) < 0
+    return (-dw * n_sq >= mi.MT_EPSILON) & opposite & (ow != 0.0)
+
+
+def prune_bound(bt: torch.Tensor) -> torch.Tensor:
+    """bq of the test against the running best bt (``prune_bound``):
+    rn(bt·(1 + 2^-20)) for a normal bt, +inf for a subnormal one."""
+    return torch.where(bt >= FLT_NORMAL_MIN, bt * PRUNE_MARGIN, torch.inf)
+
+
+def beyond_best(dw: torch.Tensor, ow: torch.Tensor, bq: torch.Tensor) -> torch.Tensor:
+    """The pairs stage 1 drops against the best (``beyond_best``): |ow| >=
+    p = rn(bq·|dw|) while p is normal or +inf, so t = rn(-ow/dw) > bt."""
+    p = bq * dw.abs()
+    return (ow.abs() >= p) & (p >= FLT_NORMAL_MIN)
+
+
+def stage1_keeps(dw: torch.Tensor, ow: torch.Tensor, n_sq: torch.Tensor,
+                 bt: torch.Tensor) -> torch.Tensor:
+    """Whether micro_trace_kernel's stage 1 passes a pair (dw, ow, |n|²) of
+    a ray whose best so far is bt on to stage 2."""
+    return front_and_ahead(dw, ow, n_sq) & ~beyond_best(dw, ow, prune_bound(bt))
+
+
+def _staged_chunk(rows, tile_bbox, tile, o, d, active, widen, counts):
+    """``micro_trace_staged_ref`` on one chunk of rays: (t, idx, u, v)."""
+    R = o.shape[1]
+    dev = o.device
+    best_t = torch.full((R,), torch.inf, dtype=torch.float32, device=dev)
+    best_i = torch.zeros(R, dtype=torch.int64, device=dev)
+    best_u = torch.zeros(R, dtype=torch.float32, device=dev)
+    best_v = torch.zeros(R, dtype=torch.float32, device=dev)
+    inv = [1.0 / d[a] for a in range(3)]
+    ids = torch.arange(tile, device=dev)
+    for j in range(tile_bbox.shape[1]):
+        passed = mi.cull_mask_ref(tile_bbox[:, j], o, inv, best_t, active)
+        counts["boxes"] += int(active.sum())
+        if widen is not None:
+            passed = widen(passed)
+        lanes = passed.nonzero()[:, 0]
+        if lanes.numel() == 0:
+            continue
+        m = [r[None, j * tile:(j + 1) * tile] for r in rows]
+        ox, oy, oz = (o[a, lanes, None] for a in range(3))
+        dx, dy, dz = (d[a, lanes, None] for a in range(3))
+        # stage 1, every swept pair
+        dw = m[6] * dx + m[7] * dy + m[8] * dz
+        ow = m[6] * ox + m[7] * oy + m[8] * oz + m[11]
+        s1 = front_and_ahead(dw, ow, m[12])
+        # the full test where the sign and det tests pass; the exact best
+        # before each pair (the flat loop's order) for the test against it
+        r, k = s1.nonzero(as_tuple=True)
+        mk = [x[0, k] for x in m]
+        pox, poy, poz, pdx, pdy, pdz = (c[r, 0] for c in (ox, oy, oz, dx, dy, dz))
+        ou = mk[0] * pox + mk[1] * poy + mk[2] * poz + mk[9]
+        ov = mk[3] * pox + mk[4] * poy + mk[5] * poz + mk[10]
+        du = mk[0] * pdx + mk[1] * pdy + mk[2] * pdz
+        dv = mk[3] * pdx + mk[4] * pdy + mk[5] * pdz
+        t = -ow[r, k] / dw[r, k]
+        u = ou + t * du
+        v = ov + t * dv
+        ok = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
+        t_ok = torch.full_like(dw, torch.inf)
+        t_ok[r[ok], k[ok]] = t[ok]
+        before = torch.cummin(t_ok, dim=1).values.roll(1, dims=1)
+        before[:, 0] = torch.inf
+        before = torch.minimum(before, best_t[lanes, None])
+        stage2 = s1 & ~beyond_best(dw, ow, prune_bound(before))
+        counts["swept"] += dw.numel()
+        counts["stage2"] += int(stage2.sum())
+        counts["hits"] += int((stage2 & (t_ok < torch.inf)).sum())
+        # the tile's fold over the pairs stage 2 ran, as the flat loop's
+        t_tile = torch.where(stage2, t_ok, torch.inf)
+        tile_min = t_tile.min(dim=1).values
+        cand = torch.where(t_tile <= tile_min[:, None], ids[None, :], tile).min(dim=1).values
+        better = tile_min < best_t[lanes]
+        win = lanes[better]
+        best_t[win] = tile_min[better]
+        best_i[win] = j * tile + cand[better]
+        if bool(better.any()):
+            at = torch.full_like(dw, -1, dtype=torch.int64)
+            at[r, k] = torch.arange(r.numel(), device=dev)
+            pick = at[better.nonzero()[:, 0], cand[better]]
+            best_u[win] = u[pick]
+            best_v[win] = v[pick]
+    return best_t, best_i, best_u, best_v
+
+
+def micro_trace_staged_ref(tri_data: torch.Tensor, tile_bbox: torch.Tensor, tile: int,
+                           state: torch.Tensor, extract_uv: bool = True, cull: str = "lane"):
+    """Plain model of micro_trace_kernel's staged order: ((aux (8, R), idx
+    (1, R) int32), counts).  Stage 1 (dw, the det and sign tests, ow, the
+    test against the best) for every pair the cull sweeps, stage 2 (ou, ov,
+    du, dv, t, u, v) for the pairs it passes on, each value computed as
+    ``micro_trace_ref`` computes it; the best each pair is tested against
+    is the exact best of the triangles before it (the kernel's may be
+    older, never smaller, so its stage 2 takes at least ``stage2`` pairs).
+    counts: "swept" pairs, "stage2" pairs, "hits" (pairs the full test
+    accepts among them) and "boxes" (slab tests: a live ray and a tile)."""
+    if cull not in CULLS:
+        raise ValueError(f"cull {cull!r} not one of {CULLS}")
+    R = state.shape[1]
+    rows = tri_data[:13]
+    counts = {"swept": 0, "stage2": 0, "hits": 0, "boxes": 0}
+    out = [torch.empty(R, dtype=dt, device=state.device)
+           for dt in (torch.float32, torch.int64, torch.float32, torch.float32)]
+    active = state[12] > 0.0
+    for c0 in range(0, R, _STAGED_CHUNK):
+        sl = slice(c0, min(c0 + _STAGED_CHUNK, R))
+        res = _staged_chunk(rows, tile_bbox, tile, state[0:3, sl], state[3:6, sl],
+                            active[sl], _WIDEN[cull], counts)
+        for dst, src in zip(out, res):
+            dst[sl] = src
+    t, idx, u, v = out
+    zero = torch.zeros_like(t)
+    aux = torch.stack([u if extract_uv else zero, v if extract_uv else zero, t,
+                       state[13], state[12], zero, zero, zero])
+    return (aux, idx.to(torch.int32)[None, :]), counts
+
+
+def survivor_balance(tri_data: torch.Tensor, state: torch.Tensor, block: int = 64) -> dict:
+    """How stage 1's survivors (the det and sign tests, every pair) spread
+    over warps of 32 rays and blocks of ``block`` triangles of the real
+    columns of ``tri_data``: "share", the surviving pairs; the stage-2
+    rounds a triangle when each lane runs its own survivors ("lane": the
+    busiest lane of the warp sets them), when each lane runs one triangle's
+    ("triangle", blocks of 32) and when every survivor is packed into full
+    warps ("full": the share itself)."""
+    m = tri_data[:13]
+    o, d = state[0:3], state[3:6]
+    dw = m[6][None] * d[0][:, None] + m[7][None] * d[1][:, None] + m[8][None] * d[2][:, None]
+    ow = (m[6][None] * o[0][:, None] + m[7][None] * o[1][:, None]
+          + m[8][None] * o[2][:, None] + m[11][None])
+    s1 = front_and_ahead(dw, ow, m[12][None])
+    R, T = s1.shape
+    w = s1[:R // WARP * WARP, :T // block * block].reshape(R // WARP, WARP, -1, block)
+    lane = w.sum(-1).max(dim=1).values.float().mean() / block
+    tri = s1[:R // WARP * WARP, :T // 32 * 32].reshape(R // WARP, WARP, -1, 32).sum(1)
+    return {"share": float(s1.float().mean()), "lane": float(lane),
+            "triangle": float(tri.max(dim=2).values.float().mean() / 32),
+            "full": float(s1.float().mean())}
+
+
+def boundary_inputs():
+    """The staged test's boundary cases as micro_trace's inputs (NumPy):
+    (tri_data (16, Tp), tile_bbox (6, nt), tile, state (16, R)).  Ray c has
+    o = (0, c, 0), d = (1, 0, 0), so each of its triangles' rows give dw =
+    M6 and ow = c11 exactly, and u = v = 0.25 for ray c alone (M1 = 1, c9 =
+    0.25 - c, M4 = -1, c10 = 0.25 + c); every box holds every ray.  The
+    cases, in index order within a ray: a first hit, then t a few ulps
+    either side of it, equal to it and past the margin (dw = -1 and dw =
+    -3), in both orders; ow = +0, -0,
+    of dw's sign; det at 1e-8 and an ulp below; a best of 1e-30 and then
+    products bt·|dw| that are subnormal; a subnormal best; a best of 1e30
+    and a product that overflows; an infinite ow; NaN in dw, ow, |n|² and
+    u's row; rays with no hit at all."""
+    f32 = np.float32
+
+    def ulps(x, k):
+        x = f32(x)
+        for _ in range(abs(k)):
+            x = np.nextafter(x, f32(np.inf) if k > 0 else f32(-np.inf), dtype=f32)
+        return x
+
+    five = [(-1.0, 5.0, 1.0)] + [(-1.0, ulps(5.0, k), 1.0) for k in (-3, -1, 0, 1, 2, 8, 64)]
+    five.append((-1.0, 6.0, 1.0))
+    fifteen = [(-3.0, ulps(15.0, k), 1.0) for k in (4, -2, 0, 1, -5, 3)]
+    cases = [
+        five, five[::-1], fifteen, fifteen[::-1],
+        [(-1.0, 0.0, 1.0), (-1.0, -0.0, 1.0), (-1.0, -2.0, 1.0), (1.0, 2.0, 1.0),
+         (-1.0, 4.0, 1.0)],
+        [(f32(-1e-8), f32(3e-8), 1.0), (f32(-1e-8), f32(3e-8), ulps(1.0, -1)),
+         (-1.0, 7.0, f32(1e-8)), (-1.0, 6.5, ulps(1e-8, -1))],
+        [(-1.0, f32(1e-30), 1.0), (f32(-1e-10), ulps(f32(1e-40), 1), 1000.0),
+         (f32(-1e-10), ulps(f32(1e-40), -1), 1000.0), (f32(-1e-10), f32(1e-40), 1000.0)],
+        [(-1.0, f32(1e-40), 1.0), (-1.0, ulps(f32(1e-40), -1), 1.0),
+         (-2.0, f32(2e-40), 1.0)],
+        [(-1.0, f32(1e30), 1.0), (f32(-1e10), f32(3e38), 1.0), (f32(-1e10), f32(3.2e38), 1.0),
+         (-1.0, np.inf, 1.0), (-1.0, f32(9e29), 1.0)],
+        [(np.nan, 1.0, 1.0), (-1.0, np.nan, 1.0), (-1.0, 1.0, np.nan), ("u", -1.0, 2.0),
+         (-1.0, 3.0, 1.0)],
+        [(-1.0, -1.0, 1.0), (1.0, -1.0, 1.0)],
+    ]
+    tile = 32
+    tris = [(c, *tri) for c, case in enumerate(cases) for tri in case]
+    nt = -(-len(tris) // tile)
+    tri_data = np.zeros((16, nt * tile), f32)
+    tri_data[6] = 1.0  # padding: dw = 1, det fails
+    for i, (c, dw, ow, n_sq) in enumerate(tris):
+        tri_data[1, i], tri_data[9, i] = 1.0, 0.25 - c
+        tri_data[4, i], tri_data[10, i] = -1.0, 0.25 + c
+        if dw == "u":  # NaN in the u row
+            dw, tri_data[0, i] = -1.0, np.nan
+        tri_data[6, i], tri_data[11, i], tri_data[12, i] = dw, ow, n_sq
+    tile_bbox = np.zeros((6, nt), f32)
+    tile_bbox[0:3], tile_bbox[3:6] = -1e30, 1e30
+    R = len(cases) + 3  # and rays that meet nothing
+    state = np.zeros((16, R), f32)
+    state[1] = np.arange(R)
+    state[3] = 1.0
+    state[12] = 1.0
+    state[12, -1] = 0.0  # a dead ray
+    return tri_data, tile_bbox, tile, state
 
 
 def micro_trace(tri_data: torch.Tensor, tile_bbox: torch.Tensor, tile: int,
@@ -208,6 +428,21 @@ def run_checks(device) -> list:
     flat = (want[0][:5], want[1])
     yard = (aux[0:5], idx[None, :])
     out.append(("trace_emit_aux (yardstick, rows 0-4)", n, *compare(tri, state, yard, flat)))
+    return out
+
+
+def boundary_checks(device) -> list:
+    """Each variant's kernel against its plain version on the staged
+    test's boundary cases (``boundary_inputs``): a list of (label, rays,
+    mismatched lanes, tied lanes)."""
+    tri_data, tile_bbox, tile, state = boundary_inputs()
+    tri, bbox, st = (torch.from_numpy(a).to(device) for a in (tri_data, tile_bbox, state))
+    out = []
+    for uv, cull, th in variants():
+        got = micro_trace(tri, bbox, tile, st, uv, cull, th)
+        bad, tied, _ = compare(tri, st, got, micro_trace_ref(tri, bbox, tile, st, uv, cull))
+        out.append((f"boundary cases extract_uv={int(uv)} cull={cull} threads={th}",
+                    st.shape[1], bad, tied))
     return out
 
 
