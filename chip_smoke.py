@@ -85,14 +85,18 @@ i. the probe kernels: texel_fetch_kernel against its plain version on the
    paged-fetch check's three banks × three index patterns and a clamp
    texture, then on the Duck bank at the bounce-0 wave's body-texture
    hits; sort_key_kernel against sort_key_ref and the host key on 256
-   lanes and on the Duck's bounce-0 wave; each timed;
+   lanes and on the Duck's bounce-0 wave; each timed at the Duck's shapes
+   queued behind a spin (utils/timing.py queued_ms), beside the reading of
+   the calls as the host issues them (cuda_ms) and the launch floor (an
+   empty kernel through the same interface, queued the same way);
 
 then the trace micro-benchmarks:
 
-j. the ptxas lines of micro_trace_kernel and micro_bf16_kernel (a spill
-   fails the run); trace_emit_kernel's tile-heap walk against the flat
-   loop lane by lane on the side-90 terrain's bounce-0 wave (pixel tile
-   920, 522,240 rays): each differing lane's two winners recomputed alone,
+j. the ptxas lines of micro_trace_kernel, micro_bf16_kernel and the two
+   probe_gather kernels (a spill fails the run); trace_emit_kernel's
+   tile-heap walk against the flat loop lane by lane on the side-90
+   terrain's bounce-0 wave (pixel tile 920, 522,240 rays): each differing
+   lane's two winners recomputed alone,
    and a failure unless every one is a tie at equal t; then
    micro_trace_kernel (18 variants), micro_bf16_kernel (f32 and bf16 at
    16,384 and 65,536 iterations) and probe_gather_kernel (two forms at
@@ -100,11 +104,12 @@ j. the ptxas lines of micro_trace_kernel and micro_bf16_kernel (a spill
    probes' own checks with the launch counts, then the first two on the
    staged test's boundary cases; every variant timed (the micro_trace ones
    beside trace_emit_aux on the same bank and rays; the bf16 sweep's slope
-   per sweep and its error against f32; the gather's slope per pair beside
-   two torch.gather calls), the pairs each stage of the staged test takes
+   per sweep and its error against f32; the gather's chunks and slope per
+   pair, its bound at each reps and the launch floor, beside two
+   torch.gather calls), the pairs each stage of the staged test takes
    (micro_trace_staged_ref, micro_bf16_staged_ref) with the bound they
    give beside the full-test bound, and the gather kernels' SASS
-   instructions counted.
+   instructions counted (a form that lost a rep's gathers fails the run).
 
 then the XLA shading path, which a grid scene and the extensions take:
 
@@ -1048,7 +1053,7 @@ def probe_phases(card, timing, errs, bounds, launches, duck) -> None:
     from zig_raytracing_contest_tpu_torch.render import fused
     from zig_raytracing_contest_tpu_torch.render.wavefront import ray_sort_key
     from zig_raytracing_contest_tpu_torch.scene.types import PCOL_BASE
-    from zig_raytracing_contest_tpu_torch.utils.timing import cuda_ms
+    from zig_raytracing_contest_tpu_torch.utils.timing import cuda_ms, queued_ms
 
     dev = torch.device("cuda", 0)
     # the probes' own entry points, launch counts set to 0 just before
@@ -1090,17 +1095,27 @@ def probe_phases(card, timing, errs, bounds, launches, duck) -> None:
     B = base.shape[0]
     corners = check_fetch.corner_indices(texture, base[demand])
     texels = int(torch.unique(corners).numel())
+    # the kernel's time queued behind a spin (queued_ms), beside the
+    # earlier reading (cuda_ms: events around 20 calls as the host issues
+    # them) and the launch floor (an empty kernel queued the same way)
+    floor_ms = queued_ms(lambda: kernels.launch_empty(dev), 20)
+
+    def fetch_duck():
+        return check_fetch.texel_fetch(scene.bank, texture, base, demand)
+
     timing["texel_fetch"] = (
-        cuda_ms(lambda: check_fetch.texel_fetch(scene.bank, texture, base, demand), 20),
+        queued_ms(fetch_duck, 20),
         cuda_ms(lambda: check_fetch.texel_fetch_ref(scene.bank, texture, base, demand), 5),
         B, B)
+    issued_ms = cuda_ms(fetch_duck, 20)
     bounds["texel_fetch"] = bound(0.0, B * (4 + 1 + 16 * 4) + texels * 16)
     errs["texel_fetch"] = float((got_f - want_f).abs().max())
     print(f"  texel_fetch, Duck bank ({scene.bank.shape[0]} texels), body texture {texture} "
           f"at the bounce-0 wave's hits: demanded lanes {int(demand.sum())} of {B}, lanes "
           f"differing from the plain version {bad}, from the shade's four texel indices "
-          f"{n_shade}; kernel {timing['texel_fetch'][0]:.4f} ms, plain "
-          f"{timing['texel_fetch'][1]:.4f} ms, bound {bounds['texel_fetch'][0]:.4f} ms "
+          f"{n_shade}; kernel {timing['texel_fetch'][0]:.5f} ms queued (as issued "
+          f"{issued_ms:.5f} ms; launch floor {floor_ms:.5f} ms), plain "
+          f"{timing['texel_fetch'][1]:.4f} ms, bound {bounds['texel_fetch'][0]:.5f} ms "
           f"({bounds['texel_fetch'][1]}, {texels} distinct texels) ({card})")
     if bad or n_shade or not bool(demand.any()):
         fail("texel_fetch_kernel disagrees on the Duck bank")
@@ -1113,14 +1128,16 @@ def probe_phases(card, timing, errs, bounds, launches, duck) -> None:
     n_host = int((key != host).sum())
     n_dead = int(((key >> 30) != (host >> 30)).sum())
     R = k0.shape[1]
-    timing["sort_key"] = (cuda_ms(lambda: sort_key.sort_key(k0, par), 20),
+    timing["sort_key"] = (queued_ms(lambda: sort_key.sort_key(k0, par), 20),
                           cuda_ms(lambda: fused.sort_key_ref(k0, par), 5), R, R)
+    issued_ms = cuda_ms(lambda: sort_key.sort_key(k0, par), 20)
     bounds["sort_key"] = bound(R * float(OPS_KEY), R * (7 + 1) * 4 + 32 * 4)
     errs["sort_key"] = float((key - fused.sort_key_ref(k0, par)).abs().max())
     print(f"  sort_key, Duck bounce-0 wave of {R} rays: lanes differing from sort_key_ref "
           f"{n_ref}, from the key path_trace_gen emitted {n_gen}, from the host key "
-          f"{n_host} (dead bit {n_dead}); kernel {timing['sort_key'][0]:.4f} ms, plain "
-          f"{timing['sort_key'][1]:.4f} ms, bound {bounds['sort_key'][0]:.4f} ms "
+          f"{n_host} (dead bit {n_dead}); kernel {timing['sort_key'][0]:.5f} ms queued (as "
+          f"issued {issued_ms:.5f} ms; launch floor {floor_ms:.5f} ms), plain "
+          f"{timing['sort_key'][1]:.4f} ms, bound {bounds['sort_key'][0]:.5f} ms "
           f"({bounds['sort_key'][1]}) ({card})")
     # the host key rounds (o - bmin) / span · 32, the kernel key
     # (o - bmin) · (32 / span): a ray may sit one cell apart at a boundary
@@ -1143,13 +1160,14 @@ def trace_probe_phases(card, timing, errs, bounds, launches, library) -> None:
         probe_gather,
         walk_check,
     )
+    from zig_raytracing_contest_tpu_torch.utils.timing import queued_ms
 
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    # the staged kernels' lines: a spill fails the run
-    ptxas_no_spill(("micro_trace_kernel", "micro_bf16_kernel"), "a staged probe kernel")
-    for line in ptxas_report(("probe_gather_kernel",)):
-        print("  " + line)
+    # the redesigned kernels' lines: a spill fails the run
+    ptxas_no_spill(("micro_trace_kernel", "micro_bf16_kernel", "probe_gather_smem_kernel",
+                    "probe_gather_shfl_kernel"),
+                   "a redesigned probe kernel")
     # trace_emit_kernel (the walk) against nearest_hit_ref (the flat loop)
     # on the side-90 terrain's bounce-0 wave from pixel tile 920
     for label, res, notes in walk_check.run_checks(dev):
@@ -1283,24 +1301,33 @@ def trace_probe_phases(card, timing, errs, bounds, launches, library) -> None:
           f"hit, {flips} of {micro_bf16.LB} lanes flip between a hit and none")
 
     # probe_gather: device time per call (queued behind a spin) and SM
-    # cycles of the reps loop at reps 1, 64, 512, each one's slope per pair, the
-    # library's pair (two torch.gather calls); entries at reps 1, whose
-    # function is one pair.  Bound: 16 KB in and out, 2 int32 additions per
-    # element and rep.
+    # cycles of the reps loop summed over the chunks at reps 1, 64, 512,
+    # each one's slope per pair, the library's pair (two torch.gather
+    # calls); entries at reps 1, whose function is one pair.  Bound at each
+    # reps: 16 KB in and out once, 2 int32 additions per element and rep;
+    # the gathers are on-chip traffic (shared memory or shuffles), not
+    # device bytes.  Beside it the launch floor (an empty kernel, queued).
     pgt = probe_gather.time_forms(dev)
+    floor_ms = queued_ms(lambda: kernels.launch_empty(dev), 20)
+    pg_bounds = {r: bound(2 * 1024 * r * PEAK_F32_FLOPS / PEAK_I32_OPS, 4 * 1024 * 4)
+                 for r in probe_gather.REPS}
     for form in probe_gather.FORMS:
         entry = f"probe_gather_{form}"
         f_ms = pgt[form]["ms"]
-        bounds[entry] = bound(2 * 1024 * PEAK_F32_FLOPS / PEAK_I32_OPS, 4 * 1024 * 4)
+        bounds[entry] = pg_bounds[1]
         timing[entry] = (f_ms[1], pgt["plain_ms"], 1024, 1024)
         errs[entry] = 0.0
         library[entry] = pgt["library_ms"]
         print(f"  probe_gather {form}, device time per call: " + ", ".join(
-            f"reps={r} {f_ms[r] * 1e3:.3f} us" for r in probe_gather.REPS)
+            f"reps={r} {f_ms[r] * 1e3:.3f} us ({c} chunks of {p})"
+            for r, (c, p) in zip(probe_gather.REPS, pgt[form]["chunks"].values()))
             + f" -> {pgt[form]['us_per_pair'] * 1e3:.3f} ns per gather pair; SM cycles of "
-            "the reps loop: " + ", ".join(
+            "the reps loop over the chunks: " + ", ".join(
                 f"reps={r} {c}" for r, c in pgt[form]["cycles"].items())
             + f" -> {pgt[form]['cycles_per_pair']:.1f} per pair ({card})")
+    print("  probe_gather bound: " + ", ".join(
+        f"reps={r} {b[0] * 1e3:.6f} us ({b[1]})" for r, b in pg_bounds.items())
+        + f"; launch floor {floor_ms * 1e3:.3f} us ({card})")
     print(f"  probe_gather plain (reps=1) {pgt['plain_ms'] * 1e3:.3f} us; two torch.gather "
           f"calls {pgt['library_ms'] * 1e3:.3f} us per pair ({card})")
     sass_report(kernels.library_path("probes"))
@@ -1308,8 +1335,12 @@ def trace_probe_phases(card, timing, errs, bounds, launches, library) -> None:
 
 
 def sass_report(lib) -> None:
-    """Shared-memory loads and stores, shuffles, barriers and branches in
-    the SASS of each probe_gather kernel (cuobjdump)."""
+    """Shared-memory loads and stores, shuffles, barriers, branches and
+    atomics in the SASS of each probe_gather kernel (cuobjdump), each
+    instantiation on its own line: "fold", the chunked kernel that adds
+    into the output, and "store", the one-chunk kernel.  A rep keeps its
+    two gathers: the smem form at least two LDS and two BAR, the shfl form
+    at least 128 SHFL, or the run fails."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -1319,11 +1350,20 @@ def sass_report(lib) -> None:
     except (OSError, subprocess.SubprocessError) as exc:
         print(f"  probe_gather SASS: not read ({exc})")
         return
+    least = {"smem": {"LDS": 2, "BAR": 2}, "shfl": {"SHFL": 128}}
+    functions = sass.split("Function : ")[1:]
     for form in ("smem", "shfl"):
         name = f"probe_gather_{form}_kernel"
-        body = sass.split(name, 1)[-1].split("Function :", 1)[0] if name in sass else ""
-        counts = {op: body.count(f" {op}") for op in ("LDS", "STS", "SHFL", "BAR", "BRA")}
-        print(f"  {name} SASS: {counts}")
+        bodies = [f for f in functions if name in f.split("\n", 1)[0]]
+        if not bodies:
+            fail(f"{name}: not in the SASS of {lib}")
+        for body in bodies:
+            kind = "fold" if "ILb1E" in body.split("\n", 1)[0] else "store"
+            counts = {op: body.count(f" {op}")
+                      for op in ("LDS", "STS", "SHFL", "BAR", "BRA", "RED", "ATOMS")}
+            print(f"  {name} ({kind}) SASS: {counts}")
+            if any(counts[op] < n for op, n in least[form].items()):
+                fail(f"{name}: a rep lost a gather (SASS {counts}, at least {least[form]})")
 
 
 def grid_differences(what, card, t_g, tri_g, u_g, v_g, aux, tri_k) -> None:

@@ -254,6 +254,31 @@ def test_trace_probe_kernels_match_plain_on_cuda():
 
 
 @pytest.mark.cuda
+def test_probe_gather_chunks_on_cuda():
+    """probe_gather_kernel in both forms at reps 1, 64 and 512 over one
+    chunk, the default slots and 1, 4 and 8 slots an SM, each equal to the
+    script's NumPy expectation exactly; the cycle count is counted both in
+    one chunk (stored) and over many (summed by atomic adds)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    from zig_raytracing_contest_tpu_torch.probes import probe_gather
+
+    pg, col, row = probe_gather.make_inputs()
+    page = [torch.from_numpy(a).cuda() for a in (pg, col, row)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for form in probe_gather.FORMS:
+        for reps in probe_gather.REPS:
+            want = torch.from_numpy(probe_gather.expected(pg, col, row, reps))
+            for n in (1, None, sms, 4 * sms, 8 * sms):
+                got = probe_gather.probe_gather(*page, reps, form, n)
+                assert torch.equal(got.cpu().long(), want), (form, reps, n)
+        one, many = (torch.zeros(1, dtype=torch.int64, device="cuda") for _ in range(2))
+        probe_gather.probe_gather(*page, 512, form, 1, cycles=one)
+        probe_gather.probe_gather(*page, 512, form, 4 * sms, cycles=many)
+        assert 0 < int(one) and 0 < int(many), (form, int(one), int(many))
+
+
+@pytest.mark.cuda
 def test_staged_probe_kernels_on_boundary_cases_on_cuda():
     """micro_trace_kernel in its 18 variants and micro_bf16_kernel in f32
     and bf16 on the staged test's boundary cases (ow = ±0, ow of dw's sign,

@@ -195,6 +195,52 @@ def test_probe_gather_matches_jax(reps):
     assert all(bad == 0 for _, _, bad in probe_gather.run_checks("cpu"))
 
 
+@pytest.mark.parametrize("slots", [1, 3, 132, 264, 528])
+@pytest.mark.parametrize("reps", [1, 2, 63, 64, 65, 512, 4096])
+def test_rep_chunks_cover_each_rep_once(reps, slots):
+    """The kernel's chunks of [0, reps) over ``slots``: at most one a slot,
+    none empty, every rep in exactly one, in order; chunks · per covers
+    reps, as the launcher requires."""
+    chunks, per = probe_gather.rep_chunks(reps, slots)
+    assert 1 <= chunks <= min(reps, slots) and chunks * per >= reps
+    ranges = probe_gather.chunk_ranges(reps, chunks, per)
+    assert all(stop > first for first, stop in ranges)
+    assert [r for first, stop in ranges for r in range(first, stop)] == list(range(reps))
+
+
+def test_rep_chunks_edges():
+    """No reps: one empty chunk (the kernel stores zeros); reps 1 one chunk
+    whatever the slots; a negative count or no slot raises."""
+    assert probe_gather.rep_chunks(0, 132) == (1, 0)
+    assert probe_gather.chunk_ranges(0, 1, 0) == [(0, 0)]
+    assert probe_gather.rep_chunks(1, 528) == (1, 1)
+    assert probe_gather.rep_chunks(512, 132) == (128, 4)
+    for reps, slots in ((-1, 4), (4, 0)):
+        with pytest.raises(ValueError):
+            probe_gather.rep_chunks(reps, slots)
+
+
+@pytest.mark.parametrize("reps", [1, 64, 512])
+def test_probe_gather_chunked_matches_jax(reps):
+    """The sum as the kernel takes it, probe_gather_ref of each chunk added
+    in int32 (over one chunk and an H100's 132 and 528 slots), equals the
+    script's gather kernel in interpret mode and the NumPy expectation
+    exactly."""
+    script = _script("probe_gather")
+    pg, col, row = probe_gather.make_inputs(0)
+    call = pl.pallas_call(lambda a, b, c, o: script.kernel(a, b, c, o, reps),
+                          out_shape=jax.ShapeDtypeStruct((8, 128), jnp.int32),
+                          interpret=True)
+    want = np.asarray(call(jnp.asarray(pg), jnp.asarray(col), jnp.asarray(row)))
+    np.testing.assert_array_equal(want.astype(np.int64),
+                                  probe_gather.expected(pg, col, row, reps))
+    t = [torch.from_numpy(a) for a in (pg, col, row)]
+    for slots in (1, 132, 528):
+        got = probe_gather.probe_gather_chunked_ref(*t, reps, slots)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
 # The lane of the side-90 terrain's bounce-0 wave (pixel tile 920, 1920x1080,
 # 3 spp) where the tile-heap walk and the flat loop choose different
 # winners: the ray's o, d bits, both winners and their common t.

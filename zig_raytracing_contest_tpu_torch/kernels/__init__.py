@@ -230,13 +230,15 @@ def load():
             ]
             lib.zrc_sort_key.restype = i32
             lib.zrc_sort_key.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
+            lib.zrc_empty.restype = i32
+            lib.zrc_empty.argtypes = [i32, ptr]
             _libs["path_trace"] = lib
         return _libs["path_trace"]
 
 
 def _bind_micro(lib) -> None:
     """Bind the entry points of probes.cu that another build of it is
-    compared on: the two trace micro-benchmarks."""
+    compared on: the two trace micro-benchmarks and the gather probe."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.zrc_micro_trace.restype = i32
     lib.zrc_micro_trace.argtypes = [
@@ -244,6 +246,15 @@ def _bind_micro(lib) -> None:
     ]
     lib.zrc_micro_bf16.restype = i32
     lib.zrc_micro_bf16.argtypes = [ptr, i32, ptr, i32, i32, i32, ptr, i32, ptr]
+    # probe_gather: the chunked entry point, or an earlier build's one-block
+    # entry point (page, col, row, reps, shfl, out, cycles, device, stream)
+    if hasattr(lib, "zrc_probe_gather_chunks"):
+        lib.zrc_probe_gather_chunks.restype = i32
+        lib.zrc_probe_gather_chunks.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr, ptr,
+                                                i32, ptr]
+    else:
+        lib.zrc_probe_gather.restype = i32
+        lib.zrc_probe_gather.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr, i32, ptr]
     lib.zrc_probes_error_string.restype = ctypes.c_char_p
     lib.zrc_probes_error_string.argtypes = [i32]
 
@@ -252,7 +263,8 @@ def load_probes_library(src: Path, build_dir: Path):
     """Another build of a probes.cu whose ``zrc_micro_trace`` and
     ``zrc_micro_bf16`` take the same arguments (an earlier commit's, to
     compare with): built into ``build_dir`` and loaded, for the ``lib``
-    argument of ``launch_micro_trace`` and ``launch_micro_bf16``."""
+    argument of ``launch_micro_trace``, ``launch_micro_bf16`` and
+    ``launch_probe_gather``."""
     lib = ctypes.CDLL(str(build("probes_other", Path(src), Path(build_dir))))
     _bind_micro(lib)
     return lib
@@ -263,10 +275,7 @@ def load_probes():
     with _lock:
         if "probes" not in _libs:
             lib = ctypes.CDLL(str(build("probes")))
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
             _bind_micro(lib)
-            lib.zrc_probe_gather.restype = i32
-            lib.zrc_probe_gather.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr, i32, ptr]
             _libs["probes"] = lib
         return _libs["probes"]
 
@@ -497,6 +506,16 @@ def launch_sort_key(state, par, key_out) -> None:
         LAUNCHES["sort_key"] += 1
 
 
+def launch_empty(device) -> None:
+    """Launch empty_kernel (one thread, no work) on ``device``'s current
+    stream: the launch floor of this interface.  Not counted: no path
+    runs it."""
+    lib = load()
+    dev = torch.device(device)
+    err = lib.zrc_empty(dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    _launched(err, lib.zrc_error_string, "empty_kernel")
+
+
 # ------------------------------------------------------------- probes.cu
 
 MICRO_TRACE_CULLS = ("none", "lane", "warp")
@@ -566,13 +585,19 @@ def launch_micro_bf16(bank, state, iters: int, best_out, lib=None) -> None:
         LAUNCHES[f"micro_bf16_{'bf16' if state.dtype == torch.bfloat16 else 'f32'}"] += 1
 
 
-def launch_probe_gather(page, col, row, reps: int, form: str, out, cycles=None) -> None:
+def launch_probe_gather(page, col, row, reps: int, chunks: int, per: int, form: str, out,
+                        cycles=None, lib=None) -> None:
     """Launch probe_gather_kernel: ``out`` (8, 128) int32 = the sum over r <
     ``reps`` of take(take(page + r, col, axis=1), row, axis=0) for the (8,
-    128) int32 ``page``, ``col`` and ``row``; ``form`` "smem" (the page in
-    shared memory, indexed loads) or "shfl" (one warp, __shfl_sync).  With
-    ``cycles`` (1,) int64, the SM clock cycles of the reps loop."""
-    lib = load_probes()
+    128) int32 ``page``, ``col`` and ``row``, in ``chunks`` blocks of
+    ``per`` reps (``probes.probe_gather.rep_chunks``); ``form`` "smem" (the
+    page in shared memory, indexed loads) or "shfl" (a warp a chunk,
+    __shfl_sync).  With ``cycles`` (1,) int64, the SM clock cycles of the
+    reps loop summed over the chunks.  From ``lib`` (``load_probes_library``,
+    not counted) when given; a build without the chunked entry point runs
+    the reps in one block whatever the plan."""
+    counted = lib is None
+    lib = load_probes() if lib is None else lib
     dev = page.device
     for name, t in (("page", page), ("col", col), ("row", row), ("out", out)):
         _check(t, name, torch.int32, (8, 128), dev)
@@ -580,12 +605,15 @@ def launch_probe_gather(page, col, row, reps: int, form: str, out, cycles=None) 
         _check(cycles, "cycles", torch.int64, (1,), dev)
     if form not in PROBE_GATHER_FORMS:
         raise ValueError(f"form {form!r} not one of {PROBE_GATHER_FORMS}")
-    if reps < 0:
-        raise ValueError(f"{reps} repetitions")
+    if reps < 0 or chunks < 1 or per < 0 or chunks * per < reps:
+        raise ValueError(f"{chunks} chunks of {per} do not cover {reps} repetitions")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.zrc_probe_gather(page.data_ptr(), col.data_ptr(), row.data_ptr(), int(reps),
-                               PROBE_GATHER_FORMS.index(form), out.data_ptr(),
-                               None if cycles is None else cycles.data_ptr(),
-                               dev.index or 0, stream)
-    if _launched(err, lib.zrc_probes_error_string, "probe_gather_kernel"):
+    args = (page.data_ptr(), col.data_ptr(), row.data_ptr(), int(reps))
+    tail = (PROBE_GATHER_FORMS.index(form), out.data_ptr(),
+            None if cycles is None else cycles.data_ptr(), dev.index or 0, stream)
+    if hasattr(lib, "zrc_probe_gather_chunks"):
+        err = lib.zrc_probe_gather_chunks(*args, int(chunks), int(per), *tail)
+    else:
+        err = lib.zrc_probe_gather(*args, *tail)
+    if _launched(err, lib.zrc_probes_error_string, "probe_gather_kernel") and counted:
         LAUNCHES[f"probe_gather_{form}"] += 1

@@ -1108,6 +1108,18 @@ extern "C" int zrc_sort_key(const float* state, const float* par, int* key, int 
     return (int)cudaGetLastError();
 }
 
+// An empty kernel, one block of one thread: what a launch through this
+// interface costs the card when nothing runs (the launch floor the probes'
+// times are read against).
+__global__ void empty_kernel() {}
+
+extern "C" int zrc_empty(int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    empty_kernel<<<1, 1, 0, (cudaStream_t)stream>>>();
+    return (int)cudaGetLastError();
+}
+
 extern "C" const char* zrc_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);
 }

@@ -88,19 +88,39 @@
 // bf16 ops round them.  The tensor cores are not used: they add exact
 // products in f32, where the function rounds each bf16 product and sum.
 //
-// probe_gather_kernel.  What bounds it: the latency of one block; the
-// function moves 16 KB and does ~2 integer additions per element and rep.
-// The TPU probe gathers one (8, 128) tile on one core; so does each form
-// here, on one SM.  "smem": a block of 1024 threads, thread (s, l) one
+// probe_gather_kernel.  What bounds it on this card: nothing of the card's
+// rates.  The function moves 16 KB and does two int32 additions per
+// element and rep (an 8x128 page, 2^20 additions at reps 512: 0.03 us at
+// 33.5 TOP/s), far less than one launch costs (~1.8 us queued), so the
+// time is the launches and the latency of the reps loop.  The TPU probe
+// gathers one (8, 128) tile on one core; the first port did the same on
+// one SM (smem: one block) or on one warp scheduler (shfl: one warp), the
+// reps one after another, 223 and 1510 SM cycles a rep, the other SMs
+// idle.  But the output is a sum of independent reps, and int32 addition
+// wraps mod 2^32, so any order of the sum gives the same bits.  Design:
+// the wrapper cuts [0, reps) into ``chunks`` chunks of ``per`` reps
+// (probes/probe_gather.py rep_chunks, a chunk a slot of the card: an SM
+// for smem, a warp scheduler for shfl), chunk c the reps [c·per, min(reps,
+// (c+1)·per)).  "smem": a block of 1024 threads a chunk, thread (s, l) one
 // element; per rep each thread writes its element of page + r to shared
 // memory, reads the element its column index names (row s), writes it,
 // and reads the element its row index names (column l): two indexed
 // shared-memory loads per rep that nothing can hoist, since the arrays are
-// rewritten every rep.  "shfl": one warp holds the page in registers,
-// thread t the columns t, t+32, t+64, t+96 of all 8 rows; the column
-// gather is __shfl_sync from lane c mod 32 of each of the four column
-// registers, selected by c / 32, and the row gather stays in the thread (an
-// 8-way select over its own registers).
+// rewritten every rep.  "shfl": a warp a chunk, GATHER_WARPS warps a
+// block; a warp holds the page in registers, thread t the columns t, t+32,
+// t+64, t+96 of all 8 rows; the column gather is __shfl_sync of page + r
+// from lane c mod 32 of each of the four column registers, selected by c
+// / 32, and the row gather stays in the thread (an 8-way select over its
+// own registers).  The chunks' sums are folded into ``out`` by atomic adds
+// (red.global.add), which the launcher zeroes first on the same stream
+// (a memset: a second launch, ~1.8 us of the call); the shfl form adds its
+// warps' sums in shared memory first, so each block adds 1024 words, not
+// each warp (with the reps taken out, 512 one-warp blocks took 1.8x the
+// time of 128 blocks of four warps: PERF.md).
+// A single chunk (reps 1) runs the one-block kernel, which stores its sum
+// and needs no zeroing.  With ``cycles``, thread 0 of each chunk adds the
+// SM clock cycles of its reps loop: the sum over chunks, which grows with
+// reps as one block's did.
 //
 // Parity with the plain PyTorch versions (probes/*.py): built with
 // --fmad=false, so every a*b+c rounds twice, as PyTorch's separate
@@ -118,6 +138,8 @@
 #define BF16_SPLITS 1024
 #define ZRC_NOTHING_LAUNCHED (-1)
 #define FULL_MASK 0xffffffffu
+// probe_gather's shfl form: warps (chunks) a block, one per scheduler
+#define GATHER_WARPS 4
 // micro_trace's margin on the running best, 1 + 2^-20, and the least
 // normal float
 #define PRUNE_MARGIN 1.00000095367431640625f
@@ -679,43 +701,71 @@ __global__ void __launch_bounds__(BF16_TILE)
 
 // --------------------------------------------------------- probe_gather
 
-// One (8, 128) int32 page; ``out`` = sum over r < reps of
-// take(take(page + r, col, axis=1), row, axis=0).  With ``cycles``, thread
-// 0 writes the SM clock cycles its reps loop took: a latency-bound block's
-// time follows the SM clock, which a lightly loaded card lowers.
+// A chunk's sum into its output word: with kFold an atomic add into the
+// zeroed output (no return: red.global.add), else (the grid is one chunk)
+// a store.
+template <bool kFold>
+__device__ __forceinline__ void fold_int(int* dst, int v) {
+    if (kFold)
+        atomicAdd(dst, v);
+    else
+        *dst = v;
+}
+
+template <bool kFold>
+__device__ __forceinline__ void fold_cycles(long long* cycles, long long v) {
+    if (kFold)
+        atomicAdd(reinterpret_cast<unsigned long long*>(cycles), (unsigned long long)v);
+    else
+        *cycles = v;
+}
+
+// One (8, 128) page; block c adds take(take(page + r, col, axis=1), row,
+// axis=0) over its chunk of reps, r in [c·per, min(reps, (c+1)·per)), into
+// ``out``.
+template <bool kFold>
 __global__ void probe_gather_smem_kernel(const int* __restrict__ page,
                                          const int* __restrict__ col,
-                                         const int* __restrict__ row, int reps,
+                                         const int* __restrict__ row, int reps, int per,
                                          int* __restrict__ out,
                                          long long* __restrict__ cycles) {
     __shared__ int s_y[1024];
     __shared__ int s_z[1024];
     const int e = threadIdx.x;  // element (e / 128, e % 128)
     const int s = e >> 7, l = e & 127;
+    const int r0 = blockIdx.x * per;
+    const int r1 = min(reps, r0 + per);
     const int p = page[e];
     const int src_y = s * 128 + col[e];  // take(., col, axis=1)
     const int src_z = row[e] * 128 + l;  // take(., row, axis=0)
     int acc = 0;
     const long long c0 = clock64();
-    for (int r = 0; r < reps; ++r) {
+    for (int r = r0; r < r1; ++r) {
         s_y[e] = p + r;
         __syncthreads();
         s_z[e] = s_y[src_y];
         __syncthreads();
         acc += s_z[src_z];
     }
-    out[e] = acc;
-    if (cycles && e == 0) *cycles = clock64() - c0;
+    const long long c1 = clock64();
+    fold_int<kFold>(out + e, acc);
+    if (cycles && e == 0) fold_cycles<kFold>(cycles, c1 - c0);
 }
 
-// The same in one warp: thread t holds columns t + 32 q (q < 4) of the 8
-// rows in registers.
+// The same, a chunk a warp (chunk blockIdx.x · warps + warp, none past
+// ``reps``): thread t holds columns t + 32 q (q < 4) of the 8 rows in
+// registers.  With kFold the block's warps add their sums in shared
+// memory first, so each block folds 1024 words into ``out``.
+template <bool kFold>
 __global__ void probe_gather_shfl_kernel(const int* __restrict__ page,
                                          const int* __restrict__ col,
-                                         const int* __restrict__ row, int reps,
+                                         const int* __restrict__ row, int reps, int per,
                                          int* __restrict__ out,
                                          long long* __restrict__ cycles) {
-    const int t = threadIdx.x;
+    __shared__ int s_acc[kFold ? 1024 : 1];
+    const int t = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int r0 = (blockIdx.x * (blockDim.x >> 5) + warp) * per;
+    const int r1 = min(reps, r0 + per);
     int p[8][4], c[8][4], rw[8][4], acc[8][4];
 #pragma unroll
     for (int s = 0; s < 8; ++s)
@@ -728,7 +778,7 @@ __global__ void probe_gather_shfl_kernel(const int* __restrict__ page,
             acc[s][q] = 0;
         }
     const long long c0 = clock64();
-    for (int r = 0; r < reps; ++r) {
+    for (int r = r0; r < r1; ++r) {
         int z[8][4];
 #pragma unroll
         for (int s = 0; s < 8; ++s) {
@@ -738,10 +788,10 @@ __global__ void probe_gather_shfl_kernel(const int* __restrict__ page,
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
                 int src = c[s][q];
-                int v0 = __shfl_sync(0xffffffffu, y[0], src & 31);
-                int v1 = __shfl_sync(0xffffffffu, y[1], src & 31);
-                int v2 = __shfl_sync(0xffffffffu, y[2], src & 31);
-                int v3 = __shfl_sync(0xffffffffu, y[3], src & 31);
+                int v0 = __shfl_sync(FULL_MASK, y[0], src & 31);
+                int v1 = __shfl_sync(FULL_MASK, y[1], src & 31);
+                int v2 = __shfl_sync(FULL_MASK, y[2], src & 31);
+                int v3 = __shfl_sync(FULL_MASK, y[3], src & 31);
                 int hi = src >> 5;
                 z[s][q] = hi == 0 ? v0 : hi == 1 ? v1 : hi == 2 ? v2 : v3;
             }
@@ -757,11 +807,31 @@ __global__ void probe_gather_shfl_kernel(const int* __restrict__ page,
                 acc[s][q] += w;
             }
     }
+    const long long c1 = clock64();
+    if (cycles && t == 0) fold_cycles<kFold>(cycles, c1 - c0);
+    if (!kFold) {
 #pragma unroll
-    for (int s = 0; s < 8; ++s)
+        for (int s = 0; s < 8; ++s)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) out[s * 128 + q * 32 + t] = acc[s][q];
-    if (cycles && t == 0) *cycles = clock64() - c0;
+            for (int q = 0; q < 4; ++q) out[s * 128 + q * 32 + t] = acc[s][q];
+        return;
+    }
+    // warp 0 stores, the others add; then the block's threads fold
+    if (warp == 0) {
+#pragma unroll
+        for (int s = 0; s < 8; ++s)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) s_acc[s * 128 + q * 32 + t] = acc[s][q];
+    }
+    __syncthreads();
+    if (warp != 0) {
+#pragma unroll
+        for (int s = 0; s < 8; ++s)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) atomicAdd(s_acc + s * 128 + q * 32 + t, acc[s][q]);
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < 1024; e += blockDim.x) atomicAdd(out + e, s_acc[e]);
 }
 
 // ------------------------------------------------------------ launchers
@@ -839,16 +909,37 @@ extern "C" int zrc_micro_bf16(const float* bank, int nt, const void* state, int 
     return (int)cudaGetLastError();
 }
 
-extern "C" int zrc_probe_gather(const int* page, const int* col, const int* row, int reps,
-                                int shfl, int* out, long long* cycles, int device,
-                                void* stream) {
+// ``chunks`` chunks of ``per`` reps (chunks · per >= reps): smem a block
+// each, shfl a warp each in blocks of GATHER_WARPS warps.  One chunk runs
+// the one-block kernel, which stores; more are folded by atomic adds into
+// ``out`` and ``cycles``, zeroed on the stream first.
+extern "C" int zrc_probe_gather_chunks(const int* page, const int* col, const int* row,
+                                       int reps, int chunks, int per, int shfl, int* out,
+                                       long long* cycles, int device, void* stream) {
+    if (reps < 0 || chunks < 1 || per < 0 || (long long)chunks * per < reps)
+        return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     cudaStream_t st = (cudaStream_t)stream;
+    if (chunks == 1) {
+        if (shfl)
+            probe_gather_shfl_kernel<false><<<1, 32, 0, st>>>(page, col, row, reps, per, out,
+                                                               cycles);
+        else
+            probe_gather_smem_kernel<false><<<1, 1024, 0, st>>>(page, col, row, reps, per,
+                                                                 out, cycles);
+        return (int)cudaGetLastError();
+    }
+    err = cudaMemsetAsync(out, 0, 1024 * sizeof(int), st);
+    if (err == cudaSuccess && cycles) err = cudaMemsetAsync(cycles, 0, sizeof(long long), st);
+    if (err != cudaSuccess) return (int)err;
     if (shfl)
-        probe_gather_shfl_kernel<<<1, 32, 0, st>>>(page, col, row, reps, out, cycles);
+        probe_gather_shfl_kernel<true>
+            <<<(chunks + GATHER_WARPS - 1) / GATHER_WARPS, 32 * GATHER_WARPS, 0, st>>>(
+                page, col, row, reps, per, out, cycles);
     else
-        probe_gather_smem_kernel<<<1, 1024, 0, st>>>(page, col, row, reps, out, cycles);
+        probe_gather_smem_kernel<true><<<chunks, 1024, 0, st>>>(page, col, row, reps, per,
+                                                                 out, cycles);
     return (int)cudaGetLastError();
 }
 
