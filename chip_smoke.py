@@ -131,7 +131,27 @@ l. the extensions: the Cornell box at 1920×1080, 4 bounces, held to the
    pbr at its frame settings: a warmup and 5 timed renders (the launch
    counts of trace_emit_kernel, which the XLA path's nearest hits and
    shadow rays run), one profile, and a 320×180 frame with the kernels
-   against the twins under the golden gates.
+   against the twins under the golden gates;
+
+then multi-device pixel tiling and the host C++ libraries:
+
+m. parallel/sharding.py's render_scene_sharded against render_scene, bit
+   for bit with equal segments, the launch counts of each sharded frame
+   printed (set to 0 just before it, read just after) and each of its
+   kernels launched: the official frame over make_mesh() (every card) and
+   over 3 and 4 tiles on cuda:0, then make_mesh() and 4 tiles timed beside
+   render_scene in turns (a warmup each, 5 rounds); the ``--large`` frame
+   over 3 tiles (trace_emit, shade); the Cornell box at 320×180, 2 spp,
+   with nee, russian_roulette and pbr, through the grid and through the MXU
+   bake (trace_emit), over 4 tiles; the CLI with ``--devices`` above the
+   visible cards (make_mesh's ValueError); graft_entry.entry()'s step on
+   the card against the CPU twins and dryrun_multichip(4); the native grid
+   builder against the NumPy builder on the ``--large`` terrain at 128³
+   (equal arrays, both seconds, the OpenMP build and the cores); the
+   ``--cpu`` row of bench.py through render_cpu (the bench scene's 128³
+   grid, a warmup at 1 spp and 1 bounce, then the official frame); and
+   render_cpu against the card's grid render of tests/test_native_tracer.py's
+   textured box at 160×90 under that file's gates.
 
 Run from the repository root: ``python3 chip_smoke.py``.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
@@ -1598,6 +1618,232 @@ def extension_phases(card, launches) -> None:
     print(f"phase l: {time.perf_counter() - t_phase:.1f} s")
 
 
+def textured_box(path: Path) -> Path:
+    """tests/test_native_tracer.py's scene: the Cornell box with a checker
+    texture, an emissive ceiling and a BLEND quad, camera "c"."""
+    import numpy as np
+
+    from zig_raytracing_contest_tpu_torch.scene.procedural import SceneBuilder, quad
+
+    b = SceneBuilder()
+    white = b.add_material(base_color_factor=(0.73, 0.73, 0.73, 1))
+    red = b.add_material(base_color_factor=(0.65, 0.05, 0.05, 1))
+    light = b.add_material(base_color_factor=(0, 0, 0, 1), emissive_factor=(5, 5, 5))
+    checker = np.zeros((4, 4, 4), np.uint8)
+    checker[::2, ::2] = checker[1::2, 1::2] = [220, 220, 220, 255]
+    checker[::2, 1::2] = checker[1::2, ::2] = [40, 40, 40, 255]
+    tex = b.add_material(base_color_texture=b.add_texture(b.add_image_png(checker)))
+    holes = np.full((1, 1, 4), 255, np.uint8)
+    holes[0, 0, 3] = 120
+    glass = b.add_material(base_color_texture=b.add_texture(b.add_image_png(holes)),
+                           alpha_mode="BLEND")
+    for center, uax, vax, mat in (((0, -1, 0), (1, 0, 0), (0, 0, -1), tex),
+                                  ((0, 1, 0), (1, 0, 0), (0, 0, 1), light),
+                                  ((0, 0, -1), (1, 0, 0), (0, 1, 0), white),
+                                  ((-1, 0, 0), (0, 0, 1), (0, 1, 0), red),
+                                  ((0, 0, 0.3), (0.5, 0, 0), (0, 0.5, 0), glass)):
+        p, i, n, t = quad(center, uax, vax)
+        b.add_mesh_node(p, i, mat, normals=n, texcoords=t * 2)
+    b.add_camera_node((0, 0, 3.2), (0, 0, 0), yfov=0.9, name="c")
+    return b.write_gltf(path)
+
+
+def sharded_same(scene, cam, cfg, mesh, what, want):
+    """One frame through render_scene_sharded over ``mesh`` against
+    render_scene: bit-identical images and equal segments; the launch
+    counts of the sharded frame (set to 0 just before it, read just after)
+    printed, and each kernel of ``want`` launched at least once."""
+    import numpy as np
+
+    from zig_raytracing_contest_tpu_torch import kernels
+    from zig_raytracing_contest_tpu_torch.parallel.sharding import render_scene_sharded
+    from zig_raytracing_contest_tpu_torch.render.pipeline import render_scene
+
+    img_s, st_s = render_scene(scene, cam, cfg)
+    kernels.reset_launches()
+    img_m, st_m = render_scene_sharded(scene, cam, cfg, mesh)
+    got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    same = img_m.shape == img_s.shape and bool(np.array_equal(img_m, img_s))
+    print(f"  {what} over {len(mesh)} tile(s) on {sorted({str(d) for d in mesh})}: "
+          f"bit-identical to render_scene {same}, segments {st_m.segments} vs "
+          f"{st_s.segments}, launches {got}")
+    if not same or st_m.segments != st_s.segments:
+        fail(f"{what}: the sharded frame differs from render_scene")
+    for name in want:
+        if not got.get(name):
+            fail(f"{what}: the sharded frame launched no {name}")
+
+
+def sharding_phases(card, path, scene, cam, cfg) -> None:
+    """Phase m: multi-device pixel tiling, the graft entry points, the
+    native grid builder and the CPU tracer.  ``path``: the bench scene's
+    file; ``scene``, ``cam``, ``cfg``: the official frame's."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from zig_raytracing_contest_tpu_torch import cli, graft_entry
+    from zig_raytracing_contest_tpu_torch.config import Config
+    from zig_raytracing_contest_tpu_torch.grid.builder import build_grid
+    from zig_raytracing_contest_tpu_torch.grid.native import build_grid_native
+    from zig_raytracing_contest_tpu_torch.grid.native import load_library as grid_library
+    from zig_raytracing_contest_tpu_torch.ops.linalg import vec3_to_rgb
+    from zig_raytracing_contest_tpu_torch.parallel.sharding import (
+        make_mesh,
+        render_scene_sharded,
+    )
+    from zig_raytracing_contest_tpu_torch.render.native_cpu import load_library, render_cpu
+    from zig_raytracing_contest_tpu_torch.render.pipeline import prepare_scene, render_scene
+    from zig_raytracing_contest_tpu_torch.scene.geometry import load_geometry
+    from zig_raytracing_contest_tpu_torch.scene.gltf import load_gltf
+    from zig_raytracing_contest_tpu_torch.scene.procedural import cornell_like_box, large_scene
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    tmp = tempfile.TemporaryDirectory()
+    cards = make_mesh()
+    print(f"phase m: make_mesh() = {[str(d) for d in cards]}")
+
+    # (1) the official frame over every card, and over 3 and 4 tiles on cuda:0
+    meshes = {"make_mesh()": cards, "3 tiles": (dev,) * 3, "4 tiles": (dev,) * 4}
+    for what, mesh in meshes.items():
+        sharded_same(scene, cam, cfg, mesh, f"official {what}",
+                     ("path_trace_gen", "path_trace"))
+    # timed beside render_scene, in turns: a warmup each, then 5 rounds
+    runs = {"render_scene": lambda: render_scene(scene, cam, cfg),
+            "sharded make_mesh()": lambda: render_scene_sharded(scene, cam, cfg, cards),
+            "sharded 4 tiles": lambda: render_scene_sharded(scene, cam, cfg, (dev,) * 4)}
+    rates = {k: [] for k in runs}
+    for fn in runs.values():
+        fn()
+    for _ in range(5):
+        for k, fn in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, st = fn()
+            torch.cuda.synchronize()
+            rates[k].append(st.segments / (time.perf_counter() - t0) / 1e6)
+    for k, r in rates.items():
+        med = statistics.median(r)
+        print(f"  official {k}: median {med:.3f} Mrays/s, best {max(r):.3f}, spread "
+              f"{(max(r) - min(r)) / med * 100:.1f}% ({card})")
+        print("    reps Mrays/s: " + ", ".join(f"{x:.3f}" for x in r))
+
+    # (2) the --large frame over 3 tiles
+    lpath = large_scene(Path(tmp.name) / "large.gltf")
+    lcfg = Config(num_samples=L_SPP, max_bounce=L_BOUNCES, wave_size=L_WAVE, seed=SEED)
+    lscene, lcam, _ = prepare_scene(str(lpath), lcfg, camera_name="Camera 1", width=L_W,
+                                    height=L_H, device=dev)
+    sharded_same(lscene, lcam, lcfg, (dev,) * 3, "--large", ("trace_emit", "shade"))
+    del lscene
+
+    # (3) the Cornell box with the extensions, grid and MXU bake, over 4 tiles
+    box = cornell_like_box(Path(tmp.name) / "box.gltf")
+    for backend, want in (("grid", ()), ("mxu", ("trace_emit",))):
+        ecfg = Config(num_samples=2, max_bounce=MAX_BOUNCE, seed=SEED, backend=backend,
+                      nee=True, russian_roulette=True, pbr=True)
+        escene, ecam, _ = prepare_scene(str(box), ecfg, width=320, height=180, device=dev)
+        sharded_same(escene, ecam, ecfg, (dev,) * 4, f"Cornell 320x180 nee+rr+pbr, {backend}",
+                     want)
+
+    # (4) --devices above the visible cards: the clean error of make_mesh
+    cfg_path = Path(tmp.name) / "config.json"
+    cfg_path.write_text(json.dumps({"grid_resolution": [8, 8, 8], "num_threads": None,
+                                    "num_samples": 1, "max_bounce": 2}))
+    too_many = torch.cuda.device_count() + 1
+    try:
+        cli.main(["--in", str(box), "--out", str(Path(tmp.name) / "o.png"), "--width", "16",
+                  "--height", "16", "--config", str(cfg_path), "--devices", str(too_many)])
+        fail(f"--devices {too_many} rendered")
+    except ValueError as exc:
+        print(f"  cli --devices {too_many}: ValueError: {exc}")
+        if "visible" not in str(exc):
+            fail("--devices above the visible cards: not make_mesh's error")
+
+    # (5) the graft entry points on the card
+    from zig_raytracing_contest_tpu_torch import kernels
+
+    kernels.reset_launches()
+    step, args = graft_entry.entry()
+    rows3, segs = step(*args)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    cstep, cargs = graft_entry.entry(device="cpu")
+    crows3, csegs = cstep(*cargs)
+    diff = (vec3_to_rgb(rows3.T).cpu().numpy().astype(int)
+            - vec3_to_rgb(crows3.T).numpy().astype(int))
+    diff = np.abs(diff)
+    print(f"  graft_entry.entry() step on {rows3.device}: rows {tuple(rows3.shape)}, segments "
+          f"{int(segs)} (CPU twins {int(csegs)}), diff>2 on {(diff > 2).mean():.4%} of "
+          f"channels, mean |diff| {diff.mean():.4f}, launches {got}")
+    if (tuple(rows3.shape) != (3, 1024) or not bool(torch.isfinite(rows3).all())
+            or not (diff > 2).mean() < 0.06 or not diff.mean() < 1.5
+            or abs(int(segs) - int(csegs)) > 0.005 * int(csegs) or not got.get("path_trace_gen")):
+        fail("graft_entry.entry()'s step on the card")
+    kernels.reset_launches()
+    graft_entry.dryrun_multichip(4)
+    print(f"  graft_entry.dryrun_multichip(4): ok, launches "
+          f"{ {k: v for k, v in kernels.LAUNCHES.items() if v} }")
+
+    # (6) the native grid builder against NumPy on the --large terrain, 128³
+    positions = load_geometry(load_gltf(str(lpath))).positions
+    gl = grid_library()
+    t0 = time.perf_counter()
+    a = build_grid(positions, G_RES)
+    t_numpy = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = build_grid_native(positions, G_RES)
+    t_native = time.perf_counter() - t0
+    same = all(np.array_equal(getattr(a, f), getattr(b, f)) for f in (
+        "bbox_min", "bbox_max", "resolution", "cell_size", "cell_begin", "cell_end",
+        "dup_to_tri")) and a.stats == b.stats
+    threads = len(os.sched_getaffinity(0))
+    print(f"  grid build --large {G_RES}: native {t_native:.3f} s, NumPy {t_numpy:.3f} s "
+          f"({t_numpy / t_native:.1f}x), D {b.stats['total_refs']}, equal arrays {same}; "
+          f"OpenMP build {gl.openmp}, os.cpu_count() {os.cpu_count()}, usable cores {threads}")
+    if not same:
+        fail("the native grid builder differs from the NumPy builder")
+    del a, b, positions
+
+    # (7) the --cpu row of bench.py: the bench scene's grid at 128³, a warmup
+    # at 1 spp and 1 bounce, then the official frame
+    tl = load_library()
+    gcfg = Config(grid_resolution=G_RES, num_samples=SPP, max_bounce=MAX_BOUNCE, seed=SEED,
+                  backend="grid")
+    gscene, gcam, _ = prepare_scene(str(path), gcfg, camera_name="Camera 1", width=1920,
+                                    height=1080, device=dev)
+    render_cpu(gscene, gcam, spp=1, max_bounce=1)
+    img, segments, seconds = render_cpu(gscene, gcam, spp=SPP, max_bounce=MAX_BOUNCE)
+    print(f"  --cpu row: " + json.dumps({
+        "metric": "cpu_Mrays/s", "value": segments / seconds / 1e6, "unit": "Mrays/s",
+        "threads": os.cpu_count(), "usable_cores": threads, "openmp": tl.openmp,
+        "segments": segments, "seconds": seconds}))
+    if img.shape != (1080, 1920, 3) or not segments > 0:
+        fail("the CPU tracer's official frame")
+    del gscene
+
+    # (8) the CPU tracer against the card's grid render, 160x90, under
+    # tests/test_native_tracer.py's gates
+    tpath = textured_box(Path(tmp.name) / "t.gltf")
+    tcfg = Config(grid_resolution=(8, 8, 8), num_samples=4, max_bounce=4, seed=11,
+                  backend="grid")
+    tscene, tcam, _ = prepare_scene(str(tpath), tcfg, camera_name="c", width=160, height=90,
+                                    device=dev)
+    img_g, st_g = render_scene(tscene, tcam, tcfg)
+    img_c, seg_c, _ = render_cpu(tscene, tcam, spp=4, max_bounce=4, seed=11)
+    diff = np.abs(img_g.astype(int) - img_c.astype(int))
+    frac, mean = float((diff > 2).mean()), float(diff.mean())
+    print(f"  render_cpu vs the card's grid render, textured box 160x90: diff>2 on "
+          f"{frac:.4%} of channels, mean |diff| {mean:.4f}, segments {seg_c} vs "
+          f"{st_g.segments}")
+    if not (frac < 0.02 and mean < 1.0
+            and abs(seg_c - st_g.segments) <= max(8, st_g.segments // 1000)):
+        fail("the CPU tracer and the card's grid render disagree beyond the gates")
+    tmp.cleanup()
+    print(f"phase m: {time.perf_counter() - t_phase:.1f} s")
+
+
 def official_frame(render_scene, scene, cam, cfg, card) -> dict:
     """Phase 6: the official frame through the main path, a warmup and 5
     timed renders; returns the launch counts of the 6 renders."""
@@ -1793,6 +2039,7 @@ def main() -> int:
     trace_probe_phases(card, timing, errs, bounds, launches, library)
     grid_phases(card)
     extension_phases(card, launches)
+    sharding_phases(card, path, scene, cam, cfg)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [

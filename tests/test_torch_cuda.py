@@ -485,3 +485,29 @@ def test_grid_trace_matches_cpu_on_cuda(tmp_path):
         assert int(torch.isfinite(a[0]).sum()) > R // 4
         o, d, *_, missed, _ = shade_and_scatter(cpu, o, d, *a[:4], streams, bounce)
         live, prev = ~missed & live, a[4]
+
+
+@pytest.mark.cuda
+def test_sharded_frame_matches_render_scene_on_cuda(tmp_path):
+    """The official scene at 320×180 (3 spp, 4 bounces, waves of 2^14 rays)
+    over 4 tiles on cuda:0 against render_scene: bit-identical, equal
+    segments, the whole-path kernels launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    import numpy as np
+
+    from zig_raytracing_contest_tpu_torch import kernels
+    from zig_raytracing_contest_tpu_torch.parallel.sharding import render_scene_sharded
+    from zig_raytracing_contest_tpu_torch.render.pipeline import render_scene
+
+    path = tproc.bench_scene(tmp_path / "b.gltf")
+    cfg = Config(num_samples=3, max_bounce=4, wave_size=1 << 14)
+    scene, cam, _ = prepare_scene(str(path), cfg, camera_name="Camera 1", width=320,
+                                  height=180, device="cuda")
+    single, st_s = render_scene(scene, cam, cfg)
+    kernels.reset_launches()
+    dev = torch.device("cuda", 0)
+    sharded, st_m = render_scene_sharded(scene, cam, cfg, (dev,) * 4)
+    np.testing.assert_array_equal(single, sharded)
+    assert st_s.segments == st_m.segments
+    assert kernels.LAUNCHES["path_trace_gen"] > 0 and kernels.LAUNCHES["path_trace"] > 0

@@ -111,6 +111,10 @@ def test_port_imports_neither_jax_nor_pillow():
         "import zig_raytracing_contest_tpu_torch.probes.probe_gather\n"
         "import zig_raytracing_contest_tpu_torch.probes.walk_check\n"
         "import zig_raytracing_contest_tpu_torch.scene.duck\n"
+        "import zig_raytracing_contest_tpu_torch.parallel.sharding\n"
+        "import zig_raytracing_contest_tpu_torch.graft_entry\n"
+        "import zig_raytracing_contest_tpu_torch.render.native_cpu\n"
+        "import zig_raytracing_contest_tpu_torch.grid.native\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'PIL'"
         ", 'zig_raytracing_contest_tpu'))\n"
         "print(bad)\n"

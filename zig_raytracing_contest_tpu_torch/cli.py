@@ -3,9 +3,9 @@
 Reference CLI (src/main.zig:33-39): ``--in`` (default input.gltf), ``--out``
 (default output.png), ``--camera`` (name), ``--width``, ``--height``.
 Extras, as in the JAX package's CLI: ``--config`` (path to config.json,
-default ./config.json), ``--devices`` (device count; only 1 is supported so
-far), ``--log-level`` and ``--profile`` (a torch.profiler trace of the
-render).  ``--device`` (``cuda``, the default, or ``cpu``) is the port's
+default ./config.json), ``--devices N`` (N > 1: pixel tiles over the first
+N cards, or N CPU tiles with ``--device cpu``; parallel/sharding.py),
+``--log-level`` and ``--profile`` (a torch.profiler trace of the render).  ``--device`` (``cuda``, the default, or ``cpu``) is the port's
 counterpart of the platform the JAX CLI takes from ``JAX_PLATFORMS``: the
 render runs on the CUDA card, or on the CPU with the kernels' plain twins
 only when ``--device cpu`` asks for it.  Without a card the default fails.
@@ -66,10 +66,6 @@ def main(argv=None) -> int:
                      "(torch.cuda.is_available() is False); pass --device cpu "
                      "to render on the CPU")
     config = Config.load(args.config)
-    if args.devices is not None and args.devices > 1:
-        raise NotImplementedError(
-            "multi-device pixel tiling (--devices > 1) is ROADMAP queue 1 item 13"
-        )
     log = logging.getLogger("zig_raytracing_contest_tpu_torch")
     log.info("Device: %s", device)
 
@@ -83,15 +79,14 @@ def main(argv=None) -> int:
         profiler = profile(activities=activities)
         profiler.__enter__()
 
-    stats = render_file(
-        args.in_path,
-        args.out_path,
-        config,
-        camera_name=args.camera,
-        width=args.width,
-        height=args.height,
-        device=device,
-    )
+    kw = dict(camera_name=args.camera, width=args.width, height=args.height, device=device)
+    if args.devices is not None and args.devices > 1:
+        from .parallel.sharding import render_file_sharded
+
+        stats = render_file_sharded(args.in_path, args.out_path, config,
+                                    num_devices=args.devices, **kw)
+    else:
+        stats = render_file(args.in_path, args.out_path, config, **kw)
 
     if profiler is not None:
         import os

@@ -12,9 +12,9 @@ The reference's per-triangle loops are one vectorized pass over all
 (triangle, candidate cell) pairs, generated triangle-major so that a
 stable sort by cell gives the reference's per-cell order, in chunks of
 bounded memory.  ``scene_bbox`` is the box alone, which the beam-sort keys
-of the MXU regimes read (``render/wavefront.build_gen_par``).  The JAX
-package's OpenMP builder (``grid/native.py``) has no copy here; the JAX
-tests hold it equal to this one.
+of the MXU regimes read (``render/wavefront.build_gen_par``).  The OpenMP
+builder (``grid/native.py``) returns the same build; the tests hold the
+two equal, and this one is the fallback where no compiler can build it.
 """
 
 from __future__ import annotations

@@ -57,9 +57,19 @@ NOTHING_LAUNCHED = -1
 TREE_STACK = 24
 
 
+# guards LAUNCHES: the sharded render launches from one host thread a card
+_count_lock = threading.Lock()
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count(name: str) -> None:
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 class ZrcScene(ctypes.Structure):
@@ -343,7 +353,7 @@ def launch_path_trace_gen(scene, par, meta, gen, max_bounce: int,
         state_out.data_ptr(), idx_out.data_ptr(), R, dev.index or 0, stream,
     )
     if _launched(err, lib.zrc_error_string, "path_trace_gen_kernel") and counted:
-        LAUNCHES["path_trace_gen"] += 1
+        _count("path_trace_gen")
 
 
 def launch_path_trace(scene, state_in, prev, bounce0: int, max_bounce: int,
@@ -368,7 +378,7 @@ def launch_path_trace(scene, state_in, prev, bounce0: int, max_bounce: int,
         dev.index or 0, stream,
     )
     if _launched(err, lib.zrc_error_string, "path_trace_kernel") and counted:
-        LAUNCHES["path_trace"] += 1
+        _count("path_trace")
 
 
 def _heap(tree, gbox, group_tiles: int, leaves: int, device) -> ZrcHeap:
@@ -415,7 +425,7 @@ def _launch_trace(scene, heap: ZrcHeap, state, prev, table, aux_out, idx_out,
     )
     name = "trace_stream" if heap.gbox else "trace_emit"
     if _launched(err, lib.zrc_error_string, f"{name}_kernel") and counted:
-        LAUNCHES[name] += 1
+        _count(name)
 
 
 def launch_trace_emit(scene, state, prev, table, aux_out, idx_out, rec_out,
@@ -459,7 +469,7 @@ def launch_shade(scene, state_in, aux, rec, bounce: int, state_out) -> None:
         int(bounce), state_out.data_ptr(), R, dev.index or 0, stream,
     )
     if _launched(err, lib.zrc_error_string, "shade_kernel"):
-        LAUNCHES["shade"] += 1
+        _count("shade")
 
 
 def launch_texel_fetch(bank, texture, base, demand, out) -> None:
@@ -486,7 +496,7 @@ def launch_texel_fetch(bank, texture, base, demand, out) -> None:
                               demand.data_ptr(), out.data_ptr(), B, dev.index or 0,
                               stream)
     if _launched(err, lib.zrc_error_string, "texel_fetch_kernel"):
-        LAUNCHES["texel_fetch"] += 1
+        _count("texel_fetch")
 
 
 def launch_sort_key(state, par, key_out) -> None:
@@ -503,7 +513,7 @@ def launch_sort_key(state, par, key_out) -> None:
     err = lib.zrc_sort_key(state.data_ptr(), par.data_ptr(), key_out.data_ptr(), R,
                            dev.index or 0, stream)
     if _launched(err, lib.zrc_error_string, "sort_key_kernel"):
-        LAUNCHES["sort_key"] += 1
+        _count("sort_key")
 
 
 def launch_empty(device) -> None:
@@ -554,7 +564,7 @@ def launch_micro_trace(tri_data, tile_bbox, tile: int, state, cull: str,
         MICRO_TRACE_CULLS.index(cull), int(extract_uv), threads, aux_out.data_ptr(),
         idx_out.data_ptr(), R, dev.index or 0, stream)
     if _launched(err, lib.zrc_probes_error_string, "micro_trace_kernel") and counted:
-        LAUNCHES[f"micro_trace_{cull}"] += 1
+        _count(f"micro_trace_{cull}")
 
 
 def launch_micro_bf16(bank, state, iters: int, best_out, lib=None) -> None:
@@ -582,7 +592,7 @@ def launch_micro_bf16(bank, state, iters: int, best_out, lib=None) -> None:
                              int(state.dtype == torch.bfloat16), L, int(iters),
                              best_out.data_ptr(), dev.index or 0, stream)
     if _launched(err, lib.zrc_probes_error_string, "micro_bf16_kernel") and counted:
-        LAUNCHES[f"micro_bf16_{'bf16' if state.dtype == torch.bfloat16 else 'f32'}"] += 1
+        _count(f"micro_bf16_{'bf16' if state.dtype == torch.bfloat16 else 'f32'}")
 
 
 def launch_probe_gather(page, col, row, reps: int, chunks: int, per: int, form: str, out,
@@ -616,4 +626,4 @@ def launch_probe_gather(page, col, row, reps: int, chunks: int, per: int, form: 
     else:
         err = lib.zrc_probe_gather(*args, *tail)
     if _launched(err, lib.zrc_probes_error_string, "probe_gather_kernel") and counted:
-        LAUNCHES[f"probe_gather_{form}"] += 1
+        _count(f"probe_gather_{form}")

@@ -16,13 +16,15 @@ Every entry point renders on the CUDA card unless the caller passes
 from __future__ import annotations
 
 import logging
+import subprocess
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..config import Config
-from ..grid.builder import build_grid, scene_bbox
+from ..grid.builder import GridBuild, build_grid, scene_bbox
+from ..grid.native import build_grid_native
 from ..ops import linalg
 from ..scene.camera import Camera, load_camera
 from ..scene.geometry import load_geometry
@@ -82,10 +84,21 @@ class RenderStats:
     phases: dict
 
 
+def build_scene_grid(positions: np.ndarray, resolution) -> GridBuild:
+    """The scene's grid, from the native OpenMP builder, or from the NumPy
+    builder (the same GridBuild) with a warning when no compiler can build
+    the native one."""
+    try:
+        return build_grid_native(positions, resolution, log_fn=log.info)
+    except (OSError, subprocess.CalledProcessError) as exc:
+        log.warning("native grid builder unavailable (%s); using NumPy", exc)
+        return build_grid(positions, resolution, log=log.info)
+
+
 def prepare_scene(in_path: str, config: Config, camera_name=None, width=None,
                   height=None, device="cuda"):
     """Host pipeline: parse, extract, build the grid when the backend needs
-    one (the NumPy builder), bake, upload to ``device``.  Returns
+    one (``build_scene_grid``), bake, upload to ``device``.  Returns
     (TorchScene, Camera, timers)."""
     timers = PhaseTimers()
 
@@ -112,8 +125,8 @@ def prepare_scene(in_path: str, config: Config, camera_name=None, width=None,
         backend = scene_backend(geometry.num_triangles, config.backend)
         log.info("Backend: %s (config: %s, %d triangles)", backend, config.backend,
                  geometry.num_triangles)
-        grid = (build_grid(geometry.positions, config.grid_resolution, log=log.info)
-                if backend == "grid" else None)
+        grid = build_scene_grid(geometry.positions, config.grid_resolution) if (
+            backend == "grid") else None
         scene = build_torch_scene(
             geometry, materials, scene_bbox(geometry.positions), device,
             backend=config.backend, grid=grid,
