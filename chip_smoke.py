@@ -151,7 +151,22 @@ m. parallel/sharding.py's render_scene_sharded against render_scene, bit
    ``--cpu`` row of bench.py through render_cpu (the bench scene's 128³
    grid, a warmup at 1 spp and 1 bounce, then the official frame); and
    render_cpu against the card's grid render of tests/test_native_tracer.py's
-   textured box at 160×90 under that file's gates.
+   textured box at 160×90 under that file's gates;
+
+then the port's bench (zig_raytracing_contest_tpu_torch/bench.py):
+
+n. bench.measure on its official row (5 timed frames) and on its Sponza
+   (scene/sponza.py at detail 1.25, height 720) and 2M-terrain
+   (``large_scene(side=1000)``, 640×360, 1 spp, 2 bounces) rows at 3 timed
+   frames each, every JSON line printed after ``bench:`` (the median, reps,
+   launches, device-busy time and idle share against the unprofiled wall);
+   each big scene's bake line; Sponza's 160×90 frame with the kernels and
+   with the twins under the alpha-scene gates; trace_emit_aux
+   (trace_stream_kernel) against its twin on 2^14 lanes spread over the 2M
+   frame's bounce-0 and sorted bounce-1 waves, as in phase f; a 160×90 500k
+   frame with nee and russian_roulette (the XLA shading path over the
+   streaming bake: trace_stream_kernel with records off, and no other
+   kernel), kernels vs twins under the gates.
 
 Run from the repository root: ``python3 chip_smoke.py``.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
@@ -268,19 +283,17 @@ WALK_LANES = 1024
 # and edge decisions together on at most EDGE_SHARE of the lanes
 G_RES = (128, 128, 128)
 TIE_RTOL, TIE_ATOL, EDGE_UV, EDGE_SHARE = 1e-5, 4e-6, 1e-3, 1e-4
+# phase n: the timed frames of the bench's Sponza and 2M rows (3, as
+# scripts/large_sweep.py times them; the bench's own default is 5), and the
+# lanes of the 2M terrain's waves held to the brute-force twin (~4x the
+# 500k terrain's time a ray)
+BIG_REPS = 3
+M2_LANES = 1 << 14
 
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     raise SystemExit(1)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[0].strip()
 
 
 def lanes_off(k_state, t_state):
@@ -1844,6 +1857,117 @@ def sharding_phases(card, path, scene, cam, cfg) -> None:
     print(f"phase m: {time.perf_counter() - t_phase:.1f} s")
 
 
+def bench_phases(card, errs) -> None:
+    """Phase n: the port's bench (bench.measure) on its official, Sponza
+    and 2M rows; Sponza's 160x90 frame and a 160x90 500k frame with NEE and
+    Russian roulette (the XLA shading path over the streaming bake),
+    kernels vs twins; trace_stream_kernel against its twin on the 2M
+    terrain's bounce-0 and sorted bounce-1 waves."""
+    import torch
+
+    from zig_raytracing_contest_tpu_torch import bench, kernels
+    from zig_raytracing_contest_tpu_torch.config import Config
+    from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
+    from zig_raytracing_contest_tpu_torch.probes.trace_ab import bounce_waves
+    from zig_raytracing_contest_tpu_torch.render import wavefront as wf
+    from zig_raytracing_contest_tpu_torch.render.pipeline import (
+        backend_line,
+        prepare_scene,
+        render_scene,
+    )
+    from zig_raytracing_contest_tpu_torch.scene.procedural import large_scene
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    tmp = tempfile.TemporaryDirectory()
+    d = Path(tmp.name)
+
+    def bake_line(name, p, write_s):
+        s, ph = p.scene, p.phases
+        print(f"  {name}: {s.shade_table.shape[0]} triangles, tri_data "
+              f"{tuple(s.tri_data.shape)}, tile {s.tile}, tiles {s.tile_bbox.shape[1]}, "
+              f"groups {s.group_bbox.shape[1]}, group_tree_bbox "
+              f"{tuple(s.group_tree_bbox.shape)}, texels {s.bank.shape[0]}, "
+              f"{backend_line(s)}, camera {p.camera.width}x{p.camera.height}; written in "
+              f"{write_s:.2f} s, loaded in {ph['load'] + ph['preprocess']:.2f} s, "
+              f"baked in {ph['compile']:.2f} s")
+        if wf.regime(s) != "streaming, sorted":
+            fail(f"{name} renders {wf.regime(s)}, expected streaming, sorted")
+
+    # (1) the official row, as the bench runs it (5 timed frames)
+    print("bench: " + json.dumps(bench.measure(bench.ROW["official"], dev)))
+
+    # (2) Sponza: the row at BIG_REPS timed frames, then its 160x90 frame
+    # with the kernels and with the twins under the alpha-scene gates
+    row = bench.ROW["sponza"]
+    path, write_s = bench.write_scene(row, d)
+    prep = bench.prepare(row, dev, path)
+    bake_line("Sponza", prep, write_s)
+    print(f"bench ({BIG_REPS} timed frames): "
+          + json.dumps(bench.measure(row, dev, reps=BIG_REPS, prepared=prep)))
+    del prep
+    small = bench.prepare(row, dev, path, height=90)
+    if (small.camera.width, small.camera.height) != (160, 90):
+        fail(f"Sponza's camera at height 90 gives {small.camera.width}x90")
+    frame_gate(render_scene, small.scene, small.camera, small.config, "Sponza frame 160x90")
+    del small
+    torch.cuda.empty_cache()
+
+    # (3) the 2M terrain: the row at BIG_REPS timed frames, then
+    # trace_stream_kernel against its twin on M2_LANES lanes spread over
+    # the frame's bounce-0 wave and its sorted bounce-1 wave
+    row = bench.ROW["2m"]
+    path, write_s = bench.write_scene(row, d)
+    prep = bench.prepare(row, dev, path)
+    bake_line("2M terrain", prep, write_s)
+    leaves = prep.scene.group_tree_bbox.shape[1] // 2
+    if leaves > 1 << kernels.TREE_STACK:
+        fail(f"2M terrain: a group heap of {leaves} leaves is past the walk's stack")
+    print(f"bench ({BIG_REPS} timed frames): "
+          + json.dumps(bench.measure(row, dev, reps=BIG_REPS, prepared=prep)))
+    s, cam = prep.scene, prep.camera
+    full = cam.width * cam.height * row.spp
+    (st0, a0, i0, r0, _), (st1, prev1, a1, i1, r1, _) = bounce_waves(s, cam, full, row.spp,
+                                                                     SEED)
+    torch.cuda.synchronize()
+    lane = torch.arange(M2_LANES, device=dev) * (full // M2_LANES)
+    for bounce, st, prev, (a, i, r) in ((0, st0, None, (a0, i0, r0)),
+                                        (1, st1, prev1, (a1, i1, r1))):
+        st_l = st[:, lane].contiguous()
+        pv = None if prev is None else prev[lane].contiguous()
+        t0 = time.perf_counter()
+        twin = mi.trace_emit_aux_ref(s, st_l, s.rec_table, pv)
+        twin_s = time.perf_counter() - t0
+        errs["trace_stream"] = max(errs["trace_stream"], compare_trace(
+            f"trace_emit_aux (2M terrain, full wave, bounce {bounce}"
+            f"{', sorted, prev' if bounce else ''}, {M2_LANES} lanes; twin {twin_s:.1f} s)",
+            s, st_l, pv, (a[:, lane], i[lane], r[:, lane]), twin))
+    del prep, s, st0, st1, a0, a1, r0, r1, st_l, twin
+    torch.cuda.empty_cache()
+
+    # (4) the XLA shading path over a streaming bake: the 500k terrain at
+    # 160x90 with NEE and Russian roulette, kernels vs twins; its nearest
+    # hits and shadow rays launch trace_stream_kernel with records off
+    path = large_scene(d / "large500.gltf", side=S_SIDE)
+    cfg = Config(num_samples=L_SPP, max_bounce=L_BOUNCES, seed=SEED, nee=True,
+                 russian_roulette=True)
+    scene, cam, _ = prepare_scene(str(path), cfg, camera_name="Camera 1", width=160,
+                                  height=90, device=dev)
+    reg = wf.regime(scene, cfg.ext_flags)
+    print(f"  500k with nee, russian_roulette: {backend_line(scene, cfg.ext_flags)}")
+    if reg != "XLA shading, group heap":
+        fail(f"500k with nee, russian_roulette renders {reg}, expected XLA shading, "
+             "group heap")
+    kernels.reset_launches()
+    frame_gate(render_scene, scene, cam, cfg, "500k nee+rr frame 160x90")
+    got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    print(f"  500k nee+rr frame 160x90: launches {got} ({card})")
+    if set(got) != {"trace_stream"}:
+        fail("the streaming NEE/RR frame did not run on trace_stream_kernel alone")
+    tmp.cleanup()
+    print(f"phase n: {time.perf_counter() - t_phase:.1f} s")
+
+
 def official_frame(render_scene, scene, cam, cfg, card) -> dict:
     """Phase 6: the official frame through the main path, a warmup and 5
     timed renders; returns the launch counts of the 6 renders."""
@@ -1867,6 +1991,8 @@ def main() -> int:
     # 1. the card
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA card")
+    from zig_raytracing_contest_tpu_torch.bench import card_line
+
     card = card_line()
     print(card)
     dev = torch.device("cuda", 0)
@@ -2040,6 +2166,7 @@ def main() -> int:
     grid_phases(card)
     extension_phases(card, launches)
     sharding_phases(card, path, scene, cam, cfg)
+    bench_phases(card, errs)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [

@@ -115,8 +115,11 @@ def test_port_imports_neither_jax_nor_pillow():
         "import zig_raytracing_contest_tpu_torch.graft_entry\n"
         "import zig_raytracing_contest_tpu_torch.render.native_cpu\n"
         "import zig_raytracing_contest_tpu_torch.grid.native\n"
+        "import zig_raytracing_contest_tpu_torch.bench\n"
+        "import zig_raytracing_contest_tpu_torch.scene.sponza\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'PIL'"
-        ", 'zig_raytracing_contest_tpu'))\n"
+        ", 'zig_raytracing_contest_tpu', 'bench', 'scripts', 'sponza_builder'"
+        ", 'duck_builder', 'large_sweep'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -95,6 +95,16 @@ def build_scene_grid(positions: np.ndarray, resolution) -> GridBuild:
         return build_grid(positions, resolution, log=log.info)
 
 
+def backend_line(scene: TorchScene, ext=None) -> str:
+    """How a frame of ``scene`` renders, in words: the regime, the device,
+    the bank's shade and the walk, e.g. ``streaming, sorted on cuda:0
+    (resident bank); walk: group heap``.  The CPU twins take the flat tile
+    loop for every baked scene: ``walk: flat (plain twins)``."""
+    walk = (trace_walk(scene, ext) if scene.device.type == "cuda" or scene.tri_data is None
+            else "flat (plain twins)")
+    return f"{regime(scene, ext)} on {scene.device} ({shade_bank(scene, ext)}); walk: {walk}"
+
+
 def prepare_scene(in_path: str, config: Config, camera_name=None, width=None,
                   height=None, device="cuda"):
     """Host pipeline: parse, extract, build the grid when the backend needs
@@ -131,11 +141,7 @@ def prepare_scene(in_path: str, config: Config, camera_name=None, width=None,
             geometry, materials, scene_bbox(geometry.positions), device,
             backend=config.backend, grid=grid,
         )
-        ext = config.ext_flags
-        walk = (trace_walk(scene, ext) if scene.device.type == "cuda" or scene.tri_data is None
-                else "flat (plain twins)")
-        log.info("Intersection backend: %s on %s (%s); walk: %s",
-                 regime(scene, ext), scene.device, shade_bank(scene, ext), walk)
+        log.info("Intersection backend: %s", backend_line(scene, config.ext_flags))
 
     return scene, camera, timers
 
