@@ -166,7 +166,23 @@ n. bench.measure on its official row (5 timed frames) and on its Sponza
    frame's bounce-0 and sorted bounce-1 waves, as in phase f; a 160×90 500k
    frame with nee and russian_roulette (the XLA shading path over the
    streaming bake: trace_stream_kernel with records off, and no other
-   kernel), kernels vs twins under the gates.
+   kernel), kernels vs twins under the gates;
+
+then the whole-frame device call (render.pipeline: one CUDA graph a frame):
+
+o. the eager wave loop's host time, part by part, on the official and Duck
+   frames (probes/frame_host.py: the slot map, each wave's dispatch,
+   ray_sort_key, the encode, the wait and copy to the host; the host
+   operators' self CPU time); ray_sort_key_kernel against its twin, bit for
+   bit, on the official, Duck, --large and 500k waves after bounce 1 and on
+   the built NaN lanes of probes/sort_key.py, timed at the official and
+   --large waves beside the twin and its bound, with its launches a frame;
+   the frame as one CUDA graph against the eager loop (graph=False) on the
+   official frame (and a second camera through the same graph), Duck,
+   --large, 2M and Sponza: images and segments bit for bit, the launch
+   counts of 2 graph frames equal to 2 eager frames', the walls in
+   alternating (eager, graph, graph, eager) rounds, the device busy time
+   and idle share of one profiled frame of each, the graph's pool bytes.
 
 Run from the repository root: ``python3 chip_smoke.py``.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
@@ -236,6 +252,7 @@ KERNELS = [
     ("micro_bf16_bf16", "micro_bf16_kernel", "scripts/micro_bf16.py:74"),
     ("probe_gather_smem", "probe_gather_kernel", "scripts/probe_gather.py:36"),
     ("probe_gather_shfl", "probe_gather_kernel", "scripts/probe_gather.py:36"),
+    ("ray_sort_key", "ray_sort_key_kernel", "zig_raytracing_contest_tpu/render/wavefront.py:125"),
 ]
 PROBE_KERNELS = ("micro_trace_kernel", "micro_bf16_kernel", "probe_gather_kernel")
 # The card's peaks (NVIDIA H100 SXM data sheet): f32 outside the tensor
@@ -1968,6 +1985,232 @@ def bench_phases(card, errs) -> None:
     print(f"phase n: {time.perf_counter() - t_phase:.1f} s")
 
 
+def key_check(what, scene, state) -> None:
+    """ray_sort_key_kernel against ray_sort_key_ref on ``state``: every
+    lane's key bit for bit."""
+    from zig_raytracing_contest_tpu_torch.render.wavefront import ray_sort_key, ray_sort_key_ref
+
+    off = int((ray_sort_key(scene, state) != ray_sort_key_ref(scene, state)).sum())
+    print(f"  ray_sort_key_kernel vs ray_sort_key_ref, {what}: {off} of {state.shape[1]} "
+          f"lanes differ ({int((state[12] > 0).sum())} live)")
+    if off:
+        fail(f"ray_sort_key_kernel differs from its twin on the {what}")
+
+
+def whole_path_bounce1(scene, cam, cfg):
+    """The middle wave of a whole-path frame after bounce 1 on the card's
+    kernels (gen, sort on the emitted key, bounce 1): the mid resort's
+    input (the first waves of the official frame are sky: every ray dead
+    after bounce 0)."""
+    import torch
+
+    from zig_raytracing_contest_tpu_torch.render import fused, pipeline
+    from zig_raytracing_contest_tpu_torch.render.wavefront import (
+        build_gen_par,
+        sort_state_payload,
+    )
+
+    plan = pipeline.frame_plan(scene, cam, cfg)
+    par = build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
+    gen = fused.GenParams(spp=plan.spp, width=plan.width, img_w=plan.width,
+                          img_h=plan.height, tiles_x=plan.tiles_x)
+    slot_base = plan.num_waves // 2 * plan.wave_pixels
+    y_base, x_base = divmod(slot_base, plan.width)
+    meta = (slot_base, x_base, y_base, cfg.seed & 0xFFFFFFFF, slot_base // 1024, 0, 0, 0)
+    st, idx = fused.path_trace_gen(scene, par, meta, plan.wave_size, 1, gen, emit_key=True,
+                                   emit_idx=True)
+    _, st, (idx,) = sort_state_payload(st[15].contiguous().view(torch.int32), st, (idx,))
+    return fused.path_trace_fused(scene, st, 1, bounce0=1, prev=idx)
+
+
+def graph_ab(what, scene, cam, cfg, card, rounds: int, cam2=None) -> dict:
+    """A frame as one CUDA graph against the eager wave loop (graph=False)
+    on the card: the graph's frames (warm-up, capture, replays) bit for bit
+    against the eager frame, image and segments; kernels.LAUNCHES after 2
+    graph frames as after 2 eager ones; with ``cam2``, another camera
+    through the same cache entry; ``rounds`` of (eager, graph, graph,
+    eager) walls; one profiled frame of each (device busy, idle share); the
+    graph's pool bytes.  Returns the numbers printed."""
+    import numpy as np
+    import torch
+
+    from zig_raytracing_contest_tpu_torch import bench, kernels
+    from zig_raytracing_contest_tpu_torch.probes.frame_host import profiled
+    from zig_raytracing_contest_tpu_torch.render import pipeline
+
+    def frame(graph, c=cam):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, st = pipeline.render_scene(scene, c, cfg, graph=graph)
+        torch.cuda.synchronize()
+        return img, st.segments, (time.perf_counter() - t0) * 1e3
+
+    plan = pipeline.frame_plan(scene, cam, cfg)
+    if not pipeline.graph_route(scene, cfg.ext_flags):
+        fail(f"{what}: the frame does not take the graph route")
+    want_img, want_segs, _ = frame(False)
+    same = True
+    for _ in range(3):  # warm-up, capture and replay, replay
+        img, segs, _ = frame(True)
+        same &= bool(np.array_equal(img, want_img)) and segs == want_segs
+    entry = pipeline.frame_graph(scene, plan)
+    if entry.replay is None:
+        fail(f"{what}: no CUDA graph was captured")
+    counts = {}
+    for graph in (False, True):
+        kernels.reset_launches()
+        frame(graph)
+        frame(graph)
+        counts[graph] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    out = {"what": what, "waves": plan.num_waves, "wave": plan.wave_size,
+           "bit_identical": same, "launches_2_frames": counts[True],
+           "pool_bytes": entry.pool_bytes, "card": card}
+    if cam2 is not None:
+        img2_e, segs2_e, _ = frame(False, cam2)
+        img2_g, segs2_g, _ = frame(True, cam2)
+        img1_g, segs1_g, _ = frame(True)
+        out["second_camera_bit_identical"] = (
+            bool(np.array_equal(img2_g, img2_e)) and segs2_g == segs2_e
+            and bool(np.array_equal(img1_g, want_img)) and segs1_g == want_segs
+            and not np.array_equal(img2_e, want_img))
+        same &= out["second_camera_bit_identical"]
+    walls = {False: [], True: []}
+    for _ in range(rounds):
+        for graph in (False, True, True, False):
+            walls[graph].append(frame(graph)[2])
+    p = bench.Prepared(scene, cam, cfg, {})
+    for graph, name in ((False, "eager"), (True, "graph")):
+        prof = profiled(p, {"graph": graph})
+        wall = statistics.median(walls[graph])
+        out[name] = {"walls_ms": walls[graph], "wall_ms": wall,
+                     "mrays_s": want_segs / wall / 1e3,
+                     "device_busy_ms": prof["device_busy_ms"],
+                     "idle_share": (None if prof["device_busy_ms"] is None
+                                    else 1.0 - prof["device_busy_ms"] / wall),
+                     "profiled_wall_ms": prof["profiled_wall_ms"],
+                     "device_ops": prof["device_ops"],
+                     "host_launch_calls": prof["host_launch_calls"]}
+    e, g = out["eager"], out["graph"]
+    print(f"  {what}: {plan.num_waves} wave(s) of {plan.wave_size} rays; graph frames "
+          f"bit-identical to eager {same}; eager {e['wall_ms']:.2f} ms (busy "
+          f"{e['device_busy_ms']} ms, idle {e['idle_share']}), graph {g['wall_ms']:.2f} ms "
+          f"(busy {g['device_busy_ms']} ms, idle {g['idle_share']}); pool "
+          f"{entry.pool_bytes / 2**20:.1f} MiB; launches over 2 frames {counts[True]} ({card})")
+    print("  frame_ab: " + json.dumps(out))
+    if not same:
+        fail(f"{what}: the graph's frame differs from the eager frame")
+    if counts[True] != counts[False]:
+        fail(f"{what}: launches after 2 graph frames {counts[True]}, after 2 eager "
+             f"frames {counts[False]}")
+    return out
+
+
+def frame_phases(card, timing, errs, bounds, official) -> None:
+    """Phase o: the whole-frame device call (one CUDA graph a frame) and
+    ray_sort_key_kernel.  ``official``: the official frame's (scene,
+    camera, config)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from zig_raytracing_contest_tpu_torch import bench, kernels
+    from zig_raytracing_contest_tpu_torch.probes import frame_host, sort_key
+    from zig_raytracing_contest_tpu_torch.render.pipeline import render_scene
+    from zig_raytracing_contest_tpu_torch.probes.trace_ab import bounce_waves
+    from zig_raytracing_contest_tpu_torch.render.wavefront import ray_sort_key, ray_sort_key_ref
+    from zig_raytracing_contest_tpu_torch.utils.timing import cuda_ms, queued_ms
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    tmp = tempfile.TemporaryDirectory()
+    d = Path(tmp.name)
+    scene, cam, cfg = official
+    errs["ray_sort_key"] = 0.0
+
+    # (1) the eager loop's host time, part by part (probes/frame_host.py)
+    p_off = bench.Prepared(scene, cam, cfg, {})
+    rows = {"official": p_off}
+    duck_row = bench.ROW["duck"]
+    duck_path, _ = bench.write_scene(duck_row, d)
+    rows["duck"] = bench.prepare(duck_row, dev, duck_path)
+    for name, p in rows.items():
+        r = {"row": name, "width": p.camera.width, "height": p.camera.height, "graph": False,
+             "frames": 5, "card": card, **frame_host.breakdown(p, 5, {"graph": False}),
+             **frame_host.profiled(p, {"graph": False})}
+        frame_host.print_table(r)
+        print("  frame_host: " + json.dumps(r))
+
+    # (2) ray_sort_key_kernel: the official and Duck waves after bounce 1,
+    # the built NaN lanes, times at the full official wave
+    s1 = whole_path_bounce1(scene, cam, cfg)
+    torch.cuda.synchronize()
+    key_check("official wave after bounce 1", scene, s1)
+    dk = rows["duck"]
+    key_check("Duck wave after bounce 1", dk.scene, whole_path_bounce1(dk.scene, dk.camera,
+                                                                      dk.config))
+    for label, lanes, n in sort_key.run_host_key_checks(dev):
+        print(f"  ray_sort_key_kernel vs ray_sort_key_ref, {label}: {n} of {lanes} lanes "
+              f"differ")
+        if n:
+            fail(f"ray_sort_key_kernel differs from its twin on the {label}")
+    R = s1.shape[1]
+    k_ms = queued_ms(lambda: ray_sort_key(scene, s1), 200)
+    p_ms = cuda_ms(lambda: ray_sort_key_ref(scene, s1), 10)
+    timing["ray_sort_key"] = (k_ms, p_ms, R, R)
+    bounds["ray_sort_key"] = (R * 32 / PEAK_BYTES * 1e3, "bytes")
+    kernels.reset_launches()
+    render_scene(scene, cam, cfg, graph=False)
+    per_frame = kernels.LAUNCHES["ray_sort_key"]
+    print(f"  ray_sort_key_kernel at the official wave ({R} rays): {k_ms:.4f} ms (queued "
+          f"behind a spin), twin {p_ms:.3f} ms, bound {bounds['ray_sort_key'][0]:.4f} ms "
+          f"(bytes); {per_frame} launches a frame ({card})")
+
+    # (3) graph against eager: official (and a second camera), Duck
+    cam2 = dataclasses.replace(cam, origin=cam.origin + np.float32([0.4, -0.2, 0.3]))
+    graph_ab("official", scene, cam, cfg, card, 5, cam2=cam2)
+    graph_ab("Duck", dk.scene, dk.camera, dk.config, card, 5)
+    del rows, dk, p_off, s1
+    torch.cuda.empty_cache()
+
+    # (4) the per-bounce rows: --large (the key at its wave, graph against
+    # eager), the 500k wave after bounce 1, 2M and Sponza (graph against
+    # eager, the A/B)
+    row = bench.ROW["large"]
+    p = bench.prepare(row, dev, bench.write_scene(row, d)[0])
+    full = p.camera.width * p.camera.height * row.spp
+    (_, _, _, _, s0), (_, _, _, _, _, s1) = bounce_waves(p.scene, p.camera, full, row.spp,
+                                                         p.config.seed)
+    key_check("--large wave after bounce 1", p.scene, s1)
+    lk_ms = queued_ms(lambda: ray_sort_key(p.scene, s1), 50)
+    lp_ms = cuda_ms(lambda: ray_sort_key_ref(p.scene, s1), 5)
+    kernels.reset_launches()
+    render_scene(p.scene, p.camera, p.config, graph=False)
+    print(f"  ray_sort_key_kernel at the --large wave ({full} rays): {lk_ms:.4f} ms, twin "
+          f"{lp_ms:.3f} ms, bound {full * 32 / PEAK_BYTES * 1e3:.4f} ms (bytes); "
+          f"{kernels.LAUNCHES['ray_sort_key']} launches a frame ({card})")
+    del s0, s1
+    graph_ab("--large", p.scene, p.camera, p.config, card, 1)
+    del p
+    torch.cuda.empty_cache()
+    row = bench.ROW["500k"]
+    p = bench.prepare(row, dev, bench.write_scene(row, d)[0])
+    full = p.camera.width * p.camera.height * row.spp
+    (_, _, _, _, s0), (_, _, _, _, _, s1) = bounce_waves(p.scene, p.camera, full, row.spp,
+                                                         p.config.seed)
+    key_check("500k wave after bounce 1", p.scene, s1)
+    del p, s0, s1
+    torch.cuda.empty_cache()
+    for name, rounds in (("2m", 10), ("sponza", 5)):
+        row = bench.ROW[name]
+        p = bench.prepare(row, dev, bench.write_scene(row, d)[0])
+        graph_ab(name, p.scene, p.camera, p.config, card, rounds)
+        del p
+        torch.cuda.empty_cache()
+    tmp.cleanup()
+    print(f"phase o: {time.perf_counter() - t_phase:.1f} s")
+
+
 def official_frame(render_scene, scene, cam, cfg, card) -> dict:
     """Phase 6: the official frame through the main path, a warmup and 5
     timed renders; returns the launch counts of the 6 renders."""
@@ -1977,7 +2220,7 @@ def official_frame(render_scene, scene, cam, cfg, card) -> dict:
     full_wave = WAVE // (SPP * 1024) * (SPP * 1024)
     num_waves = -(-num_slots * SPP // full_wave)
     got = render_timed(render_scene, scene, cam, cfg, "official", card,
-                       {"path_trace_gen": 6 * num_waves})
+                       {"path_trace_gen": 6 * num_waves, "ray_sort_key": 6 * num_waves})
     if got["path_trace"] == 0:
         fail("path_trace: the main path launched no kernel")
     print(f"  waves {num_waves} of {full_wave} rays")
@@ -2153,6 +2396,7 @@ def main() -> int:
     # 6. the official frame, through the main path
     got = official_frame(render_scene, scene, cam, cfg, card)
     launches = {"path_trace_gen": got["path_trace_gen"], "path_trace": got["path_trace"],
+                "ray_sort_key": got["ray_sort_key"],
                 "path_trace_b23": got["path_trace"]}
     profile_frame(render_scene, scene, cam, cfg, card)
 
@@ -2167,6 +2411,7 @@ def main() -> int:
     extension_phases(card, launches)
     sharding_phases(card, path, scene, cam, cfg)
     bench_phases(card, errs)
+    frame_phases(card, timing, errs, bounds, (scene, cam, cfg))
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [

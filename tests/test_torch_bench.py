@@ -45,24 +45,27 @@ LARGE = (1280, 720, 2, 3, 1 << 21)
 
 # The rows as the bench is specified: metric, writer, scene arguments,
 # (width, height, spp, bounces, wave), backend, extensions, the kernels
-# the card launches; a width of None comes from the camera's aspect ratio.
+# the card launches (ray_sort_key_kernel wherever the frame beam-sorts on the
+# host key: the whole path's mid resort, every sorted per-bounce wave); a
+# width of None comes from the camera's aspect ratio.
 TABLE = {
     "official": ("Mrays/s", procedural.bench_scene, {}, (1920, 1080, 3, 4, 1 << 19),
-                 "auto", (), ("path_trace_gen", "path_trace")),
+                 "auto", (), ("path_trace_gen", "path_trace", "ray_sort_key")),
     "large": ("large_Mrays/s", procedural.large_scene, {"side": 224}, LARGE, "auto", (),
-              ("trace_emit", "shade")),
+              ("trace_emit", "shade", "ray_sort_key")),
     "cpu": ("cpu_Mrays/s", procedural.bench_scene, {}, (1920, 1080, 3, 4, None), "grid", (),
             ()),
     "500k": ("500k_Mrays/s", procedural.large_scene, {"side": 500}, LARGE, "auto", (),
-             ("trace_stream", "shade")),
+             ("trace_stream", "shade", "ray_sort_key")),
     "2m": ("2m_Mrays/s", procedural.large_scene, {"side": 1000}, (640, 360, 1, 2, 1 << 21),
-           "auto", (), ("trace_stream", "shade")),
+           "auto", (), ("trace_stream", "shade", "ray_sort_key")),
     "sponza": ("sponza_Mrays/s", write_sponza_glb, {"detail": 1.25},
-               (None, 720, 2, 3, 1 << 21), "auto", (), ("trace_stream", "shade")),
+               (None, 720, 2, 3, 1 << 21), "auto", (),
+               ("trace_stream", "shade", "ray_sort_key")),
     "duck": ("duck_Mrays/s", write_duck_glb, {}, (None, 1080, 3, 4, 1 << 19), "auto", (),
-             ("path_trace_gen", "path_trace")),
+             ("path_trace_gen", "path_trace", "ray_sort_key")),
     "2mtexel": ("2mtexel_Mrays/s", bench.texture_terrain, {}, LARGE, "auto", (),
-                ("trace_emit", "shade")),
+                ("trace_emit", "shade", "ray_sort_key")),
     "grid_large": ("grid_large_Mrays/s", procedural.large_scene, {"side": 224}, LARGE, "grid",
                    (), ()),
     "large_ext": ("large_ext_Mrays/s", procedural.large_scene, {"side": 224}, LARGE, "auto",
@@ -104,7 +107,7 @@ REGIME = {
 KEYS = {"metric", "value", "unit", "best", "spread_pct", "reps", "segments", "triangles",
         "width", "height", "spp", "bounces", "wave", "regime", "launches", "device_busy_ms",
         "idle_share", "profiled_wall_ms", "top_ops", "load_s", "bake_s", "device", "card",
-        "overridden"}
+        "overridden", "graph"}
 
 
 @pytest.fixture(autouse=True)
@@ -213,6 +216,7 @@ def test_row_at_a_small_frame(name, monkeypatch, tmp_path):
     assert "reps" in line["overridden"] and "height" in line["overridden"]
     assert line["launches"] == {} and line["device_busy_ms"] is None
     assert line["idle_share"] is None and line["top_ops"] is None
+    assert line["graph"] is False  # CUDA graphs are the card's
 
     path = row.writer(tmp_path / row.file, **dict(row.scene_kw))
     cfg = Config(num_samples=row.spp, max_bounce=BOUNCES, backend=row.backend,

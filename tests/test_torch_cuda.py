@@ -511,3 +511,98 @@ def test_sharded_frame_matches_render_scene_on_cuda(tmp_path):
     np.testing.assert_array_equal(single, sharded)
     assert st_s.segments == st_m.segments
     assert kernels.LAUNCHES["path_trace_gen"] > 0 and kernels.LAUNCHES["path_trace"] > 0
+
+
+@pytest.mark.cuda
+def test_ray_sort_key_kernel_matches_twin_on_cuda(tmp_path):
+    """ray_sort_key_kernel equals ray_sort_key_ref bit for bit: on the full
+    bounce-1 wave of a whole-path frame (the mid resort's input), on a sorted
+    per-bounce wave, and on every case of probes.sort_key.edge_lanes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    from zig_raytracing_contest_tpu_torch import kernels
+    from zig_raytracing_contest_tpu_torch.probes.sort_key import (
+        EDGE_CASES,
+        edge_lanes,
+        ray_sort_key_differs,
+    )
+    from zig_raytracing_contest_tpu_torch.render import fused
+    from zig_raytracing_contest_tpu_torch.render.wavefront import (
+        build_gen_par,
+        gen_rays_raster,
+        ray_sort_key,
+        ray_sort_key_ref,
+    )
+
+    path = tproc.bench_scene(tmp_path / "b.gltf", num_objects=60)
+    cfg = Config(num_samples=3, max_bounce=4)
+    scene, cam, _ = prepare_scene(str(path), cfg, camera_name="Camera 1",
+                                  width=160, height=96, device="cuda")
+    par = build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
+    gen = fused.GenParams(3, 160, 160, 96, tiles_x=5)
+    R = 15 * 1024 * 3
+    state = fused.path_trace_gen(scene, par, (0,) * 8, R, 2, gen)
+    raster = gen_rays_raster(par, 0, 0, R, 3, 160)
+    kernels.reset_launches()
+    for st in (state, raster):
+        assert torch.equal(ray_sort_key(scene, st), ray_sort_key_ref(scene, st))
+    assert kernels.LAUNCHES["ray_sort_key"] == 2
+    for case in EDGE_CASES:
+        st, lo, hi = (torch.from_numpy(a).cuda() for a in edge_lanes(case))
+        assert ray_sort_key_differs(st, lo, hi) == 0, case
+
+
+def _graph_scenes(tmp_path):
+    """The bench scene at 160×96 in the whole path and, with the thresholds
+    lowered below its 1024 padded triangles, in the sorted per-bounce
+    pipeline (the thresholds are read at call time: the caller sets them)."""
+    path = tproc.bench_scene(tmp_path / "b.gltf", num_objects=60)
+    cfg = Config(num_samples=3, max_bounce=4, wave_size=1 << 14)
+    scene, cam, _ = prepare_scene(str(path), cfg, camera_name="Camera 1",
+                                  width=160, height=96, device="cuda")
+    return scene, cam, cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["whole path", "per-bounce, sorted"])
+def test_graph_frame_matches_eager_on_cuda(tmp_path, monkeypatch, regime):
+    """render_scene's CUDA graph frames (warm-up, capture, replays) equal
+    the eager loop's (graph=False) bit for bit, image and segments, for two
+    cameras through one cache entry; kernels.LAUNCHES after N graph frames
+    equals its value after N eager frames."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    import types
+
+    import numpy as np
+
+    from zig_raytracing_contest_tpu_torch import kernels
+    from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
+    from zig_raytracing_contest_tpu_torch.render import pipeline, wavefront
+
+    if regime != "whole path":
+        monkeypatch.setattr(mi, "REC_EMIT_MAX_TRIS", 512)
+        monkeypatch.setattr(wavefront, "SORT_MIN_TRIS", 512)
+    scene, cam, cfg = _graph_scenes(tmp_path)
+    assert wavefront.regime(scene) == regime
+    cam2 = types.SimpleNamespace(width=cam.width, height=cam.height,
+                                 origin=np.asarray(cam.origin) + np.float32([0.4, -0.2, 0.3]),
+                                 lower_left_corner=cam.lower_left_corner, right=cam.right,
+                                 up=cam.up)
+    counts = {}
+    want = {}
+    for graph in (False, True):
+        kernels.reset_launches()
+        for c in (cam, cam2, cam, cam2):
+            img, st = pipeline.render_scene(scene, c, cfg, graph=graph)
+            if not graph:
+                want[id(c)] = (img, st.segments)
+            else:
+                np.testing.assert_array_equal(img, want[id(c)][0])
+                assert st.segments == want[id(c)][1]
+        counts[graph] = dict(kernels.LAUNCHES)
+    assert counts[True] == counts[False]
+    assert counts[True]["ray_sort_key"] > 0
+    assert not np.array_equal(want[id(cam)][0], want[id(cam2)][0])
+    entry = pipeline.frame_graph(scene, pipeline.frame_plan(scene, cam, cfg))
+    assert entry.replay is not None and entry.frames == 4 and entry.pool_bytes > 0

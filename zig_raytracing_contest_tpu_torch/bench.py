@@ -5,12 +5,15 @@ harness) and of ``scripts/large_sweep.py``'s rows.  Each row of ``ROWS`` is
 one frame: a scene from the port's own writers, the frame's size, samples
 per pixel, bounces and wave, the backend and the extensions.  ``measure``
 writes and loads the scene, renders one warmup frame (which also takes the
-nvcc build out of the timing), then ``reps`` timed frames, each ended by
-``torch.cuda.synchronize()``, and one more under ``torch.profiler``.  Its
+nvcc build out of the timing) and, where the frame replays a CUDA graph
+(``render.pipeline.graph_route``), a second one that captures it, then
+``reps`` timed frames, each ended by ``torch.cuda.synchronize()``, and one
+more under ``torch.profiler``.  Its
 JSON object holds the median Mrays/s (traced segments / wall) with the
 best, the spread and every rep; the kernels' launches over the warmup and
 the timed frames; the device's busy time in the profiled frame (CUDA
-kernels and copies) and its idle share against the median unprofiled wall.
+kernels and copies) and its idle share against the median unprofiled wall,
+and ``graph``: whether the timed frames replayed a CUDA graph.
 The ``cpu`` row is ``bench.py --cpu``: the host C++ tracer
 (render/native_cpu.py) on all host cores, over the bench scene's grid.
 
@@ -42,7 +45,14 @@ import torch
 from . import kernels
 from .config import Config
 from .render.native_cpu import load_library, render_cpu
-from .render.pipeline import backend_line, prepare_scene, render_scene
+from .render.pipeline import (
+    backend_line,
+    frame_graph,
+    frame_plan,
+    graph_route,
+    prepare_scene,
+    render_scene,
+)
 from .scene.duck import write_duck_glb
 from .scene.procedural import bench_scene, big_texture_scene, large_scene
 from .scene.sponza import write_sponza_glb
@@ -84,32 +94,33 @@ class Row:
     host: bool = False
 
 
-_WHOLE = ("path_trace_gen", "path_trace")
+_WHOLE = ("path_trace_gen", "path_trace", "ray_sort_key")
 _LARGE = dict(width=1280, height=720, spp=2, bounces=3, wave=1 << 21)
 ROWS = (
     # bench.py main(): the official frame
     Row("official", "Mrays/s", bench_scene, "bench.gltf", kernels=_WHOLE),
     # bench.py run_large()
     Row("large", "large_Mrays/s", large_scene, "large.gltf", (("side", 224),), **_LARGE,
-        kernels=("trace_emit", "shade")),
+        kernels=("trace_emit", "shade", "ray_sort_key")),
     # bench.py --cpu: a warmup at 1 spp and 1 bounce, then the official frame
     Row("cpu", "cpu_Mrays/s", bench_scene, "bench.gltf", wave=None, backend="grid",
         host=True),
     # scripts/large_sweep.py --side=500 (the wave as --large's)
     Row("500k", "500k_Mrays/s", large_scene, "large500.gltf", (("side", 500),), **_LARGE,
-        kernels=("trace_stream", "shade")),
+        kernels=("trace_stream", "shade", "ray_sort_key")),
     # scripts/large_sweep.py --side=1000 (its "huge" branch)
     Row("2m", "2m_Mrays/s", large_scene, "large2m.gltf", (("side", 1000),), width=640,
-        height=360, spp=1, bounces=2, wave=1 << 21, kernels=("trace_stream", "shade")),
+        height=360, spp=1, bounces=2, wave=1 << 21,
+        kernels=("trace_stream", "shade", "ray_sort_key")),
     # scripts/large_sweep.py --sponza
     Row("sponza", "sponza_Mrays/s", write_sponza_glb, "sponza.glb", (("detail", 1.25),),
         width=None, height=720, spp=2, bounces=3, wave=1 << 21,
-        kernels=("trace_stream", "shade")),
+        kernels=("trace_stream", "shade", "ray_sort_key")),
     # the Duck-class GLB at the official settings
     Row("duck", "duck_Mrays/s", write_duck_glb, "duck.glb", width=None, kernels=_WHOLE),
     # the --large terrain with a 2-Mtexel texture
     Row("2mtexel", "2mtexel_Mrays/s", texture_terrain, "bank.gltf", **_LARGE,
-        kernels=("trace_emit", "shade")),
+        kernels=("trace_emit", "shade", "ray_sort_key")),
     # the --large frame through the grid: the XLA shading path, no kernel
     Row("grid_large", "grid_large_Mrays/s", large_scene, "large.gltf", (("side", 224),),
         **_LARGE, backend="grid"),
@@ -239,7 +250,7 @@ def _measure_host(row: Row, p: Prepared, reps: int, device) -> dict:
     med, best, spread = stats(rates)
     return {**_base_line(row, p, reps, device), "value": med, "best": best,
             "spread_pct": spread, "reps": rates, "segments": segments.pop(),
-            "regime": f"host C++ tracer, grid {GRID}", "launches": {},
+            "regime": f"host C++ tracer, grid {GRID}", "graph": False, "launches": {},
             "device_busy_ms": None, "idle_share": None, "profiled_wall_ms": None,
             "top_ops": None, "threads": os.cpu_count(), "openmp": nl.openmp,
             "seconds": statistics.median(seconds)}
@@ -257,10 +268,13 @@ def _measure_frame(row: Row, p: Prepared, reps: int, device) -> dict:
     dev = scene.device
     built = set(kernels.BUILD_INFO)
     kernels.reset_launches()
+    graph = graph_route(scene, cfg.ext_flags)
     t0 = time.perf_counter()
     render_scene(scene, cam, cfg)  # warmup: the nvcc build and the first launches
     _sync(dev)
     warm_s = time.perf_counter() - t0
+    if graph:
+        render_scene(scene, cam, cfg)  # the capture of the frame's CUDA graph
     nvcc = ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in kernels.BUILD_INFO.items()
                      if k not in built)
     print(f"{row.name}: warmup {warm_s:.2f} s (nvcc: {nvcc or 'none'})", file=sys.stderr)
@@ -275,6 +289,8 @@ def _measure_frame(row: Row, p: Prepared, reps: int, device) -> dict:
         print(f"{row.name} rep: {rates[-1]:.3f} Mrays/s", file=sys.stderr)
     launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
     _check_frame(row, img, segments, cam)
+    if graph and frame_graph(scene, frame_plan(scene, cam, cfg)).replay is None:
+        raise BenchError(f"{row.name}: the frame's CUDA graph was not captured")
     if dev.type == "cuda" and set(launches) != set(row.kernels):
         raise BenchError(f"{row.name}: launched {launches}; the row's frame launches "
                          f"{list(row.kernels) or 'no kernel'}")
@@ -292,7 +308,8 @@ def _measure_frame(row: Row, p: Prepared, reps: int, device) -> dict:
     med, best, spread = stats(rates)
     return {**_base_line(row, p, reps, device), "value": med, "best": best,
             "spread_pct": spread, "reps": rates, "segments": segments.pop(),
-            "regime": backend_line(scene, cfg.ext_flags), "launches": launches,
+            "regime": backend_line(scene, cfg.ext_flags), "graph": graph,
+            "launches": launches,
             "wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": idle,
             "profiled_wall_ms": pwall, "top_ops": top}
 

@@ -42,10 +42,13 @@ _libs: dict = {}
 BUILD_INFO: dict = {}
 
 # Launches per CUDA kernel, counted by the launchers below right after a
-# launch is accepted; the twins never count.  The probes count per variant:
+# launch is accepted; the twins never count.  A CUDA graph's replay
+# launches without the launchers: its caller adds the launches the capture
+# counted (``add_launches``; render.pipeline.FrameGraph).  The probes count per variant:
 # micro_trace per cull, micro_bf16 per working type, probe_gather per form.
 LAUNCHES = {"path_trace_gen": 0, "path_trace": 0, "trace_emit": 0,
             "trace_stream": 0, "shade": 0, "texel_fetch": 0, "sort_key": 0,
+            "ray_sort_key": 0,
             "micro_trace_none": 0, "micro_trace_lane": 0, "micro_trace_warp": 0,
             "micro_bf16_f32": 0, "micro_bf16_bf16": 0,
             "probe_gather_smem": 0, "probe_gather_shfl": 0}
@@ -70,6 +73,23 @@ def reset_launches() -> None:
 def _count(name: str) -> None:
     with _count_lock:
         LAUNCHES[name] += 1
+
+
+def launches_since(before: dict) -> dict:
+    """The launches counted since the snapshot ``before`` (a copy of
+    LAUNCHES), by kernel; kernels not launched are left out."""
+    with _count_lock:
+        return {k: v - before[k] for k, v in LAUNCHES.items() if v != before[k]}
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` (kernel -> launches) to LAUNCHES: a CUDA graph's
+    replay launches its kernels without passing through the launchers, so
+    its caller counts them (``counts`` negative takes back what a capture,
+    which launches nothing, counted)."""
+    with _count_lock:
+        for k, v in counts.items():
+            LAUNCHES[k] += v
 
 
 class ZrcScene(ctypes.Structure):
@@ -240,6 +260,8 @@ def load():
             ]
             lib.zrc_sort_key.restype = i32
             lib.zrc_sort_key.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
+            lib.zrc_ray_sort_key.restype = i32
+            lib.zrc_ray_sort_key.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
             lib.zrc_empty.restype = i32
             lib.zrc_empty.argtypes = [i32, ptr]
             _libs["path_trace"] = lib
@@ -514,6 +536,25 @@ def launch_sort_key(state, par, key_out) -> None:
                            dev.index or 0, stream)
     if _launched(err, lib.zrc_error_string, "sort_key_kernel"):
         _count("sort_key")
+
+
+def launch_ray_sort_key(state, bbox_min, bbox_max, key_out) -> None:
+    """Launch ray_sort_key_kernel: the host beam-sort key
+    (``wavefront.ray_sort_key_ref``) of every column of ``state`` (16, R)
+    in the scene box ``bbox_min`` / ``bbox_max`` (3,), into ``key_out``
+    (R,) int32."""
+    lib = load()
+    dev = state.device
+    R = state.shape[1]
+    _check(state, "state", torch.float32, (16, R), dev)
+    _check(bbox_min, "bbox_min", torch.float32, (3,), dev)
+    _check(bbox_max, "bbox_max", torch.float32, (3,), dev)
+    _check(key_out, "key_out", torch.int32, (R,), dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.zrc_ray_sort_key(state.data_ptr(), bbox_min.data_ptr(), bbox_max.data_ptr(),
+                               key_out.data_ptr(), R, dev.index or 0, stream)
+    if _launched(err, lib.zrc_error_string, "ray_sort_key_kernel"):
+        _count("ray_sort_key")
 
 
 def launch_empty(device) -> None:

@@ -19,6 +19,10 @@
 //                             the clamp reconciliation _paged_corners :545)
 //   sort_key_kernel        <- tests/test_fused.py:988 (the pallas_call
 //                             around fused._emit_sort_key :915)
+// and, for code the JAX package leaves to XLA,
+//   ray_sort_key_kernel    <- zig_raytracing_contest_tpu/render/wavefront.py:125
+//                             _ray_sort_key (the host beam-sort key, one
+//                             XLA fusion inside the jitted wave)
 // with the shared device functions
 //   gen_ray        <- fused._gen_rays (:844)
 //   trace_nearest_warp <- mxu_intersect._trace_body_resident (:1027), the
@@ -1020,6 +1024,55 @@ __global__ void sort_key_kernel(const float* __restrict__ state,
     key[i] = emit_sort_key(par, s);
 }
 
+// The host beam-sort key (render/wavefront.py ray_sort_key_ref, the JAX
+// package's _ray_sort_key) of every column of a (16, R) state into key[i]:
+// (dead << 30) | 6-D Morton code of the origin x the point where the ray
+// leaves the scene box.  Equal to the twin bit for bit, so the twin's
+// order of operations and roundings stand: (o - bmin) / span and 1 / d are
+// IEEE divisions, o + d * texit rounds twice (--fmad=false).  NaNs: the
+// slab's fmax drops one (fmaxf), the min over the axes, the clamp of texit
+// and the clamps to [0, 31] keep one (torch.minimum / clamp), and (int) of
+// a NaN is 0, as PyTorch's cast on the card (cvt.rzi).  Dead lanes are
+// keyed from whatever they hold, as the twin keys them.  Bound by bytes:
+// 28 B of state in and 4 B out per lane.
+__global__ void ray_sort_key_kernel(const float* __restrict__ state,
+                                    const float* __restrict__ bbox_min,
+                                    const float* __restrict__ bbox_max,
+                                    int* __restrict__ key, int R) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= R) return;
+    const size_t n = (size_t)R;
+    float o[3], d[3], bmin[3], span[3], far[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+        bmin[a] = bbox_min[a];
+        float bmax = bbox_max[a];
+        span[a] = nan_max(bmax - bmin[a], 1e-30f);
+        o[a] = state[(S_OX + a) * n + i];
+        d[a] = state[(S_DX + a) * n + i];
+        float inv = 1.0f / d[a];
+        float ta = (bmin[a] - o[a]) * inv;
+        float tb = (bmax - o[a]) * inv;
+        far[a] = fmaxf(ta, tb);
+    }
+    int dead = state[S_ALIVE * n + i] <= 0.0f ? 1 : 0;
+    float texit = nan_max(nan_min(nan_min(far[0], far[1]), far[2]), 0.0f);
+    int k = 0;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+        float rel = (o[a] - bmin[a]) / span[a];
+        int q = (int)nan_min(nan_max(rel * 32.0f, 0.0f), 31.0f);
+        float ex = (o[a] + d[a] * texit - bmin[a]) / span[a];
+        int dq = (int)nan_min(nan_max(ex * 32.0f, 0.0f), 31.0f);
+#pragma unroll
+        for (int b = 0; b < 5; ++b) {
+            k |= ((q >> b) & 1) << (6 * b + 2 * a);
+            k |= ((dq >> b) & 1) << (6 * b + 2 * a + 1);
+        }
+    }
+    key[i] = (dead << 30) | k;
+}
+
 // ------------------------------------------------------------ launchers
 // Plain C entry points for ctypes (kernels/__init__.py).  They launch on
 // the caller's stream, allocate nothing, and return cudaGetLastError(), or
@@ -1105,6 +1158,18 @@ extern "C" int zrc_sort_key(const float* state, const float* par, int* key, int 
     if (err != cudaSuccess) return (int)err;
     int blocks = (R + kThreads - 1) / kThreads;
     sort_key_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(state, par, key, R);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int zrc_ray_sort_key(const float* state, const float* bbox_min,
+                                const float* bbox_max, int* key, int R, int device,
+                                void* stream) {
+    if (R <= 0) return ZRC_NOTHING_LAUNCHED;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    int blocks = (R + kThreads - 1) / kThreads;
+    ray_sort_key_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        state, bbox_min, bbox_max, key, R);
     return (int)cudaGetLastError();
 }
 

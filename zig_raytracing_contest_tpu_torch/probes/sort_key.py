@@ -1,4 +1,4 @@
-"""The whole-path kernels' beam-sort key, held against its plain versions.
+"""The beam-sort keys' kernels, held against their plain versions.
 
 The counterpart of the JAX package's ``_emit_sort_key`` harness
 (tests/test_fused.py, a pallas_call that writes the key of a (16, 256)
@@ -11,8 +11,16 @@ state into row 15).  ``sort_key_kernel`` (kernels/path_trace.cu) writes
 span), and divides by the raw direction where the kernel clamps |d| to
 1e-12, so the two may put a ray one cell apart at a cell boundary.
 
-``run_checks`` holds the kernel on a 256-lane state drawn from a seed
-(lanes 5-8 dead, as in the JAX harness).  Run on the card:
+``ray_sort_key_kernel`` computes the host key itself (the JAX package's
+``_ray_sort_key``, fused by XLA into the jitted wave) and must equal its
+twin ``wavefront.ray_sort_key_ref`` bit for bit; ``edge_lanes`` builds the
+lanes where that is hardest: zero direction components with the origin on
+a box face, a flat scene box, ±inf slab times and dead lanes holding
+garbage (NaN, ±inf, huge and subnormal values).
+
+``run_checks`` holds sort_key_kernel on a 256-lane state drawn from a seed
+(lanes 5-8 dead, as in the JAX harness), and ray_sort_key_kernel on the
+same state and on each case of ``edge_lanes``.  Run on the card:
 
     python -m zig_raytracing_contest_tpu_torch.probes.sort_key
 
@@ -79,6 +87,70 @@ def host_key(state: torch.Tensor, bbox_min, bbox_max) -> torch.Tensor:
                                   state)
 
 
+EDGE_CASES = ("face_zero_dir", "flat_box", "inf_slabs", "dead_garbage")
+# what a dead lane may hold where a live one holds a position or direction
+GARBAGE = np.array([np.nan, np.inf, -np.inf, 1e30, -1e30, 1e-40, -1e-40, 0.0, -0.0,
+                    3.0, -7.5], np.float32)
+
+
+def edge_lanes(case: str, lanes: int = 1024, seed: int = 0):
+    """A (16, lanes) f32 state and its scene box (bbox_min, bbox_max) (3,)
+    f32, as NumPy arrays drawn from ``seed``, for one of EDGE_CASES:
+
+    * ``face_zero_dir``: origins on a face of the box (one axis at bmin or
+      bmax), that axis's direction component 0 (0 · inf = NaN slab times);
+    * ``flat_box``: a box of zero span on y, origins on its plane and
+      directions with y = 0 on most lanes (both slab times NaN);
+    * ``inf_slabs``: one to three direction components 0 or subnormal
+      (1 / d = ±inf), origins inside and outside the box on those axes;
+    * ``dead_garbage``: dead lanes (and a few with a NaN alive) whose
+      origins and directions hold GARBAGE values."""
+    rs = np.random.default_rng(seed)
+    bmin = np.array([-1.0, 0.0, -2.0], np.float32)
+    bmax = np.array([2.0, 3.0, 1.0], np.float32)
+    state = np.zeros((16, lanes), np.float32)
+    o = rs.uniform(bmin - 0.5, bmax + 0.5, (lanes, 3)).astype(np.float32)
+    d = rs.standard_normal((lanes, 3)).astype(np.float32)
+    alive = (rs.uniform(size=lanes) < 0.8).astype(np.float32)
+    rows = np.arange(lanes)
+    if case == "face_zero_dir":
+        axis = rs.integers(0, 3, lanes)
+        face = np.where(rs.uniform(size=lanes) < 0.5, bmin[axis], bmax[axis])
+        o[rows, axis] = face
+        d[rows, axis] = 0.0
+        second = rs.uniform(size=lanes) < 0.25  # a second zero component
+        d[rows[second], (axis[second] + 1) % 3] = 0.0
+    elif case == "flat_box":
+        bmax[1] = bmin[1] = 0.5
+        o[rs.uniform(size=lanes) < 0.7, 1] = 0.5
+        d[rs.uniform(size=lanes) < 0.6, 1] = 0.0
+    elif case == "inf_slabs":
+        zero = rs.uniform(size=(lanes, 3)) < 0.45
+        d[zero] = np.where(rs.uniform(size=int(zero.sum())) < 0.8, 0.0,
+                           np.float32(1e-40)).astype(np.float32)
+        d[rows[:lanes // 16]] = 0.0  # the whole direction 0: texit +inf
+    elif case == "dead_garbage":
+        o = rs.choice(GARBAGE, (lanes, 3))
+        d = rs.choice(GARBAGE, (lanes, 3))
+        alive = np.where(rs.uniform(size=lanes) < 0.9, 0.0, np.nan).astype(np.float32)
+    else:
+        raise ValueError(f"case {case!r} not one of {EDGE_CASES}")
+    state[0:3] = o.T
+    state[3:6] = d.T
+    state[6:9] = 1.0
+    state[12] = alive
+    state[13] = rs.standard_normal(lanes).astype(np.float32)
+    return state, bmin, bmax
+
+
+def ray_sort_key_differs(state, bbox_min, bbox_max) -> int:
+    """Lanes where ``wavefront.ray_sort_key`` (the kernel on a CUDA state)
+    differs from ``ray_sort_key_ref``."""
+    box = SimpleNamespace(bbox_min=bbox_min, bbox_max=bbox_max)
+    got = wavefront.ray_sort_key(box, state)
+    return int((got != wavefront.ray_sort_key_ref(box, state)).sum())
+
+
 def check(state, par, bbox_min, bbox_max) -> tuple[int, int]:
     """(lanes where the kernel key differs from ``sort_key_ref``, lanes
     where it differs from the host key)."""
@@ -98,6 +170,20 @@ def run_checks(device) -> list:
     return [(f"{LANES} lanes, lanes 5-8 dead", LANES, n_ref, n_host)]
 
 
+def run_host_key_checks(device) -> list:
+    """ray_sort_key_kernel against ray_sort_key_ref on ``device``: the
+    256-lane state and every case of ``edge_lanes``, a list of (label,
+    lanes, lanes differing)."""
+    device = torch.device(device)
+    state, (bmin, bmax) = probe_state()
+    out = [(f"{LANES} lanes, lanes 5-8 dead", LANES,
+            ray_sort_key_differs(state.to(device), bmin.to(device), bmax.to(device)))]
+    for case in EDGE_CASES:
+        st, lo, hi = (torch.from_numpy(a).to(device) for a in edge_lanes(case))
+        out.append((f"edge lanes {case}", st.shape[1], ray_sort_key_differs(st, lo, hi)))
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
@@ -109,6 +195,10 @@ def main(argv=None) -> int:
         failures += bool(n_ref or n_host)
         print(f"{'FAIL' if n_ref or n_host else 'PASS'} {label}: {n_ref} of {lanes} "
               f"lanes differ from sort_key_ref, {n_host} from the host key")
+    for label, lanes, n in run_host_key_checks(args.device):
+        failures += bool(n)
+        print(f"{'FAIL' if n else 'PASS'} ray_sort_key, {label}: {n} of {lanes} lanes "
+              f"differ from ray_sort_key_ref")
     return 1 if failures else 0
 
 

@@ -34,7 +34,17 @@ grid scene.
 A ray's result does not depend on its lane, so the sorts change speed,
 not the image.  Sorting is PyTorch: a stable ``torch.sort`` of the int32
 key and a gather by the permutation give the same order as the JAX
-package's payload sort on (key, lane).
+package's payload sort on (key, lane).  The host key of the mid resort and
+of the sorted per-bounce waves (``ray_sort_key``, the JAX package's
+``_ray_sort_key``, which XLA fuses into the jitted wave) is one launch of
+``ray_sort_key_kernel`` on the card and its twin ``ray_sort_key_ref`` on
+the CPU.
+
+A whole-path or per-bounce wave holds no host synchronisation on the card,
+so ``render.pipeline`` captures a frame's waves into one CUDA graph and
+replays it per frame: one device call a frame, as the JAX package's
+fori_loop chunks are.  Waves of the XLA shading path (the grid walk's
+host syncs) and of ``plain`` runs (the twins') run wave by wave, eagerly.
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import kernels
 from ..config import ExtFlags
 from ..ops import dda, linalg, mxu_intersect
 from ..ops.rng import normal3, ray_streams, streams_to_f32, uniform, uniform2_soa
@@ -145,11 +156,12 @@ def build_gen_par(scene: TorchScene, cam_origin, cam_lower_left, cam_right,
                             torch.zeros(14, dtype=torch.float32, device=dev)])
 
 
-def ray_sort_key(scene: TorchScene, state: torch.Tensor) -> torch.Tensor:
-    """The host beam-sort key (``_ray_sort_key``, corridor variant) → (R,)
-    int32: dead bit, then the 6-D Morton code of the origin × the point
-    where the ray leaves the scene box.  Divides by the raw direction
-    (±inf slabs; fmax/fmin drop the NaNs)."""
+def ray_sort_key_ref(scene: TorchScene, state: torch.Tensor) -> torch.Tensor:
+    """Plain twin of ``ray_sort_key``: the host beam-sort key
+    (``_ray_sort_key``, corridor variant) → (R,) int32: dead bit, then the
+    6-D Morton code of the origin × the point where the ray leaves the
+    scene box.  Divides by the raw direction (±inf slabs: fmax drops a NaN,
+    the min over the axes and the clamps keep one)."""
     dead = (state[12] <= 0.0).to(torch.int32)
     bmin = scene.bbox_min[:, None]
     bmax = scene.bbox_max[:, None]
@@ -167,6 +179,20 @@ def ray_sort_key(scene: TorchScene, state: torch.Tensor) -> torch.Tensor:
     ex = (o + d * texit[None, :] - bmin) / span
     dq = torch.clamp(ex * 32.0, 0.0, 31.0).to(torch.int32)
     return fused.interleave_key(dead, list(q), list(dq))
+
+
+def ray_sort_key(scene: TorchScene, state: torch.Tensor) -> torch.Tensor:
+    """The host beam-sort key of every column of the (16, R) ``state`` →
+    (R,) int32: ``ray_sort_key_kernel`` on a CUDA state (bit for bit the
+    twin's), ``ray_sort_key_ref`` on a CPU state."""
+    kind = state.device.type
+    if kind == "cpu":
+        return ray_sort_key_ref(scene, state)
+    if kind != "cuda":
+        raise ValueError(f"no sort key kernel for device {state.device}")
+    key = torch.empty(state.shape[1], dtype=torch.int32, device=state.device)
+    kernels.launch_ray_sort_key(state, scene.bbox_min, scene.bbox_max, key)
+    return key
 
 
 def sort_state_payload(key: torch.Tensor, state: torch.Tensor, extra=()):
@@ -194,6 +220,7 @@ def finish_path_sorted(scene: TorchScene, state, idx0, max_bounce: int,
     Returns rows4 (4, R) in wave order: radiance rows 9-11 and the segment
     counter row 14."""
     trace = fused.path_trace_fused_ref if plain else fused.path_trace_fused
+    host_key = ray_sort_key_ref if plain else ray_sort_key
     bounds = [1] + sorted(
         {r + 1 for r in MID_RESORT_BOUNCES if 1 <= r <= max_bounce - 2}
     ) + [max_bounce]
@@ -201,7 +228,7 @@ def finish_path_sorted(scene: TorchScene, state, idx0, max_bounce: int,
     idx_cur = idx0
     for i in range(len(bounds) - 1):
         b_start, b_end = bounds[i], bounds[i + 1]
-        key = key0 if i == 0 and key0 is not None else ray_sort_key(scene, state)
+        key = key0 if i == 0 and key0 is not None else host_key(scene, state)
         extra = (idx_cur,) if order is None else (idx_cur, order)
         perm, state, extras = sort_state_payload(key, state, extra)
         idx_cur = extras[0]
@@ -267,6 +294,7 @@ def render_wave_per_bounce(scene: TorchScene, par, width: int, spp: int,
     ``plain`` runs the twins on any device."""
     trace = mxu_intersect.trace_emit_aux_ref if plain else mxu_intersect.trace_emit_aux
     shade = fused.shade_fused_ref if plain else fused.shade_fused
+    host_key = ray_sort_key_ref if plain else ray_sort_key
     state = gen_rays_raster(par, seed, slot_base, wave_size, spp, width)
     sort_rays = sorts_every_bounce(scene)
     order = torch.arange(wave_size, device=state.device)  # lane -> wave position
@@ -274,8 +302,7 @@ def render_wave_per_bounce(scene: TorchScene, par, width: int, spp: int,
     for bounce in range(max_bounce):
         if sort_rays:
             extra = (order,) if prev is None else (order, prev)
-            _, state, extras = sort_state_payload(ray_sort_key(scene, state),
-                                                  state, extra)
+            _, state, extras = sort_state_payload(host_key(scene, state), state, extra)
             order = extras[0]
             if prev is not None:
                 prev = extras[1]

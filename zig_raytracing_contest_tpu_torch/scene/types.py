@@ -367,6 +367,15 @@ class TorchScene:
             self._kernel_operands = cached
         return cached
 
+    def frame_cache(self) -> dict:
+        """What ``render.pipeline`` keeps per frame of this scene: the
+        device slot maps and the frames' CUDA graphs, which bake this
+        scene's tensors' addresses, so they live and die with it."""
+        cache = getattr(self, "_frame_cache", None)
+        if cache is None:
+            cache = self._frame_cache = {}
+        return cache
+
 
 def bake_tile(num_triangles: int) -> int:
     """Triangles per tile of the bake (build_device_scene's rule, on the raw
