@@ -116,19 +116,27 @@ then the XLA shading path, which a grid scene and the extensions take:
 k. the ``--large`` terrain with ``backend: "grid"`` at the default 128³
    grid and the ``--large`` frame's settings: the grid build's seconds, D
    (duplicated references) and C (cells); bounces 0 and 1 of the frame's
-   one wave through the grid walk (its ms, loop iterations and live rays)
-   and through trace_emit_kernel on the MXU bake of the same terrain, every
-   lane where the two differ in t or triangle explained (the same triangle,
-   a tie or an edge decision) or the run fails; the frame: a warmup and 5
-   timed renders (no CUDA kernel launched), one profile, and its gate
-   against the per-bounce MXU frame (diff > 2 on < 2% of channels,
-   tests/test_render.py's bound);
+   one wave through grid_walk_kernel against its twin trace_wave_ref, lane
+   by lane (t, u, v bits, the reference, the iteration count: a lane that
+   differs fails the run), the kernel timed queued behind a spin, the twin
+   by CUDA events, the bound from the twin's counts of tests and cells
+   (probes/grid_walk.py walk_bound), and the nearest hits against
+   trace_emit_kernel on the MXU bake of the same terrain, every lane where
+   the two differ in t or triangle explained (the same triangle, a tie or
+   an edge decision) or the run fails; the kernel against the twin on
+   65,536 built edge lanes (probes/grid_walk.py edge_rays) with and
+   without an exclusion; the frame: a warmup and 5 timed renders
+   (grid_walk_kernel 3 launches a frame, the frame one CUDA graph from its
+   second render), one profile, the graph's frame bit for bit against the
+   eager frame, and its gate against the per-bounce MXU frame (diff > 2 on
+   < 2% of channels, tests/test_render.py's bound);
 l. the extensions: the Cornell box at 1920×1080, 4 bounces, held to the
    statistics of tests/test_extensions.py (NEE's mean within 6% of the
    plain mean at 48 spp, its seed-to-seed noise under 0.8× the plain
    noise at 2 spp, RR's mean within 6% at 32 spp with fewer segments), each
-   frame's Mrays/s; the ``--large`` terrain with nee, russian_roulette and
-   pbr at its frame settings: a warmup and 5 timed renders (the launch
+   frame's Mrays/s; the NEE and RR frames at 2 spp as one CUDA graph against
+   their eager frames (as in phase o); the ``--large`` terrain with nee,
+   russian_roulette and pbr at its frame settings: a warmup and 5 timed renders (the launch
    counts of trace_emit_kernel, which the XLA path's nearest hits and
    shadow rays run), one profile, and a 320×180 frame with the kernels
    against the twins under the golden gates;
@@ -142,8 +150,8 @@ m. parallel/sharding.py's render_scene_sharded against render_scene, bit
    over 3 and 4 tiles on cuda:0, then make_mesh() and 4 tiles timed beside
    render_scene in turns (a warmup each, 5 rounds); the ``--large`` frame
    over 3 tiles (trace_emit, shade); the Cornell box at 320×180, 2 spp,
-   with nee, russian_roulette and pbr, through the grid and through the MXU
-   bake (trace_emit), over 4 tiles; the CLI with ``--devices`` above the
+   with nee, russian_roulette and pbr, through the grid (grid_walk) and
+   through the MXU bake (trace_emit), over 4 tiles; the CLI with ``--devices`` above the
    visible cards (make_mesh's ValueError); graft_entry.entry()'s step on
    the card against the CPU twins and dryrun_multichip(4); the native grid
    builder against the NumPy builder on the ``--large`` terrain at 128³
@@ -166,7 +174,8 @@ n. bench.measure on its official row (5 timed frames) and on its Sponza
    frame's bounce-0 and sorted bounce-1 waves, as in phase f; a 160×90 500k
    frame with nee and russian_roulette (the XLA shading path over the
    streaming bake: trace_stream_kernel with records off, and no other
-   kernel), kernels vs twins under the gates;
+   kernel), kernels vs twins under the gates, then as one CUDA graph
+   against the eager loop as in phase o;
 
 then the whole-frame device call (render.pipeline: one CUDA graph a frame):
 
@@ -179,7 +188,8 @@ o. the eager wave loop's host time, part by part, on the official and Duck
    --large waves beside the twin and its bound, with its launches a frame;
    the frame as one CUDA graph against the eager loop (graph=False) on the
    official frame (and a second camera through the same graph), Duck,
-   --large, 2M and Sponza: images and segments bit for bit, the launch
+   --large, 2M, Sponza and the XLA shading path's grid_large and large_ext
+   rows of the bench: images and segments bit for bit, the launch
    counts of 2 graph frames equal to 2 eager frames', the walls in
    alternating (eager, graph, graph, eager) rounds, the device busy time
    and idle share of one profiled frame of each, the graph's pool bytes.
@@ -253,6 +263,7 @@ KERNELS = [
     ("probe_gather_smem", "probe_gather_kernel", "scripts/probe_gather.py:36"),
     ("probe_gather_shfl", "probe_gather_kernel", "scripts/probe_gather.py:36"),
     ("ray_sort_key", "ray_sort_key_kernel", "zig_raytracing_contest_tpu/render/wavefront.py:125"),
+    ("grid_walk", "grid_walk_kernel", "zig_raytracing_contest_tpu/render/wavefront.py:360"),
 ]
 PROBE_KERNELS = ("micro_trace_kernel", "micro_bf16_kernel", "probe_gather_kernel")
 # The card's peaks (NVIDIA H100 SXM data sheet): f32 outside the tensor
@@ -1458,20 +1469,26 @@ def grid_differences(what, card, t_g, tri_g, u_g, v_g, aux, tri_k) -> None:
              f"{int(tri_g[lane])}, kernel t {float(t_k[lane])} tri {int(tri_k[lane])}")
 
 
-def grid_phases(card) -> None:
+def grid_phases(card, timing, errs, bounds, launches) -> None:
     """Phase k: the --large terrain through the grid backend (the XLA
-    shading path with the DDA grid walk, plain PyTorch on the card)."""
+    shading path, the DDA walk grid_walk_kernel on the card)."""
+    import numpy as np
     import torch
 
     from zig_raytracing_contest_tpu_torch.config import Config
     from zig_raytracing_contest_tpu_torch.grid.builder import build_grid
     from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
+    from zig_raytracing_contest_tpu_torch.probes.grid_walk import (
+        edge_rays,
+        walk_bound,
+        walk_differs,
+    )
     from zig_raytracing_contest_tpu_torch.render import wavefront as wf
     from zig_raytracing_contest_tpu_torch.render.pipeline import prepare_scene, render_scene
     from zig_raytracing_contest_tpu_torch.scene.geometry import load_geometry
     from zig_raytracing_contest_tpu_torch.scene.gltf import load_gltf
     from zig_raytracing_contest_tpu_torch.scene.procedural import large_scene
-    from zig_raytracing_contest_tpu_torch.utils.timing import cuda_ms
+    from zig_raytracing_contest_tpu_torch.utils.timing import cuda_ms, queued_ms
 
     t_phase = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -1502,31 +1519,44 @@ def grid_phases(card) -> None:
     morton = torch.empty(T, dtype=torch.int64, device=dev)  # unique id -> Morton
     morton[mscene.perm[:T]] = torch.arange(T, device=dev)
 
-    # bounces 0 and 1 of the frame's one wave, as render_wave_xla runs them
+    # bounces 0 and 1 of the frame's one wave, as render_wave_xla runs them:
+    # grid_walk_kernel against its twin lane by lane, both timed, the bound
+    # from the twin's counts; the nearest hits against trace_emit_kernel's
     R = L_W * L_H * L_SPP
     par = wf.build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
     o, d, streams = wf.xla_primary_rays(par, L_W, L_SPP, 0, R, SEED)
+    o = o.contiguous()
     live = torch.ones(R, dtype=torch.bool, device=dev)
     prev = None
     for bounce in (0, 1):
-        runs = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = wf.trace_wave(scene, o, d, live, exclude=prev)
-            torch.cuda.synchronize()
-            runs.append((time.perf_counter() - t0) * 1e3)
+        off, k_it, t_it, res = walk_differs(scene, o, d, live, prev)
+        k_ms = queued_ms(lambda: wf.trace_wave(scene, o, d, live, prev), 10)
+        t_ms = cuda_ms(lambda: wf.trace_wave_ref(scene, o, d, live, prev), 1)
+        b = walk_bound(scene, res.work, R, prev is not None, PEAK_F32_FLOPS, PEAK_BYTES)
+        print(f"  grid_walk_kernel vs trace_wave_ref, bounce {bounce}: {off} of {R} lanes "
+              f"differ (t, u, v bits, reference), iterations {k_it} vs {t_it}; kernel "
+              f"{k_ms:.3f} ms (queued), twin {t_ms:.1f} ms; {int(live.sum())} live rays, "
+              f"{int(b['walking'])} walking, {int(torch.isfinite(res.t).sum())} hits; "
+              f"{b['tests']:.0f} tests, {b['cells']:.0f} cells entered; bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['ops'] / 1e9:.3f} GFLOP "
+              f"{b['ops_ms']:.4f} ms, unique {b['bytes_unique'] / 1e6:.1f} MB "
+              f"{b['unique_ms']:.4f} ms; gathered {b['bytes_gathered'] / 1e9:.3f} GB "
+              f"{b['gathered_ms']:.4f} ms) ({card})")
+        print("  grid_walk: " + json.dumps({"bounce": bounce, "rays": R, "differ": off,
+                                            "iterations": k_it, "ms": k_ms, "plain_ms": t_ms,
+                                            **b, "card": card}))
+        if off or k_it != t_it:
+            fail(f"grid_walk_kernel differs from trace_wave_ref at bounce {bounce}")
+        timing["grid_walk"] = (k_ms, t_ms, R, R)
+        bounds["grid_walk"] = (b["bound_ms"], b["bound_by"])
         tri_g = scene.grid.dup_to_tri[res.dup_idx]
         state = torch.zeros((16, R), dtype=torch.float32, device=dev)
         state[0:3], state[3:6], state[12] = o.T, d.T, live.to(torch.float32)
         prev_m = None if prev is None else morton[prev].to(torch.int32)
-        k_ms = cuda_ms(lambda: mi.trace_emit_aux(mscene, state, None, prev_m), 3)
+        e_ms = cuda_ms(lambda: mi.trace_emit_aux(mscene, state, None, prev_m), 3)
         aux, idx, _ = mi.trace_emit_aux(mscene, state, None, prev_m)
         tri_k = torch.where(torch.isfinite(aux[2]), mscene.perm[idx.to(torch.int64)], 0)
-        print(f"  grid trace, bounce {bounce}: {statistics.median(runs[1:]):.1f} ms (runs "
-              + ", ".join(f"{r:.1f}" for r in runs) + f"), {res.iterations} loop iterations, "
-              f"{int(live.sum())} live rays of {R}, {int(torch.isfinite(res.t).sum())} hits; "
-              f"trace_emit_kernel on the same rays {k_ms:.3f} ms ({card})")
+        print(f"  trace_emit_kernel on the same rays (the MXU bake): {e_ms:.3f} ms ({card})")
         grid_differences(f"bounce {bounce}", card, res.t, tri_g, res.u, res.v, aux, tri_k)
         del state, aux, idx
         new_o, new_d, *_, missed, _ = wf.shade_and_scatter(scene, o, d, res.t, res.u, res.v,
@@ -1535,15 +1565,37 @@ def grid_phases(card) -> None:
         o = torch.where(stepped[:, None], new_o, o)
         d = torch.where(stepped[:, None], new_d, d)
         live, prev = stepped, tri_g
+    errs["grid_walk"] = 0.0  # every bit equal, or the run failed
     del o, d, streams, live, prev, res, new_o, new_d
+    # the built edge lanes, with and without an exclusion
+    eo, ed, ea = (x.to(dev) for x in edge_rays(scene.grid.params, 1 << 16, seed=SEED))
+    rng = np.random.default_rng(SEED)
+    ex = scene.grid.dup_to_tri[torch.from_numpy(rng.integers(0, scene.grid.num_refs, 1 << 16))
+                               .to(dev)]
+    for label, exclude in (("edge lanes", None), ("edge lanes, excluded", ex)):
+        off, k_it, t_it, _ = walk_differs(scene, eo, ed, ea, exclude)
+        print(f"  grid_walk_kernel vs trace_wave_ref, {label}: {off} of {eo.shape[0]} lanes "
+              f"differ, iterations {k_it} vs {t_it}")
+        if off or k_it != t_it:
+            fail(f"grid_walk_kernel differs from trace_wave_ref on the {label}")
+    del eo, ed, ea, ex
 
-    # the frame, through the main path: no CUDA kernel runs on it
-    render_timed(render_scene, scene, cam, cfg, "grid --large", card,
-                 {"trace_emit": 0, "trace_stream": 0, "shade": 0, "path_trace": 0,
-                  "path_trace_gen": 0})
+    # the frame, through the main path (one CUDA graph a frame from the
+    # second on): the walk's launches
+    got = render_timed(render_scene, scene, cam, cfg, "grid --large", card,
+                       {"grid_walk": 6 * L_BOUNCES, "trace_emit": 0, "trace_stream": 0,
+                        "shade": 0, "path_trace": 0, "path_trace_gen": 0})
+    launches["grid_walk"] = got["grid_walk"]
     profile_frame(render_scene, scene, cam, cfg, card)
-    # against the same frame through the MXU bake's per-bounce path
+    # the graph's frame against the eager frame, and against the same frame
+    # through the MXU bake's per-bounce path
+    img_e, st_e = render_scene(scene, cam, cfg, graph=False)
     img_g, st_g = render_scene(scene, cam, cfg)
+    same = bool(np.array_equal(img_g, img_e)) and st_g.segments == st_e.segments
+    print(f"grid --large: graph frame bit-identical to the eager frame {same}, segments "
+          f"{st_g.segments} vs {st_e.segments}")
+    if not same:
+        fail("the grid frame's CUDA graph differs from its eager frame")
     img_m, st_m = render_scene(mscene, cam, mcfg)
     diff = abs(img_g.astype(int) - img_m.astype(int))
     frac = float((diff > 2).mean())
@@ -1623,7 +1675,12 @@ def extension_phases(card, launches) -> None:
         fail("the Cornell box's NEE / RR statistics are off")
     if xla_launches == 0:
         fail("the XLA shading path launched no trace kernel")
-    del scene, plain, nee, p5, rr
+    del plain, nee, p5, rr
+    # the NEE and RR frames as one CUDA graph against their eager frames
+    for what, ext in (("NEE", {"nee": True}), ("RR", {"russian_roulette": True})):
+        graph_ab(f"Cornell 1920x1080 {what} 2 spp", scene, cam,
+                 Config(max_bounce=MAX_BOUNCE, num_samples=2, seed=1, **ext), card, 1)
+    del scene
 
     # (2) the --large terrain with all three extensions; its ceiling light
     # gives NEE its lights, so a bounce traces twice (the nearest hit and the
@@ -1770,7 +1827,7 @@ def sharding_phases(card, path, scene, cam, cfg) -> None:
 
     # (3) the Cornell box with the extensions, grid and MXU bake, over 4 tiles
     box = cornell_like_box(Path(tmp.name) / "box.gltf")
-    for backend, want in (("grid", ()), ("mxu", ("trace_emit",))):
+    for backend, want in (("grid", ("grid_walk",)), ("mxu", ("trace_emit",))):
         ecfg = Config(num_samples=2, max_bounce=MAX_BOUNCE, seed=SEED, backend=backend,
                       nee=True, russian_roulette=True, pbr=True)
         escene, ecam, _ = prepare_scene(str(box), ecfg, width=320, height=180, device=dev)
@@ -1878,7 +1935,7 @@ def bench_phases(card, errs) -> None:
     """Phase n: the port's bench (bench.measure) on its official, Sponza
     and 2M rows; Sponza's 160x90 frame and a 160x90 500k frame with NEE and
     Russian roulette (the XLA shading path over the streaming bake),
-    kernels vs twins; trace_stream_kernel against its twin on the 2M
+    kernels vs twins and graph vs eager; trace_stream_kernel against its twin on the 2M
     terrain's bounce-0 and sorted bounce-1 waves."""
     import torch
 
@@ -1981,6 +2038,7 @@ def bench_phases(card, errs) -> None:
     print(f"  500k nee+rr frame 160x90: launches {got} ({card})")
     if set(got) != {"trace_stream"}:
         fail("the streaming NEE/RR frame did not run on trace_stream_kernel alone")
+    graph_ab("500k nee+rr 160x90", scene, cam, cfg, card, 1)
     tmp.cleanup()
     print(f"phase n: {time.perf_counter() - t_phase:.1f} s")
 
@@ -2201,7 +2259,7 @@ def frame_phases(card, timing, errs, bounds, official) -> None:
     key_check("500k wave after bounce 1", p.scene, s1)
     del p, s0, s1
     torch.cuda.empty_cache()
-    for name, rounds in (("2m", 10), ("sponza", 5)):
+    for name, rounds in (("2m", 10), ("sponza", 5), ("grid_large", 3), ("large_ext", 3)):
         row = bench.ROW[name]
         p = bench.prepare(row, dev, bench.write_scene(row, d)[0])
         graph_ab(name, p.scene, p.camera, p.config, card, rounds)
@@ -2407,7 +2465,7 @@ def main() -> int:
     probe_phases(card, timing, errs, bounds, launches, duck)
     library = {}
     trace_probe_phases(card, timing, errs, bounds, launches, library)
-    grid_phases(card)
+    grid_phases(card, timing, errs, bounds, launches)
     extension_phases(card, launches)
     sharding_phases(card, path, scene, cam, cfg)
     bench_phases(card, errs)

@@ -67,7 +67,7 @@ TABLE = {
     "2mtexel": ("2mtexel_Mrays/s", bench.texture_terrain, {}, LARGE, "auto", (),
                 ("trace_emit", "shade", "ray_sort_key")),
     "grid_large": ("grid_large_Mrays/s", procedural.large_scene, {"side": 224}, LARGE, "grid",
-                   (), ()),
+                   (), ("grid_walk",)),
     "large_ext": ("large_ext_Mrays/s", procedural.large_scene, {"side": 224}, LARGE, "auto",
                   ("nee", "russian_roulette", "pbr"), ("trace_emit",)),
 }

@@ -463,12 +463,12 @@ def test_xla_path_nearest_hit_kernel_matches_twin_on_cuda(tmp_path):
 
 @pytest.mark.cuda
 def test_grid_trace_matches_cpu_on_cuda(tmp_path):
-    """The grid walk (plain PyTorch) on the card against the same walk on
-    the CPU, the --large terrain's 128³ grid: 4096 primary rays, then their
-    bounce-1 rays (scattered on the CPU) with the previous hit excluded: t,
-    u, v and the triangle equal bit for bit."""
+    """The grid walk on the card (grid_walk_kernel) against the walk on the
+    CPU (its twin), the --large terrain's 128³ grid: 4096 primary rays,
+    then their bounce-1 rays (scattered on the CPU) with the previous hit
+    excluded: t, u, v and the triangle equal bit for bit."""
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: the grid walk's card run is the subject")
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
     from zig_raytracing_contest_tpu_torch.render.wavefront import shade_and_scatter, trace_any
 
     R = 4096
@@ -606,3 +606,137 @@ def test_graph_frame_matches_eager_on_cuda(tmp_path, monkeypatch, regime):
     assert not np.array_equal(want[id(cam)][0], want[id(cam2)][0])
     entry = pipeline.frame_graph(scene, pipeline.frame_plan(scene, cam, cfg))
     assert entry.replay is not None and entry.frames == 4 and entry.pool_bytes > 0
+
+
+@pytest.mark.cuda
+def test_grid_walk_kernel_matches_twin_on_cuda(tmp_path):
+    """grid_walk_kernel (trace_wave on the card) against trace_wave_ref on
+    the --large terrain's 128³ grid: the full 1,843,200-ray bounce-0 wave
+    and its bounce-1 wave with the previous hit excluded, then 65,536 edge
+    rays (probes.grid_walk.edge_rays) with and without an exclusion: t, u,
+    v bits, the reference and the iteration count equal; one launch a
+    walk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    from zig_raytracing_contest_tpu_torch import kernels
+    from zig_raytracing_contest_tpu_torch.probes.grid_walk import edge_rays, walk_differs
+    from zig_raytracing_contest_tpu_torch.render.wavefront import shade_and_scatter
+
+    R = 1280 * 720 * 2
+    scene, o, d, streams = _large_xla_waves(tmp_path, "grid", R, "cuda")
+    live, prev = torch.ones(R, dtype=torch.bool, device="cuda"), None
+    for bounce in range(2):
+        kernels.reset_launches()
+        off, k_it, t_it, res = walk_differs(scene, o, d, live, prev)
+        assert kernels.LAUNCHES["grid_walk"] == 1
+        assert off == 0 and k_it == t_it > 0, (bounce, off, k_it, t_it)
+        assert int(torch.isfinite(res.t).sum()) > R // 4
+        tri = scene.grid.dup_to_tri[res.dup_idx]
+        o, d, *_, missed, _ = shade_and_scatter(scene, o, d, res.t, res.u, res.v, tri,
+                                                streams, bounce)
+        live, prev = live & ~missed, tri
+    eo, ed, ea = (x.cuda() for x in edge_rays(scene.grid.params, 1 << 16, seed=7))
+    ex = torch.randint(0, scene.grid.num_refs, (1 << 16,), device="cuda")
+    for exclude in (None, scene.grid.dup_to_tri[ex]):
+        off, k_it, t_it, _ = walk_differs(scene, eo, ed, ea, exclude)
+        assert off == 0 and k_it == t_it > 0
+
+
+def _xla_frame_scene(tmp_path, kind):
+    """A 320×180 frame of the XLA shading path: the --large terrain on its
+    128³ grid ("grid"), the --large terrain with every extension ("ext"),
+    the Cornell box with NEE and Russian roulette ("cornell"), or a 160×90
+    frame of the 500k terrain's streaming bake with NEE and Russian roulette
+    ("stream": trace_stream_kernel with records off)."""
+    if kind == "cornell":
+        path = tproc.cornell_like_box(tmp_path / "box.gltf")
+        cfg = Config(num_samples=4, max_bounce=4, seed=2, nee=True, russian_roulette=True)
+        cam_kw = {}
+    elif kind == "stream":
+        from zig_raytracing_contest_tpu_torch.render import wavefront
+
+        path = tproc.large_scene(tmp_path / "l500.gltf", side=500)
+        cfg = Config(num_samples=2, max_bounce=3, seed=2, nee=True, russian_roulette=True)
+        scene, cam, _ = prepare_scene(str(path), cfg, camera_name="Camera 1", width=160,
+                                      height=90, device="cuda")
+        assert wavefront.regime(scene, cfg.ext_flags) == "XLA shading, group heap"
+        return scene, cam, cfg
+    else:
+        path = tproc.large_scene(tmp_path / "l.gltf")
+        ext = dict(nee=True, russian_roulette=True, pbr=True) if kind == "ext" else {}
+        cfg = Config(num_samples=2, max_bounce=3, backend="grid" if kind == "grid" else "auto",
+                     **ext)
+        cam_kw = dict(camera_name="Camera 1")
+    scene, cam, _ = prepare_scene(str(path), cfg, width=320, height=180, device="cuda",
+                                  **cam_kw)
+    return scene, cam, cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["grid", "ext", "cornell", "stream"])
+def test_xla_graph_frame_matches_eager_on_cuda(tmp_path, kind):
+    """The XLA shading path's frames as one CUDA graph (warm-up, capture,
+    replays) against the eager loop (graph=False), for two cameras through
+    one cache entry: every pixel and the segment count equal, and
+    kernels.LAUNCHES after the graph frames as after the eager ones."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    import types
+
+    import numpy as np
+
+    from zig_raytracing_contest_tpu_torch import kernels
+    from zig_raytracing_contest_tpu_torch.render import pipeline
+
+    scene, cam, cfg = _xla_frame_scene(tmp_path, kind)
+    assert pipeline.graph_route(scene, cfg.ext_flags)
+    cam2 = types.SimpleNamespace(width=cam.width, height=cam.height,
+                                 origin=np.asarray(cam.origin) + np.float32([0.3, 0.1, 0.2]),
+                                 lower_left_corner=cam.lower_left_corner, right=cam.right,
+                                 up=cam.up)
+    counts, want = {}, {}
+    for graph in (False, True):
+        kernels.reset_launches()
+        for c in (cam, cam2, cam, cam2):
+            img, st = pipeline.render_scene(scene, c, cfg, graph=graph)
+            if not graph:
+                want[id(c)] = (img, st.segments)
+            else:
+                np.testing.assert_array_equal(img, want[id(c)][0])
+                assert st.segments == want[id(c)][1]
+        counts[graph] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    assert counts[True] == counts[False]
+    assert set(counts[True]) == {"grid": {"grid_walk"},
+                                 "stream": {"trace_stream"}}.get(kind, {"trace_emit"})
+    assert not np.array_equal(want[id(cam)][0], want[id(cam2)][0])
+    entry = pipeline.frame_graph(scene, pipeline.frame_plan(scene, cam, cfg))
+    assert entry.replay is not None and entry.frames == 4
+
+
+@pytest.mark.cuda
+def test_extension_frames_take_their_own_graph_on_cuda(tmp_path):
+    """One grid scene at one size rendered with and without NEE: two frame
+    keys, two captured graphs, each frame equal to its own eager frame, and
+    the two frames differ."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    import numpy as np
+
+    from zig_raytracing_contest_tpu_torch.render import pipeline
+
+    path = tproc.cornell_like_box(tmp_path / "box.gltf")
+    base = dict(grid_resolution=(16, 16, 16), num_samples=2, max_bounce=3, backend="grid")
+    scene, cam, _ = prepare_scene(str(path), Config(**base), width=160, height=90,
+                                  device="cuda")
+    imgs = []
+    for cfg in (Config(**base, nee=True), Config(**base)):
+        want, want_st = pipeline.render_scene(scene, cam, cfg, graph=False)
+        for _ in range(3):
+            img, st = pipeline.render_scene(scene, cam, cfg)
+            np.testing.assert_array_equal(img, want)
+            assert st.segments == want_st.segments
+        imgs.append(want)
+        assert pipeline.frame_graph(scene, pipeline.frame_plan(scene, cam, cfg)).replay
+    assert not np.array_equal(imgs[0], imgs[1])
+    graphs = [v for v in scene.frame_cache().values() if isinstance(v, pipeline.FrameGraph)]
+    assert len(graphs) == 2

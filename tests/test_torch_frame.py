@@ -96,6 +96,33 @@ def test_ray_sort_key_refuses_other_devices():
         wavefront.ray_sort_key(box, state)
 
 
+@pytest.mark.parametrize("case, match", [
+    ("cpu", "needs CUDA tensors"),
+    ("odd", "R = 1023 is odd"),
+    ("state_offset", "state is not 8-byte aligned"),
+    ("key_offset", "key_out is not 8-byte aligned"),
+    ("key_dtype", "key_out has dtype"),
+])
+def test_launch_ray_sort_key_refuses(case, match, monkeypatch):
+    """launch_ray_sort_key takes two lanes a thread (float2 rows, int2
+    store): an odd R or a state or key that is not 8-byte aligned raises
+    ValueError, as do CPU tensors and a wrong dtype, before the library
+    loads, and nothing is counted."""
+    def no_load():
+        raise AssertionError("the library was loaded")
+
+    monkeypatch.setattr(kernels, "load", no_load)
+    R = 1023 if case == "odd" else 1024
+    state = torch.zeros(16 * R + 1)[1:].view(16, R) if case == "state_offset" \
+        else torch.zeros(16, R)
+    key = torch.zeros(R + 1, dtype=torch.int32)[1:] if case == "key_offset" \
+        else torch.zeros(R, dtype=torch.int64 if case == "key_dtype" else torch.int32)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match=match):
+        kernels.launch_ray_sort_key(state, torch.zeros(3), torch.ones(3), key)
+    assert kernels.LAUNCHES["ray_sort_key"] == 0
+
+
 # ------------------------------------------------------------ frame pieces
 
 
@@ -115,12 +142,13 @@ def test_device_slot_map_equals_numpy(w, h):
     ("baked", "cpu", False, False, None, False),
     ("baked", "cuda", True, False, None, False),
     ("baked", "cuda", False, True, None, False),
-    ("baked", "cuda", False, False, ExtFlags(nee=True), False),
-    ("grid", "cuda", False, False, None, False),
+    ("baked", "cuda", False, False, ExtFlags(nee=True), True),
+    ("grid", "cuda", False, False, None, True),
 ])
 def test_graph_route(scene_kind, device, plain, progressive, ext, want):
-    """Whole-path and per-bounce frames on a card replay a graph; CPU,
-    plain, progressive and XLA-path frames run wave by wave."""
+    """Frames on a card replay a graph in every regime, the XLA shading
+    path's (an extension on, or a grid scene) included; CPU, plain and
+    progressive frames run wave by wave."""
     scene = SimpleNamespace(device=torch.device(device),
                             tri_data=torch.empty(16, 8) if scene_kind == "baked" else None)
     assert pipeline.graph_route(scene, ext, plain, progressive) == want

@@ -15,8 +15,8 @@
   1e-6·t of the nearest (a tie); misses for inactive rays, the previous-hit
   exclusion, and the grid against the flat twin of the MXU bake.
 
-The grid walk and the MXU twin are plain PyTorch; the grid walk also runs
-on the card (tests/test_torch_cuda.py holds it to the CPU walk).
+On the CPU the grid walk is its plain twin ``trace_wave_ref``; on the card
+it is grid_walk_kernel (tests/test_torch_cuda.py holds it to the twin).
 """
 
 import jax

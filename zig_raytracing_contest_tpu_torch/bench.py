@@ -121,9 +121,10 @@ ROWS = (
     # the --large terrain with a 2-Mtexel texture
     Row("2mtexel", "2mtexel_Mrays/s", texture_terrain, "bank.gltf", **_LARGE,
         kernels=("trace_emit", "shade", "ray_sort_key")),
-    # the --large frame through the grid: the XLA shading path, no kernel
+    # the --large frame through the grid: the XLA shading path, the walk
+    # grid_walk_kernel
     Row("grid_large", "grid_large_Mrays/s", large_scene, "large.gltf", (("side", 224),),
-        **_LARGE, backend="grid"),
+        **_LARGE, backend="grid", kernels=("grid_walk",)),
     # the --large frame with every extension: the XLA shading path over the
     # bake, trace_emit_kernel for nearest hits and shadow rays
     Row("large_ext", "large_ext_Mrays/s", large_scene, "large.gltf", (("side", 224),),

@@ -1,13 +1,13 @@
 """Build and bind the CUDA kernels, and count their launches.
 
-Two sources: ``path_trace.cu`` (the renderer's kernels and the probes of
-its device functions) and ``probes.cu`` (the trace micro-benchmarks).  At
-first use each is compiled on its own with ``nvcc`` into a shared library
-with a plain C interface, under ``kernels/_build/`` (keyed on a hash of the
-source and the flags), and loaded with ``ctypes``: ``load()`` builds
-path_trace.cu, ``load_probes()`` probes.cu.  The wrappers take tensors,
-check them, and launch on PyTorch's current stream; they allocate nothing
-and do not synchronise.
+Two sources: ``path_trace.cu`` (the renderer's kernels, the grid walk and
+the probes of its device functions) and ``probes.cu`` (the trace
+micro-benchmarks).  At first use each is compiled on its own with ``nvcc``
+into a shared library with a plain C interface, under ``kernels/_build/``
+(keyed on a hash of the source and the flags), and loaded with ``ctypes``:
+``load()`` builds path_trace.cu, ``load_probes()`` probes.cu.  The
+wrappers take tensors, check them, and launch on PyTorch's current stream;
+they allocate nothing and do not synchronise.
 
 Flags: ``-O3 -arch=sm_90a --fmad=false``.  ``--fmad=false`` keeps every
 a*b+c rounded twice, as the PyTorch twins round it; without it nvcc fuses
@@ -48,7 +48,7 @@ BUILD_INFO: dict = {}
 # micro_trace per cull, micro_bf16 per working type, probe_gather per form.
 LAUNCHES = {"path_trace_gen": 0, "path_trace": 0, "trace_emit": 0,
             "trace_stream": 0, "shade": 0, "texel_fetch": 0, "sort_key": 0,
-            "ray_sort_key": 0,
+            "ray_sort_key": 0, "grid_walk": 0,
             "micro_trace_none": 0, "micro_trace_lane": 0, "micro_trace_warp": 0,
             "micro_bf16_f32": 0, "micro_bf16_bf16": 0,
             "probe_gather_smem": 0, "probe_gather_shfl": 0}
@@ -142,6 +142,18 @@ class ZrcGen(ctypes.Structure):
     ]
 
 
+class ZrcGrid(ctypes.Structure):
+    _fields_ = [
+        ("tri", ctypes.c_void_p),
+        ("cells", ctypes.c_void_p),
+        ("bmin", ctypes.c_float * 3),
+        ("bmax", ctypes.c_float * 3),
+        ("cell", ctypes.c_float * 3),
+        ("res", ctypes.c_int * 3),
+        ("num_cells", ctypes.c_int),
+    ]
+
+
 def _nvcc() -> str:
     for cand in (
         os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
@@ -209,7 +221,8 @@ def build_log(name: str, src: Path | None = None, build_dir: Path = BUILD_DIR) -
 
 def _bind_trace(lib) -> None:
     """Bind the entry points of path_trace.cu that another build of it is
-    compared on: the whole-path kernels and the per-bounce traces."""
+    compared on: the whole-path kernels, the per-bounce traces and the host
+    beam-sort key."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.zrc_path_trace_gen.restype = i32
     lib.zrc_path_trace_gen.argtypes = [
@@ -226,17 +239,19 @@ def _bind_trace(lib) -> None:
         ctypes.POINTER(ZrcScene), ctypes.POINTER(ZrcHeap), ptr, ptr, ptr,
         i32, ptr, ptr, ptr, i32, i32, ptr,
     ]
+    lib.zrc_ray_sort_key.restype = i32
+    lib.zrc_ray_sort_key.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
     lib.zrc_error_string.restype = ctypes.c_char_p
     lib.zrc_error_string.argtypes = [i32]
 
 
 def load_trace_library(src: Path, build_dir: Path):
     """Another build of a path_trace.cu whose ``zrc_path_trace_gen``,
-    ``zrc_path_trace`` and ``zrc_trace_emit`` take the same arguments (an
-    earlier commit's, to compare with): built into ``build_dir`` and
-    loaded, for the ``lib`` argument of ``launch_path_trace_gen``,
-    ``launch_path_trace``, ``launch_trace_emit`` and
-    ``launch_trace_stream``."""
+    ``zrc_path_trace``, ``zrc_trace_emit`` and ``zrc_ray_sort_key`` take the
+    same arguments (an earlier commit's, to compare with): built into
+    ``build_dir`` and loaded, for the ``lib`` argument of
+    ``launch_path_trace_gen``, ``launch_path_trace``, ``launch_trace_emit``,
+    ``launch_trace_stream`` and ``launch_ray_sort_key``."""
     lib = ctypes.CDLL(str(build("path_trace_other", Path(src), Path(build_dir))))
     _bind_trace(lib)
     return lib
@@ -260,8 +275,11 @@ def load():
             ]
             lib.zrc_sort_key.restype = i32
             lib.zrc_sort_key.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
-            lib.zrc_ray_sort_key.restype = i32
-            lib.zrc_ray_sort_key.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
+            lib.zrc_grid_walk.restype = i32
+            lib.zrc_grid_walk.argtypes = [
+                ctypes.POINTER(ZrcGrid), ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
+                i32, ptr,
+            ]
             lib.zrc_empty.restype = i32
             lib.zrc_empty.argtypes = [i32, ptr]
             _libs["path_trace"] = lib
@@ -538,23 +556,79 @@ def launch_sort_key(state, par, key_out) -> None:
         _count("sort_key")
 
 
-def launch_ray_sort_key(state, bbox_min, bbox_max, key_out) -> None:
+def launch_ray_sort_key(state, bbox_min, bbox_max, key_out, lib=None) -> None:
     """Launch ray_sort_key_kernel: the host beam-sort key
     (``wavefront.ray_sort_key_ref``) of every column of ``state`` (16, R)
     in the scene box ``bbox_min`` / ``bbox_max`` (3,), into ``key_out``
-    (R,) int32."""
-    lib = load()
+    (R,) int32; from ``lib`` (``load_trace_library``, not counted) when
+    given.  A thread takes two lanes with float2 loads and an int2 store:
+    R must be even and ``state`` and ``key_out`` 8-byte aligned (every
+    wave is; a view that is not raises).  Every check runs before the
+    library is loaded; CPU tensors raise (the CPU keys with
+    ``wavefront.ray_sort_key_ref``)."""
     dev = state.device
     R = state.shape[1]
     _check(state, "state", torch.float32, (16, R), dev)
     _check(bbox_min, "bbox_min", torch.float32, (3,), dev)
     _check(bbox_max, "bbox_max", torch.float32, (3,), dev)
     _check(key_out, "key_out", torch.int32, (R,), dev)
+    if R % 2:
+        raise ValueError(f"ray_sort_key_kernel takes two lanes a thread: R = {R} is odd")
+    for name, t in (("state", state), ("key_out", key_out)):
+        if t.data_ptr() % 8:
+            raise ValueError(f"{name} is not 8-byte aligned (float2 / int2 rows)")
+    if dev.type != "cuda":
+        raise ValueError(f"ray_sort_key_kernel needs CUDA tensors, got {dev}")
+    counted = lib is None
+    lib = load() if lib is None else lib
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.zrc_ray_sort_key(state.data_ptr(), bbox_min.data_ptr(), bbox_max.data_ptr(),
                                key_out.data_ptr(), R, dev.index or 0, stream)
-    if _launched(err, lib.zrc_error_string, "ray_sort_key_kernel"):
+    if _launched(err, lib.zrc_error_string, "ray_sort_key_kernel") and counted:
         _count("ray_sort_key")
+
+
+def launch_grid_walk(grid, orig, direction, active, exclude, t_out, u_out, v_out,
+                     idx_out, iterations) -> None:
+    """Launch grid_walk_kernel: the nearest hit of each ray ``orig`` /
+    ``direction`` (R, 3) f32 with ``active`` (R,) bool by the walk of
+    ``grid`` (``scene.types.GridOperands``), ``exclude`` (R,) int64 (the
+    previous hit's unique triangle) or None, into ``t_out``, ``u_out``,
+    ``v_out`` (R,) f32 and ``idx_out`` (R,) int64; the loop's iteration
+    count goes into ``iterations``, a 0-d int32 that must hold 0.  Every
+    check runs before the library is loaded; CPU tensors raise (the CPU
+    walks with ``wavefront.trace_wave_ref``)."""
+    dev = orig.device
+    R = orig.shape[0]
+    for name, t, dtype, shape in (
+            ("orig", orig, torch.float32, (R, 3)), ("direction", direction, torch.float32, (R, 3)),
+            ("active", active, torch.bool, (R,)), ("t_out", t_out, torch.float32, (R,)),
+            ("u_out", u_out, torch.float32, (R,)), ("v_out", v_out, torch.float32, (R,)),
+            ("idx_out", idx_out, torch.int64, (R,)), ("iterations", iterations, torch.int32, ()),
+            ("grid.tri", grid.tri, torch.float32, (grid.tri.shape[0], 12)),
+            ("grid.cells", grid.cells, torch.int32, (grid.cells.shape[0], 2))):
+        _check(t, name, dtype, shape, dev)
+    if exclude is not None:
+        _check(exclude, "exclude", torch.int64, (R,), dev)
+    rx, ry, rz = grid.resolution
+    if grid.cells.shape[0] != rx * ry * rz or rx * ry * rz >= 1 << 31:
+        raise ValueError(f"{grid.cells.shape[0]} cell ranges for a {grid.resolution} grid")
+    if grid.tri.shape[0] >= 1 << 31 or grid.tri.shape[0] < 1:
+        raise ValueError(f"{grid.tri.shape[0]} references: 1 to 2^31 - 1")
+    if dev.type != "cuda":
+        raise ValueError(f"grid_walk_kernel needs CUDA tensors, got {dev}")
+    lib = load()
+    g = ZrcGrid(grid.tri.data_ptr(), grid.cells.data_ptr(), (ctypes.c_float * 3)(*grid.bbox_min),
+                (ctypes.c_float * 3)(*grid.bbox_max), (ctypes.c_float * 3)(*grid.cell_size),
+                (ctypes.c_int * 3)(*grid.resolution), rx * ry * rz)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.zrc_grid_walk(
+        ctypes.byref(g), orig.data_ptr(), direction.data_ptr(), active.data_ptr(),
+        None if exclude is None else exclude.data_ptr(), t_out.data_ptr(), u_out.data_ptr(),
+        v_out.data_ptr(), idx_out.data_ptr(), iterations.data_ptr(), R, dev.index or 0,
+        stream)
+    if _launched(err, lib.zrc_error_string, "grid_walk_kernel"):
+        _count("grid_walk")
 
 
 def launch_empty(device) -> None:

@@ -23,6 +23,9 @@
 //   ray_sort_key_kernel    <- zig_raytracing_contest_tpu/render/wavefront.py:125
 //                             _ray_sort_key (the host beam-sort key, one
 //                             XLA fusion inside the jitted wave)
+//   grid_walk_kernel       <- zig_raytracing_contest_tpu/render/wavefront.py:360
+//                             trace_wave (the grid's DDA walk, a
+//                             jax.lax.while_loop inside the jitted wave)
 // with the shared device functions
 //   gen_ray        <- fused._gen_rays (:844)
 //   trace_nearest_warp <- mxu_intersect._trace_body_resident (:1027), the
@@ -1025,37 +1028,27 @@ __global__ void sort_key_kernel(const float* __restrict__ state,
 }
 
 // The host beam-sort key (render/wavefront.py ray_sort_key_ref, the JAX
-// package's _ray_sort_key) of every column of a (16, R) state into key[i]:
-// (dead << 30) | 6-D Morton code of the origin x the point where the ray
-// leaves the scene box.  Equal to the twin bit for bit, so the twin's
-// order of operations and roundings stand: (o - bmin) / span and 1 / d are
-// IEEE divisions, o + d * texit rounds twice (--fmad=false).  NaNs: the
-// slab's fmax drops one (fmaxf), the min over the axes, the clamp of texit
-// and the clamps to [0, 31] keep one (torch.minimum / clamp), and (int) of
-// a NaN is 0, as PyTorch's cast on the card (cvt.rzi).  Dead lanes are
-// keyed from whatever they hold, as the twin keys them.  Bound by bytes:
-// 28 B of state in and 4 B out per lane.
-__global__ void ray_sort_key_kernel(const float* __restrict__ state,
-                                    const float* __restrict__ bbox_min,
-                                    const float* __restrict__ bbox_max,
-                                    int* __restrict__ key, int R) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= R) return;
-    const size_t n = (size_t)R;
-    float o[3], d[3], bmin[3], span[3], far[3];
+// package's _ray_sort_key) of one lane: (dead << 30) | 6-D Morton code of
+// the origin x the point where the ray leaves the scene box.  Equal to the
+// twin bit for bit, so the twin's order of operations and roundings stand:
+// (o - bmin) / span and 1 / d are IEEE divisions, o + d * texit rounds
+// twice (--fmad=false).  NaNs: the slab's fmax drops one (fmaxf), the min
+// over the axes, the clamp of texit and the clamps to [0, 31] keep one
+// (torch.minimum / clamp), and (int) of a NaN is 0, as PyTorch's cast on
+// the card (cvt.rzi).  Dead lanes are keyed from whatever they hold, as
+// the twin keys them.
+__device__ __forceinline__ int host_sort_key(const float o[3], const float d[3], float alive,
+                                             const float bmin[3], const float bmax[3],
+                                             const float span[3]) {
+    float far[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-        bmin[a] = bbox_min[a];
-        float bmax = bbox_max[a];
-        span[a] = nan_max(bmax - bmin[a], 1e-30f);
-        o[a] = state[(S_OX + a) * n + i];
-        d[a] = state[(S_DX + a) * n + i];
         float inv = 1.0f / d[a];
         float ta = (bmin[a] - o[a]) * inv;
-        float tb = (bmax - o[a]) * inv;
+        float tb = (bmax[a] - o[a]) * inv;
         far[a] = fmaxf(ta, tb);
     }
-    int dead = state[S_ALIVE * n + i] <= 0.0f ? 1 : 0;
+    int dead = alive <= 0.0f ? 1 : 0;
     float texit = nan_max(nan_min(nan_min(far[0], far[1]), far[2]), 0.0f);
     int k = 0;
 #pragma unroll
@@ -1070,7 +1063,237 @@ __global__ void ray_sort_key_kernel(const float* __restrict__ state,
             k |= ((dq >> b) & 1) << (6 * b + 2 * a + 1);
         }
     }
-    key[i] = (dead << 30) | k;
+    return (dead << 30) | k;
+}
+
+// Lanes a thread of ray_sort_key_kernel: 2 (float2 rows, one int2 store).
+// probes/sort_key.py --lanes 4 builds this file with 4 (float4, int4) to
+// time the two against each other (PERF.md).
+#ifndef RAY_SORT_KEY_LANES
+#define RAY_SORT_KEY_LANES 2
+#endif
+
+template <int L> struct SortKeyVec;
+template <> struct SortKeyVec<2> { using F = float2; using I = int2; };
+template <> struct SortKeyVec<4> { using F = float4; using I = int4; };
+
+// Lane j of a vector row (j known at compile time once unrolled: a
+// register, where indexing the struct's memory would spill it).
+__device__ __forceinline__ float component(const float2& v, int j) {
+    return j == 0 ? v.x : v.y;
+}
+__device__ __forceinline__ float component(const float4& v, int j) {
+    return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ int2 pack_keys(const int (&k)[2]) { return make_int2(k[0], k[1]); }
+__device__ __forceinline__ int4 pack_keys(const int (&k)[4]) {
+    return make_int4(k[0], k[1], k[2], k[3]);
+}
+
+// host_sort_key of every column of a (16, R) state into key[i],
+// RAY_SORT_KEY_LANES consecutive lanes a thread.  Bound by bytes: 28 B of
+// state in and 4 B out per lane.  A thread reads each of its seven rows
+// (origin, direction, alive) with one vector load and writes its keys with
+// one vector store, so R must be a multiple of the lanes and the state and
+// key aligned to a vector (launch_ray_sort_key refuses anything else).
+__global__ void __launch_bounds__(kThreads) ray_sort_key_kernel(
+        const float* __restrict__ state, const float* __restrict__ bbox_min,
+        const float* __restrict__ bbox_max, int* __restrict__ key, int R) {
+    constexpr int L = RAY_SORT_KEY_LANES;
+    using F = typename SortKeyVec<L>::F;
+    using I = typename SortKeyVec<L>::I;
+    const int q = blockIdx.x * blockDim.x + threadIdx.x;
+    if (q >= R / L) return;
+    const size_t n = (size_t)R;
+    float bmin[3], bmax[3], span[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+        bmin[a] = bbox_min[a];
+        bmax[a] = bbox_max[a];
+        span[a] = nan_max(bmax[a] - bmin[a], 1e-30f);
+    }
+    F rows[7];
+#pragma unroll
+    for (int f = 0; f < 6; ++f) rows[f] = reinterpret_cast<const F*>(state + (S_OX + f) * n)[q];
+    rows[6] = reinterpret_cast<const F*>(state + S_ALIVE * n)[q];
+    int k[L];
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+        const float o[3] = {component(rows[0], j), component(rows[1], j), component(rows[2], j)};
+        const float d[3] = {component(rows[3], j), component(rows[4], j), component(rows[5], j)};
+        k[j] = host_sort_key(o, d, component(rows[6], j), bmin, bmax, span);
+    }
+    reinterpret_cast<I*>(key)[q] = pack_keys(k);
+}
+
+// ------------------------------------------------------------ grid walk
+// grid_walk_kernel: the nearest hit of each ray by the uniform grid's DDA
+// and Moller-Trumbore, the JAX package's trace_wave
+// (zig_raytracing_contest_tpu/render/wavefront.py:360, a jax.lax.while_loop
+// at :423 that XLA runs over the whole wave until every lane is done),
+// equal bit for bit to render/wavefront.py trace_wave_ref.  One thread
+// walks one ray to its end: per iteration it tests up to GRID_TRI_BATCH
+// references of its cell in order (a strictly smaller t wins, the first of
+// equal ones stays, as the twin's argmin), and once the cell is exhausted
+// steps the DDA (axis table {2,1,2,1,2,2,0,0}, the exit cell gives
+// +inf); it is done when its best t is at most the crossing t (leaving the
+// grid: inf <= inf).  Its iteration count then goes into iterations by a
+// warp max and one atomicMax a warp: the loop's count is the largest.
+// No lane waits on another, no compaction, no host synchronisation.
+// Parity: the twin's order of operations, each op rounded once
+// (--fmad=false), IEEE divides, NaN-keeping min/max in the slab test,
+// (long long) of a float as PyTorch's cast on the card (cvt.rzi).
+// What bounds it on this card: the references each ray tests, ~53 f32
+// operations and one 48-byte row each (v0, e1, e2 and the reference's
+// unique triangle id, three float4 loads), gathered: rays of a warp read
+// different cells.  The rows and the int32 cell ranges (the 128^3 grid of
+// the --large terrain: 19.9 MB and 16.8 MB) mostly stay in the 50 MB L2.
+
+#define GRID_TRI_BATCH 4
+#define GRID_THREADS 128
+
+struct ZrcGrid {
+    const float4* tri;   // (D + 1, 12) f32: v0 xyz, e1 x | e1 yz, e2 xy | e2 z,
+                         // dup_to_tri as int bits, 0, 0
+    const int2* cells;   // (C, 2) int32: each cell's [begin, end) of references
+    float bmin[3];
+    float bmax[3];
+    float cell[3];       // cell size
+    int res[3];
+    int num_cells;       // C
+};
+
+// linalg.moller_trumbore (ops/linalg.py): pvec, det, 1/det, u, qvec, v, t,
+// dot products as (a0 b0 + a1 b1) + a2 b2.
+__device__ __forceinline__ bool mt_hit(const float o[3], const float d[3], float4 a,
+                                       float4 b, float4 c, float& t, float& u, float& v) {
+    const float v0[3] = {a.x, a.y, a.z};
+    const float e1[3] = {a.w, b.x, b.y};
+    const float e2[3] = {b.z, b.w, c.x};
+    float p0 = d[1] * e2[2] - d[2] * e2[1];
+    float p1 = d[2] * e2[0] - d[0] * e2[2];
+    float p2 = d[0] * e2[1] - d[1] * e2[0];
+    float det = e1[0] * p0 + e1[1] * p1 + e1[2] * p2;
+    float inv = 1.0f / det;
+    float tv0 = o[0] - v0[0], tv1 = o[1] - v0[1], tv2 = o[2] - v0[2];
+    u = (tv0 * p0 + tv1 * p1 + tv2 * p2) * inv;
+    float q0 = tv1 * e1[2] - tv2 * e1[1];
+    float q1 = tv2 * e1[0] - tv0 * e1[2];
+    float q2 = tv0 * e1[1] - tv1 * e1[0];
+    v = (d[0] * q0 + d[1] * q1 + d[2] * q2) * inv;
+    t = (e2[0] * q0 + e2[1] * q1 + e2[2] * q2) * inv;
+    return det >= MT_EPSILON && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f;
+}
+
+__device__ __forceinline__ int grid_cell_lin(const ZrcGrid& g, const int c[3]) {
+    int lin = (c[2] * g.res[1] + c[1]) * g.res[0] + c[0];
+    return min(max(lin, 0), g.num_cells - 1);
+}
+
+__global__ void __launch_bounds__(GRID_THREADS) grid_walk_kernel(
+        ZrcGrid g, const float* __restrict__ orig, const float* __restrict__ dir,
+        const bool* __restrict__ active, const long long* __restrict__ exclude,
+        float* __restrict__ t_out, float* __restrict__ u_out, float* __restrict__ v_out,
+        long long* __restrict__ idx_out, int* __restrict__ iterations, int R) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    int it = 0;  // this lane's iterations (0: no walk)
+    if (i < R) {
+        float o[3], d[3];
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+            o[a] = orig[3 * (size_t)i + a];
+            d[a] = dir[3 * (size_t)i + a];
+        }
+        float best_t = INFINITY, best_u = 0.0f, best_v = 0.0f;
+        int best_i = 0;
+        // linalg.ray_bbox_intersection: narrowing y then z
+        bool sign[3];
+        float near_[3], far_[3];
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+            sign[a] = d[a] < 0.0f;
+            near_[a] = ((sign[a] ? g.bmax[a] : g.bmin[a]) - o[a]) / d[a];
+            far_[a] = ((sign[a] ? g.bmin[a] : g.bmax[a]) - o[a]) / d[a];
+        }
+        float tmin = near_[0], tmax = far_[0];
+        bool miss = tmin > far_[1] || tmax < near_[1];
+        tmin = nan_max(tmin, near_[1]);
+        tmax = nan_min(tmax, far_[1]);
+        miss = miss || tmin > far_[2] || tmax < near_[2];
+        tmin = nan_max(tmin, near_[2]);
+        if (!miss && active[i]) {
+            // dda.dda_setup
+            const float t_entry = nan_max(tmin, 0.0f);
+            int cell[3], stp[3], ext[3];
+            float t_delta[3], t_next[3];
+#pragma unroll
+            for (int a = 0; a < 3; ++a) {
+                stp[a] = sign[a] ? -1 : 1;
+                ext[a] = sign[a] ? 0 : g.res[a] - 1;
+                t_delta[a] = fabsf(g.cell[a] / d[a]);
+                float hit_local = (o[a] + d[a] * t_entry) - g.bmin[a];
+                long long c = (long long)(hit_local / g.cell[a]);
+                c = c < 0 ? 0 : c;
+                c = c < g.res[a] - 1 ? c : g.res[a] - 1;
+                cell[a] = (int)c;
+                float next_cell = (float)(cell[a] + (sign[a] ? 0 : 1));
+                t_next[a] = t_entry + (next_cell * g.cell[a] - hit_local) / d[a];
+            }
+            int2 range = g.cells[grid_cell_lin(g, cell)];
+            int cursor = range.x, end = range.y;
+            const bool has_ex = exclude != nullptr;
+            const long long ex = has_ex ? exclude[i] : 0;
+            for (;;) {
+                ++it;
+                // triangle phase: up to GRID_TRI_BATCH references in order
+#pragma unroll
+                for (int j = 0; j < GRID_TRI_BATCH; ++j) {
+                    if (cursor < end) {
+                        const float4* row = g.tri + 3 * (size_t)cursor;
+                        float4 ra = row[0], rb = row[1], rc = row[2];
+                        float t, u, v;
+                        bool ok = mt_hit(o, d, ra, rb, rc, t, u, v) && t > 0.0f;
+                        if (has_ex) ok = ok && (long long)__float_as_int(rc.y) != ex;
+                        if (ok && t < best_t) {
+                            best_t = t;
+                            best_u = u;
+                            best_v = v;
+                            best_i = cursor;
+                        }
+                        ++cursor;
+                    }
+                }
+                if (cursor < end) continue;
+                // cell-advance phase: dda.dda_next on the smallest crossing
+                const float t0 = t_next[0], t1 = t_next[1], t2 = t_next[2];
+                const int k = (t0 < t1 ? 4 : 0) + (t0 < t2 ? 2 : 0) + (t1 < t2 ? 1 : 0);
+                const int axis = (0xa66 >> (2 * k)) & 3;  // {2,1,2,1,2,2,0,0}
+                bool at_exit = false;
+                float t_cross = 0.0f;
+#pragma unroll
+                for (int a = 0; a < 3; ++a) {
+                    if (a == axis) {
+                        at_exit = cell[a] == ext[a];
+                        t_cross = at_exit ? INFINITY : t_next[a];
+                        if (!at_exit) {
+                            cell[a] += stp[a];
+                            t_next[a] = t_next[a] + t_delta[a];
+                        }
+                    }
+                }
+                if (best_t <= t_cross) break;
+                range = g.cells[grid_cell_lin(g, cell)];
+                cursor = range.x;
+                end = range.y;
+            }
+        }
+        t_out[i] = best_t;
+        u_out[i] = best_u;
+        v_out[i] = best_v;
+        idx_out[i] = best_i;
+    }
+    const int warp_max = __reduce_max_sync(FULL_MASK, it);
+    if ((threadIdx.x & 31) == 0 && warp_max > 0) atomicMax(iterations, warp_max);
 }
 
 // ------------------------------------------------------------ launchers
@@ -1167,9 +1390,24 @@ extern "C" int zrc_ray_sort_key(const float* state, const float* bbox_min,
     if (R <= 0) return ZRC_NOTHING_LAUNCHED;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    int blocks = (R + kThreads - 1) / kThreads;
+    const int threads = R / RAY_SORT_KEY_LANES;
+    int blocks = (threads + kThreads - 1) / kThreads;
     ray_sort_key_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         state, bbox_min, bbox_max, key, R);
+    return (int)cudaGetLastError();
+}
+
+// iterations must hold 0 (or a lower bound) before the launch.
+extern "C" int zrc_grid_walk(const ZrcGrid* g, const float* orig, const float* dir,
+                             const bool* active, const long long* exclude, float* t,
+                             float* u, float* v, long long* idx, int* iterations, int R,
+                             int device, void* stream) {
+    if (R <= 0) return ZRC_NOTHING_LAUNCHED;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    int blocks = (R + GRID_THREADS - 1) / GRID_THREADS;
+    grid_walk_kernel<<<blocks, GRID_THREADS, 0, (cudaStream_t)stream>>>(
+        *g, orig, dir, active, exclude, t, u, v, idx, iterations, R);
     return (int)cudaGetLastError();
 }
 

@@ -104,7 +104,11 @@ def env_color(direction: torch.Tensor) -> torch.Tensor:
     (src/stage3.zig:144-150)."""
     t = 0.5 * (direction[..., 1] + 1.0)
     white = torch.ones(3, dtype=direction.dtype, device=direction.device)
-    blue = torch.tensor([0.5, 0.7, 1.0], dtype=direction.dtype, device=direction.device)
+    # filled on the device, not copied from the host: a CUDA graph capture
+    # refuses a copy from pageable host memory
+    blue = torch.full((3,), 0.5, dtype=direction.dtype, device=direction.device)
+    blue[1:2].fill_(0.7)
+    blue[2:3].fill_(1.0)
     return white * (1.0 - t)[..., None] + blue * t[..., None]
 
 

@@ -15,10 +15,13 @@ micro-benchmarks, held on their own against their plain PyTorch versions.
   (8, 128) page in shared memory or by shuffles (scripts/probe_gather.py);
 * ``walk_check``: trace_emit_kernel's tile-heap walk against the flat loop
   lane by lane, with a NumPy replay of the walk for one ray;
+* ``grid_walk``: grid_walk_kernel against its twin on a wave and on built
+  edge rays, and the bound of a wave's walk (helpers of chip_smoke.py and
+  the tests; no entry point of its own);
 * ``probe_ab``, ``trace_ab``, ``path_ab``: this checkout's kernels against
   another build of their source (bits, and times in alternating pairs).
 
-Each module runs on the card by default: ``python -m
+Each module with an entry point runs on the card by default: ``python -m
 zig_raytracing_contest_tpu_torch.probes.check_fetch`` (``--device cpu``
 runs the plain version against itself).
 """

@@ -28,8 +28,9 @@ path (``render_wave_xla``, the XLA branch of the JAX ``render_wave``):
 ``shade_and_scatter`` (the (R, 32) shade-table gather and the f32
 sampler), then the extensions.  ``trace_any`` finds the nearest hit with
 ``trace_emit_aux`` on a scene with the MXU bake, so its kernels run under
-this path too, and with the grid walk ``trace_wave`` (plain PyTorch) on a
-grid scene.
+this path too, and with the grid walk ``trace_wave`` on a grid scene
+(``grid_walk_kernel`` on the card, its twin ``trace_wave_ref`` on the
+CPU).
 
 A ray's result does not depend on its lane, so the sorts change speed,
 not the image.  Sorting is PyTorch: a stable ``torch.sort`` of the int32
@@ -40,11 +41,11 @@ of the sorted per-bounce waves (``ray_sort_key``, the JAX package's
 ``ray_sort_key_kernel`` on the card and its twin ``ray_sort_key_ref`` on
 the CPU.
 
-A whole-path or per-bounce wave holds no host synchronisation on the card,
-so ``render.pipeline`` captures a frame's waves into one CUDA graph and
+A wave of any regime holds no host synchronisation on the card, so
+``render.pipeline`` captures a frame's waves into one CUDA graph and
 replays it per frame: one device call a frame, as the JAX package's
-fori_loop chunks are.  Waves of the XLA shading path (the grid walk's
-host syncs) and of ``plain`` runs (the twins') run wave by wave, eagerly.
+fori_loop chunks are.  Waves of ``plain`` runs (the twins synchronise)
+run wave by wave, eagerly.
 """
 
 from __future__ import annotations
@@ -75,10 +76,10 @@ MID_RESORT_BOUNCES: tuple = (1,)
 SORT_MIN_TRIS = 1 << 16
 
 # Triangles the grid walk tests per ray and loop iteration (the JAX
-# package's TRI_BATCH).
+# package's TRI_BATCH; grid_walk_kernel's GRID_TRI_BATCH).
 TRI_BATCH = 4
-# The grid walk drops its finished rays, and stops when none is left, every
-# GRID_CHECK_EVERY iterations: one host sync each time.
+# The grid walk's twin drops its finished rays, and stops when none is
+# left, every GRID_CHECK_EVERY iterations: one host sync each time.
 GRID_CHECK_EVERY = 8
 
 
@@ -125,7 +126,7 @@ def trace_walk(scene: TorchScene, ext: ExtFlags | None = None) -> str:
     walk of the tile heap at every tile count the whole path serves), in
     the per-bounce pipeline and the XLA shading path "tile heap"
     (trace_emit_kernel) or, streaming, "group heap" (trace_stream_kernel);
-    on a grid scene "grid" (the DDA walk, plain PyTorch on every device).
+    on a grid scene "grid" (the DDA walk: grid_walk_kernel on the card).
     The CPU twins take the flat tile loop for every scene with the bake."""
     if scene.tri_data is None:
         return "grid"
@@ -336,16 +337,31 @@ def render_wave_whole_path(scene: TorchScene, par, width: int, height: int,
                               plain=plain)
 
 
+class WalkWork(NamedTuple):
+    """What a grid walk did, counted by ``trace_wave_ref(work=True)``:
+    per ray the references it tested (``tests``) and the cells it entered
+    (``cells``: a ray tests every reference of each cell it enters, and
+    each DDA step either enters a cell or ends the walk, so this is also
+    its DDA steps), and ``visited`` (C,) bool, the cells any ray entered."""
+
+    tests: torch.Tensor
+    cells: torch.Tensor
+    visited: torch.Tensor
+
+
 class TraceResult(NamedTuple):
     """The grid walk's nearest hits: t (+inf on a miss), u, v, the index of
     the winning reference into the duplicated triangle arrays (0 on a
-    miss), and the loop's iteration count (the JAX ``while_loop``'s)."""
+    miss), the loop's iteration count (the JAX ``while_loop``'s) as a 0-d
+    int32 tensor on the wave's device, and with ``work`` the twin's
+    counters (else None)."""
 
     t: torch.Tensor
     u: torch.Tensor
     v: torch.Tensor
     dup_idx: torch.Tensor
-    iterations: int
+    iterations: torch.Tensor
+    work: WalkWork | None = None
 
 
 def trace_any(scene: TorchScene, orig, direction, active, exclude=None,
@@ -358,12 +374,16 @@ def trace_any(scene: TorchScene, orig, direction, active, exclude=None,
 
     With the MXU bake: ``trace_emit_aux`` (its kernel on the card, the flat
     twin on the CPU, or with ``plain``), ``prev`` the Morton index the
-    kernel compares; else the grid walk ``trace_wave``, ``prev`` the unique
-    id.  Both find the same nearest hit (the grid only prunes work)."""
+    kernel compares; else the grid walk ``trace_wave`` (grid_walk_kernel
+    on the card, ``trace_wave_ref`` on the CPU or with ``plain``), ``prev``
+    the unique id.  Both find the same nearest hit (the grid only prunes
+    work)."""
     if scene.tri_data is None:
-        hit = trace_wave(scene, orig, direction, active, exclude=exclude)
-        log.debug("grid walk: %d loop iterations over %d rays", hit.iterations,
-                  orig.shape[0])
+        walk = trace_wave_ref if plain else trace_wave
+        hit = walk(scene, orig, direction, active, exclude=exclude)
+        if orig.device.type == "cpu":  # reading the count on a card would sync
+            log.debug("grid walk: %d loop iterations over %d rays", int(hit.iterations),
+                      orig.shape[0])
         tri = scene.grid.dup_to_tri[hit.dup_idx]
         return hit.t, hit.u, hit.v, tri, tri
     R = orig.shape[0]
@@ -380,17 +400,43 @@ def trace_any(scene: TorchScene, orig, direction, active, exclude=None,
 
 def trace_wave(scene: TorchScene, orig, direction, active, exclude=None) -> TraceResult:
     """Nearest hit of a wave of rays by the grid's DDA and Möller–Trumbore
-    (Scene.traceRay, src/stage3.zig:152-186; the JAX ``trace_wave``).
+    (Scene.traceRay, src/stage3.zig:152-186; the JAX ``trace_wave``):
+    one launch of ``grid_walk_kernel`` on CUDA tensors (bit for bit
+    ``trace_wave_ref``'s results and iteration count; no host
+    synchronisation), ``trace_wave_ref`` on CPU tensors.  ``exclude`` (R,)
+    is each ray's previous hit in unique triangle space."""
+    kind = orig.device.type
+    if kind == "cpu":
+        return trace_wave_ref(scene, orig, direction, active, exclude)
+    if kind != "cuda":
+        raise ValueError(f"no grid walk kernel for device {orig.device}")
+    R = orig.shape[0]
+    dev = orig.device
+    t = torch.empty(R, dtype=torch.float32, device=dev)
+    u = torch.empty(R, dtype=torch.float32, device=dev)
+    v = torch.empty(R, dtype=torch.float32, device=dev)
+    idx = torch.empty(R, dtype=torch.int64, device=dev)
+    iterations = torch.zeros((), dtype=torch.int32, device=dev)
+    kernels.launch_grid_walk(
+        scene.grid.kernel_operands(), orig.contiguous(), direction.contiguous(),
+        active.contiguous(), None if exclude is None else exclude.to(torch.int64).contiguous(),
+        t, u, v, idx, iterations)
+    return TraceResult(t, u, v, idx, iterations)
+
+
+def trace_wave_ref(scene: TorchScene, orig, direction, active, exclude=None,
+                   work: bool = False) -> TraceResult:
+    """Plain twin of ``trace_wave``, on any device.
 
     Per iteration a ray tests up to TRI_BATCH references of its cell, then
     steps to the next cell once the cell is exhausted; it is done when its
     best t is at most the t where it leaves the cell (or when it leaves
-    the grid: +inf <= +inf).  ``exclude`` (R,) is each ray's previous hit
-    in unique triangle space.  The JAX loop runs every lane until the last
+    the grid: +inf <= +inf).  The JAX loop runs every lane until the last
     one is done; here only the rays still walking run: every
     GRID_CHECK_EVERY iterations the finished ones are dropped (one host
     sync).  A finished ray's state does not change, so the results are the
-    JAX loop's.  Rays not active, or missing the grid, are misses."""
+    JAX loop's.  Rays not active, or missing the grid, are misses.
+    ``work`` counts what the walk did (``WalkWork``)."""
     g = scene.grid
     grid = g.params
     R = orig.shape[0]
@@ -400,10 +446,19 @@ def trace_wave(scene: TorchScene, orig, direction, active, exclude=None) -> Trac
     out_u = torch.zeros(R, dtype=torch.float32, device=dev)
     out_v = torch.zeros(R, dtype=torch.float32, device=dev)
     out_i = torch.zeros(R, dtype=torch.int64, device=dev)
+    out_tests = torch.zeros(R, dtype=torch.int64, device=dev) if work else None
+    out_cells = torch.zeros(R, dtype=torch.int64, device=dev) if work else None
+    visited = torch.zeros(g.num_cells, dtype=torch.bool, device=dev) if work else None
+
+    def result(iterations: int) -> TraceResult:
+        return TraceResult(out_t, out_u, out_v, out_i,
+                           torch.tensor(iterations, dtype=torch.int32, device=dev),
+                           WalkWork(out_tests, out_cells, visited) if work else None)
+
     entered, state = dda.dda_setup(grid, orig, direction)
     lanes = (entered & active).nonzero()[:, 0]
     if lanes.numel() == 0:
-        return TraceResult(out_t, out_u, out_v, out_i, 0)
+        return result(0)
 
     o, d = orig[lanes][:, None, :], direction[lanes][:, None, :]
     st = dda.DDAState(*(f[lanes] for f in state))
@@ -416,6 +471,10 @@ def trace_wave(scene: TorchScene, orig, direction, active, exclude=None) -> Trac
     best_v = torch.zeros(n, dtype=torch.float32, device=dev)
     best_i = torch.zeros(n, dtype=torch.int64, device=dev)
     done = torch.zeros(n, dtype=torch.bool, device=dev)
+    if work:
+        tests = torch.zeros(n, dtype=torch.int64, device=dev)
+        cells = torch.ones(n, dtype=torch.int64, device=dev)
+        visited[cell_lin] = True
     batch = torch.arange(TRI_BATCH, device=dev)
     iterations = 0
     while True:
@@ -451,14 +510,20 @@ def trace_wave(scene: TorchScene, orig, direction, active, exclude=None) -> Trac
             cell_lin = dda.linearize_cell_idx(grid, st.cell).clamp(0, last_cell)
             cursor = torch.where(moved, g.cell_begin[cell_lin], cursor)
             cur_end = torch.where(moved, g.cell_end[cell_lin], cur_end)
+            if work:
+                tests = tests + has.sum(dim=1)
+                cells = cells + moved
+                visited[cell_lin[moved]] = True
             walking.append((~done).any())
         out_t[lanes], out_u[lanes], out_v[lanes], out_i[lanes] = best_t, best_u, best_v, best_i
+        if work:
+            out_tests[lanes], out_cells[lanes] = tests, cells
         keep = (~done).nonzero()[:, 0]
         if keep.numel() == 0:
             # the JAX loop stops after the first iteration that leaves no
             # ray walking
             iterations += int(torch.stack(walking).sum()) + 1
-            return TraceResult(out_t, out_u, out_v, out_i, iterations)
+            return result(iterations)
         iterations += GRID_CHECK_EVERY
         lanes, o, d = lanes[keep], o[keep], d[keep]
         st = dda.DDAState(*(f[keep] for f in st))
@@ -466,6 +531,8 @@ def trace_wave(scene: TorchScene, orig, direction, active, exclude=None) -> Trac
         cursor, cur_end = cursor[keep], cur_end[keep]
         best_t, best_u, best_v, best_i = (x[keep] for x in (best_t, best_u, best_v, best_i))
         done = done[keep]
+        if work:
+            tests, cells = tests[keep], cells[keep]
 
 
 def _interpolate(per_vertex, u, v):

@@ -36,6 +36,7 @@ decides the regime.
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -214,6 +215,19 @@ def emissive_all_dummy(materials: MaterialBank) -> bool:
     return bool(np.all(desc[:, 1] * desc[:, 2] == 1))
 
 
+class GridOperands(NamedTuple):
+    """The grid as grid_walk_kernel reads it (``GridScene.kernel_operands``):
+    ``tri`` (D + 1, 12) f32 rows, ``cells`` (C, 2) int32 ranges, and the
+    box, cell size and resolution as Python numbers (f32 values)."""
+
+    tri: torch.Tensor
+    cells: torch.Tensor
+    bbox_min: tuple
+    bbox_max: tuple
+    cell_size: tuple
+    resolution: tuple
+
+
 @dataclass
 class GridScene:
     """The grid backend's tensors (the JAX ``DeviceScene``'s grid side).
@@ -239,6 +253,29 @@ class GridScene:
         return GridScene(*(v.to(device) for v in (
             self.params, self.cell_begin, self.cell_end, self.tri_v0, self.tri_e1,
             self.tri_e2, self.dup_to_tri)))
+
+    def kernel_operands(self) -> "GridOperands":
+        """What grid_walk_kernel reads (``kernels.launch_grid_walk``), made
+        on the grid's device at the first call and kept: the references'
+        rows (D + 1, 12) f32 (v0, e1, e2, then ``dup_to_tri`` as int32 bits
+        and two zeros: three 16-byte loads a test), the cell ranges (C, 2)
+        int32 and the grid's parameters as Python numbers.  The same values
+        as the int64 and (D + 1, 3) arrays, in fewer bytes; reading the
+        parameters synchronises once, so the first call is made eagerly (a
+        frame's first run, before any capture).  ``kernels.launch_grid_walk``
+        refuses a grid whose int32 indices would not hold."""
+        ops = getattr(self, "_kernel_operands", None)
+        if ops is None:
+            dup = self.dup_to_tri.to(torch.int32).view(torch.float32)[:, None]
+            tri = torch.cat([self.tri_v0, self.tri_e1, self.tri_e2, dup,
+                             torch.zeros_like(dup), torch.zeros_like(dup)], dim=1)
+            cells = torch.stack([self.cell_begin, self.cell_end], dim=1).to(torch.int32)
+            p = self.params
+            ops = self._kernel_operands = GridOperands(
+                tri.contiguous(), cells.contiguous(), tuple(p.bbox_min.tolist()),
+                tuple(p.bbox_max.tolist()), tuple(p.cell_size.tolist()),
+                tuple(int(r) for r in p.resolution.tolist()))
+        return ops
 
     @property
     def num_refs(self) -> int:
