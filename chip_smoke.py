@@ -115,17 +115,21 @@ then the XLA shading path, which a grid scene and the extensions take:
 
 k. the ``--large`` terrain with ``backend: "grid"`` at the default 128³
    grid and the ``--large`` frame's settings: the grid build's seconds, D
-   (duplicated references) and C (cells); bounces 0 and 1 of the frame's
-   one wave through grid_walk_kernel against its twin trace_wave_ref, lane
-   by lane (t, u, v bits, the reference, the iteration count: a lane that
-   differs fails the run), the kernel timed queued behind a spin, the twin
-   by CUDA events, the bound from the twin's counts of tests and cells
-   (probes/grid_walk.py walk_bound), and the nearest hits against
+   (duplicated references) and C (cells); bounces 0, 1 and 2 of the
+   frame's one wave through grid_walk_kernel against its twin
+   trace_wave_ref, lane by lane (t, u, v bits, the reference, the iteration
+   count: a lane that differs fails the run), the kernel and the walk of
+   commit 8108396 (kernels/grid_walk_8108396.cu, built beside the sources,
+   held to the same bits) timed queued behind a spin in turns (medians of
+   8 readings each), the twin by CUDA events, the bound from the twin's
+   counts of tests and cells (probes/grid_walk.py walk_bound) and the share
+   of the cells entered that hold references, and the nearest hits against
    trace_emit_kernel on the MXU bake of the same terrain, every lane where
    the two differ in t or triangle explained (the same triangle, a tie or
    an edge decision) or the run fails; the kernel against the twin on
    65,536 built edge lanes (probes/grid_walk.py edge_rays) with and
-   without an exclusion; the frame: a warmup and 5 timed renders
+   without an exclusion; the same on a 37×5×64 grid of the terrain, with
+   the first 2^18 rays of its bounce-0 wave; the frame: a warmup and 5 timed renders
    (grid_walk_kernel 3 launches a frame, the frame one CUDA graph from its
    second render), one profile, the graph's frame bit for bit against the
    eager frame, and its gate against the per-bounce MXU frame (diff > 2 on
@@ -310,6 +314,14 @@ WALK_LANES = 1024
 # 0.1-unit terrain triangle 20 units away, ~1e-4 on a grazing ray); ties
 # and edge decisions together on at most EDGE_SHARE of the lanes
 G_RES = (128, 128, 128)
+# the grid walk as commit 8108396 ran it, and the queued readings of each
+# build that phase k takes in turns
+GRID_WALK_BASE = Path(__file__).resolve().parent / (
+    "zig_raytracing_contest_tpu_torch/kernels/grid_walk_8108396.cu")
+GW_ROUNDS = 8
+# a grid of the same terrain with odd sides, and the rays of its bounce-0
+# wave walked there (its large cells make the twin slow)
+G_ODD_RES, G_ODD_RAYS = (37, 5, 64), 1 << 18
 TIE_RTOL, TIE_ATOL, EDGE_UV, EDGE_SHARE = 1e-5, 4e-6, 1e-3, 1e-4
 # phase n: the timed frames of the bench's Sponza and 2M rows (3, as
 # scripts/large_sweep.py times them; the bench's own default is 5), and the
@@ -1469,9 +1481,10 @@ def grid_differences(what, card, t_g, tri_g, u_g, v_g, aux, tri_k) -> None:
              f"{int(tri_g[lane])}, kernel t {float(t_k[lane])} tri {int(tri_k[lane])}")
 
 
-def grid_phases(card, timing, errs, bounds, launches) -> None:
+def grid_phases(card, timing, errs, bounds, launches, base_lib) -> None:
     """Phase k: the --large terrain through the grid backend (the XLA
-    shading path, the DDA walk grid_walk_kernel on the card)."""
+    shading path, the DDA walk grid_walk_kernel on the card); ``base_lib``
+    the build of kernels/grid_walk_8108396.cu, timed beside it."""
     import numpy as np
     import torch
 
@@ -1479,7 +1492,9 @@ def grid_phases(card, timing, errs, bounds, launches) -> None:
     from zig_raytracing_contest_tpu_torch.grid.builder import build_grid
     from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
     from zig_raytracing_contest_tpu_torch.probes.grid_walk import (
+        Walk,
         edge_rays,
+        time_builds,
         walk_bound,
         walk_differs,
     )
@@ -1488,7 +1503,7 @@ def grid_phases(card, timing, errs, bounds, launches) -> None:
     from zig_raytracing_contest_tpu_torch.scene.geometry import load_geometry
     from zig_raytracing_contest_tpu_torch.scene.gltf import load_gltf
     from zig_raytracing_contest_tpu_torch.scene.procedural import large_scene
-    from zig_raytracing_contest_tpu_torch.utils.timing import cuda_ms, queued_ms
+    from zig_raytracing_contest_tpu_torch.utils.timing import cuda_ms
 
     t_phase = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -1519,36 +1534,51 @@ def grid_phases(card, timing, errs, bounds, launches) -> None:
     morton = torch.empty(T, dtype=torch.int64, device=dev)  # unique id -> Morton
     morton[mscene.perm[:T]] = torch.arange(T, device=dev)
 
-    # bounces 0 and 1 of the frame's one wave, as render_wave_xla runs them:
-    # grid_walk_kernel against its twin lane by lane, both timed, the bound
-    # from the twin's counts; the nearest hits against trace_emit_kernel's
+    # bounces 0, 1 and 2 of the frame's one wave, as render_wave_xla runs
+    # them: grid_walk_kernel against its twin lane by lane, both timed, the
+    # design of commit 8108396 (kernels/grid_walk_8108396.cu) timed beside
+    # it in turns on the same rays, the bound from the twin's counts; the
+    # nearest hits against trace_emit_kernel's
     R = L_W * L_H * L_SPP
     par = wf.build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
     o, d, streams = wf.xla_primary_rays(par, L_W, L_SPP, 0, R, SEED)
     o = o.contiguous()
     live = torch.ones(R, dtype=torch.bool, device=dev)
     prev = None
-    for bounce in (0, 1):
+    ops = scene.grid.kernel_operands()
+    for bounce in range(L_BOUNCES):
         off, k_it, t_it, res = walk_differs(scene, o, d, live, prev)
-        k_ms = queued_ms(lambda: wf.trace_wave(scene, o, d, live, prev), 10)
+        this, base = Walk(None, ops, o, d, live, prev), Walk(base_lib, ops, o, d, live, prev)
+        ms = time_builds({"this": this.run, "base": base.run}, GW_ROUNDS)
+        k_ms, base_ms = statistics.median(ms["this"]), statistics.median(ms["base"])
+        base_off = base.differs(this)
         t_ms = cuda_ms(lambda: wf.trace_wave_ref(scene, o, d, live, prev), 1)
         b = walk_bound(scene, res.work, R, prev is not None, PEAK_F32_FLOPS, PEAK_BYTES)
+        occupied = float(res.work.occupied.sum()) / max(b["cells"], 1.0)
         print(f"  grid_walk_kernel vs trace_wave_ref, bounce {bounce}: {off} of {R} lanes "
               f"differ (t, u, v bits, reference), iterations {k_it} vs {t_it}; kernel "
-              f"{k_ms:.3f} ms (queued), twin {t_ms:.1f} ms; {int(live.sum())} live rays, "
+              f"{k_ms:.4f} ms, commit 8108396's walk {base_ms:.4f} ms ({base_off} lanes "
+              f"differ from it; medians of {GW_ROUNDS} queued readings in turns), twin "
+              f"{t_ms:.1f} ms; {int(live.sum())} live rays, "
               f"{int(b['walking'])} walking, {int(torch.isfinite(res.t).sum())} hits; "
-              f"{b['tests']:.0f} tests, {b['cells']:.0f} cells entered; bound "
+              f"{b['tests']:.0f} tests, {b['cells']:.0f} cells entered, {occupied:.4f} of "
+              f"them occupied; bound "
               f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['ops'] / 1e9:.3f} GFLOP "
               f"{b['ops_ms']:.4f} ms, unique {b['bytes_unique'] / 1e6:.1f} MB "
               f"{b['unique_ms']:.4f} ms; gathered {b['bytes_gathered'] / 1e9:.3f} GB "
-              f"{b['gathered_ms']:.4f} ms) ({card})")
+              f"{b['gathered_ms']:.4f} ms), {b['bound_ms'] / k_ms:.1%} of it ({card})")
         print("  grid_walk: " + json.dumps({"bounce": bounce, "rays": R, "differ": off,
                                             "iterations": k_it, "ms": k_ms, "plain_ms": t_ms,
-                                            **b, "card": card}))
-        if off or k_it != t_it:
-            fail(f"grid_walk_kernel differs from trace_wave_ref at bounce {bounce}")
-        timing["grid_walk"] = (k_ms, t_ms, R, R)
-        bounds["grid_walk"] = (b["bound_ms"], b["bound_by"])
+                                            "base_ms": base_ms, "ms_readings": ms["this"],
+                                            "base_readings": ms["base"],
+                                            "occupied_share": occupied, **b, "card": card}))
+        if off or k_it != t_it or base_off:
+            fail(f"grid_walk_kernel differs from trace_wave_ref or from commit 8108396's "
+                 f"walk at bounce {bounce}")
+        del this, base
+        if bounce == 1:  # the kernels line keeps the bounce-1 wave, as before
+            timing["grid_walk"] = (k_ms, t_ms, R, R)
+            bounds["grid_walk"] = (b["bound_ms"], b["bound_by"])
         tri_g = scene.grid.dup_to_tri[res.dup_idx]
         state = torch.zeros((16, R), dtype=torch.float32, device=dev)
         state[0:3], state[3:6], state[12] = o.T, d.T, live.to(torch.float32)
@@ -1579,6 +1609,27 @@ def grid_phases(card, timing, errs, bounds, launches) -> None:
         if off or k_it != t_it:
             fail(f"grid_walk_kernel differs from trace_wave_ref on the {label}")
     del eo, ed, ea, ex
+    # the same terrain on a grid of odd sides (its rows no multiple of 32
+    # cells): the bounce-0 wave's first G_ODD_RAYS rays, and the edge lanes
+    # with and without an exclusion
+    oscene, _, _ = prepare_scene(str(path), Config(backend="grid", **{**kw, "grid_resolution":
+                                                                     G_ODD_RES}),
+                                 camera_name="Camera 1", width=L_W, height=L_H, device=dev)
+    og = oscene.grid
+    o, d, _ = wf.xla_primary_rays(par, L_W, L_SPP, 0, G_ODD_RAYS, SEED)
+    eo, ed, ea = (x.to(dev) for x in edge_rays(og.params, 1 << 16, seed=SEED))
+    ex = og.dup_to_tri[torch.from_numpy(rng.integers(0, og.num_refs, 1 << 16)).to(dev)]
+    lit = torch.ones(G_ODD_RAYS, dtype=torch.bool, device=dev)
+    for label, rays in (("bounce 0", (o.contiguous(), d, lit, None)),
+                        ("edge lanes", (eo, ed, ea, None)),
+                        ("edge lanes, excluded", (eo, ed, ea, ex))):
+        off, k_it, t_it, _ = walk_differs(oscene, *rays)
+        print(f"  grid_walk_kernel vs trace_wave_ref, {G_ODD_RES} grid, {label}: {off} of "
+              f"{rays[0].shape[0]} lanes differ, iterations {k_it} vs {t_it}")
+        if off or k_it != t_it:
+            fail(f"grid_walk_kernel differs from trace_wave_ref on the {G_ODD_RES} grid "
+                 f"({label})")
+    del oscene, og, o, d, lit, eo, ed, ea, ex
 
     # the frame, through the main path (one CUDA graph a frame from the
     # second on): the walk's launches
@@ -2317,10 +2368,14 @@ def main() -> int:
     from zig_raytracing_contest_tpu_torch.scene.procedural import bench_scene
     from zig_raytracing_contest_tpu_torch.utils.timing import cuda_ms
 
-    # 2. build: one nvcc per source, all started together
+    # 2. build: one nvcc per source, all started together (the grid walk of
+    # commit 8108396 too, which phase k times beside the renderer's)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels.SOURCES)) as pool:
+    with ThreadPoolExecutor(len(kernels.SOURCES) + 1) as pool:
+        base_job = pool.submit(kernels.load_grid_walk_library, GRID_WALK_BASE,
+                               kernels.BUILD_DIR)
         list(pool.map(kernels.build, kernels.SOURCES))
+        base_lib = base_job.result()
     kernels.load()
     kernels.load_probes()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc " + ", ".join(
@@ -2465,7 +2520,7 @@ def main() -> int:
     probe_phases(card, timing, errs, bounds, launches, duck)
     library = {}
     trace_probe_phases(card, timing, errs, bounds, launches, library)
-    grid_phases(card, timing, errs, bounds, launches)
+    grid_phases(card, timing, errs, bounds, launches, base_lib)
     extension_phases(card, launches)
     sharding_phases(card, path, scene, cam, cfg)
     bench_phases(card, errs)

@@ -405,15 +405,15 @@ def test_whole_path_kernels_with_dead_lanes_on_cuda(tmp_path):
     assert kernels.LAUNCHES["path_trace_gen"] == 1 and kernels.LAUNCHES["path_trace"] == 1
 
 
-def _large_xla_waves(tmp_path, backend, rays, device):
+def _large_xla_waves(tmp_path, backend, rays, device, **grid):
     """The --large terrain (bench.py --large: side 224, Camera 1 at
-    1280×720, 2 spp) with ``backend``, and its first ``rays`` primary rays
-    as the XLA shading path makes them: (scene, orig, dirs, streams) on
-    ``device``."""
+    1280×720, 2 spp) with ``backend`` (and ``grid_resolution`` when given),
+    and its first ``rays`` primary rays as the XLA shading path makes them:
+    (scene, orig, dirs, streams) on ``device``."""
     from zig_raytracing_contest_tpu_torch.render.wavefront import build_gen_par, xla_primary_rays
 
     path = tproc.large_scene(tmp_path / "l.gltf")
-    cfg = Config(num_samples=2, max_bounce=3, backend=backend)
+    cfg = Config(num_samples=2, max_bounce=3, backend=backend, **grid)
     scene, cam, _ = prepare_scene(str(path), cfg, camera_name="Camera 1", width=1280,
                                   height=720, device=device)
     par = build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
@@ -609,13 +609,15 @@ def test_graph_frame_matches_eager_on_cuda(tmp_path, monkeypatch, regime):
 
 
 @pytest.mark.cuda
-def test_grid_walk_kernel_matches_twin_on_cuda(tmp_path):
+@pytest.mark.parametrize("resolution", [(128, 128, 128), (37, 5, 64)], ids=["128", "odd"])
+def test_grid_walk_kernel_matches_twin_on_cuda(tmp_path, resolution):
     """grid_walk_kernel (trace_wave on the card) against trace_wave_ref on
-    the --large terrain's 128³ grid: the full 1,843,200-ray bounce-0 wave
-    and its bounce-1 wave with the previous hit excluded, then 65,536 edge
-    rays (probes.grid_walk.edge_rays) with and without an exclusion: t, u,
-    v bits, the reference and the iteration count equal; one launch a
-    walk."""
+    the --large terrain's 128³ grid and on a 37×5×64 grid of it (rows no
+    multiple of 32 cells): the full 1,843,200-ray bounce-0 wave and
+    its bounce-1 and bounce-2 waves with the previous hit excluded, then
+    65,536 edge rays (probes.grid_walk.edge_rays) with and without an
+    exclusion: t, u, v bits, the reference and the iteration count equal;
+    one launch a walk."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
     from zig_raytracing_contest_tpu_torch import kernels
@@ -623,17 +625,19 @@ def test_grid_walk_kernel_matches_twin_on_cuda(tmp_path):
     from zig_raytracing_contest_tpu_torch.render.wavefront import shade_and_scatter
 
     R = 1280 * 720 * 2
-    scene, o, d, streams = _large_xla_waves(tmp_path, "grid", R, "cuda")
+    scene, o, d, streams = _large_xla_waves(tmp_path, "grid", R, "cuda",
+                                            grid_resolution=resolution)
     live, prev = torch.ones(R, dtype=torch.bool, device="cuda"), None
-    for bounce in range(2):
+    for bounce in range(3):
         kernels.reset_launches()
         off, k_it, t_it, res = walk_differs(scene, o, d, live, prev)
         assert kernels.LAUNCHES["grid_walk"] == 1
         assert off == 0 and k_it == t_it > 0, (bounce, off, k_it, t_it)
-        assert int(torch.isfinite(res.t).sum()) > R // 4
+        assert int(torch.isfinite(res.t).sum()) > (R // 4 if bounce < 2 else R // 8)
         tri = scene.grid.dup_to_tri[res.dup_idx]
         o, d, *_, missed, _ = shade_and_scatter(scene, o, d, res.t, res.u, res.v, tri,
                                                 streams, bounce)
+        o = o.contiguous()
         live, prev = live & ~missed, tri
     eo, ed, ea = (x.cuda() for x in edge_rays(scene.grid.params, 1 << 16, seed=7))
     ex = torch.randint(0, scene.grid.num_refs, (1 << 16,), device="cuda")

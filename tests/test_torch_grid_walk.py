@@ -86,13 +86,14 @@ def scalar_walk(g, o, d, active, exclude, visited: set):
     """One ray through the grid ``g`` (NumPy arrays) in the reference's
     shape: enter the box, then per cell test every reference in order and
     step the DDA, until the best t is at most the crossing t → (t, u, v,
-    reference, references tested, cells entered, iterations), where a cell
-    of n references takes max(1, ceil(n / 4)) iterations of the JAX loop
-    (four tests an iteration, the step in the iteration that empties the
-    cell).  The cells entered are added to ``visited``."""
+    reference, references tested, cells entered, iterations, cells entered
+    that hold references), where a cell of n references takes max(1,
+    ceil(n / 4)) iterations of the JAX loop (four tests an iteration, the
+    step in the iteration that empties the cell).  The cells entered are
+    added to ``visited``."""
     best = (INF, F(0), F(0), 0)
     if not active:
-        return best + (0, 0, 0)
+        return best + (0, 0, 0, 0)
     o = tuple(F(x) for x in o)
     d = tuple(F(x) for x in d)
     sign = [d[a] < 0 for a in range(3)]
@@ -106,7 +107,7 @@ def scalar_walk(g, o, d, active, exclude, visited: set):
     miss = miss or tmin > far[2] or tmax < near[2]
     tmin = np.maximum(tmin, near[2])
     if miss:
-        return best + (0, 0, 0)
+        return best + (0, 0, 0, 0)
     t_entry = np.maximum(tmin, F(0))
     res, cs = g["res"], g["cs"]
     cell, t_next, t_delta = [0] * 3, [F(0)] * 3, [F(0)] * 3
@@ -116,13 +117,14 @@ def scalar_walk(g, o, d, active, exclude, visited: set):
         t_delta[a] = np.abs(cs[a] / d[a])
         nxt = F(cell[a] + (0 if sign[a] else 1))
         t_next[a] = t_entry + (nxt * cs[a] - hit_local) / d[a]
-    tests = cells = iterations = 0
+    tests = cells = iterations = occupied = 0
     while True:
         cells += 1
         lin = (cell[2] * int(res[1]) + cell[1]) * int(res[0]) + cell[0]
         lin = min(max(lin, 0), len(g["begin"]) - 1)
         visited.add(lin)
         b, e = int(g["begin"][lin]), int(g["end"][lin])
+        occupied += e > b
         for ref in range(b, e):
             tests += 1
             valid, t, u, v = _mt(o, d, g["v0"][ref], g["e1"][ref], g["e2"][ref])
@@ -139,7 +141,7 @@ def scalar_walk(g, o, d, active, exclude, visited: set):
             cell[axis] += -1 if sign[axis] else 1
             t_next[axis] = t_next[axis] + t_delta[axis]
         if best[0] <= t_cross:
-            return best + (tests, cells, iterations)
+            return best + (tests, cells, iterations, occupied)
 
 
 def _grid_arrays(scene) -> dict:
@@ -171,13 +173,15 @@ def test_twin_work_equals_scalar_walk(name, exclusion, tmp_path):
     with np.errstate(all="ignore"):
         want = [scalar_walk(g, o[i].numpy(), d[i].numpy(), bool(act[i]),
                             None if ex is None else int(ex[i]), visited) for i in range(480)]
-    t, u, v, ref, tests, cells, its = (np.array(c) for c in zip(*want))
+    t, u, v, ref, tests, cells, its, occupied = (np.array(c) for c in zip(*want))
     np.testing.assert_array_equal(got.t.numpy().view(np.uint32), t.astype(F).view(np.uint32))
     np.testing.assert_array_equal(got.u.numpy().view(np.uint32), u.astype(F).view(np.uint32))
     np.testing.assert_array_equal(got.v.numpy().view(np.uint32), v.astype(F).view(np.uint32))
     np.testing.assert_array_equal(got.dup_idx.numpy(), ref)
     np.testing.assert_array_equal(got.work.tests.numpy(), tests)
     np.testing.assert_array_equal(got.work.cells.numpy(), cells)
+    np.testing.assert_array_equal(got.work.occupied.numpy(), occupied)
+    assert 0 < occupied.sum() < cells.sum()
     assert int(got.iterations) == its.max() > 0
     assert got.iterations.dtype == torch.int32 and got.iterations.dim() == 0
     walked = cells > 0
@@ -232,12 +236,12 @@ def test_kernel_operands_hold_the_grid(tmp_path):
 def _walk_args(R=8, **over):
     ops = SimpleNamespace(tri=torch.zeros(5, 12), cells=torch.zeros(8, 2, dtype=torch.int32),
                           bbox_min=(0.0,) * 3, bbox_max=(1.0,) * 3, cell_size=(0.5,) * 3,
-                          resolution=(2, 2, 2))
+                          resolution=(2, 2, 2), occ=torch.zeros(1, dtype=torch.int32))
     args = dict(grid=ops, orig=torch.zeros(R, 3), direction=torch.ones(R, 3),
                 active=torch.ones(R, dtype=torch.bool), exclude=None, t_out=torch.empty(R),
                 u_out=torch.empty(R), v_out=torch.empty(R),
                 idx_out=torch.empty(R, dtype=torch.int64),
-                iterations=torch.zeros((), dtype=torch.int32))
+                iterations=torch.zeros(2, dtype=torch.int32))
     args.update(over)
     return args
 
@@ -254,8 +258,16 @@ def _walk_args(R=8, **over):
     ({"grid": SimpleNamespace(tri=torch.zeros(5, 12), cells=torch.zeros(7, 2, dtype=torch.int32),
                               bbox_min=(0.0,) * 3, bbox_max=(1.0,) * 3, cell_size=(0.5,) * 3,
                               resolution=(2, 2, 2))}, "7 cell ranges"),
+    ({"grid": SimpleNamespace(tri=torch.zeros(5, 12), cells=torch.zeros(40, 2, dtype=torch.int32),
+                              bbox_min=(0.0,) * 3, bbox_max=(1.0,) * 3, cell_size=(0.5,) * 3,
+                              resolution=(5, 4, 2), occ=torch.zeros(1, dtype=torch.int32))},
+     "grid.occ has shape"),
+    ({"order": torch.zeros(8, dtype=torch.int64)}, "order has dtype"),
+    ({"order": torch.zeros(8, dtype=torch.int32)}, "takes no order"),
+    ({"orig": torch.zeros(1, 3).expand(kernels.GRID_MAX_RAYS + 1, 3)}, "rays: at most"),
 ], ids=["cpu", "orig_dtype", "dir_shape", "active_dtype", "exclude_dtype", "idx_dtype",
-        "iterations_shape", "strided", "cells"])
+        "iterations_shape", "strided", "cells", "bitmap_length", "order_dtype",
+        "order_renderer", "rays"])
 def test_launch_grid_walk_refuses(over, match, monkeypatch):
     """Every check runs before the library loads: CPU tensors and wrong
     dtypes, shapes or strides raise ValueError, and nothing is built or
@@ -358,3 +370,108 @@ def test_grid_nee_frames_through_the_graph_route(tmp_path, monkeypatch):
     assert len(captures) == 2
     graphs = [v for v in scene.frame_cache().values() if isinstance(v, pipeline.FrameGraph)]
     assert len(graphs) == 2 and all(g.frames == 3 for g in graphs)
+
+
+def read_bitmap(occ: torch.Tensor, resolution, brick: bool = False) -> torch.Tensor:
+    """The kernel's reading of a bitmap, cell by cell: cell (x, y, z) is
+    lin = (z · ry + y) · rx + x, its bit lin & 31 of word lin >> 5; with
+    ``brick`` the bit of its 2^3 brick (x >> 1, y >> 1, z >> 1) in the
+    brick grid of ceil(r / 2) a side → (C,) bool in lin order."""
+    rx, ry, rz = resolution
+    z, y, x = torch.meshgrid(torch.arange(rz), torch.arange(ry), torch.arange(rx),
+                             indexing="ij")
+    if brick:
+        bx, by = (rx + 1) // 2, (ry + 1) // 2
+        lin = (((z >> 1) * by + (y >> 1)) * bx + (x >> 1)).reshape(-1)
+    else:
+        lin = ((z * ry + y) * rx + x).reshape(-1)
+    words = occ.to(torch.int64) & 0xFFFFFFFF
+    return ((words[lin >> 5] >> (lin & 31)) & 1).bool()
+
+
+@pytest.mark.parametrize("case", ["cornell", "odd", "empty", "large"])
+def test_occupancy_bitmap_matches_cell_ranges(case, tmp_path):
+    """The occupancy bitmaps the GRID_OCC builds of grid_walk_kernel read
+    (probes/grid_walk.py ``bitmap_operands`` of the grid's kernel operands)
+    on the Cornell grid (8³, from the JAX scene), an odd resolution
+    (37×5×64 of the Cornell box), a grid with every cell empty and the
+    --large terrain's 128³ grid: read back as the kernel reads them, the
+    cell bitmap is the JAX grid's cell_end > cell_begin (the port's grid's
+    where no JAX grid is built) and the brick bitmap is set exactly where a
+    cell of the brick is; a clear bit has an empty range; the words past
+    the last cell are 0; ceil(C / 32) int32 words."""
+    from zig_raytracing_contest_tpu.grid.builder import build_grid as jax_build_grid
+    from zig_raytracing_contest_tpu_torch.grid.builder import build_grid
+    from zig_raytracing_contest_tpu_torch.probes.grid_walk import bitmap_operands
+    from zig_raytracing_contest_tpu_torch.scene.geometry import load_geometry
+    from zig_raytracing_contest_tpu_torch.scene.gltf import load_gltf
+    from zig_raytracing_contest_tpu_torch.scene.types import grid_scene
+
+    if case == "cornell":
+        _, geo, _, _, tg, _ = _scenes("cornell", tmp_path)
+        g, jgrid = tg.grid, jax_build_grid(geo.positions, (8, 8, 8))
+    else:
+        if case == "large":
+            path = tproc.large_scene(tmp_path / "l.gltf")
+            res = (128, 128, 128)
+        else:
+            path = tproc.cornell_like_box(tmp_path / "box.gltf")
+            res = (37, 5, 64)
+        pos = load_geometry(load_gltf(str(path))).positions
+        g = grid_scene(build_grid(pos, res), pos)
+        jgrid = jax_build_grid(pos, res) if case == "odd" else None
+        if case == "empty":
+            g.cell_end = g.cell_begin = torch.zeros_like(g.cell_begin)
+    ops = bitmap_operands(g.kernel_operands())
+    C = g.num_cells
+    full = g.cell_end > g.cell_begin
+    assert ops.occ.dtype == torch.int32 and ops.occ.shape == (-(-C // 32),)
+    bits = read_bitmap(ops.occ, ops.resolution)
+    assert torch.equal(bits, full)
+    if jgrid is not None:
+        assert np.array_equal(bits.numpy(), jgrid.cell_end > jgrid.cell_begin)
+    assert torch.equal(g.cell_begin[~bits], g.cell_end[~bits])
+    tail = (ops.occ[-1].item() & 0xFFFFFFFF) >> (C - 32 * (ops.occ.shape[0] - 1))
+    assert tail == 0
+    rx, ry, rz = ops.resolution
+    assert ops.brick_res == ((rx + 1) // 2, (ry + 1) // 2, (rz + 1) // 2)
+    in_brick = read_bitmap(ops.brick, ops.resolution, brick=True)
+    assert not (full & ~in_brick).any()  # a cell's brick is set
+    cells = full.view(rz, ry, rx).nonzero()
+    want = torch.zeros(ops.brick_res[::-1], dtype=torch.bool)
+    want[cells[:, 0] >> 1, cells[:, 1] >> 1, cells[:, 2] >> 1] = True
+    assert torch.equal(in_brick, want[torch.arange(rz)[:, None, None] >> 1,
+                                      torch.arange(ry)[None, :, None] >> 1,
+                                      torch.arange(rx)[None, None, :] >> 1].reshape(-1))
+    if case == "empty":
+        assert not bits.any() and not in_brick.any()
+    else:
+        assert 0 < int(bits.sum()) < C
+    if case == "large":
+        assert C == 128 ** 3 and 0.02 < float(bits.float().mean()) < 0.2
+
+
+def test_walk_work_counts_occupied_cells():
+    """WalkWork.occupied on a scene counted by hand: a floor triangle in
+    z = 0 and a small one at the far top corner, on a 4×1×4 grid (cells 1
+    unit in x, 1/4 in z), the floor in the four cells of layer z 0 and the
+    corner triangle in cell (3, 0, 3).  Three rays along +x that hit
+    nothing (parallel to both triangles) walk layer 2 (no occupied cell),
+    layer 3 (one) and layer 0 (four): 12 cells entered, 5 occupied."""
+    from zig_raytracing_contest_tpu_torch.grid.builder import build_grid
+    from zig_raytracing_contest_tpu_torch.scene.types import grid_scene
+
+    pos = np.array([[[0, 0, 0], [4, 0, 0], [0, 1, 0]],
+                    [[3.9, 0.9, 1], [4, 0.9, 1], [4, 1, 1]]], np.float32)
+    g = grid_scene(build_grid(pos, (4, 1, 4)), pos)
+    lin = lambda x, z: z * 4 + x  # noqa: E731
+    want = {lin(x, 0) for x in range(4)} | {lin(3, 3)}
+    assert set((g.cell_end > g.cell_begin).nonzero()[:, 0].tolist()) == want
+    scene = SimpleNamespace(grid=g)
+    o = torch.tensor([[-1.0, 0.5, 0.6], [-1.0, 0.95, 0.9], [-1.0, 0.5, 0.1]])
+    d = torch.tensor([[1.0, 0.0, 0.0]] * 3)
+    got = wavefront.trace_wave_ref(scene, o, d, torch.ones(3, dtype=torch.bool), work=True)
+    assert torch.isinf(got.t).all()
+    assert got.work.cells.tolist() == [4, 4, 4]
+    assert got.work.occupied.tolist() == [0, 1, 4]
+    assert int(got.work.occupied.sum()) == 5 and int(got.work.cells.sum()) == 12

@@ -151,6 +151,13 @@ class ZrcGrid(ctypes.Structure):
         ("cell", ctypes.c_float * 3),
         ("res", ctypes.c_int * 3),
         ("num_cells", ctypes.c_int),
+        # (the fields above are those of commit 8108396's ZrcGrid: a library
+        # built from that source reads them and no further)
+        ("occ", ctypes.c_void_p),
+        ("order", ctypes.c_void_p),
+        ("brick", ctypes.c_void_p),
+        ("brick_res", ctypes.c_int * 3),
+        ("brick_words", ctypes.c_int),
     ]
 
 
@@ -245,6 +252,27 @@ def _bind_trace(lib) -> None:
     lib.zrc_error_string.argtypes = [i32]
 
 
+def _bind_grid_walk(lib) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.zrc_grid_walk.restype = i32
+    lib.zrc_grid_walk.argtypes = [
+        ctypes.POINTER(ZrcGrid), ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, ptr,
+    ]
+    lib.zrc_error_string.restype = ctypes.c_char_p
+    lib.zrc_error_string.argtypes = [i32]
+
+
+def load_grid_walk_library(src: Path, build_dir: Path):
+    """Another build of grid_walk_kernel: a source whose ``zrc_grid_walk``
+    takes the same arguments (an earlier commit's path_trace.cu, the kept
+    ``grid_walk_8108396.cu``, or this path_trace.cu with other GRID_*
+    defines), built into ``build_dir`` and loaded, for the ``lib`` argument
+    of ``launch_grid_walk``."""
+    lib = ctypes.CDLL(str(build("grid_walk_other", Path(src), Path(build_dir))))
+    _bind_grid_walk(lib)
+    return lib
+
+
 def load_trace_library(src: Path, build_dir: Path):
     """Another build of a path_trace.cu whose ``zrc_path_trace_gen``,
     ``zrc_path_trace``, ``zrc_trace_emit`` and ``zrc_ray_sort_key`` take the
@@ -275,11 +303,7 @@ def load():
             ]
             lib.zrc_sort_key.restype = i32
             lib.zrc_sort_key.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
-            lib.zrc_grid_walk.restype = i32
-            lib.zrc_grid_walk.argtypes = [
-                ctypes.POINTER(ZrcGrid), ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
-                i32, ptr,
-            ]
+            _bind_grid_walk(lib)
             lib.zrc_empty.restype = i32
             lib.zrc_empty.argtypes = [i32, ptr]
             _libs["path_trace"] = lib
@@ -588,46 +612,75 @@ def launch_ray_sort_key(state, bbox_min, bbox_max, key_out, lib=None) -> None:
         _count("ray_sort_key")
 
 
+# The most rays one grid walk takes: the warps take positions 32 at a time
+# from an int32 counter that may pass R by 32 a warp before they stop
+GRID_MAX_RAYS = (1 << 31) - (1 << 24)
+
+
 def launch_grid_walk(grid, orig, direction, active, exclude, t_out, u_out, v_out,
-                     idx_out, iterations) -> None:
+                     idx_out, iterations, order=None, lib=None) -> None:
     """Launch grid_walk_kernel: the nearest hit of each ray ``orig`` /
     ``direction`` (R, 3) f32 with ``active`` (R,) bool by the walk of
     ``grid`` (``scene.types.GridOperands``), ``exclude`` (R,) int64 (the
     previous hit's unique triangle) or None, into ``t_out``, ``u_out``,
-    ``v_out`` (R,) f32 and ``idx_out`` (R,) int64; the loop's iteration
-    count goes into ``iterations``, a 0-d int32 that must hold 0.  Every
-    check runs before the library is loaded; CPU tensors raise (the CPU
-    walks with ``wavefront.trace_wave_ref``)."""
+    ``v_out`` (R,) f32 and ``idx_out`` (R,) int64.  ``iterations`` is (2,)
+    int32 scratch that must hold zeros: the loop's iteration count goes
+    into [0], and [1] is the counter the warps take ray positions from.
+    From ``lib`` (``load_grid_walk_library``, not counted) when given: a
+    build of another source or of other GRID_* defines, whose operands
+    ``grid`` may also carry (``probes.grid_walk``: the occupancy bitmaps
+    ``occ`` and ``brick``, ``brick_res``) and which may take ``order`` (R,)
+    int32 (GRID_ORDER: position i walks ray order[i]).  Every check runs
+    before the library is loaded; CPU tensors raise (the CPU walks with
+    ``wavefront.trace_wave_ref``).  Refused: a grid of 2^31 cells or more
+    (its int32 indices), R above GRID_MAX_RAYS, and an order for the
+    renderer's build, which walks the rays as they come."""
     dev = orig.device
     R = orig.shape[0]
+    if R > GRID_MAX_RAYS:
+        raise ValueError(f"{R} rays: at most {GRID_MAX_RAYS} a walk")
+    rx, ry, rz = grid.resolution
+    cells = rx * ry * rz
     for name, t, dtype, shape in (
             ("orig", orig, torch.float32, (R, 3)), ("direction", direction, torch.float32, (R, 3)),
             ("active", active, torch.bool, (R,)), ("t_out", t_out, torch.float32, (R,)),
             ("u_out", u_out, torch.float32, (R,)), ("v_out", v_out, torch.float32, (R,)),
-            ("idx_out", idx_out, torch.int64, (R,)), ("iterations", iterations, torch.int32, ()),
+            ("idx_out", idx_out, torch.int64, (R,)), ("iterations", iterations, torch.int32, (2,)),
             ("grid.tri", grid.tri, torch.float32, (grid.tri.shape[0], 12)),
             ("grid.cells", grid.cells, torch.int32, (grid.cells.shape[0], 2))):
         _check(t, name, dtype, shape, dev)
     if exclude is not None:
         _check(exclude, "exclude", torch.int64, (R,), dev)
-    rx, ry, rz = grid.resolution
-    if grid.cells.shape[0] != rx * ry * rz or rx * ry * rz >= 1 << 31:
+    if order is not None:
+        _check(order, "order", torch.int32, (R,), dev)
+        if lib is None:
+            raise ValueError("the renderer's grid_walk_kernel takes no order (GRID_ORDER 0)")
+    if grid.cells.shape[0] != cells or cells >= 1 << 31:
         raise ValueError(f"{grid.cells.shape[0]} cell ranges for a {grid.resolution} grid")
+    occ, brick = getattr(grid, "occ", None), getattr(grid, "brick", None)
+    if occ is not None:
+        _check(occ, "grid.occ", torch.int32, (-(-cells // 32),), dev)
     if grid.tri.shape[0] >= 1 << 31 or grid.tri.shape[0] < 1:
         raise ValueError(f"{grid.tri.shape[0]} references: 1 to 2^31 - 1")
     if dev.type != "cuda":
         raise ValueError(f"grid_walk_kernel needs CUDA tensors, got {dev}")
-    lib = load()
+    counted = lib is None
+    lib = load() if lib is None else lib
     g = ZrcGrid(grid.tri.data_ptr(), grid.cells.data_ptr(), (ctypes.c_float * 3)(*grid.bbox_min),
                 (ctypes.c_float * 3)(*grid.bbox_max), (ctypes.c_float * 3)(*grid.cell_size),
-                (ctypes.c_int * 3)(*grid.resolution), rx * ry * rz)
+                (ctypes.c_int * 3)(*grid.resolution), cells,
+                None if occ is None else occ.data_ptr(),
+                None if order is None else order.data_ptr(),
+                None if brick is None else brick.data_ptr(),
+                (ctypes.c_int * 3)(*getattr(grid, "brick_res", (0, 0, 0))),
+                0 if brick is None else brick.shape[0])
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.zrc_grid_walk(
         ctypes.byref(g), orig.data_ptr(), direction.data_ptr(), active.data_ptr(),
         None if exclude is None else exclude.data_ptr(), t_out.data_ptr(), u_out.data_ptr(),
         v_out.data_ptr(), idx_out.data_ptr(), iterations.data_ptr(), R, dev.index or 0,
         stream)
-    if _launched(err, lib.zrc_error_string, "grid_walk_kernel"):
+    if _launched(err, lib.zrc_error_string, "grid_walk_kernel") and counted:
         _count("grid_walk")
 
 

@@ -10,13 +10,39 @@ origins inside the grid, zero directions and inactive lanes.
 ``walk_differs`` compares the two on one wave; ``walk_bound`` turns the
 twin's work counters (``WalkWork``) into the least time the card could
 take for the walk (chip_smoke.py phase k).
+
+Run on the card, the probe times builds of the kernel against each other
+in one call: the ``--large`` frame's bounce-0, 1 and 2 waves on its 128³
+grid (1,843,200 rays each, walked as ``render_wave_xla`` walks them), this
+checkout's build held to ``trace_wave_ref`` bit for bit, every other build
+to this one (t, u, v bits, the reference and the iteration count), each
+build timed queued behind a spin (``utils.timing.queued_ms``), its median
+over ``--rounds`` readings taken in turns:
+
+    python -m zig_raytracing_contest_tpu_torch.probes.grid_walk \
+        --against zig_raytracing_contest_tpu_torch/kernels/grid_walk_8108396.cu
+
+``--against OTHER.cu`` (repeatable) adds another source whose
+``zrc_grid_walk`` takes the same arguments (an earlier commit's
+path_trace.cu, or the kept ``kernels/grid_walk_8108396.cu``); the builds
+of VARIANTS (this path_trace.cu with other GRID_* defines) are always
+timed; ``--order`` also times bounces 1 and 2 walked in ``cell_order``
+(the key and the sort counted into the walk's time).
 """
 
 from __future__ import annotations
 
+import argparse
+import statistics
+import sys
+import tempfile
+from pathlib import Path
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 
+from .. import kernels
 from ..render import wavefront
 
 # f32 operations, counted from grid_walk_kernel: one Möller–Trumbore test
@@ -106,3 +132,341 @@ def walk_bound(scene, work, rays: int, exclude: bool, peak_flops: float,
             "gathered_ms": gathered / peak_bytes * 1e3, "ops_ms": op_ms,
             "unique_ms": byte_ms, "bound_ms": max(op_ms, byte_ms),
             "bound_by": "operations" if op_ms >= byte_ms else "bytes"}
+
+
+# The --large frame as chip_smoke.py phase k renders it through the grid
+WIDTH, HEIGHT, SPP, BOUNCES, SEED = 1280, 720, 2, 3, 0
+RESOLUTION = (128, 128, 128)
+# Builds of this path_trace.cu beside the renderer's, by their defines
+# (kernels/path_trace.cu's grid walk note): GRID_LEAN 0 steps the DDA as
+# commit 8108396 did; GRID_OCC 1 reads the occupancy bitmap before a cell's
+# range (the lane's word kept), 2 a 2^3-brick bitmap in shared memory
+# first, 3 the bitmap with no word kept; GRID_REFILL 0 one thread a ray,
+# 1 warps refilled once GRID_REFILL_MIN lanes are idle, GRID_PASS
+# iterations a lane between two refills; GRID_TEST_WAIT K lanes at an
+# occupied cell wait for K of the warp (or for no lane stepping); GRID_COOP
+# 1 the warp tests the cells of at most GRID_COOP_MAX lanes together;
+# GRID_MIN_BLOCKS the launch bound's blocks an SM.  Every variant tried.
+
+
+def _defines(lean, occ, refill, pass_=1, wait=0, coop=0, refill_min=1, coop_max=32,
+             min_blocks=1) -> dict:
+    return {"GRID_LEAN": lean, "GRID_OCC": occ, "GRID_REFILL": refill, "GRID_PASS": pass_,
+            "GRID_TEST_WAIT": wait, "GRID_COOP": coop, "GRID_REFILL_MIN": refill_min,
+            "GRID_COOP_MAX": coop_max, "GRID_MIN_BLOCKS": min_blocks}
+
+
+VARIANTS = {
+    "table": _defines(0, 0, 0),
+    "table+bitmap+refill": _defines(0, 1, 1),
+    "lean": _defines(1, 0, 0),
+    "lean+blocks9": _defines(1, 0, 0, min_blocks=9),
+    "lean+bitmap": _defines(1, 1, 0),
+    "lean+bricks": _defines(1, 2, 0),
+    "lean+word": _defines(1, 3, 0),
+    "lean+refill+pass8": _defines(1, 0, 1, 8),
+    "lean+refill+pass8+min16": _defines(1, 0, 1, 8, refill_min=16),
+    "lean+bitmap+refill": _defines(1, 1, 1),
+    "lean+bitmap+refill+pass8": _defines(1, 1, 1, 8),
+    "lean+bitmap+refill+pass32": _defines(1, 1, 1, 32),
+    "lean+bricks+refill+pass8+min16": _defines(1, 2, 1, 8, refill_min=16),
+    "lean+bitmap+refill+wait16": _defines(1, 1, 1, 1, 16),
+    "lean+bitmap+refill+pass8+wait16": _defines(1, 1, 1, 8, 16),
+    "lean+refill+pass8+wait16": _defines(1, 0, 1, 8, 16),
+    "lean+refill+pass8+wait16+min16": _defines(1, 0, 1, 8, 16, refill_min=16),
+    "lean+refill+pass8+coop": _defines(1, 0, 1, 8, coop=1),
+    "lean+refill+pass32+coop": _defines(1, 0, 1, 32, coop=1),
+    "lean+bitmap+refill+pass8+coop": _defines(1, 1, 1, 8, coop=1),
+    "lean+bitmap+refill+pass32+coop": _defines(1, 1, 1, 32, coop=1),
+    "lean+word+refill+pass8+coop": _defines(1, 3, 1, 8, coop=1),
+    "lean+refill+pass8+coop+min4": _defines(1, 0, 1, 8, coop=1, refill_min=4),
+    "lean+refill+pass8+coop+min8": _defines(1, 0, 1, 8, coop=1, refill_min=8),
+    "lean+refill+pass8+coop+min16": _defines(1, 0, 1, 8, coop=1, refill_min=16),
+    "lean+refill+pass8+coop+min24": _defines(1, 0, 1, 8, coop=1, refill_min=24),
+    "lean+refill+pass8+coop+min32": _defines(1, 0, 1, 8, coop=1, refill_min=32),
+    "lean+refill+pass4+coop+min16": _defines(1, 0, 1, 4, coop=1, refill_min=16),
+    "lean+refill+pass16+coop+min16": _defines(1, 0, 1, 16, coop=1, refill_min=16),
+    "lean+refill+pass8+coop+min8+blocks8": _defines(1, 0, 1, 8, coop=1, refill_min=8,
+                                                    min_blocks=8),
+    "lean+refill+pass8+coop+min8+blocks9": _defines(1, 0, 1, 8, coop=1, refill_min=8,
+                                                    min_blocks=9),
+    "lean+bitmap+refill+pass8+coop+min8": _defines(1, 1, 1, 8, coop=1, refill_min=8),
+    "lean+bitmap+refill+pass8+coop+min16": _defines(1, 1, 1, 8, coop=1, refill_min=16),
+    "lean+word+refill+pass8+coop+min16": _defines(1, 3, 1, 8, coop=1, refill_min=16),
+    "lean+bricks+refill+pass8+coop+min8": _defines(1, 2, 1, 8, coop=1, refill_min=8),
+    "lean+bricks+refill+pass8+coop+min16": _defines(1, 2, 1, 8, coop=1, refill_min=16),
+    "lean+refill+pass8+coop8+min8": _defines(1, 0, 1, 8, coop=1, refill_min=8, coop_max=8),
+    "lean+refill+pass8+coop16+min8": _defines(1, 0, 1, 8, coop=1, refill_min=8, coop_max=16),
+    "lean+refill+pass8+coop24+min8": _defines(1, 0, 1, 8, coop=1, refill_min=8, coop_max=24),
+    "lean+refill+pass8+coop28+min8": _defines(1, 0, 1, 8, coop=1, refill_min=8, coop_max=28),
+    "lean+refill+pass8+coop24+min4": _defines(1, 0, 1, 8, coop=1, refill_min=4, coop_max=24),
+    "lean+refill+pass8+coop24+min12": _defines(1, 0, 1, 8, coop=1, refill_min=12,
+                                               coop_max=24),
+    "lean+refill+pass8+coop16+min16": _defines(1, 0, 1, 8, coop=1, refill_min=16,
+                                               coop_max=16),
+    "lean+refill+pass8+coop16+min32": _defines(1, 0, 1, 8, coop=1, refill_min=32,
+                                               coop_max=16),
+}
+# Queued walks a reading, readings a build
+REPS, ROUNDS = 10, 8
+# the build of this design that walks the rays in a given order (--order)
+ORDERED = "this, GRID_ORDER"
+# nvcc runs at once
+BUILDERS = 12
+
+
+def variant_source(defines: dict, where: Path) -> Path:
+    """This checkout's path_trace.cu with ``defines`` written ahead of it,
+    as a file in ``where``."""
+    src = where / ("path_trace_" + "_".join(f"{k.lower()}{v}" for k, v in defines.items())
+                   + ".cu")
+    src.write_text("".join(f"#define {k} {v}\n" for k, v in defines.items())
+                   + kernels.SOURCES["path_trace"].read_text())
+    return src
+
+
+def occupancy_words(bits: torch.Tensor) -> torch.Tensor:
+    """Pack ``bits`` (N,) bool into (ceil(N / 32),) int32 words on their
+    device: bit i & 31 of word i >> 5 is bits[i] (the last word's high bits
+    0)."""
+    n = bits.shape[0]
+    words = torch.zeros(-(-n // 32) * 32, dtype=torch.int64, device=bits.device)
+    words[:n] = bits.to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    words = (words.view(-1, 32) << shifts).sum(dim=1)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+
+
+def bitmap_operands(ops):
+    """``ops`` (``GridOperands``) with the occupancy bitmaps the GRID_OCC
+    builds read: ``occ``, a bit a cell (``cell_end > cell_begin`` in the
+    cells' x-fastest order, ``occupancy_words``), and ``brick``, a bit a
+    2^3 brick (x-fastest over the ceil(r / 2) bricks of each axis, set
+    where any of its cells holds references) with ``brick_res``."""
+    rx, ry, rz = ops.resolution
+    full = ops.cells[:, 1] > ops.cells[:, 0]
+    occ = torch.zeros(rz + rz % 2, ry + ry % 2, rx + rx % 2, dtype=torch.bool,
+                      device=ops.cells.device)
+    occ[:rz, :ry, :rx] = full.view(rz, ry, rx)
+    br = (occ.shape[2] // 2, occ.shape[1] // 2, occ.shape[0] // 2)
+    bricks = occ.view(br[2], 2, br[1], 2, br[0], 2).any(5).any(3).any(1).reshape(-1)
+    return SimpleNamespace(**ops._asdict(), occ=occupancy_words(full),
+                           brick=occupancy_words(bricks), brick_res=br)
+
+
+def morton3(c: torch.Tensor) -> torch.Tensor:
+    """(N, 3) int64 cell coordinates below 2^10 → their Morton codes (x in
+    bit 0 of each triple)."""
+    out = torch.zeros(c.shape[0], dtype=torch.int64, device=c.device)
+    for a in range(3):
+        x = c[:, a]
+        for shift, mask in ((16, 0x030000FF), (8, 0x0300F00F), (4, 0x030C30C3),
+                            (2, 0x09249249)):
+            x = (x | (x << shift)) & mask
+        out |= x << a
+    return out
+
+
+def cell_order(scene, orig, direction, active) -> torch.Tensor:
+    """A cell-coherent order of a wave's rays (bounces from 1 on start on a
+    surface inside the grid): the Morton code of the origin's cell and the
+    direction's octant as a key, inactive rays last, sorted → (R,) int32
+    positions for ``order``."""
+    p = scene.grid.params
+    res = p.resolution.to(torch.int64)
+    cell = torch.floor((orig - p.bbox_min) / p.cell_size).nan_to_num(0.0)
+    cell = torch.minimum(torch.clamp_min(cell, 0.0), (res - 1).to(torch.float32))
+    octant = ((direction < 0).to(torch.int64) << torch.arange(3, device=orig.device)).sum(1)
+    key = (morton3(cell.to(torch.int64)) << 3) | octant
+    key = torch.where(active, key, torch.iinfo(torch.int64).max)
+    return torch.sort(key).indices.to(torch.int32)
+
+
+class Walk:
+    """One build's walk of a wave into outputs of its own: ``run()``
+    launches it (zeroing its scratch first)."""
+
+    def __init__(self, lib, grid, o, d, live, prev, order=None):
+        R, dev = o.shape[0], o.device
+        self.t = torch.empty(R, dtype=torch.float32, device=dev)
+        self.u, self.v = torch.empty_like(self.t), torch.empty_like(self.t)
+        self.idx = torch.empty(R, dtype=torch.int64, device=dev)
+        self.scratch = torch.zeros(2, dtype=torch.int32, device=dev)
+        self.args = (grid, o, d, live, prev)
+        self.lib, self.order = lib, order
+
+    def run(self):
+        self.scratch.zero_()
+        kernels.launch_grid_walk(*self.args, self.t, self.u, self.v, self.idx, self.scratch,
+                                 order=self.order, lib=self.lib)
+
+    def differs(self, other: "Walk") -> int:
+        off = self.idx != other.idx
+        for a, b in ((self.t, other.t), (self.u, other.u), (self.v, other.v)):
+            off |= a.view(torch.int32) != b.view(torch.int32)
+        return int(off.sum()) + int(self.scratch[0] != other.scratch[0])
+
+
+def walk_ptxas(log: str) -> str:
+    """What ptxas reported for grid_walk_kernel in an nvcc log (``-Xptxas=-v``):
+    its stack, spills and registers, on one line."""
+    out, on = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            on = "grid_walk_kernel" in line
+        elif on and ("spill" in line or "registers" in line):
+            out.append(line.split(":", 1)[-1].strip())
+    return "; ".join(out) or "no report"
+
+
+def large_grid_scene(where: Path, device):
+    """The ``--large`` terrain on its 128³ grid, prepared as chip_smoke.py
+    phase k prepares it → (scene, camera)."""
+    from ..config import Config
+    from ..render.pipeline import prepare_scene
+    from ..scene.procedural import large_scene
+
+    cfg = Config(backend="grid", grid_resolution=RESOLUTION, num_samples=SPP,
+                 max_bounce=BOUNCES, wave_size=1 << 21, seed=SEED)
+    scene, cam, _ = prepare_scene(str(large_scene(where / "large.gltf")), cfg,
+                                  camera_name="Camera 1", width=WIDTH, height=HEIGHT,
+                                  device=device)
+    return scene, cam
+
+
+def frame_waves(scene, cam, bounces: int = BOUNCES):
+    """Yield (bounce, orig, direction, active, prev) of the frame's one
+    wave for each bounce, as ``render_wave_xla`` walks and shades them
+    (the walk: ``trace_wave``)."""
+    R = WIDTH * HEIGHT * SPP
+    par = wavefront.build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
+    o, d, streams = wavefront.xla_primary_rays(par, WIDTH, SPP, 0, R, SEED)
+    o = o.contiguous()
+    live = torch.ones(R, dtype=torch.bool, device=o.device)
+    prev = None
+    for bounce in range(bounces):
+        yield bounce, o, d, live, prev
+        hit = wavefront.trace_wave(scene, o, d, live, prev)
+        tri = scene.grid.dup_to_tri[hit.dup_idx]
+        new_o, new_d, *_, missed, _ = wavefront.shade_and_scatter(
+            scene, o, d, hit.t, hit.u, hit.v, tri, streams, bounce)
+        stepped = live & ~missed
+        o = torch.where(stepped[:, None], new_o, o).contiguous()
+        d = torch.where(stepped[:, None], new_d, d).contiguous()
+        live, prev = stepped, tri
+
+
+def time_builds(fns: dict, rounds: int = ROUNDS, reps: int = REPS) -> dict:
+    """Each of ``fns`` (label -> callable) timed with ``queued_ms`` over
+    ``reps`` calls, ``rounds`` readings each, in turns (forward, then
+    backward) → label -> the list of readings."""
+    from ..utils.timing import queued_ms
+
+    ms = {k: [] for k in fns}
+    labels = list(fns)
+    for r in range(rounds):
+        for k in labels if r % 2 == 0 else labels[::-1]:
+            ms[k].append(queued_ms(fns[k], reps))
+    return ms
+
+
+def walk_ab(scene, cam, builds: dict, card: str, rounds: int = ROUNDS, ordered=None) -> int:
+    """The A/B on the card: per bounce, this build against the twin, every
+    build of ``builds`` (label -> (library, operands)) against this one,
+    and the medians of their queued times; with ``ordered`` (a GRID_ORDER
+    build of this design and its operands) bounces 1 and 2 walked in
+    ``cell_order`` as well, with the key and the sort in the time, with the
+    order given, and the key and the sort alone.  Prints a line per build
+    and bounce; returns the lanes (and iteration counts) that differ."""
+    faults = 0
+    ops = scene.grid.kernel_operands()
+    for bounce, o, d, live, prev in frame_waves(scene, cam):
+        R = o.shape[0]
+        this = Walk(None, ops, o, d, live, prev)
+        this.run()
+        ref = wavefront.trace_wave_ref(scene, o, d, live, prev, work=True)
+        off = this.differs(SimpleNamespace(t=ref.t, u=ref.u, v=ref.v, idx=ref.dup_idx,
+                                           scratch=ref.iterations.view(1)))
+        faults += off
+        w = ref.work
+        cells = float(w.cells.sum())
+        print(f"grid_walk bounce {bounce}: this build vs trace_wave_ref {off} of {R} lanes "
+              f"differ, iterations {int(this.scratch[0])} vs {int(ref.iterations)}; "
+              f"{int((w.cells > 0).sum())} walking rays, {cells:.0f} cells entered, "
+              f"{float(w.occupied.sum()) / max(cells, 1.0):.4f} of them occupied, "
+              f"{float(w.tests.sum()):.0f} tests", flush=True)
+        walks = {"this": this}
+        for label, (lib, grid) in builds.items():
+            walks[label] = Walk(lib, grid, o, d, live, prev)
+        fns = {k: wk.run for k, wk in walks.items()}
+        if ordered is not None and bounce > 0:
+            lib, grid = ordered
+            first = cell_order(scene, o, d, live)
+            walks["this, cell order"] = wk = Walk(lib, grid, o, d, live, prev, first)
+
+            def run_ordered(wk=wk):
+                wk.order = cell_order(scene, o, d, live)
+                wk.run()
+
+            fns["this, cell order"] = run_ordered
+            walks["this, cell order given"] = given = Walk(lib, grid, o, d, live, prev, first)
+            fns["this, cell order given"] = given.run
+            fns["cell order alone"] = lambda: cell_order(scene, o, d, live)
+        ms = time_builds(fns, rounds)
+        if "cell order alone" in ms:
+            print(f"  cell order alone (key and sort): median "
+                  f"{statistics.median(ms['cell order alone']):.4f} ms queued", flush=True)
+        for label, wk in walks.items():
+            off = wk.differs(this) if wk is not this else 0
+            faults += off
+            med = statistics.median(ms[label])
+            print(f"  {label}: {off} lanes differ from this build, iterations "
+                  f"{int(wk.scratch[0])}; median {med:.4f} ms queued "
+                  f"{[round(x, 4) for x in ms[label]]} ({card})", flush=True)
+    return faults
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description="grid_walk_kernel's builds timed against each "
+                                            "other on the --large frame's waves (the card)")
+    p.add_argument("--against", type=Path, action="append", default=[],
+                   help="another source with the same zrc_grid_walk (repeatable)")
+    p.add_argument("--order", action="store_true",
+                   help="also time bounces 1 and 2 walked in cell_order")
+    p.add_argument("--rounds", type=int, default=ROUNDS)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        p.error("the probe times builds on the card: PyTorch sees no CUDA card")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ..bench import card_line
+
+    card = card_line()
+    print(card)
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        sources = {src.name: src for src in args.against}
+        sources.update({k: variant_source(v, tmp) for k, v in VARIANTS.items()})
+        if args.order:
+            sources[ORDERED] = variant_source({"GRID_ORDER": 1}, tmp)
+        dirs = {k: tmp / str(n) for n, k in enumerate(sources)}
+        with ThreadPoolExecutor(min(len(sources) + 1, BUILDERS)) as pool:
+            jobs = {k: pool.submit(kernels.load_grid_walk_library, src, dirs[k])
+                    for k, src in sources.items()}
+            kernels.load()
+            libs = {k: j.result() for k, j in jobs.items()}
+        print(f"ptxas, this build: {walk_ptxas(kernels.build_log('path_trace'))}")
+        for k, src in sources.items():
+            print(f"ptxas, {k}: {walk_ptxas(kernels.build_log('grid_walk_other', src, dirs[k]))}")
+        scene, cam = large_grid_scene(tmp, dev)
+        ops = bitmap_operands(scene.grid.kernel_operands())
+        ordered = (libs.pop(ORDERED), ops) if args.order else None
+        builds = {k: (lib, ops) for k, lib in libs.items()}
+        faults = walk_ab(scene, cam, builds, card, args.rounds, ordered)
+    print(f"grid_walk A/B: {faults} lanes differ in all")
+    return 1 if faults else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -342,11 +342,13 @@ class WalkWork(NamedTuple):
     per ray the references it tested (``tests``) and the cells it entered
     (``cells``: a ray tests every reference of each cell it enters, and
     each DDA step either enters a cell or ends the walk, so this is also
-    its DDA steps), and ``visited`` (C,) bool, the cells any ray entered."""
+    its DDA steps), ``visited`` (C,) bool, the cells any ray entered, and
+    per ray the cells it entered that hold references (``occupied``)."""
 
     tests: torch.Tensor
     cells: torch.Tensor
     visited: torch.Tensor
+    occupied: torch.Tensor
 
 
 class TraceResult(NamedTuple):
@@ -416,12 +418,13 @@ def trace_wave(scene: TorchScene, orig, direction, active, exclude=None) -> Trac
     u = torch.empty(R, dtype=torch.float32, device=dev)
     v = torch.empty(R, dtype=torch.float32, device=dev)
     idx = torch.empty(R, dtype=torch.int64, device=dev)
-    iterations = torch.zeros((), dtype=torch.int32, device=dev)
+    # the iteration count and the counter the warps take rays from
+    scratch = torch.zeros(2, dtype=torch.int32, device=dev)
     kernels.launch_grid_walk(
         scene.grid.kernel_operands(), orig.contiguous(), direction.contiguous(),
         active.contiguous(), None if exclude is None else exclude.to(torch.int64).contiguous(),
-        t, u, v, idx, iterations)
-    return TraceResult(t, u, v, idx, iterations)
+        t, u, v, idx, scratch)
+    return TraceResult(t, u, v, idx, scratch[0])
 
 
 def trace_wave_ref(scene: TorchScene, orig, direction, active, exclude=None,
@@ -448,12 +451,14 @@ def trace_wave_ref(scene: TorchScene, orig, direction, active, exclude=None,
     out_i = torch.zeros(R, dtype=torch.int64, device=dev)
     out_tests = torch.zeros(R, dtype=torch.int64, device=dev) if work else None
     out_cells = torch.zeros(R, dtype=torch.int64, device=dev) if work else None
+    out_occupied = torch.zeros(R, dtype=torch.int64, device=dev) if work else None
     visited = torch.zeros(g.num_cells, dtype=torch.bool, device=dev) if work else None
 
     def result(iterations: int) -> TraceResult:
         return TraceResult(out_t, out_u, out_v, out_i,
                            torch.tensor(iterations, dtype=torch.int32, device=dev),
-                           WalkWork(out_tests, out_cells, visited) if work else None)
+                           WalkWork(out_tests, out_cells, visited, out_occupied)
+                           if work else None)
 
     entered, state = dda.dda_setup(grid, orig, direction)
     lanes = (entered & active).nonzero()[:, 0]
@@ -474,6 +479,7 @@ def trace_wave_ref(scene: TorchScene, orig, direction, active, exclude=None,
     if work:
         tests = torch.zeros(n, dtype=torch.int64, device=dev)
         cells = torch.ones(n, dtype=torch.int64, device=dev)
+        occupied = (cur_end > cursor).to(torch.int64)
         visited[cell_lin] = True
     batch = torch.arange(TRI_BATCH, device=dev)
     iterations = 0
@@ -513,11 +519,12 @@ def trace_wave_ref(scene: TorchScene, orig, direction, active, exclude=None,
             if work:
                 tests = tests + has.sum(dim=1)
                 cells = cells + moved
+                occupied = occupied + (moved & (cur_end > cursor))
                 visited[cell_lin[moved]] = True
             walking.append((~done).any())
         out_t[lanes], out_u[lanes], out_v[lanes], out_i[lanes] = best_t, best_u, best_v, best_i
         if work:
-            out_tests[lanes], out_cells[lanes] = tests, cells
+            out_tests[lanes], out_cells[lanes], out_occupied[lanes] = tests, cells, occupied
         keep = (~done).nonzero()[:, 0]
         if keep.numel() == 0:
             # the JAX loop stops after the first iteration that leaves no
@@ -532,7 +539,7 @@ def trace_wave_ref(scene: TorchScene, orig, direction, active, exclude=None,
         best_t, best_u, best_v, best_i = (x[keep] for x in (best_t, best_u, best_v, best_i))
         done = done[keep]
         if work:
-            tests, cells = tests[keep], cells[keep]
+            tests, cells, occupied = tests[keep], cells[keep], occupied[keep]
 
 
 def _interpolate(per_vertex, u, v):
