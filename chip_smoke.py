@@ -119,17 +119,18 @@ k. the ``--large`` terrain with ``backend: "grid"`` at the default 128³
    frame's one wave through grid_walk_kernel against its twin
    trace_wave_ref, lane by lane (t, u, v bits, the reference, the iteration
    count: a lane that differs fails the run), the kernel and the walk of
-   commit 8108396 (kernels/grid_walk_8108396.cu, built beside the sources,
-   held to the same bits) timed queued behind a spin in turns (medians of
-   8 readings each), the twin by CUDA events, the bound from the twin's
+   commit 8108396, one thread a ray (probes/grid_walk_one_thread.cu, built
+   beside the sources, held to the same bits) timed queued behind a spin
+   in turns (medians of 8 readings each), the twin by CUDA events, the bound from the twin's
    counts of tests and cells (probes/grid_walk.py walk_bound) and the share
    of the cells entered that hold references, and the nearest hits against
    trace_emit_kernel on the MXU bake of the same terrain, every lane where
    the two differ in t or triangle explained (the same triangle, a tie or
    an edge decision) or the run fails; the kernel against the twin on
    65,536 built edge lanes (probes/grid_walk.py edge_rays) with and
-   without an exclusion; the same on a 37×5×64 grid of the terrain, with
-   the first 2^18 rays of its bounce-0 wave; the frame: a warmup and 5 timed renders
+   without an exclusion; the same on a 127×37×131 grid of the terrain,
+   with the first 2^18 rays of its bounce-0 wave; the frame: a warmup and
+   5 timed renders
    (grid_walk_kernel 3 launches a frame, the frame one CUDA graph from its
    second render), one profile, the graph's frame bit for bit against the
    eager frame, and its gate against the per-bounce MXU frame (diff > 2 on
@@ -317,11 +318,11 @@ G_RES = (128, 128, 128)
 # the grid walk as commit 8108396 ran it, and the queued readings of each
 # build that phase k takes in turns
 GRID_WALK_BASE = Path(__file__).resolve().parent / (
-    "zig_raytracing_contest_tpu_torch/kernels/grid_walk_8108396.cu")
+    "zig_raytracing_contest_tpu_torch/probes/grid_walk_one_thread.cu")
 GW_ROUNDS = 8
-# a grid of the same terrain with odd sides, and the rays of its bounce-0
-# wave walked there (its large cells make the twin slow)
-G_ODD_RES, G_ODD_RAYS = (37, 5, 64), 1 << 18
+# a grid of the same terrain with odd sides (no row a multiple of 32
+# cells), and the rays of its bounce-0 wave walked there
+G_ODD_RES, G_ODD_RAYS = (127, 37, 131), 1 << 18
 TIE_RTOL, TIE_ATOL, EDGE_UV, EDGE_SHARE = 1e-5, 4e-6, 1e-3, 1e-4
 # phase n: the timed frames of the bench's Sponza and 2M rows (3, as
 # scripts/large_sweep.py times them; the bench's own default is 5), and the
@@ -1484,7 +1485,7 @@ def grid_differences(what, card, t_g, tri_g, u_g, v_g, aux, tri_k) -> None:
 def grid_phases(card, timing, errs, bounds, launches, base_lib) -> None:
     """Phase k: the --large terrain through the grid backend (the XLA
     shading path, the DDA walk grid_walk_kernel on the card); ``base_lib``
-    the build of kernels/grid_walk_8108396.cu, timed beside it."""
+    the build of probes/grid_walk_one_thread.cu, timed beside it."""
     import numpy as np
     import torch
 
@@ -1536,7 +1537,7 @@ def grid_phases(card, timing, errs, bounds, launches, base_lib) -> None:
 
     # bounces 0, 1 and 2 of the frame's one wave, as render_wave_xla runs
     # them: grid_walk_kernel against its twin lane by lane, both timed, the
-    # design of commit 8108396 (kernels/grid_walk_8108396.cu) timed beside
+    # design of commit 8108396 (probes/grid_walk_one_thread.cu) timed beside
     # it in turns on the same rays, the bound from the twin's counts; the
     # nearest hits against trace_emit_kernel's
     R = L_W * L_H * L_SPP

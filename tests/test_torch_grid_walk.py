@@ -236,7 +236,7 @@ def test_kernel_operands_hold_the_grid(tmp_path):
 def _walk_args(R=8, **over):
     ops = SimpleNamespace(tri=torch.zeros(5, 12), cells=torch.zeros(8, 2, dtype=torch.int32),
                           bbox_min=(0.0,) * 3, bbox_max=(1.0,) * 3, cell_size=(0.5,) * 3,
-                          resolution=(2, 2, 2), occ=torch.zeros(1, dtype=torch.int32))
+                          resolution=(2, 2, 2))
     args = dict(grid=ops, orig=torch.zeros(R, 3), direction=torch.ones(R, 3),
                 active=torch.ones(R, dtype=torch.bool), exclude=None, t_out=torch.empty(R),
                 u_out=torch.empty(R), v_out=torch.empty(R),
@@ -258,16 +258,9 @@ def _walk_args(R=8, **over):
     ({"grid": SimpleNamespace(tri=torch.zeros(5, 12), cells=torch.zeros(7, 2, dtype=torch.int32),
                               bbox_min=(0.0,) * 3, bbox_max=(1.0,) * 3, cell_size=(0.5,) * 3,
                               resolution=(2, 2, 2))}, "7 cell ranges"),
-    ({"grid": SimpleNamespace(tri=torch.zeros(5, 12), cells=torch.zeros(40, 2, dtype=torch.int32),
-                              bbox_min=(0.0,) * 3, bbox_max=(1.0,) * 3, cell_size=(0.5,) * 3,
-                              resolution=(5, 4, 2), occ=torch.zeros(1, dtype=torch.int32))},
-     "grid.occ has shape"),
-    ({"order": torch.zeros(8, dtype=torch.int64)}, "order has dtype"),
-    ({"order": torch.zeros(8, dtype=torch.int32)}, "takes no order"),
     ({"orig": torch.zeros(1, 3).expand(kernels.GRID_MAX_RAYS + 1, 3)}, "rays: at most"),
 ], ids=["cpu", "orig_dtype", "dir_shape", "active_dtype", "exclude_dtype", "idx_dtype",
-        "iterations_shape", "strided", "cells", "bitmap_length", "order_dtype",
-        "order_renderer", "rays"])
+        "iterations_shape", "strided", "cells", "rays"])
 def test_launch_grid_walk_refuses(over, match, monkeypatch):
     """Every check runs before the library loads: CPU tensors and wrong
     dtypes, shapes or strides raise ValueError, and nothing is built or
@@ -370,85 +363,6 @@ def test_grid_nee_frames_through_the_graph_route(tmp_path, monkeypatch):
     assert len(captures) == 2
     graphs = [v for v in scene.frame_cache().values() if isinstance(v, pipeline.FrameGraph)]
     assert len(graphs) == 2 and all(g.frames == 3 for g in graphs)
-
-
-def read_bitmap(occ: torch.Tensor, resolution, brick: bool = False) -> torch.Tensor:
-    """The kernel's reading of a bitmap, cell by cell: cell (x, y, z) is
-    lin = (z · ry + y) · rx + x, its bit lin & 31 of word lin >> 5; with
-    ``brick`` the bit of its 2^3 brick (x >> 1, y >> 1, z >> 1) in the
-    brick grid of ceil(r / 2) a side → (C,) bool in lin order."""
-    rx, ry, rz = resolution
-    z, y, x = torch.meshgrid(torch.arange(rz), torch.arange(ry), torch.arange(rx),
-                             indexing="ij")
-    if brick:
-        bx, by = (rx + 1) // 2, (ry + 1) // 2
-        lin = (((z >> 1) * by + (y >> 1)) * bx + (x >> 1)).reshape(-1)
-    else:
-        lin = ((z * ry + y) * rx + x).reshape(-1)
-    words = occ.to(torch.int64) & 0xFFFFFFFF
-    return ((words[lin >> 5] >> (lin & 31)) & 1).bool()
-
-
-@pytest.mark.parametrize("case", ["cornell", "odd", "empty", "large"])
-def test_occupancy_bitmap_matches_cell_ranges(case, tmp_path):
-    """The occupancy bitmaps the GRID_OCC builds of grid_walk_kernel read
-    (probes/grid_walk.py ``bitmap_operands`` of the grid's kernel operands)
-    on the Cornell grid (8³, from the JAX scene), an odd resolution
-    (37×5×64 of the Cornell box), a grid with every cell empty and the
-    --large terrain's 128³ grid: read back as the kernel reads them, the
-    cell bitmap is the JAX grid's cell_end > cell_begin (the port's grid's
-    where no JAX grid is built) and the brick bitmap is set exactly where a
-    cell of the brick is; a clear bit has an empty range; the words past
-    the last cell are 0; ceil(C / 32) int32 words."""
-    from zig_raytracing_contest_tpu.grid.builder import build_grid as jax_build_grid
-    from zig_raytracing_contest_tpu_torch.grid.builder import build_grid
-    from zig_raytracing_contest_tpu_torch.probes.grid_walk import bitmap_operands
-    from zig_raytracing_contest_tpu_torch.scene.geometry import load_geometry
-    from zig_raytracing_contest_tpu_torch.scene.gltf import load_gltf
-    from zig_raytracing_contest_tpu_torch.scene.types import grid_scene
-
-    if case == "cornell":
-        _, geo, _, _, tg, _ = _scenes("cornell", tmp_path)
-        g, jgrid = tg.grid, jax_build_grid(geo.positions, (8, 8, 8))
-    else:
-        if case == "large":
-            path = tproc.large_scene(tmp_path / "l.gltf")
-            res = (128, 128, 128)
-        else:
-            path = tproc.cornell_like_box(tmp_path / "box.gltf")
-            res = (37, 5, 64)
-        pos = load_geometry(load_gltf(str(path))).positions
-        g = grid_scene(build_grid(pos, res), pos)
-        jgrid = jax_build_grid(pos, res) if case == "odd" else None
-        if case == "empty":
-            g.cell_end = g.cell_begin = torch.zeros_like(g.cell_begin)
-    ops = bitmap_operands(g.kernel_operands())
-    C = g.num_cells
-    full = g.cell_end > g.cell_begin
-    assert ops.occ.dtype == torch.int32 and ops.occ.shape == (-(-C // 32),)
-    bits = read_bitmap(ops.occ, ops.resolution)
-    assert torch.equal(bits, full)
-    if jgrid is not None:
-        assert np.array_equal(bits.numpy(), jgrid.cell_end > jgrid.cell_begin)
-    assert torch.equal(g.cell_begin[~bits], g.cell_end[~bits])
-    tail = (ops.occ[-1].item() & 0xFFFFFFFF) >> (C - 32 * (ops.occ.shape[0] - 1))
-    assert tail == 0
-    rx, ry, rz = ops.resolution
-    assert ops.brick_res == ((rx + 1) // 2, (ry + 1) // 2, (rz + 1) // 2)
-    in_brick = read_bitmap(ops.brick, ops.resolution, brick=True)
-    assert not (full & ~in_brick).any()  # a cell's brick is set
-    cells = full.view(rz, ry, rx).nonzero()
-    want = torch.zeros(ops.brick_res[::-1], dtype=torch.bool)
-    want[cells[:, 0] >> 1, cells[:, 1] >> 1, cells[:, 2] >> 1] = True
-    assert torch.equal(in_brick, want[torch.arange(rz)[:, None, None] >> 1,
-                                      torch.arange(ry)[None, :, None] >> 1,
-                                      torch.arange(rx)[None, None, :] >> 1].reshape(-1))
-    if case == "empty":
-        assert not bits.any() and not in_brick.any()
-    else:
-        assert 0 < int(bits.sum()) < C
-    if case == "large":
-        assert C == 128 ** 3 and 0.02 < float(bits.float().mean()) < 0.2
 
 
 def test_walk_work_counts_occupied_cells():

@@ -151,13 +151,6 @@ class ZrcGrid(ctypes.Structure):
         ("cell", ctypes.c_float * 3),
         ("res", ctypes.c_int * 3),
         ("num_cells", ctypes.c_int),
-        # (the fields above are those of commit 8108396's ZrcGrid: a library
-        # built from that source reads them and no further)
-        ("occ", ctypes.c_void_p),
-        ("order", ctypes.c_void_p),
-        ("brick", ctypes.c_void_p),
-        ("brick_res", ctypes.c_int * 3),
-        ("brick_words", ctypes.c_int),
     ]
 
 
@@ -264,10 +257,10 @@ def _bind_grid_walk(lib) -> None:
 
 def load_grid_walk_library(src: Path, build_dir: Path):
     """Another build of grid_walk_kernel: a source whose ``zrc_grid_walk``
-    takes the same arguments (an earlier commit's path_trace.cu, the kept
-    ``grid_walk_8108396.cu``, or this path_trace.cu with other GRID_*
-    defines), built into ``build_dir`` and loaded, for the ``lib`` argument
-    of ``launch_grid_walk``."""
+    takes the same arguments and ``ZrcGrid`` (an earlier commit's
+    path_trace.cu, or ``probes/grid_walk_one_thread.cu``), built into
+    ``build_dir`` and loaded, for the ``lib`` argument of
+    ``launch_grid_walk``."""
     lib = ctypes.CDLL(str(build("grid_walk_other", Path(src), Path(build_dir))))
     _bind_grid_walk(lib)
     return lib
@@ -618,7 +611,7 @@ GRID_MAX_RAYS = (1 << 31) - (1 << 24)
 
 
 def launch_grid_walk(grid, orig, direction, active, exclude, t_out, u_out, v_out,
-                     idx_out, iterations, order=None, lib=None) -> None:
+                     idx_out, iterations, lib=None) -> None:
     """Launch grid_walk_kernel: the nearest hit of each ray ``orig`` /
     ``direction`` (R, 3) f32 with ``active`` (R,) bool by the walk of
     ``grid`` (``scene.types.GridOperands``), ``exclude`` (R,) int64 (the
@@ -627,14 +620,10 @@ def launch_grid_walk(grid, orig, direction, active, exclude, t_out, u_out, v_out
     int32 scratch that must hold zeros: the loop's iteration count goes
     into [0], and [1] is the counter the warps take ray positions from.
     From ``lib`` (``load_grid_walk_library``, not counted) when given: a
-    build of another source or of other GRID_* defines, whose operands
-    ``grid`` may also carry (``probes.grid_walk``: the occupancy bitmaps
-    ``occ`` and ``brick``, ``brick_res``) and which may take ``order`` (R,)
-    int32 (GRID_ORDER: position i walks ray order[i]).  Every check runs
+    build of another source, timed against this one.  Every check runs
     before the library is loaded; CPU tensors raise (the CPU walks with
     ``wavefront.trace_wave_ref``).  Refused: a grid of 2^31 cells or more
-    (its int32 indices), R above GRID_MAX_RAYS, and an order for the
-    renderer's build, which walks the rays as they come."""
+    (its int32 indices) and R above GRID_MAX_RAYS."""
     dev = orig.device
     R = orig.shape[0]
     if R > GRID_MAX_RAYS:
@@ -651,15 +640,8 @@ def launch_grid_walk(grid, orig, direction, active, exclude, t_out, u_out, v_out
         _check(t, name, dtype, shape, dev)
     if exclude is not None:
         _check(exclude, "exclude", torch.int64, (R,), dev)
-    if order is not None:
-        _check(order, "order", torch.int32, (R,), dev)
-        if lib is None:
-            raise ValueError("the renderer's grid_walk_kernel takes no order (GRID_ORDER 0)")
     if grid.cells.shape[0] != cells or cells >= 1 << 31:
         raise ValueError(f"{grid.cells.shape[0]} cell ranges for a {grid.resolution} grid")
-    occ, brick = getattr(grid, "occ", None), getattr(grid, "brick", None)
-    if occ is not None:
-        _check(occ, "grid.occ", torch.int32, (-(-cells // 32),), dev)
     if grid.tri.shape[0] >= 1 << 31 or grid.tri.shape[0] < 1:
         raise ValueError(f"{grid.tri.shape[0]} references: 1 to 2^31 - 1")
     if dev.type != "cuda":
@@ -668,12 +650,7 @@ def launch_grid_walk(grid, orig, direction, active, exclude, t_out, u_out, v_out
     lib = load() if lib is None else lib
     g = ZrcGrid(grid.tri.data_ptr(), grid.cells.data_ptr(), (ctypes.c_float * 3)(*grid.bbox_min),
                 (ctypes.c_float * 3)(*grid.bbox_max), (ctypes.c_float * 3)(*grid.cell_size),
-                (ctypes.c_int * 3)(*grid.resolution), cells,
-                None if occ is None else occ.data_ptr(),
-                None if order is None else order.data_ptr(),
-                None if brick is None else brick.data_ptr(),
-                (ctypes.c_int * 3)(*getattr(grid, "brick_res", (0, 0, 0))),
-                0 if brick is None else brick.shape[0])
+                (ctypes.c_int * 3)(*grid.resolution), cells)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.zrc_grid_walk(
         ctypes.byref(g), orig.data_ptr(), direction.data_ptr(), active.data_ptr(),

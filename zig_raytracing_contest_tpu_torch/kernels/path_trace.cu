@@ -1153,76 +1153,40 @@ __global__ void __launch_bounds__(kThreads) ray_sort_key_kernel(
 // ~60 instructions a step and its warps waited for their longest ray and
 // for any lane's tests (1.1 / 2.7 / 3.3 ms at bounces 0 / 1 / 2 of the
 // --large frame on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md).  Here:
-// * a lean step (GRID_LEAN): the cell's index and each axis's steps left
-//   are kept, so a step is three compares, two selects and one update, not
-//   the index recomputed and the exit cell compared;
-// * the lanes are refilled as their rays finish (GRID_REFILL: persistent
-//   warps with dynamic ray fetch, Aila and Laine, HPG 2009): about enough
-//   blocks to fill the card; a warp takes 32 ray positions at a time from
-//   a global counter (iterations[1], one atomicAdd) and hands them out
-//   once GRID_REFILL_MIN of its lanes are idle (a ray's set-up, 15 IEEE
+// * a lean step: the cell's index and each axis's steps left are kept, so
+//   a step is three compares, two selects and one update, not the index
+//   recomputed and the exit cell compared;
+// * the lanes are refilled as their rays finish (persistent warps with
+//   dynamic ray fetch, Aila and Laine, HPG 2009): about enough blocks to
+//   fill the card; a warp takes 32 ray positions at a time from a global
+//   counter (iterations[1], one atomicAdd) and hands them out once
+//   GRID_REFILL_MIN of its lanes are idle (a ray's set-up, 15 IEEE
 //   divides, then runs for several lanes at once); each ray writes its own
 //   output slot;
-// * the warp tests together (GRID_COOP): between passes of GRID_PASS
-//   iterations, when at most GRID_COOP_MAX lanes stand at an occupied
-//   cell, their cells' references are spread over the 32 lanes
-//   (grid_coop_tests) and the others wait; with more, as on a coherent
-//   primary wave, each lane tests its own (grid_iteration).
-// Measured against the variants below on the --large frame's waves
-// (probes/grid_walk.py, PERF.md): an occupancy bitmap (a bit a cell, or a
-// 2^3-brick map in shared memory) that spares an empty cell its range load
-// made every design slower (more instructions a step; the range load's
-// latency was hidden), and walking bounces 1-2 in a cell-coherent order
-// did not make the walk faster.
-// Variants for probes/grid_walk.py (-D, never a runtime switch): GRID_LEAN
-// 0 (commit 8108396's step), GRID_OCC 1 (the bitmap, the lane's word kept),
-// 2 (a 2^3-brick bitmap staged in shared memory, then the bitmap), 3 (the
-// bitmap, no word kept); GRID_REFILL 0 (one thread a ray); GRID_TEST_WAIT
-// K > 0 (in place of GRID_COOP: a lane at an occupied cell waits until K
-// lanes do, or none steps, and then each tests its own); GRID_MIN_BLOCKS
-// (the launch bound's blocks an SM); GRID_ORDER 1 (position i walks ray
-// ZrcGrid.order[i]).
+// * the warp tests together: between passes of GRID_PASS iterations, when
+//   at most GRID_COOP_MAX lanes stand at an occupied cell, their cells'
+//   references are spread over the 32 lanes (grid_coop_tests) and the
+//   others wait; with more, as on a coherent primary wave, each lane tests
+//   its own (grid_iteration).
+// Measured against other designs on the --large frame's waves (PERF.md):
+// an occupancy bitmap (a bit a cell, or a 2^3-brick map in shared memory)
+// that spares an empty cell its range load made every design slower (more
+// instructions a step; the range load's latency was hidden), waiting for
+// several lanes before testing lost to the cooperative tests, walking
+// bounces 1-2 in a cell-coherent order did not make the walk faster, and
+// one thread a ray with the lean step, the fastest on the coherent
+// bounce-0 wave (0.73 against 1.05 ms), lost the most at bounces 1-2 (2.19
+// / 2.76 against 1.40 / 1.46 ms).  Those builds are in commit b6739df's
+// path_trace.cu and probes/grid_walk.py.
 
 #define GRID_TRI_BATCH 4
 #define GRID_THREADS 128
-#ifndef GRID_OCC
-#define GRID_OCC 0
-#endif
-#ifndef GRID_REFILL
-#define GRID_REFILL 1
-#endif
-#ifndef GRID_TEST_WAIT
-#define GRID_TEST_WAIT 0
-#endif
-#ifndef GRID_PASS
+// iterations of each lane's walk between two looks at the warp
 #define GRID_PASS 8
-#endif
-#ifndef GRID_LEAN
-#define GRID_LEAN 1
-#endif
-#ifndef GRID_COOP
-#define GRID_COOP 1
-#endif
-#ifndef GRID_COOP_MAX
+// the most lanes at an occupied cell whose tests the warp shares
 #define GRID_COOP_MAX 20
-#endif
-#ifndef GRID_REFILL_MIN
+// the idle lanes a warp waits for before it hands out new rays
 #define GRID_REFILL_MIN 8
-#endif
-#ifndef GRID_MIN_BLOCKS
-#define GRID_MIN_BLOCKS 1
-#endif
-#ifndef GRID_ORDER
-#define GRID_ORDER 0
-#endif
-#if (GRID_TEST_WAIT > 0 || GRID_COOP) && !GRID_REFILL
-#error "GRID_TEST_WAIT and GRID_COOP need GRID_REFILL"
-#endif
-#if GRID_TEST_WAIT > 0 && GRID_COOP
-#error "GRID_TEST_WAIT and GRID_COOP are two ways to group the tests: one at a time"
-#endif
-// The brick map of GRID_OCC 2 in shared memory, at most this many words
-#define GRID_BRICK_MAX_WORDS 12288
 
 struct ZrcGrid {
     const float4* tri;   // (D + 1, 12) f32: v0 xyz, e1 x | e1 yz, e2 xy | e2 z,
@@ -1233,13 +1197,6 @@ struct ZrcGrid {
     float cell[3];       // cell size
     int res[3];
     int num_cells;       // C
-    // (the fields above are those of commit 8108396's ZrcGrid, in order)
-    const unsigned* occ;    // GRID_OCC 1-3 only: (ceil(C / 32),), bit lin & 31 of
-                            // word lin >> 5 is cell lin's end > begin
-    const int* order;       // GRID_ORDER only: (R,), position i walks ray order[i]
-    const unsigned* brick;  // GRID_OCC 2 only: a bit per 2^3 brick, x-fastest
-    int brick_res[3];
-    int brick_words;
 };
 
 // linalg.moller_trumbore (ops/linalg.py): pvec, det, 1/det, u, qvec, v, t,
@@ -1275,54 +1232,19 @@ struct GridLane {
     int ray;             // the ray's slot, -1 when the lane has none
     float o[3], d[3];
     float t_delta[3], t_next[3];
-    int cell[3];         // (GRID_LEAN: for GRID_OCC 2 only)
-    unsigned neg;        // bit a: d[a] < 0
-    int lin;             // GRID_LEAN: the cell's index, (z ry + y) rx + x
-    int left[3];         // GRID_LEAN: steps along each axis before the exit cell
-    int stride[3];       // GRID_LEAN: what a step along each axis adds to lin
+    int lin;             // the cell's index, (z ry + y) rx + x
+    int left[3];         // steps along each axis before the exit cell
+    int stride[3];       // what a step along each axis adds to lin
     float best_t, best_u, best_v;
     int best_i;
     int cursor, end;
     long long ex;
     int it;              // this ray's iterations
-    int word_at;         // the occupancy word held in word (-1: none)
-    unsigned word;
 };
 
-// Enter the lane's cell: its references, [cursor, end).  (GRID_OCC: a cell
-// whose bit is clear reads no range.)
-__device__ __forceinline__ void grid_enter(const ZrcGrid& g, const unsigned* s_brick,
-                                           GridLane& L) {
-#if GRID_LEAN
-    const int lin = L.lin;
-#else
-    const int lin = grid_cell_lin(g, L.cell);
-#endif
-#if GRID_OCC == 3
-    if (!((__ldg(g.occ + (lin >> 5)) >> (lin & 31)) & 1u)) {
-        L.cursor = L.end = 0;
-        return;
-    }
-#elif GRID_OCC >= 1
-#if GRID_OCC == 2
-    const int b = ((L.cell[2] >> 1) * g.brick_res[1] + (L.cell[1] >> 1)) * g.brick_res[0]
-                  + (L.cell[0] >> 1);
-    if (!((s_brick[b >> 5] >> (b & 31)) & 1u)) {
-        L.cursor = L.end = 0;
-        return;
-    }
-#endif
-    const int w = lin >> 5;
-    if (w != L.word_at) {
-        L.word = __ldg(g.occ + w);
-        L.word_at = w;
-    }
-    if (!((L.word >> (lin & 31)) & 1u)) {
-        L.cursor = L.end = 0;
-        return;
-    }
-#endif
-    const int2 range = g.cells[lin];
+// Enter the lane's cell: its references, [cursor, end).
+__device__ __forceinline__ void grid_enter(const ZrcGrid& g, GridLane& L) {
+    const int2 range = g.cells[L.lin];
     L.cursor = range.x;
     L.end = range.y;
 }
@@ -1330,8 +1252,7 @@ __device__ __forceinline__ void grid_enter(const ZrcGrid& g, const unsigned* s_b
 // Take ray r: the slab test and dda.dda_setup, then enter its first cell.
 // A ray that is not active or misses the box is written out at once (t
 // +inf, u v 0, reference 0) and false returned.
-__device__ __forceinline__ bool grid_setup(const ZrcGrid& g, const unsigned* s_brick,
-                                           const float* __restrict__ orig,
+__device__ __forceinline__ bool grid_setup(const ZrcGrid& g, const float* __restrict__ orig,
                                            const float* __restrict__ dir,
                                            const bool* __restrict__ active,
                                            const long long* __restrict__ exclude, int r,
@@ -1372,34 +1293,32 @@ __device__ __forceinline__ bool grid_setup(const ZrcGrid& g, const unsigned* s_b
     }
     // dda.dda_setup
     const float t_entry = nan_max(tmin, 0.0f);
-    L.neg = 0;
+    int cell[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-        L.neg |= (sign[a] ? 1u : 0u) << a;
         L.t_delta[a] = fabsf(g.cell[a] / L.d[a]);
         float hit_local = (L.o[a] + L.d[a] * t_entry) - g.bmin[a];
         long long c = (long long)(hit_local / g.cell[a]);
         c = c < 0 ? 0 : c;
         c = c < g.res[a] - 1 ? c : g.res[a] - 1;
-        L.cell[a] = (int)c;
-        float next_cell = (float)(L.cell[a] + (sign[a] ? 0 : 1));
+        cell[a] = (int)c;
+        float next_cell = (float)(cell[a] + (sign[a] ? 0 : 1));
         L.t_next[a] = t_entry + (next_cell * g.cell[a] - hit_local) / L.d[a];
-        L.left[a] = sign[a] ? L.cell[a] : g.res[a] - 1 - L.cell[a];
+        L.left[a] = sign[a] ? cell[a] : g.res[a] - 1 - cell[a];
     }
-    L.lin = grid_cell_lin(g, L.cell);  // (in range: the clamp changes nothing)
+    L.lin = grid_cell_lin(g, cell);  // (in range: the clamp changes nothing)
     L.stride[0] = sign[0] ? -1 : 1;
     L.stride[1] = sign[1] ? -g.res[0] : g.res[0];
     L.stride[2] = sign[2] ? -g.res[0] * g.res[1] : g.res[0] * g.res[1];
     L.ex = exclude != nullptr ? exclude[r] : 0;
-    grid_enter(g, s_brick, L);
+    grid_enter(g, L);
     return true;
 }
 
 // One iteration of the lane's walk: up to GRID_TRI_BATCH tests, then, once
 // the cell is exhausted, one DDA step.  Returns true when the ray is done
 // (its result is then written out).
-__device__ __forceinline__ bool grid_iteration(const ZrcGrid& g, const unsigned* s_brick,
-                                               bool has_ex, GridLane& L,
+__device__ __forceinline__ bool grid_iteration(const ZrcGrid& g, bool has_ex, GridLane& L,
                                                float* __restrict__ t_out,
                                                float* __restrict__ u_out,
                                                float* __restrict__ v_out,
@@ -1427,7 +1346,6 @@ __device__ __forceinline__ bool grid_iteration(const ZrcGrid& g, const unsigned*
     }
     // cell-advance phase: dda.dda_next on the smallest crossing
     const float t0 = L.t_next[0], t1 = L.t_next[1], t2 = L.t_next[2];
-#if GRID_LEAN
     // the axis table {2,1,2,1,2,2,0,0} of k = 4 (t0<t1) + 2 (t0<t2) + (t1<t2)
     // as two predicates: axis 0 for k 6 and 7, axis 1 for k 1 and 3; at the
     // exit cell (no step left) t_cross is +inf and best_t (never NaN) <= it
@@ -1436,52 +1354,26 @@ __device__ __forceinline__ bool grid_iteration(const ZrcGrid& g, const unsigned*
     const bool ay = !lt01 && t1 < t2;
     const float t_cross = ax ? t0 : ay ? t1 : t2;
     const int left = ax ? L.left[0] : ay ? L.left[1] : L.left[2];
-    const bool done = left == 0 || L.best_t <= t_cross;
-    if (!done) {
-        const int a = ax ? 0 : ay ? 1 : 2;
-#pragma unroll
-        for (int b = 0; b < 3; ++b) {
-            if (a == b) {
-                L.t_next[b] = L.t_next[b] + L.t_delta[b];
-                --L.left[b];
-                L.lin += L.stride[b];
-#if GRID_OCC == 2
-                L.cell[b] += ((L.neg >> b) & 1u) ? -1 : 1;
-#endif
-            }
-        }
-    }
-#else
-    const int k = (t0 < t1 ? 4 : 0) + (t0 < t2 ? 2 : 0) + (t1 < t2 ? 1 : 0);
-    const int axis = (0xa66 >> (2 * k)) & 3;  // {2,1,2,1,2,2,0,0}
-    bool at_exit = false;
-    float t_cross = 0.0f;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-        if (a == axis) {
-            const bool neg = (L.neg >> a) & 1u;
-            at_exit = L.cell[a] == (neg ? 0 : g.res[a] - 1);
-            t_cross = at_exit ? INFINITY : L.t_next[a];
-            if (!at_exit) {
-                L.cell[a] += neg ? -1 : 1;
-                L.t_next[a] = L.t_next[a] + L.t_delta[a];
-            }
-        }
-    }
-    const bool done = L.best_t <= t_cross;
-#endif
-    if (done) {
+    if (left == 0 || L.best_t <= t_cross) {
         t_out[L.ray] = L.best_t;
         u_out[L.ray] = L.best_u;
         v_out[L.ray] = L.best_v;
         idx_out[L.ray] = L.best_i;
         return true;
     }
-    grid_enter(g, s_brick, L);
+    const int a = ax ? 0 : ay ? 1 : 2;
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+        if (a == b) {
+            L.t_next[b] = L.t_next[b] + L.t_delta[b];
+            --L.left[b];
+            L.lin += L.stride[b];
+        }
+    }
+    grid_enter(g, L);
     return false;
 }
 
-#if GRID_COOP
 // The tests of every lane of the warp that stands at an occupied cell, all
 // n of its cell's references at once, spread over the warp's 32 lanes:
 // item k of the W = sum n pending (lane, reference) pairs goes to lane
@@ -1545,34 +1437,22 @@ __device__ __forceinline__ void grid_coop_tests(const ZrcGrid& g, bool has_ex, G
     }
     __syncwarp();
 }
-#endif
 
-// iterations[0] (the loop's count) and iterations[1] (GRID_REFILL: the
-// positions handed out) must hold 0.
-__global__ void __launch_bounds__(GRID_THREADS, GRID_MIN_BLOCKS) grid_walk_kernel(
+// iterations[0] (the loop's count) and iterations[1] (the positions handed
+// out) must hold 0.
+__global__ void __launch_bounds__(GRID_THREADS) grid_walk_kernel(
         ZrcGrid g, const float* __restrict__ orig, const float* __restrict__ dir,
         const bool* __restrict__ active, const long long* __restrict__ exclude,
         float* __restrict__ t_out, float* __restrict__ u_out, float* __restrict__ v_out,
         long long* __restrict__ idx_out, int* __restrict__ iterations, int R) {
-#if GRID_OCC == 2
-    extern __shared__ unsigned s_brick[];
-    for (int w = threadIdx.x; w < g.brick_words; w += blockDim.x) s_brick[w] = __ldg(g.brick + w);
-    __syncthreads();
-#else
-    const unsigned* s_brick = nullptr;
-#endif
     const bool has_ex = exclude != nullptr;
     const unsigned lane = threadIdx.x & 31;
-#if GRID_COOP
     __shared__ unsigned long long s_keys[GRID_THREADS];
     unsigned long long* s_key = s_keys + (threadIdx.x & ~31u);
-#endif
     GridLane L;
     L.ray = -1;
-    L.word_at = -1;
     L.cursor = L.end = 0;
     int it_max = 0;  // the most iterations of the rays this lane walked
-#if GRID_REFILL
     const unsigned below = (1u << lane) - 1u;
     int pool = 0, pool_end = 0;  // positions this warp took and has not handed out
     bool more = true;            // the counter may still hold positions
@@ -1595,9 +1475,7 @@ __global__ void __launch_bounds__(GRID_THREADS, GRID_MIN_BLOCKS) grid_walk_kerne
             const int n = min(__popc(idle), pool_end - pool);
             const int rank = __popc(idle & below);
             if (L.ray < 0 && rank < n) {
-                const int i = pool + rank;
-                const int r = GRID_ORDER ? g.order[i] : i;
-                if (!grid_setup(g, s_brick, orig, dir, active, exclude, r, L, t_out, u_out,
+                if (!grid_setup(g, orig, dir, active, exclude, pool + rank, L, t_out, u_out,
                                 v_out, idx_out))
                     L.ray = -1;
             }
@@ -1605,49 +1483,22 @@ __global__ void __launch_bounds__(GRID_THREADS, GRID_MIN_BLOCKS) grid_walk_kerne
             idle = __ballot_sync(FULL_MASK, L.ray < 0);
         }
         if (idle == FULL_MASK) break;
-#if GRID_COOP
         // at most GRID_COOP_MAX lanes at an occupied cell: they test together
         // and every lane walks until it enters one; more: each tests its own
         const int at_cells = __popc(__ballot_sync(FULL_MASK, L.ray >= 0 && L.cursor < L.end));
         const bool coop = at_cells <= GRID_COOP_MAX;
         if (coop && at_cells > 0) grid_coop_tests(g, has_ex, L, s_key, lane);
-#endif
-        // up to GRID_PASS iterations of each lane's walk (GRID_TEST_WAIT:
-        // of the lanes of this pass's kind, while they stay of it;
-        // GRID_COOP: until the lane enters an occupied cell)
+        // up to GRID_PASS iterations of each lane's walk
         bool run = L.ray >= 0;
-#if GRID_TEST_WAIT > 0
-        const unsigned live = __ballot_sync(FULL_MASK, run);
-        const unsigned testing = __ballot_sync(FULL_MASK, run && L.cursor < L.end);
-        const bool test_pass = __popc(testing) >= GRID_TEST_WAIT || testing == live;
-        run = run && ((L.cursor < L.end) == test_pass);
-#endif
         for (int m = 0; run && m < GRID_PASS; ++m) {
-            if (grid_iteration(g, s_brick, has_ex, L, t_out, u_out, v_out, idx_out)) {
+            if (grid_iteration(g, has_ex, L, t_out, u_out, v_out, idx_out)) {
                 it_max = max(it_max, L.it);
                 L.ray = -1;
                 break;
             }
-#if GRID_TEST_WAIT > 0
-            run = (L.cursor < L.end) == test_pass;
-#elif GRID_COOP
             run = !coop || L.cursor == L.end;
-#endif
         }
     }
-#else
-    // one thread a ray, walked to its end
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < R) {
-        const int r = GRID_ORDER ? g.order[i] : i;
-        if (grid_setup(g, s_brick, orig, dir, active, exclude, r, L, t_out, u_out, v_out,
-                       idx_out)) {
-            while (!grid_iteration(g, s_brick, has_ex, L, t_out, u_out, v_out, idx_out)) {
-            }
-            it_max = L.it;
-        }
-    }
-#endif
     const int warp_max = __reduce_max_sync(FULL_MASK, it_max);
     if (lane == 0 && warp_max > 0) atomicMax(iterations, warp_max);
 }
@@ -1754,8 +1605,8 @@ extern "C" int zrc_ray_sort_key(const float* state, const float* bbox_min,
 }
 
 // iterations must hold two zeros (the loop's count, the ray counter) before
-// the launch.  With GRID_REFILL, about as many blocks as the card holds at
-// once (the occupancy of the kernel on the device, read once a device).
+// the launch.  About as many blocks as the card holds at once (the
+// occupancy of the kernel on the device, read once a device).
 extern "C" int zrc_grid_walk(const ZrcGrid* g, const float* orig, const float* dir,
                              const bool* active, const long long* exclude, float* t,
                              float* u, float* v, long long* idx, int* iterations, int R,
@@ -1763,12 +1614,6 @@ extern "C" int zrc_grid_walk(const ZrcGrid* g, const float* orig, const float* d
     if (R <= 0) return ZRC_NOTHING_LAUNCHED;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    const size_t smem = GRID_OCC == 2 ? (size_t)g->brick_words * sizeof(unsigned) : 0;
-    if ((GRID_OCC >= 1 && g->occ == nullptr) || (GRID_ORDER && g->order == nullptr) ||
-        (GRID_OCC == 2 && (g->brick == nullptr || g->brick_words > GRID_BRICK_MAX_WORDS)))
-        return (int)cudaErrorInvalidValue;
-    int blocks = (R + GRID_THREADS - 1) / GRID_THREADS;
-#if GRID_REFILL
     static int resident[64];  // blocks the card holds at once, by device (0: not read)
     if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
     if (resident[device] == 0) {
@@ -1776,13 +1621,12 @@ extern "C" int zrc_grid_walk(const ZrcGrid* g, const float* orig, const float* d
         err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
         if (err != cudaSuccess) return (int)err;
         err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grid_walk_kernel,
-                                                            GRID_THREADS, smem);
+                                                            GRID_THREADS, 0);
         if (err != cudaSuccess) return (int)err;
         resident[device] = sms * (per_sm > 0 ? per_sm : 1);
     }
-    blocks = min(blocks, resident[device]);
-#endif
-    grid_walk_kernel<<<blocks, GRID_THREADS, smem, (cudaStream_t)stream>>>(
+    const int blocks = min((R + GRID_THREADS - 1) / GRID_THREADS, resident[device]);
+    grid_walk_kernel<<<blocks, GRID_THREADS, 0, (cudaStream_t)stream>>>(
         *g, orig, dir, active, exclude, t, u, v, idx, iterations, R);
     return (int)cudaGetLastError();
 }

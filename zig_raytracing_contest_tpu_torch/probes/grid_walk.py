@@ -20,14 +20,13 @@ build timed queued behind a spin (``utils.timing.queued_ms``), its median
 over ``--rounds`` readings taken in turns:
 
     python -m zig_raytracing_contest_tpu_torch.probes.grid_walk \
-        --against zig_raytracing_contest_tpu_torch/kernels/grid_walk_8108396.cu
+        --against parent.cu
 
-``--against OTHER.cu`` (repeatable) adds another source whose
-``zrc_grid_walk`` takes the same arguments (an earlier commit's
-path_trace.cu, or the kept ``kernels/grid_walk_8108396.cu``); the builds
-of VARIANTS (this path_trace.cu with other GRID_* defines) are always
-timed; ``--order`` also times bounces 1 and 2 walked in ``cell_order``
-(the key and the sort counted into the walk's time).
+``--against OTHER.cu`` (repeatable) names a source whose ``zrc_grid_walk``
+takes the same arguments (an earlier commit's path_trace.cu, from ``git
+show COMMIT:zig_raytracing_contest_tpu_torch/kernels/path_trace.cu``); by
+default the probe times ``grid_walk_one_thread.cu`` beside this file, the
+walk of one thread a ray to its end.
 """
 
 from __future__ import annotations
@@ -137,168 +136,29 @@ def walk_bound(scene, work, rays: int, exclude: bool, peak_flops: float,
 # The --large frame as chip_smoke.py phase k renders it through the grid
 WIDTH, HEIGHT, SPP, BOUNCES, SEED = 1280, 720, 2, 3, 0
 RESOLUTION = (128, 128, 128)
-# Builds of this path_trace.cu beside the renderer's, by their defines
-# (kernels/path_trace.cu's grid walk note): GRID_LEAN 0 steps the DDA as
-# commit 8108396 did; GRID_OCC 1 reads the occupancy bitmap before a cell's
-# range (the lane's word kept), 2 a 2^3-brick bitmap in shared memory
-# first, 3 the bitmap with no word kept; GRID_REFILL 0 one thread a ray,
-# 1 warps refilled once GRID_REFILL_MIN lanes are idle, GRID_PASS
-# iterations a lane between two refills; GRID_TEST_WAIT K lanes at an
-# occupied cell wait for K of the warp (or for no lane stepping); GRID_COOP
-# 1 the warp tests the cells of at most GRID_COOP_MAX lanes together;
-# GRID_MIN_BLOCKS the launch bound's blocks an SM.  Every variant tried.
-
-
-def _defines(lean, occ, refill, pass_=1, wait=0, coop=0, refill_min=1, coop_max=32,
-             min_blocks=1) -> dict:
-    return {"GRID_LEAN": lean, "GRID_OCC": occ, "GRID_REFILL": refill, "GRID_PASS": pass_,
-            "GRID_TEST_WAIT": wait, "GRID_COOP": coop, "GRID_REFILL_MIN": refill_min,
-            "GRID_COOP_MAX": coop_max, "GRID_MIN_BLOCKS": min_blocks}
-
-
-VARIANTS = {
-    "table": _defines(0, 0, 0),
-    "table+bitmap+refill": _defines(0, 1, 1),
-    "lean": _defines(1, 0, 0),
-    "lean+blocks9": _defines(1, 0, 0, min_blocks=9),
-    "lean+bitmap": _defines(1, 1, 0),
-    "lean+bricks": _defines(1, 2, 0),
-    "lean+word": _defines(1, 3, 0),
-    "lean+refill+pass8": _defines(1, 0, 1, 8),
-    "lean+refill+pass8+min16": _defines(1, 0, 1, 8, refill_min=16),
-    "lean+bitmap+refill": _defines(1, 1, 1),
-    "lean+bitmap+refill+pass8": _defines(1, 1, 1, 8),
-    "lean+bitmap+refill+pass32": _defines(1, 1, 1, 32),
-    "lean+bricks+refill+pass8+min16": _defines(1, 2, 1, 8, refill_min=16),
-    "lean+bitmap+refill+wait16": _defines(1, 1, 1, 1, 16),
-    "lean+bitmap+refill+pass8+wait16": _defines(1, 1, 1, 8, 16),
-    "lean+refill+pass8+wait16": _defines(1, 0, 1, 8, 16),
-    "lean+refill+pass8+wait16+min16": _defines(1, 0, 1, 8, 16, refill_min=16),
-    "lean+refill+pass8+coop": _defines(1, 0, 1, 8, coop=1),
-    "lean+refill+pass32+coop": _defines(1, 0, 1, 32, coop=1),
-    "lean+bitmap+refill+pass8+coop": _defines(1, 1, 1, 8, coop=1),
-    "lean+bitmap+refill+pass32+coop": _defines(1, 1, 1, 32, coop=1),
-    "lean+word+refill+pass8+coop": _defines(1, 3, 1, 8, coop=1),
-    "lean+refill+pass8+coop+min4": _defines(1, 0, 1, 8, coop=1, refill_min=4),
-    "lean+refill+pass8+coop+min8": _defines(1, 0, 1, 8, coop=1, refill_min=8),
-    "lean+refill+pass8+coop+min16": _defines(1, 0, 1, 8, coop=1, refill_min=16),
-    "lean+refill+pass8+coop+min24": _defines(1, 0, 1, 8, coop=1, refill_min=24),
-    "lean+refill+pass8+coop+min32": _defines(1, 0, 1, 8, coop=1, refill_min=32),
-    "lean+refill+pass4+coop+min16": _defines(1, 0, 1, 4, coop=1, refill_min=16),
-    "lean+refill+pass16+coop+min16": _defines(1, 0, 1, 16, coop=1, refill_min=16),
-    "lean+refill+pass8+coop+min8+blocks8": _defines(1, 0, 1, 8, coop=1, refill_min=8,
-                                                    min_blocks=8),
-    "lean+refill+pass8+coop+min8+blocks9": _defines(1, 0, 1, 8, coop=1, refill_min=8,
-                                                    min_blocks=9),
-    "lean+bitmap+refill+pass8+coop+min8": _defines(1, 1, 1, 8, coop=1, refill_min=8),
-    "lean+bitmap+refill+pass8+coop+min16": _defines(1, 1, 1, 8, coop=1, refill_min=16),
-    "lean+word+refill+pass8+coop+min16": _defines(1, 3, 1, 8, coop=1, refill_min=16),
-    "lean+bricks+refill+pass8+coop+min8": _defines(1, 2, 1, 8, coop=1, refill_min=8),
-    "lean+bricks+refill+pass8+coop+min16": _defines(1, 2, 1, 8, coop=1, refill_min=16),
-    "lean+refill+pass8+coop8+min8": _defines(1, 0, 1, 8, coop=1, refill_min=8, coop_max=8),
-    "lean+refill+pass8+coop16+min8": _defines(1, 0, 1, 8, coop=1, refill_min=8, coop_max=16),
-    "lean+refill+pass8+coop24+min8": _defines(1, 0, 1, 8, coop=1, refill_min=8, coop_max=24),
-    "lean+refill+pass8+coop28+min8": _defines(1, 0, 1, 8, coop=1, refill_min=8, coop_max=28),
-    "lean+refill+pass8+coop24+min4": _defines(1, 0, 1, 8, coop=1, refill_min=4, coop_max=24),
-    "lean+refill+pass8+coop24+min12": _defines(1, 0, 1, 8, coop=1, refill_min=12,
-                                               coop_max=24),
-    "lean+refill+pass8+coop16+min16": _defines(1, 0, 1, 8, coop=1, refill_min=16,
-                                               coop_max=16),
-    "lean+refill+pass8+coop16+min32": _defines(1, 0, 1, 8, coop=1, refill_min=32,
-                                               coop_max=16),
-}
+# The walk of one thread a ray to its end, timed against by default
+ONE_THREAD = Path(__file__).resolve().parent / "grid_walk_one_thread.cu"
 # Queued walks a reading, readings a build
 REPS, ROUNDS = 10, 8
-# the build of this design that walks the rays in a given order (--order)
-ORDERED = "this, GRID_ORDER"
-# nvcc runs at once
-BUILDERS = 12
-
-
-def variant_source(defines: dict, where: Path) -> Path:
-    """This checkout's path_trace.cu with ``defines`` written ahead of it,
-    as a file in ``where``."""
-    src = where / ("path_trace_" + "_".join(f"{k.lower()}{v}" for k, v in defines.items())
-                   + ".cu")
-    src.write_text("".join(f"#define {k} {v}\n" for k, v in defines.items())
-                   + kernels.SOURCES["path_trace"].read_text())
-    return src
-
-
-def occupancy_words(bits: torch.Tensor) -> torch.Tensor:
-    """Pack ``bits`` (N,) bool into (ceil(N / 32),) int32 words on their
-    device: bit i & 31 of word i >> 5 is bits[i] (the last word's high bits
-    0)."""
-    n = bits.shape[0]
-    words = torch.zeros(-(-n // 32) * 32, dtype=torch.int64, device=bits.device)
-    words[:n] = bits.to(torch.int64)
-    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
-    words = (words.view(-1, 32) << shifts).sum(dim=1)
-    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
-
-
-def bitmap_operands(ops):
-    """``ops`` (``GridOperands``) with the occupancy bitmaps the GRID_OCC
-    builds read: ``occ``, a bit a cell (``cell_end > cell_begin`` in the
-    cells' x-fastest order, ``occupancy_words``), and ``brick``, a bit a
-    2^3 brick (x-fastest over the ceil(r / 2) bricks of each axis, set
-    where any of its cells holds references) with ``brick_res``."""
-    rx, ry, rz = ops.resolution
-    full = ops.cells[:, 1] > ops.cells[:, 0]
-    occ = torch.zeros(rz + rz % 2, ry + ry % 2, rx + rx % 2, dtype=torch.bool,
-                      device=ops.cells.device)
-    occ[:rz, :ry, :rx] = full.view(rz, ry, rx)
-    br = (occ.shape[2] // 2, occ.shape[1] // 2, occ.shape[0] // 2)
-    bricks = occ.view(br[2], 2, br[1], 2, br[0], 2).any(5).any(3).any(1).reshape(-1)
-    return SimpleNamespace(**ops._asdict(), occ=occupancy_words(full),
-                           brick=occupancy_words(bricks), brick_res=br)
-
-
-def morton3(c: torch.Tensor) -> torch.Tensor:
-    """(N, 3) int64 cell coordinates below 2^10 → their Morton codes (x in
-    bit 0 of each triple)."""
-    out = torch.zeros(c.shape[0], dtype=torch.int64, device=c.device)
-    for a in range(3):
-        x = c[:, a]
-        for shift, mask in ((16, 0x030000FF), (8, 0x0300F00F), (4, 0x030C30C3),
-                            (2, 0x09249249)):
-            x = (x | (x << shift)) & mask
-        out |= x << a
-    return out
-
-
-def cell_order(scene, orig, direction, active) -> torch.Tensor:
-    """A cell-coherent order of a wave's rays (bounces from 1 on start on a
-    surface inside the grid): the Morton code of the origin's cell and the
-    direction's octant as a key, inactive rays last, sorted → (R,) int32
-    positions for ``order``."""
-    p = scene.grid.params
-    res = p.resolution.to(torch.int64)
-    cell = torch.floor((orig - p.bbox_min) / p.cell_size).nan_to_num(0.0)
-    cell = torch.minimum(torch.clamp_min(cell, 0.0), (res - 1).to(torch.float32))
-    octant = ((direction < 0).to(torch.int64) << torch.arange(3, device=orig.device)).sum(1)
-    key = (morton3(cell.to(torch.int64)) << 3) | octant
-    key = torch.where(active, key, torch.iinfo(torch.int64).max)
-    return torch.sort(key).indices.to(torch.int32)
 
 
 class Walk:
     """One build's walk of a wave into outputs of its own: ``run()``
     launches it (zeroing its scratch first)."""
 
-    def __init__(self, lib, grid, o, d, live, prev, order=None):
+    def __init__(self, lib, grid, o, d, live, prev):
         R, dev = o.shape[0], o.device
         self.t = torch.empty(R, dtype=torch.float32, device=dev)
         self.u, self.v = torch.empty_like(self.t), torch.empty_like(self.t)
         self.idx = torch.empty(R, dtype=torch.int64, device=dev)
         self.scratch = torch.zeros(2, dtype=torch.int32, device=dev)
         self.args = (grid, o, d, live, prev)
-        self.lib, self.order = lib, order
+        self.lib = lib
 
     def run(self):
         self.scratch.zero_()
         kernels.launch_grid_walk(*self.args, self.t, self.u, self.v, self.idx, self.scratch,
-                                 order=self.order, lib=self.lib)
+                                 lib=self.lib)
 
     def differs(self, other: "Walk") -> int:
         off = self.idx != other.idx
@@ -370,14 +230,11 @@ def time_builds(fns: dict, rounds: int = ROUNDS, reps: int = REPS) -> dict:
     return ms
 
 
-def walk_ab(scene, cam, builds: dict, card: str, rounds: int = ROUNDS, ordered=None) -> int:
+def walk_ab(scene, cam, builds: dict, card: str, rounds: int = ROUNDS) -> int:
     """The A/B on the card: per bounce, this build against the twin, every
-    build of ``builds`` (label -> (library, operands)) against this one,
-    and the medians of their queued times; with ``ordered`` (a GRID_ORDER
-    build of this design and its operands) bounces 1 and 2 walked in
-    ``cell_order`` as well, with the key and the sort in the time, with the
-    order given, and the key and the sort alone.  Prints a line per build
-    and bounce; returns the lanes (and iteration counts) that differ."""
+    build of ``builds`` (label -> library) against this one, and the
+    medians of their queued times.  Prints a line per build and bounce;
+    returns the lanes (and iteration counts) that differ."""
     faults = 0
     ops = scene.grid.kernel_operands()
     for bounce, o, d, live, prev in frame_waves(scene, cam):
@@ -396,26 +253,8 @@ def walk_ab(scene, cam, builds: dict, card: str, rounds: int = ROUNDS, ordered=N
               f"{float(w.occupied.sum()) / max(cells, 1.0):.4f} of them occupied, "
               f"{float(w.tests.sum()):.0f} tests", flush=True)
         walks = {"this": this}
-        for label, (lib, grid) in builds.items():
-            walks[label] = Walk(lib, grid, o, d, live, prev)
-        fns = {k: wk.run for k, wk in walks.items()}
-        if ordered is not None and bounce > 0:
-            lib, grid = ordered
-            first = cell_order(scene, o, d, live)
-            walks["this, cell order"] = wk = Walk(lib, grid, o, d, live, prev, first)
-
-            def run_ordered(wk=wk):
-                wk.order = cell_order(scene, o, d, live)
-                wk.run()
-
-            fns["this, cell order"] = run_ordered
-            walks["this, cell order given"] = given = Walk(lib, grid, o, d, live, prev, first)
-            fns["this, cell order given"] = given.run
-            fns["cell order alone"] = lambda: cell_order(scene, o, d, live)
-        ms = time_builds(fns, rounds)
-        if "cell order alone" in ms:
-            print(f"  cell order alone (key and sort): median "
-                  f"{statistics.median(ms['cell order alone']):.4f} ms queued", flush=True)
+        walks.update({label: Walk(lib, ops, o, d, live, prev) for label, lib in builds.items()})
+        ms = time_builds({k: wk.run for k, wk in walks.items()}, rounds)
         for label, wk in walks.items():
             off = wk.differs(this) if wk is not this else 0
             faults += off
@@ -430,9 +269,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="grid_walk_kernel's builds timed against each "
                                             "other on the --large frame's waves (the card)")
     p.add_argument("--against", type=Path, action="append", default=[],
-                   help="another source with the same zrc_grid_walk (repeatable)")
-    p.add_argument("--order", action="store_true",
-                   help="also time bounces 1 and 2 walked in cell_order")
+                   help="another source with the same zrc_grid_walk (repeatable; default "
+                        "grid_walk_one_thread.cu)")
     p.add_argument("--rounds", type=int, default=ROUNDS)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -444,26 +282,20 @@ def main(argv=None) -> int:
     card = card_line()
     print(card)
     dev = torch.device("cuda", 0)
+    sources = {src.name: src for src in args.against or [ONE_THREAD]}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        sources = {src.name: src for src in args.against}
-        sources.update({k: variant_source(v, tmp) for k, v in VARIANTS.items()})
-        if args.order:
-            sources[ORDERED] = variant_source({"GRID_ORDER": 1}, tmp)
         dirs = {k: tmp / str(n) for n, k in enumerate(sources)}
-        with ThreadPoolExecutor(min(len(sources) + 1, BUILDERS)) as pool:
+        with ThreadPoolExecutor(len(sources) + 1) as pool:
             jobs = {k: pool.submit(kernels.load_grid_walk_library, src, dirs[k])
                     for k, src in sources.items()}
             kernels.load()
-            libs = {k: j.result() for k, j in jobs.items()}
+            builds = {k: j.result() for k, j in jobs.items()}
         print(f"ptxas, this build: {walk_ptxas(kernels.build_log('path_trace'))}")
         for k, src in sources.items():
             print(f"ptxas, {k}: {walk_ptxas(kernels.build_log('grid_walk_other', src, dirs[k]))}")
         scene, cam = large_grid_scene(tmp, dev)
-        ops = bitmap_operands(scene.grid.kernel_operands())
-        ordered = (libs.pop(ORDERED), ops) if args.order else None
-        builds = {k: (lib, ops) for k, lib in libs.items()}
-        faults = walk_ab(scene, cam, builds, card, args.rounds, ordered)
+        faults = walk_ab(scene, cam, builds, card, args.rounds)
     print(f"grid_walk A/B: {faults} lanes differ in all")
     return 1 if faults else 0
 

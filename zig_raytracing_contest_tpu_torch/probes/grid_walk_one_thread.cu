@@ -1,10 +1,12 @@
 // grid_walk_kernel as the renderer ran it at commit 8108396: one thread
 // walks one ray to its end, and every DDA step waits on the gathered
-// 8-byte range of the cell it enters, empty or not.  Kept beside
-// path_trace.cu so that the redesign is timed against it in one call on
-// one card (probes/grid_walk.py, chip_smoke.py phase k): the same C entry
-// point zrc_grid_walk, the same ZrcGrid prefix (the later fields are not
-// read), and iterations[0] the loop's iteration count.  Build it with the
+// 8-byte range of the cell it enters, empty or not.  A probe fixture: the
+// design the walk of kernels/path_trace.cu is timed against in one call on
+// one card (probes/grid_walk.py, chip_smoke.py phase k), through the same
+// C entry point zrc_grid_walk, with iterations[0] the loop's iteration
+// count.  It reads ZrcGrid as path_trace.cu lays it out; a change to that
+// layout, or the walk's next redesign, retires this file (and phase k's
+// timing of it) rather than carrying it along.  Build it with the
 // renderer's flags (kernels.NVCC_FLAGS: --fmad=false).
 
 #include <cuda_runtime.h>
