@@ -148,12 +148,17 @@ l. the extensions: the Cornell box at 1920×1080, 4 bounces, held to the
 
 then multi-device pixel tiling and the host C++ libraries:
 
-m. parallel/sharding.py's render_scene_sharded against render_scene, bit
-   for bit with equal segments, the launch counts of each sharded frame
-   printed (set to 0 just before it, read just after) and each of its
-   kernels launched: the official frame over make_mesh() (every card) and
-   over 3 and 4 tiles on cuda:0, then make_mesh() and 4 tiles timed beside
-   render_scene in turns (a warmup each, 5 rounds); the ``--large`` frame
+m. parallel/sharding.py's render_scene_sharded as one CUDA graph a card:
+   each sharded frame's third call (a replay) against render_scene and
+   against its eager frame (graph=False), bit for bit with equal
+   segments, the launch counts of the eager frame and of the replay
+   printed (each set to 0 just before it, read just after), equal, and
+   each of its kernels launched, and each card's graph pool: the official
+   frame over make_mesh() (every card) and over 3 and 4 tiles on cuda:0;
+   finish_frame (the first device's end of a frame over several cards)
+   against render_scene and its ms; render_scene, make_mesh() and 4 tiles
+   as graphs and 4 tiles eager timed in turns (a warmup each, 5 rounds);
+   the ``--large`` frame
    over 3 tiles (trace_emit, shade); the Cornell box at 320×180, 2 spp,
    with nee, russian_roulette and pbr, through the grid (grid_walk) and
    through the MXU bake (trace_emit), over 4 tiles; the CLI with ``--devices`` above the
@@ -1788,29 +1793,86 @@ def textured_box(path: Path) -> Path:
 
 
 def sharded_same(scene, cam, cfg, mesh, what, want):
-    """One frame through render_scene_sharded over ``mesh`` against
-    render_scene: bit-identical images and equal segments; the launch
-    counts of the sharded frame (set to 0 just before it, read just after)
-    printed, and each kernel of ``want`` launched at least once."""
+    """One frame through render_scene_sharded over ``mesh`` as a CUDA graph
+    replay (its third frame: warm-up, capture, replay) against
+    render_scene and against the eager sharded frame (graph=False):
+    bit-identical images and equal segments; the launch counts of the
+    eager frame and of the replay (each set to 0 just before it, read just
+    after) printed and equal, and each kernel of ``want`` launched at
+    least once; each device's graph pool.  Returns the pools in bytes."""
     import numpy as np
 
     from zig_raytracing_contest_tpu_torch import kernels
-    from zig_raytracing_contest_tpu_torch.parallel.sharding import render_scene_sharded
-    from zig_raytracing_contest_tpu_torch.render.pipeline import render_scene
+    from zig_raytracing_contest_tpu_torch.parallel import sharding
+    from zig_raytracing_contest_tpu_torch.render.pipeline import frame_graph, render_scene
 
     img_s, st_s = render_scene(scene, cam, cfg)
-    kernels.reset_launches()
-    img_m, st_m = render_scene_sharded(scene, cam, cfg, mesh)
-    got = {k: v for k, v in kernels.LAUNCHES.items() if v}
-    same = img_m.shape == img_s.shape and bool(np.array_equal(img_m, img_s))
-    print(f"  {what} over {len(mesh)} tile(s) on {sorted({str(d) for d in mesh})}: "
-          f"bit-identical to render_scene {same}, segments {st_m.segments} vs "
-          f"{st_s.segments}, launches {got}")
-    if not same or st_m.segments != st_s.segments:
-        fail(f"{what}: the sharded frame differs from render_scene")
+    got = {}
+    for graph in (False, True):
+        for _ in range(2 if graph else 0):  # the graph's warm-up and capture
+            sharding.render_scene_sharded(scene, cam, cfg, mesh)
+        kernels.reset_launches()
+        img_m, st_m = sharding.render_scene_sharded(scene, cam, cfg, mesh, graph=graph)
+        got[graph] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        same = img_m.shape == img_s.shape and bool(np.array_equal(img_m, img_s))
+        if not graph:
+            img_e, st_e = img_m, st_m
+        else:
+            same &= bool(np.array_equal(img_m, img_e)) and st_m.segments == st_e.segments
+        if not same or st_m.segments != st_s.segments:
+            fail(f"{what}: the sharded frame (graph {graph}) differs from render_scene")
+    plans = sharding.device_plans(scene, cam, cfg, mesh)
+    graphs = {d: frame_graph(sharding.replica(scene, d), p) for d, p in plans.items()}
+    pools = {str(d): g.pool_bytes for d, g in graphs.items()}
+    print(f"  {what} over {len(mesh)} tile(s) on {sorted({str(d) for d in mesh})}: graph "
+          f"replay bit-identical to render_scene and to the eager sharded frame True, "
+          f"segments {st_m.segments} vs {st_s.segments}, launches replay {got[True]}, "
+          f"eager {got[False]}; pool per card "
+          f"{ {d: f'{b / 2**20:.1f} MiB' for d, b in pools.items()} }")
+    if any(g.replay is None for g in graphs.values()):
+        fail(f"{what}: a card's sharded frame is not a CUDA graph replay")
+    if got[True] != got[False]:
+        fail(f"{what}: the replay launched {got[True]}, the eager frame {got[False]}")
     for name in want:
-        if not got.get(name):
+        if not got[True].get(name):
             fail(f"{what}: the sharded frame launched no {name}")
+    return pools
+
+
+def finish_check(scene, cam, cfg, card) -> None:
+    """sharding.finish_frame, which ends a frame over several distinct
+    cards on the first one: on one card it is never on the sharded path
+    (the encode is in the card's graph), so the 4-tile plan's waves are
+    rendered without their encode and finished by it as if from four
+    cards (no peer copy), bit for bit against render_scene; its ms by CUDA
+    events."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from zig_raytracing_contest_tpu_torch.parallel import sharding
+    from zig_raytracing_contest_tpu_torch.render import pipeline
+    from zig_raytracing_contest_tpu_torch.render.wavefront import build_gen_par
+    from zig_raytracing_contest_tpu_torch.utils.timing import cuda_ms
+
+    mesh = (scene.device,) * 4
+    plan = dataclasses.replace(sharding.device_plans(scene, cam, cfg, mesh)[scene.device],
+                               encode=False)
+    par = build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
+    outs = {scene.device: pipeline._render_frame_waves(scene, plan, par, None, ext=plan.ext)}
+    perm = pipeline.device_slot_map(scene, plan.width, plan.height, plan.tiles_x)
+    img, segs = pipeline.image_to_host(*sharding.finish_frame(outs, mesh, plan, perm), plan)
+    want, st = pipeline.render_scene(scene, cam, cfg)
+    same = bool(np.array_equal(img, want)) and segs == st.segments
+    ms = cuda_ms(lambda: sharding.finish_frame(outs, mesh, plan, perm), 20)
+    print(f"  finish_frame on the first device (4 tiles' {plan.tile_slots} slots gathered, "
+          f"permuted, encoded; no peer copy): {ms:.4f} ms (CUDA events, mean of 20), "
+          f"bit-identical to render_scene {same} ({card})")
+    if not same:
+        fail("finish_frame's image differs from render_scene's")
+    del outs
+    torch.cuda.empty_cache()
 
 
 def sharding_phases(card, path, scene, cam, cfg) -> None:
@@ -1849,10 +1911,14 @@ def sharding_phases(card, path, scene, cam, cfg) -> None:
     for what, mesh in meshes.items():
         sharded_same(scene, cam, cfg, mesh, f"official {what}",
                      ("path_trace_gen", "path_trace"))
-    # timed beside render_scene, in turns: a warmup each, then 5 rounds
+    finish_check(scene, cam, cfg, card)
+    # timed in turns: render_scene, the sharded graphs, the eager 4 tiles;
+    # a warmup each, then 5 rounds
     runs = {"render_scene": lambda: render_scene(scene, cam, cfg),
-            "sharded make_mesh()": lambda: render_scene_sharded(scene, cam, cfg, cards),
-            "sharded 4 tiles": lambda: render_scene_sharded(scene, cam, cfg, (dev,) * 4)}
+            "sharded make_mesh() graph": lambda: render_scene_sharded(scene, cam, cfg, cards),
+            "sharded 4 tiles graph": lambda: render_scene_sharded(scene, cam, cfg, (dev,) * 4),
+            "sharded 4 tiles eager": lambda: render_scene_sharded(scene, cam, cfg, (dev,) * 4,
+                                                                  graph=False)}
     rates = {k: [] for k in runs}
     for fn in runs.values():
         fn()

@@ -514,6 +514,54 @@ def test_sharded_frame_matches_render_scene_on_cuda(tmp_path):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mesh_kind", ["4 tiles", "make_mesh"])
+def test_sharded_graph_frame_on_cuda(tmp_path, mesh_kind):
+    """The sharded frame as one CUDA graph a card, over (cuda:0,) * 4 and
+    make_mesh(): two graph frames launch what two eager frames
+    (graph=False) launch; the third call, a replay, equals render_scene
+    and the eager sharded frame bit for bit with equal segments, and so
+    does a second camera through the same graphs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    import types
+
+    import numpy as np
+
+    from zig_raytracing_contest_tpu_torch import kernels
+    from zig_raytracing_contest_tpu_torch.parallel import sharding
+    from zig_raytracing_contest_tpu_torch.render import pipeline
+
+    scene, cam, cfg = _graph_scenes(tmp_path)
+    mesh = (torch.device("cuda", 0),) * 4 if mesh_kind == "4 tiles" else sharding.make_mesh()
+    cam2 = types.SimpleNamespace(width=cam.width, height=cam.height,
+                                 origin=np.asarray(cam.origin) + np.float32([0.4, -0.2, 0.3]),
+                                 lower_left_corner=cam.lower_left_corner, right=cam.right,
+                                 up=cam.up)
+    counts = {}
+    for graph in (False, True):
+        kernels.reset_launches()
+        for _ in range(2):
+            eager = sharding.render_scene_sharded(scene, cam, cfg, mesh, graph=graph)
+        counts[graph] = dict(kernels.LAUNCHES)
+    assert counts[True] == counts[False] and counts[True]["path_trace_gen"] > 0
+    plans = sharding.device_plans(scene, cam, cfg, mesh)
+    graphs = [pipeline.frame_graph(sharding.replica(scene, d), p) for d, p in plans.items()]
+    assert all(g.replay is not None and g.pool_bytes > 0 for g in graphs)
+    for c in (cam, cam2):
+        single, st_s = pipeline.render_scene(scene, c, cfg)
+        img, st = sharding.render_scene_sharded(scene, c, cfg, mesh)
+        np.testing.assert_array_equal(img, single)
+        assert st.segments == st_s.segments
+        if c is cam:
+            np.testing.assert_array_equal(img, eager[0])
+            assert st.segments == eager[1].segments
+    assert not np.array_equal(single, eager[0])
+    # make_mesh() on one card is render_scene's plan: one graph, its frames too
+    shared = plans[mesh[0]] == pipeline.frame_plan(scene, cam, cfg)
+    assert all(g.frames == (6 if shared else 4) for g in graphs)
+
+
+@pytest.mark.cuda
 def test_ray_sort_key_kernel_matches_twin_on_cuda(tmp_path):
     """ray_sort_key_kernel equals ray_sort_key_ref bit for bit: on the full
     bounce-1 wave of a whole-path frame (the mid resort's input), on a sorted

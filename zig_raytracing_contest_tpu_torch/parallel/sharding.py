@@ -9,11 +9,16 @@ exactly the global ray ids of its own slots, and one gather to the first
 device ends the frame.  The per-ray counter RNG keys on the global ray id,
 so the tiled image is bit-identical to ``render/pipeline.render_scene``'s.
 
-A device may appear more than once: its tiles then render in turn.  That
-is how N tiles run on one card, or on the CPU.  Each distinct device's
-tiles are issued from a host thread of their own, so several cards work
-at once.  The frame is finished on the first device by the same
-``finalize_image_rows`` that ``render_scene`` uses.
+A device may appear more than once: its tiles then render in turn, in one
+device program.  That is how N tiles run on one card, or on the CPU.  As
+the JAX package's frame is one ``shard_map`` program with a ``fori_loop``
+of waves a device, each distinct device here renders its tiles as one
+``FramePlan`` of ``render/pipeline.py``: on a card one CUDA graph replay a
+frame, issued from a host thread a card, on a replica of the scene kept
+across frames.  With one distinct device the encode is in that program;
+with several, the framebuffers are copied to the first device and
+finished there by the same ``finalize_image_rows`` that ``render_scene``
+uses, through the device slot map.
 """
 
 from __future__ import annotations
@@ -26,14 +31,20 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..render import pipeline
 from ..render.pipeline import (
+    FramePlan,
     RenderStats,
+    _render_frame_waves,
+    device_slot_map,
     finalize_image_rows,
+    frame_graph,
+    frame_plan,
+    image_to_host,
     prepare_scene,
-    slot_geometry,
-    slot_of_pixel,
+    render_frame_graph,
 )
-from ..render.wavefront import build_gen_par, render_wave_rows, whole_path_regime
+from ..render.wavefront import build_gen_par
 from ..scene.camera import Camera
 from ..scene.types import TorchScene
 from ..utils.image_io import write_png
@@ -65,34 +76,82 @@ def make_mesh(num_devices: int | None = None, device="cuda") -> Mesh:
     return tuple(torch.device("cuda", i) for i in range(n))
 
 
-def _tile_fb(scene: TorchScene, camera: Camera, config: Config, tile: int, *,
-             slots_per_dev: int, num_slots: int, wave_size: int, waves_per_dev: int,
-             tiles_x: int):
-    """One tile's framebuffer (3, waves_per_dev · wave pixels), field-major,
-    and its segments (0-d int64), rendered on the scene's device."""
-    spp = config.num_samples
-    wave_pixels = wave_size // spp
-    slot0 = tile * slots_per_dev
-    # rows past this tile or the real slot space are zeroed by
-    # render_wave_rows, so a final wave may spill into the padded columns
-    slot_cap = min(slot0 + slots_per_dev, num_slots)
-    dev = scene.device
-    par = build_gen_par(scene, camera.origin, camera.lower_left_corner, camera.right,
-                        camera.up)
-    fb = torch.zeros((3, waves_per_dev * wave_pixels), dtype=torch.float32, device=dev)
-    segments = torch.zeros((), dtype=torch.int64, device=dev)
-    for w in range(waves_per_dev):
-        slot_base = slot0 + w * wave_pixels
-        if slot_base >= slot_cap:
-            break  # a wave with no real slot adds exact zeros
-        rows3, segs = render_wave_rows(
-            scene, par, camera.width, camera.height, spp, config.max_bounce, slot_base,
-            slot_cap, wave_size, config.seed, tiles_x, ext=config.ext_flags,
-        )
-        lp0 = w * wave_pixels
-        fb[:, lp0: lp0 + wave_pixels] += rows3.reshape(3, wave_pixels, spp).sum(dim=2)
-        segments += segs
-    return fb, segments
+def replica(scene: TorchScene, device: torch.device) -> TorchScene:
+    """``scene`` on ``device``: the scene itself where it lies, else its
+    copy, made once and kept in the scene's frame cache, so the copy's
+    CUDA graphs (which bake its tensors' addresses) live across frames."""
+    if scene.device == device:
+        return scene
+    cache = scene.frame_cache()
+    key = ("replica", device)
+    if key not in cache:
+        cache[key] = scene.to(device)
+    return cache[key]
+
+
+def device_plans(scene: TorchScene, camera: Camera, config: Config,
+                 mesh: Mesh) -> dict:
+    """{device: its FramePlan}, one per distinct device of ``mesh`` in mesh
+    order: the tiles of ``mesh`` that lie on it.  With one distinct device
+    its plan renders every tile and ends with the encode."""
+    devices = dict.fromkeys(mesh)
+    tiles = {d: [t for t, m in enumerate(mesh) if m == d] for d in devices}
+    return {d: frame_plan(scene, camera, config, len(mesh),
+                          None if len(devices) == 1 else tiles[d]) for d in devices}
+
+
+def _device_frames(replicas: dict, plans: dict, camera: Camera, as_graph: bool) -> dict:
+    """{device: ``_render_frame_waves``' outputs} of one frame: through each
+    device's FrameGraph (``as_graph``), else eagerly.  Warm-ups and
+    captures run one device at a time from this thread: a CUDA call from
+    another thread can invalidate a capture, and a capture counts the
+    launches of the whole process.  Replays and eager frames are issued
+    from a host thread a device, so several cards work at once."""
+
+    def run(d):
+        ctx = torch.cuda.device(d) if d.type == "cuda" else contextlib.nullcontext()
+        with ctx:
+            scene, plan = replicas[d], plans[d]
+            if as_graph:
+                return render_frame_graph(scene, plan, camera)
+            par = build_gen_par(scene, camera.origin, camera.lower_left_corner,
+                                camera.right, camera.up)
+            slot_perm = (device_slot_map(scene, plan.width, plan.height, plan.tiles_x)
+                         if plan.encode else None)
+            return _render_frame_waves(scene, plan, par, slot_perm, ext=plan.ext)
+
+    out = {}
+    if as_graph:
+        for d in plans:
+            if frame_graph(replicas[d], plans[d]).replay is None:
+                out[d] = run(d)
+    rest = [d for d in plans if d not in out]
+    if len(rest) > 1:
+        with ThreadPoolExecutor(len(rest)) as pool:
+            out.update(zip(rest, pool.map(run, rest)))
+    else:
+        out.update((d, run(d)) for d in rest)
+    return out
+
+
+def finish_frame(outs: dict, mesh: Mesh, plan: FramePlan,
+                 slot_perm: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(img (num_pixels·3,) u8, segments 0-d int64) on ``mesh[0]`` from
+    the devices' framebuffers and segments (``outs``: {device: (fb, _,
+    segments)}, each fb its tiles' ``plan.tile_cols`` columns in turn):
+    each tile's slots copied to the first device without blocking the
+    host, in tile order, then mapped back to raster pixels and encoded
+    there as ``render_scene`` does."""
+    first = mesh[0]
+    seen = dict.fromkeys(outs, 0)
+    cols = []
+    for d in mesh:
+        c0 = seen[d] * plan.tile_cols
+        seen[d] += 1
+        cols.append(outs[d][0][:, c0 : c0 + plan.tile_slots].to(first, non_blocking=True))
+    segments = torch.stack([o[2].to(first, non_blocking=True) for o in outs.values()]).sum()
+    return finalize_image_rows(torch.cat(cols, dim=1), plan.num_pixels, plan.spp,
+                               slot_perm), segments
 
 
 def render_scene_sharded(
@@ -101,79 +160,46 @@ def render_scene_sharded(
     config: Config,
     mesh: Mesh | None = None,
     timers: PhaseTimers | None = None,
+    graph: bool = True,
 ) -> tuple[np.ndarray, RenderStats]:
     """Render over the tiles of ``mesh`` (default ``make_mesh()``: every
     visible card) to an (h, w, 3) uint8 array; bit-identical to
-    ``render_scene`` with equal segments."""
+    ``render_scene`` with equal segments.
+
+    Each distinct device renders its tiles as one device program
+    (``device_plans``), on its replica of the scene (``replica``): on a
+    card, one CUDA graph replay of every wave of its tiles from the third
+    frame of a frame key on (the first runs eagerly, the second captures),
+    as ``render_scene``'s frames do; ``graph=False`` and CPU meshes run
+    the same waves eagerly.  With one distinct device the program ends
+    with the encode, so the frame is one replay and one synchronisation;
+    with several, ``finish_frame`` ends it on the first device."""
     timers = timers or PhaseTimers()
     mesh = tuple(torch.device(d) for d in (make_mesh() if mesh is None else mesh))
-    n = len(mesh)
-    if n < 1:
+    if not mesh:
         raise ValueError("the mesh has no device")
-    w, h, spp = camera.width, camera.height, config.num_samples
-    num_pixels = w * h
-    if num_pixels * spp >= 1 << 31:
-        raise ValueError(
-            f"{num_pixels} pixels × {spp} spp = {num_pixels * spp} rays "
-            f"exceeds the int32 ray-id space (2^31); reduce resolution or spp."
-        )
-    num_slots, tiles_x = slot_geometry(w, h, whole_path_regime(scene, config.ext_flags))
-    if num_slots * spp >= 1 << 31:
-        raise ValueError("slot count × spp exceeds int32 ray-id space")
-    # Tiled slot order needs tile-aligned (1024-slot) device boundaries so
-    # the kernels' slot decode stays tile-exact; raster order keeps the
-    # reference-like arbitrary contiguous split.
-    if tiles_x:
-        slots_per_dev = -(-(-(-num_slots // n)) // 1024) * 1024
-    else:
-        slots_per_dev = -(-num_slots // n)
-    rays_per_dev = slots_per_dev * spp
-    # Wave quantum: spp (whole pixel slots) × 1024 (32×32 pixel tiles);
-    # slot math is exact below 2^23 rays per wave.
-    quantum = spp * 1024
-    wave_size = max(
-        quantum,
-        min(config.wave_size, rays_per_dev + quantum - 1) // quantum * quantum,
-    )
-    wave_size = min(wave_size, (1 << 23) // quantum * quantum)
-    waves_per_dev = -(-rays_per_dev // wave_size)
+    plans = device_plans(scene, camera, config, mesh)
+    plan = plans[mesh[0]]
+    replicas = {d: replica(scene, d) for d in plans}
+    as_graph = graph and all(pipeline.graph_route(replicas[d], plan.ext) for d in plans)
     log.info("Num samples: %d, max bounce %d", config.num_samples, config.max_bounce)
-    log.info("Mesh: %d tile(s) on %s, %d slots/tile, %d wave(s) of %d rays",
-             n, ", ".join(sorted({str(d) for d in mesh})), slots_per_dev, waves_per_dev,
-             wave_size)
-
-    # the scene once per distinct device
-    replicas = {}
-    for d in mesh:
-        if d not in replicas:
-            replicas[d] = scene if scene.device == d else scene.to(d)
-    geometry = dict(slots_per_dev=slots_per_dev, num_slots=num_slots, wave_size=wave_size,
-                    waves_per_dev=waves_per_dev, tiles_x=tiles_x)
-
-    def render_device(d):
-        """Every tile of device ``d``, in turn: {tile: (fb, segments)}."""
-        ctx = torch.cuda.device(d) if d.type == "cuda" else contextlib.nullcontext()
-        with ctx:
-            return {tile: _tile_fb(replicas[d], camera, config, tile, **geometry)
-                    for tile, m in enumerate(mesh) if m == d}
+    log.info("Mesh: %d tile(s) on %s, %d slots/tile, %d wave(s) of %d rays, %s", len(mesh),
+             ", ".join(str(d) for d in plans), plan.tile_slots, plan.num_waves,
+             plan.wave_size, "one CUDA graph a device" if as_graph else "wave by wave")
 
     with timers.phase("render", "Rendered"):
-        tiles = {}
-        with ThreadPoolExecutor(len(replicas)) as pool:
-            for got in pool.map(render_device, replicas):
-                tiles.update(got)
-        # strip the per-tile padding, gather to the first device, and finish
-        # there as render_scene does: tiled slots map back to raster pixels
-        fb = torch.cat([tiles[t][0][:, :slots_per_dev].to(mesh[0]) for t in range(n)],
-                       dim=1)
-        slot_perm = (torch.from_numpy(slot_of_pixel(w, h, tiles_x)).to(mesh[0])
-                     if tiles_x else None)
-        img = finalize_image_rows(fb, num_pixels, spp, slot_perm)
-        img = img.cpu().numpy().reshape(h, w, 3)
-        segments = sum(int(tiles[t][1]) for t in range(n))
+        outs = _device_frames(replicas, plans, camera, as_graph)
+        if plan.encode:
+            _, img, segments = outs[mesh[0]]
+        else:
+            first = replicas[mesh[0]]
+            img, segments = finish_frame(
+                outs, mesh, plan, device_slot_map(first, plan.width, plan.height,
+                                                  plan.tiles_x))
+        img, segments = image_to_host(img, segments, plan)
 
     stats = RenderStats(
-        width=w, height=h, spp=spp, max_bounce=config.max_bounce,
+        width=plan.width, height=plan.height, spp=plan.spp, max_bounce=config.max_bounce,
         segments=segments, phases=timers.phases,
     )
     return img, stats
