@@ -19,7 +19,9 @@ Phases, each of which exits non-zero when it fails:
    inputs and in the main path's order (bounce 0, sort, bounce 1, resort,
    bounces 2-3): one wave of 2^16 rays, then one full wave of the main path
    (522240 rays), timing the three calls at the full wave beside their
-   bounds; the lane occupancy of the one-thread-per-ray flat loop on 64
+   bounds; each call's work counters against the twin's (rays alive and
+   boxes tested exactly, tiles swept exactly from the same input bits:
+   bounce 1); the lane occupancy of the one-thread-per-ray flat loop on 64
    warps of each bounce's wave (walk_check.flat_occupancy);
 5. render a 320×180, 3 spp, 4-bounce frame with the kernels and with the
    twins and hold them to the golden gates;
@@ -40,8 +42,11 @@ b. hold trace_emit_aux and shade_fused against their twins on the card:
    inputs (bounce 0's trace on 2^16 lanes spread over the wave, the rest on
    every lane); trace_emit_kernel on 1024 lanes spread over the full
    bounce-1 wave against probes/walk_check.walk_heap_ref's replay of its
-   walk, bit for bit in t, u, v, idx, tiles swept and boxes tested; time
-   each kernel at the full wave and each twin at 2^16 rays;
+   walk, bit for bit in t, u, v, idx, tiles swept and boxes tested; the
+   trace again with the main path's work counters, its aux bit for bit the
+   uncounted launch's and its counters its aux rows 4-6 summed, exactly;
+   time each kernel at the full wave (the trace with its counters) and
+   each twin at 2^16 rays;
 c. render the scene at 160×90 with the kernels and with the twins, sorted
    and unsorted, and hold them to the golden gates;
 d. render the ``--large`` frame: a warmup, then 5 timed renders; the
@@ -57,7 +62,8 @@ f. the 500k-triangle terrain (``large_scene(side=500)``, the 500k row of
    (bounce 0, then sorted bounce 1) and on the full wave (the trace on 2^16
    lanes spread over it); trace_stream_kernel against walk_heap_ref's
    replay of its group-heap walk on 1024 lanes of the bounce-1 wave, bit
-   for bit, as in phase b; the kernel timed at the full bounce-1 wave beside
+   for bit, as in phase b, and its counters as there; the kernel timed
+   (with its counters) at the full bounce-1 wave beside
    trace_emit_kernel on the same inputs (the two walks' A/B); the frame: a
    warmup and 5 timed renders, launch counts checked; one profile;
 g. a 2-Mtexel bank: the ``--large`` geometry with its terrain texture
@@ -118,7 +124,8 @@ k. the ``--large`` terrain with ``backend: "grid"`` at the default 128³
    (duplicated references) and C (cells); bounces 0, 1 and 2 of the
    frame's one wave through grid_walk_kernel against its twin
    trace_wave_ref, lane by lane (t, u, v bits, the reference, the iteration
-   count: a lane that differs fails the run), the kernel and the walk of
+   count and the iterations summed over the rays: a lane or a count that
+   differs fails the run), the kernel (with its sum) and the walk of
    commit 8108396, one thread a ray (probes/grid_walk_one_thread.cu, built
    beside the sources, held to the same bits) timed queued behind a spin
    in turns (medians of 8 readings each), the twin by CUDA events, the bound from the twin's
@@ -189,12 +196,9 @@ n. bench.measure on its official row (5 timed frames) and on its Sponza
 
 then the whole-frame device call (render.pipeline: one CUDA graph a frame):
 
-o. the eager wave loop's host time, part by part, on the official and Duck
-   frames (probes/frame_host.py: the slot map, each wave's dispatch,
-   ray_sort_key, the encode, the wait and copy to the host; the host
-   operators' self CPU time); ray_sort_key_kernel against its twin, bit for
-   bit, on the official, Duck, --large and 500k waves after bounce 1 and on
-   the built NaN lanes of probes/sort_key.py, timed at the official and
+o. ray_sort_key_kernel against its twin, bit for bit, on the official,
+   Duck, --large and 500k waves after bounce 1 and on the built NaN lanes
+   of probes/sort_key.py, timed at the official and
    --large waves beside the twin and its bound, with its launches a frame;
    the frame as one CUDA graph against the eager loop (graph=False) on the
    official frame (and a second camera through the same graph), Duck,
@@ -426,6 +430,33 @@ def compare_trace(name, scene, state, prev, k, t):
     return err
 
 
+def held_counts(name: str, got, want) -> None:
+    """A kernel's work counters ``got`` held to ``want``, exactly: both are
+    sums of integers."""
+    got, want = [int(x) for x in got], [int(x) for x in want]
+    print(f"  {name}: work counters {got}, held to {want}")
+    if got != want:
+        fail(f"{name}: work counters {got}, want {want}")
+
+
+def counted_trace(name, scene, state, table, prev, aux, alive: int):
+    """trace_emit_aux on the same inputs as ``aux`` (its uncounted launch),
+    with the work counters the main path passes: the same aux, bit for bit,
+    and counters equal to its rows 4-6 summed, the rays alive to
+    ``alive``.  Returns the counters (for the timed calls)."""
+    import torch
+
+    from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
+
+    counts = torch.zeros(3, dtype=torch.int64, device=state.device)
+    ac = mi.trace_emit_aux(scene, state, table, prev, counts=counts)[0]
+    if not torch.equal(ac.view(torch.int32), aux.view(torch.int32)):
+        fail(f"{name}: the counted launch's aux differs from the uncounted one's")
+    held_counts(name, counts.tolist(), [alive, int(ac[5].to(torch.int64).sum()),
+                                        int(ac[6].to(torch.int64).sum())])
+    return counts
+
+
 def walk_exact(name, scene, state, prev, aux, idx, groups: bool) -> None:
     """A per-bounce trace kernel's output on a (16, R) wave against
     walk_check.walk_heap_ref's replay of its walk (the group heap when
@@ -589,12 +620,14 @@ def large_phases(card, timing, errs, bounds, launches) -> None:
                        (af1, idf1, rf1), tw1)
     walk_exact("trace_emit_kernel (full wave, bounce 1, prev)", scene, stf1, prevf, af1,
                idf1, False)
+    counts = counted_trace("trace_emit_aux (full wave, bounce 1, prev)", scene, stf1, table,
+                           prevf, af1, int((tw1[0][4] > 0).sum()))
     es3 = compare("shade_fused (full wave, bounce 1)", sf1, None,
                   fused.shade_fused_ref(scene, stf1, af1, idf1, 1, rf1), None)
     errs["trace_emit"] = max(e0, e1, e2, e3)
     errs["shade"] = max(es0, es1, es2, es3)
     timing["trace_emit"] = (
-        cuda_ms(lambda: mi.trace_emit_aux(scene, stf1, table, prevf), 5),
+        cuda_ms(lambda: mi.trace_emit_aux(scene, stf1, table, prevf, counts=counts), 5),
         cuda_ms(lambda: mi.trace_emit_aux_ref(scene, st1, table, prev1), 2),
         full, small,
     )
@@ -640,7 +673,7 @@ def large_phases(card, timing, errs, bounds, launches) -> None:
         "trace_emit_aux, record off (full wave, bounce 1, prev)", scene, stf1, prevf,
         (an, idn, None), (tw1[0], tw1[1], None))
     timing["trace_emit_norec"] = (
-        cuda_ms(lambda: mi.trace_emit_aux(scene, stf1, None, prevf), 5),
+        cuda_ms(lambda: mi.trace_emit_aux(scene, stf1, None, prevf, counts=counts), 5),
         cuda_ms(lambda: mi.trace_emit_aux_ref(scene, st1, None, prev1), 2),
         full, small,
     )
@@ -824,12 +857,14 @@ def stream_phases(card, timing, errs, bounds, launches) -> None:
                        scene, st_l1, pv_l1, (af1[:, lane], idf1[lane], rf1[:, lane]), tw1)
     walk_exact("trace_stream_kernel (500k, full wave, bounce 1, prev)", scene, stf1, prevf,
                af1, idf1, True)
+    counts = counted_trace("trace_emit_aux (500k, full wave, bounce 1, prev)", scene, stf1,
+                           table, prevf, af1, int((stf1[12] > 0).sum()))
     es3 = compare("shade_fused (500k, full wave, bounce 1)", sf1, None,
                   fused.shade_fused_ref(scene, stf1, af1, idf1, 1, rf1), None)
     errs["trace_stream"] = max(e0, e1, e2, e3)
     errs["shade"] = max(errs["shade"], es0, es1, es2, es3)
     timing["trace_stream"] = (
-        cuda_ms(lambda: mi.trace_emit_aux(scene, stf1, table, prevf), 5),
+        cuda_ms(lambda: mi.trace_emit_aux(scene, stf1, table, prevf, counts=counts), 5),
         cuda_ms(lambda: mi.trace_emit_aux_ref(scene, st1, table, prev1), 1),
         full, small,
     )
@@ -1553,7 +1588,8 @@ def grid_phases(card, timing, errs, bounds, launches, base_lib) -> None:
     prev = None
     ops = scene.grid.kernel_operands()
     for bounce in range(L_BOUNCES):
-        off, k_it, t_it, res = walk_differs(scene, o, d, live, prev)
+        it_sums = []
+        off, k_it, t_it, res = walk_differs(scene, o, d, live, prev, it_sums)
         this, base = Walk(None, ops, o, d, live, prev), Walk(base_lib, ops, o, d, live, prev)
         ms = time_builds({"this": this.run, "base": base.run}, GW_ROUNDS)
         k_ms, base_ms = statistics.median(ms["this"]), statistics.median(ms["base"])
@@ -1578,6 +1614,8 @@ def grid_phases(card, timing, errs, bounds, launches, base_lib) -> None:
                                             "base_ms": base_ms, "ms_readings": ms["this"],
                                             "base_readings": ms["base"],
                                             "occupied_share": occupied, **b, "card": card}))
+        held_counts(f"grid_walk_kernel's iteration sum, bounce {bounce}", it_sums[0][:1],
+                    it_sums[0][1:])
         if off or k_it != t_it or base_off:
             fail(f"grid_walk_kernel differs from trace_wave_ref or from commit 8108396's "
                  f"walk at bounce {bounce}")
@@ -1609,10 +1647,11 @@ def grid_phases(card, timing, errs, bounds, launches, base_lib) -> None:
     ex = scene.grid.dup_to_tri[torch.from_numpy(rng.integers(0, scene.grid.num_refs, 1 << 16))
                                .to(dev)]
     for label, exclude in (("edge lanes", None), ("edge lanes, excluded", ex)):
-        off, k_it, t_it, _ = walk_differs(scene, eo, ed, ea, exclude)
+        it_sums = []
+        off, k_it, t_it, _ = walk_differs(scene, eo, ed, ea, exclude, it_sums)
         print(f"  grid_walk_kernel vs trace_wave_ref, {label}: {off} of {eo.shape[0]} lanes "
-              f"differ, iterations {k_it} vs {t_it}")
-        if off or k_it != t_it:
+              f"differ, iterations {k_it} vs {t_it}, summed over the rays {it_sums[0]}")
+        if off or k_it != t_it or it_sums[0][0] != it_sums[0][1]:
             fail(f"grid_walk_kernel differs from trace_wave_ref on the {label}")
     del eo, ed, ea, ex
     # the same terrain on a grid of odd sides (its rows no multiple of 32
@@ -1862,9 +1901,9 @@ def finish_check(scene, cam, cfg, card) -> None:
     par = build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
     outs = {scene.device: pipeline._render_frame_waves(scene, plan, par, None, ext=plan.ext)}
     perm = pipeline.device_slot_map(scene, plan.width, plan.height, plan.tiles_x)
-    img, segs = pipeline.image_to_host(*sharding.finish_frame(outs, mesh, plan, perm), plan)
+    img, tally = pipeline.image_to_host(*sharding.finish_frame(outs, mesh, plan, perm), plan)
     want, st = pipeline.render_scene(scene, cam, cfg)
-    same = bool(np.array_equal(img, want)) and segs == st.segments
+    same = bool(np.array_equal(img, want)) and tally[0] == st.segments
     ms = cuda_ms(lambda: sharding.finish_frame(outs, mesh, plan, perm), 20)
     print(f"  finish_frame on the first device (4 tiles' {plan.tile_slots} slots gathered, "
           f"permuted, encoded; no peer copy): {ms:.4f} ms (CUDA events, mean of 20), "
@@ -2199,6 +2238,31 @@ def whole_path_bounce1(scene, cam, cfg):
     return fused.path_trace_fused(scene, st, 1, bounce0=1, prev=idx)
 
 
+def profiled_frame(scene, cam, cfg, graph: bool) -> dict:
+    """One frame under torch.profiler: its wall, the device's busy time (None
+    where the profiler saw no device time), the device operations and the
+    CUDA launch calls the host made."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from zig_raytracing_contest_tpu_torch.render import pipeline
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipeline.render_scene(scene, cam, cfg, graph=graph)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    avg = prof.key_averages()
+    device = [e for e in avg if str(e.device_type).endswith("CUDA") and e.device_time_total > 0]
+    launches = sum(e.count for e in avg
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                                "cudaGraphLaunch"))
+    return {"profiled_wall_ms": wall,
+            "device_busy_ms": sum(e.device_time_total for e in device) / 1e3 if device else None,
+            "device_ops": sum(e.count for e in device), "host_launch_calls": launches}
+
+
 def graph_ab(what, scene, cam, cfg, card, rounds: int, cam2=None) -> dict:
     """A frame as one CUDA graph against the eager wave loop (graph=False)
     on the card: the graph's frames (warm-up, capture, replays) bit for bit
@@ -2210,8 +2274,7 @@ def graph_ab(what, scene, cam, cfg, card, rounds: int, cam2=None) -> dict:
     import numpy as np
     import torch
 
-    from zig_raytracing_contest_tpu_torch import bench, kernels
-    from zig_raytracing_contest_tpu_torch.probes.frame_host import profiled
+    from zig_raytracing_contest_tpu_torch import kernels
     from zig_raytracing_contest_tpu_torch.render import pipeline
 
     def frame(graph, c=cam):
@@ -2254,9 +2317,8 @@ def graph_ab(what, scene, cam, cfg, card, rounds: int, cam2=None) -> dict:
     for _ in range(rounds):
         for graph in (False, True, True, False):
             walls[graph].append(frame(graph)[2])
-    p = bench.Prepared(scene, cam, cfg, {})
     for graph, name in ((False, "eager"), (True, "graph")):
-        prof = profiled(p, {"graph": graph})
+        prof = profiled_frame(scene, cam, cfg, graph)
         wall = statistics.median(walls[graph])
         out[name] = {"walls_ms": walls[graph], "wall_ms": wall,
                      "mrays_s": want_segs / wall / 1e3,
@@ -2291,7 +2353,7 @@ def frame_phases(card, timing, errs, bounds, official) -> None:
     import torch
 
     from zig_raytracing_contest_tpu_torch import bench, kernels
-    from zig_raytracing_contest_tpu_torch.probes import frame_host, sort_key
+    from zig_raytracing_contest_tpu_torch.probes import sort_key
     from zig_raytracing_contest_tpu_torch.render.pipeline import render_scene
     from zig_raytracing_contest_tpu_torch.probes.trace_ab import bounce_waves
     from zig_raytracing_contest_tpu_torch.render.wavefront import ray_sort_key, ray_sort_key_ref
@@ -2304,25 +2366,15 @@ def frame_phases(card, timing, errs, bounds, official) -> None:
     scene, cam, cfg = official
     errs["ray_sort_key"] = 0.0
 
-    # (1) the eager loop's host time, part by part (probes/frame_host.py)
-    p_off = bench.Prepared(scene, cam, cfg, {})
-    rows = {"official": p_off}
     duck_row = bench.ROW["duck"]
     duck_path, _ = bench.write_scene(duck_row, d)
-    rows["duck"] = bench.prepare(duck_row, dev, duck_path)
-    for name, p in rows.items():
-        r = {"row": name, "width": p.camera.width, "height": p.camera.height, "graph": False,
-             "frames": 5, "card": card, **frame_host.breakdown(p, 5, {"graph": False}),
-             **frame_host.profiled(p, {"graph": False})}
-        frame_host.print_table(r)
-        print("  frame_host: " + json.dumps(r))
+    dk = bench.prepare(duck_row, dev, duck_path)
 
-    # (2) ray_sort_key_kernel: the official and Duck waves after bounce 1,
+    # (1) ray_sort_key_kernel: the official and Duck waves after bounce 1,
     # the built NaN lanes, times at the full official wave
     s1 = whole_path_bounce1(scene, cam, cfg)
     torch.cuda.synchronize()
     key_check("official wave after bounce 1", scene, s1)
-    dk = rows["duck"]
     key_check("Duck wave after bounce 1", dk.scene, whole_path_bounce1(dk.scene, dk.camera,
                                                                       dk.config))
     for label, lanes, n in sort_key.run_host_key_checks(dev):
@@ -2342,14 +2394,14 @@ def frame_phases(card, timing, errs, bounds, official) -> None:
           f"behind a spin), twin {p_ms:.3f} ms, bound {bounds['ray_sort_key'][0]:.4f} ms "
           f"(bytes); {per_frame} launches a frame ({card})")
 
-    # (3) graph against eager: official (and a second camera), Duck
+    # (2) graph against eager: official (and a second camera), Duck
     cam2 = dataclasses.replace(cam, origin=cam.origin + np.float32([0.4, -0.2, 0.3]))
     graph_ab("official", scene, cam, cfg, card, 5, cam2=cam2)
     graph_ab("Duck", dk.scene, dk.camera, dk.config, card, 5)
-    del rows, dk, p_off, s1
+    del dk, s1
     torch.cuda.empty_cache()
 
-    # (4) the per-bounce rows: --large (the key at its wave, graph against
+    # (3) the per-bounce rows: --large (the key at its wave, graph against
     # eager), the 500k wave after bounce 1, 2M and Sponza (graph against
     # eager, the A/B)
     row = bench.ROW["large"]
@@ -2477,24 +2529,38 @@ def main() -> int:
         meta = (slot_base, slot_base % 1920, slot_base // 1920, SEED,
                 slot_base // 1024, 0, 0, 0)
         args = (scene, par, meta, R, 1, gen)
-        k_state, k_idx = fused.path_trace_gen(*args, emit_key=True, emit_idx=True)
-        t_state, t_idx = fused.path_trace_gen_ref(*args, emit_key=True, emit_idx=True)
+        # the work counters: kernel and twin from the same generation; the
+        # rays alive and the boxes (every tile's for a live ray) exactly,
+        # the tiles swept exactly where the inputs are the same bits
+        ck = [torch.zeros(3, dtype=torch.int64, device=dev) for _ in range(3)]
+        ct = [torch.zeros(3, dtype=torch.int64, device=dev) for _ in range(3)]
+        k_state, k_idx = fused.path_trace_gen(*args, emit_key=True, emit_idx=True,
+                                              counts=ck[0])
+        t_state, t_idx = fused.path_trace_gen_ref(*args, emit_key=True, emit_idx=True,
+                                                  counts=ct[0])
         torch.cuda.synchronize()
         errs["path_trace_gen"] = max(errs["path_trace_gen"], compare(
             "path_trace_gen (bounce 0, key, idx)", k_state, k_idx, t_state, t_idx))
         key = k_state[15].contiguous().view(torch.int32)
         _, st, (idx_s,) = sort_state_payload(key, k_state, (k_idx,))
-        k2, ki2 = fused.path_trace_fused(scene, st, 1, bounce0=1, prev=idx_s, emit_idx=True)
+        k2, ki2 = fused.path_trace_fused(scene, st, 1, bounce0=1, prev=idx_s, emit_idx=True,
+                                         counts=ck[1])
         t2, ti2 = fused.path_trace_fused_ref(scene, st, 1, bounce0=1, prev=idx_s,
-                                             emit_idx=True)
+                                             emit_idx=True, counts=ct[1])
         torch.cuda.synchronize()
         errs["path_trace"] = max(errs["path_trace"], compare(
             "path_trace_fused (bounce 1 after the sort, prev)", k2, ki2, t2, ti2))
         # the main path's last call: resort on the host key, bounces 2-3
         _, st2, (idx2,) = sort_state_payload(ray_sort_key(scene, k2), k2, (ki2,))
-        k3 = fused.path_trace_fused(scene, st2, 2, bounce0=2, prev=idx2)
-        t3 = fused.path_trace_fused_ref(scene, st2, 2, bounce0=2, prev=idx2)
+        k3 = fused.path_trace_fused(scene, st2, 2, bounce0=2, prev=idx2, counts=ck[2])
+        t3 = fused.path_trace_fused_ref(scene, st2, 2, bounce0=2, prev=idx2, counts=ct[2])
         torch.cuda.synchronize()
+        for what, a, b, same in (("path_trace_gen (bounce 0)", ck[0], ct[0], False),
+                                 ("path_trace_fused (bounce 1)", ck[1], ct[1], True),
+                                 ("path_trace_fused (bounces 2-3)", ck[2], ct[2], False)):
+            a, b = a.tolist(), b.tolist()
+            print(f"  {what}, {R} rays: tiles swept {a[1]} (twin {b[1]})")
+            held_counts(f"{what}, {R} rays", a if same else a[0::2], b if same else b[0::2])
         e23 = compare("path_trace_fused (bounces 2-3 after the resort, prev)", k3, None, t3,
                       None)
         errs["path_trace"] = max(errs["path_trace"], e23)

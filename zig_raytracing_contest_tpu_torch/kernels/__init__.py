@@ -60,14 +60,34 @@ NOTHING_LAUNCHED = -1
 TREE_STACK = 24
 
 
-# guards LAUNCHES: the sharded render launches from one host thread a card
+# The work the frames did, summed over the frames ``render_scene`` returned
+# since the last ``reset_launches()``: ``frames``, and each work counter a
+# frame reported (``RenderStats.counters``: segments, lanes issued, rays
+# alive, tiles swept, boxes tested, grid-walk iterations), a counter absent
+# until a frame reports it.  Separate from LAUNCHES, whose keys are
+# kernels.
+COUNTERS: dict = {"frames": 0}
+
+# guards LAUNCHES and COUNTERS: the sharded render launches from one host
+# thread a card
 _count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
+    """Set LAUNCHES to zeros and COUNTERS back to no frame."""
     with _count_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+        COUNTERS.clear()
+        COUNTERS["frames"] = 0
+
+
+def add_counters(counts: dict) -> None:
+    """Add one frame's work counters (name -> count) to COUNTERS."""
+    with _count_lock:
+        COUNTERS["frames"] += 1
+        for k, v in counts.items():
+            COUNTERS[k] = COUNTERS.get(k, 0) + v
 
 
 def _count(name: str) -> None:
@@ -278,6 +298,25 @@ def load_trace_library(src: Path, build_dir: Path):
     return lib
 
 
+# The entry points whose ``*_counted`` twin takes the kernel's work
+# counters, and where their pointer goes in the arguments.
+_COUNTED_AT = {"zrc_path_trace_gen": 6, "zrc_path_trace": 7, "zrc_trace_emit": 9,
+               "zrc_grid_walk": 10}
+
+
+def _call(lib, name: str, args: list, counts, own: bool):
+    """Call entry point ``name`` of ``lib`` with ``args``, or with
+    ``counts`` (a checked int64 tensor) its ``*_counted`` twin, which this
+    build alone (``own``) has.  The kernel counts its work either way:
+    without ``counts`` into a buffer of the library's that nothing reads."""
+    if counts is None:
+        return getattr(lib, name)(*args)
+    if not own:
+        raise ValueError(f"another build's {name} takes no counts")
+    at = _COUNTED_AT[name]
+    return getattr(lib, name + "_counted")(*args[:at], counts.data_ptr(), *args[at:])
+
+
 def load():
     """The loaded library of path_trace.cu (built at first call)."""
     with _lock:
@@ -297,6 +336,13 @@ def load():
             lib.zrc_sort_key.restype = i32
             lib.zrc_sort_key.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
             _bind_grid_walk(lib)
+            # this build's entry points that take the work counters: each
+            # the one without the suffix with a pointer before R
+            for name, at in _COUNTED_AT.items():
+                plain = getattr(lib, name)
+                fn = getattr(lib, name + "_counted")
+                fn.restype = i32
+                fn.argtypes = plain.argtypes[:at] + [ptr] + plain.argtypes[at:]
             lib.zrc_empty.restype = i32
             lib.zrc_empty.argtypes = [i32, ptr]
             _libs["path_trace"] = lib
@@ -387,10 +433,13 @@ def _launched(err: int, message, what: str) -> bool:
 
 
 def launch_path_trace_gen(scene, par, meta, gen, max_bounce: int,
-                          emit_key: bool, state_out, idx_out, lib=None) -> None:
+                          emit_key: bool, state_out, idx_out, lib=None,
+                          counts=None) -> None:
     """Launch path_trace_gen_kernel into ``state_out`` (16, R) and
     ``idx_out`` (R,) int32; from ``lib`` (``load_trace_library``, not
-    counted) when given."""
+    counted) when given.  ``counts`` (3,) int64 (this build only) gets the
+    wave's rays alive at each bounce's trace, tiles swept and boxes tested
+    added."""
     counted = lib is None
     lib = load() if lib is None else lib
     dev = scene.device
@@ -398,6 +447,8 @@ def launch_path_trace_gen(scene, par, meta, gen, max_bounce: int,
     _check(par, "par", torch.float32, (32,), dev)
     _check(state_out, "state_out", torch.float32, (16, R), dev)
     _check(idx_out, "idx_out", torch.int32, (R,), dev)
+    if counts is not None:
+        _check(counts, "counts", torch.int64, (3,), dev)
     if R >= 1 << 23:
         raise ValueError(f"wave of {R} rays: slot math is exact below 2^23")
     sc = _scene_struct(scene, dev)
@@ -405,18 +456,19 @@ def launch_path_trace_gen(scene, par, meta, gen, max_bounce: int,
                int(meta[3]) & 0xFFFFFFFF, gen.spp, gen.width, gen.img_w,
                gen.img_h, gen.tiles_x)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.zrc_path_trace_gen(
+    err = _call(lib, "zrc_path_trace_gen", [
         ctypes.byref(sc), ctypes.byref(g), int(max_bounce), int(emit_key),
         state_out.data_ptr(), idx_out.data_ptr(), R, dev.index or 0, stream,
-    )
+    ], counts, counted)
     if _launched(err, lib.zrc_error_string, "path_trace_gen_kernel") and counted:
         _count("path_trace_gen")
 
 
 def launch_path_trace(scene, state_in, prev, bounce0: int, max_bounce: int,
-                      state_out, idx_out, lib=None) -> None:
+                      state_out, idx_out, lib=None, counts=None) -> None:
     """Launch path_trace_kernel: ``state_in`` (16, R) → ``state_out``;
-    ``prev`` (R,) int32 or None; ``lib`` as ``launch_path_trace_gen``."""
+    ``prev`` (R,) int32 or None; ``lib`` and ``counts`` as
+    ``launch_path_trace_gen``."""
     counted = lib is None
     lib = load() if lib is None else lib
     dev = scene.device
@@ -426,14 +478,16 @@ def launch_path_trace(scene, state_in, prev, bounce0: int, max_bounce: int,
     _check(idx_out, "idx_out", torch.int32, (R,), dev)
     if prev is not None:
         _check(prev, "prev", torch.int32, (R,), dev)
+    if counts is not None:
+        _check(counts, "counts", torch.int64, (3,), dev)
     sc = _scene_struct(scene, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.zrc_path_trace(
+    err = _call(lib, "zrc_path_trace", [
         ctypes.byref(sc), state_in.data_ptr(),
         None if prev is None else prev.data_ptr(), int(bounce0),
         int(max_bounce), state_out.data_ptr(), idx_out.data_ptr(), R,
         dev.index or 0, stream,
-    )
+    ], counts, counted)
     if _launched(err, lib.zrc_error_string, "path_trace_kernel") and counted:
         _count("path_trace")
 
@@ -454,10 +508,10 @@ def _heap(tree, gbox, group_tiles: int, leaves: int, device) -> ZrcHeap:
 
 
 def _launch_trace(scene, heap: ZrcHeap, state, prev, table, aux_out, idx_out,
-                  rec_out, lib=None) -> None:
+                  rec_out, lib=None, counts=None) -> None:
     """Launch the walk of ``heap``: trace_stream_kernel when it has group
     boxes, else trace_emit_kernel; from ``lib`` (``load_trace_library``,
-    not counted) when given."""
+    not counted) when given; ``counts`` as ``launch_trace_emit``."""
     counted = lib is None
     lib = load() if lib is None else lib
     dev = scene.device
@@ -471,32 +525,33 @@ def _launch_trace(scene, heap: ZrcHeap, state, prev, table, aux_out, idx_out,
     if table is not None:
         _check(table, "table", torch.float32, (24, tp), dev)
         _check(rec_out, "rec_out", torch.float32, (24, R), dev)
-    sc = _scene_struct(scene, dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.zrc_trace_emit(
-        ctypes.byref(sc), ctypes.byref(heap), state.data_ptr(),
-        None if prev is None else prev.data_ptr(),
-        None if table is None else table.data_ptr(), tp, aux_out.data_ptr(),
-        idx_out.data_ptr(), None if table is None else rec_out.data_ptr(), R,
-        dev.index or 0, stream,
-    )
+    if counts is not None:
+        _check(counts, "counts", torch.int64, (3,), dev)
+    args = [ctypes.byref(_scene_struct(scene, dev)), ctypes.byref(heap), state.data_ptr(),
+            None if prev is None else prev.data_ptr(),
+            None if table is None else table.data_ptr(), tp, aux_out.data_ptr(),
+            idx_out.data_ptr(), None if table is None else rec_out.data_ptr(), R,
+            dev.index or 0, torch.cuda.current_stream(dev).cuda_stream]
+    err = _call(lib, "zrc_trace_emit", args, counts, counted)
     name = "trace_stream" if heap.gbox else "trace_emit"
     if _launched(err, lib.zrc_error_string, f"{name}_kernel") and counted:
         _count(name)
 
 
 def launch_trace_emit(scene, state, prev, table, aux_out, idx_out, rec_out,
-                      lib=None) -> None:
+                      lib=None, counts=None) -> None:
     """Launch trace_emit_kernel (the walk of ``scene.tree_bbox``):
     ``state`` (16, R) → ``aux_out`` (8, R), ``idx_out`` (R,) int32 and,
     when ``table`` (24, Tp) is given, ``rec_out`` (24, R); ``prev`` (R,)
-    int32 or None; ``lib``: another build (``load_trace_library``)."""
+    int32 or None; ``lib``: another build (``load_trace_library``);
+    ``counts`` (3,) int64 (this build only) gets the sums of aux rows 4-6
+    (rays alive, tiles swept, boxes tested) added."""
     heap = _heap(scene.tree_bbox, None, 0, scene.tile_bbox.shape[1], scene.device)
-    _launch_trace(scene, heap, state, prev, table, aux_out, idx_out, rec_out, lib)
+    _launch_trace(scene, heap, state, prev, table, aux_out, idx_out, rec_out, lib, counts)
 
 
 def launch_trace_stream(scene, state, prev, table, aux_out, idx_out, rec_out,
-                        lib=None) -> None:
+                        lib=None, counts=None) -> None:
     """Launch trace_stream_kernel (the walk of ``scene.group_tree_bbox``,
     each reached group's tiles culled and swept); arguments as
     ``launch_trace_emit``."""
@@ -506,7 +561,7 @@ def launch_trace_stream(scene, state, prev, table, aux_out, idx_out, rec_out,
         raise ValueError(f"{ng} groups of {scene.group_tiles} do not cover {nt} tiles")
     heap = _heap(scene.group_tree_bbox, scene.group_bbox, scene.group_tiles, ng,
                  scene.device)
-    _launch_trace(scene, heap, state, prev, table, aux_out, idx_out, rec_out, lib)
+    _launch_trace(scene, heap, state, prev, table, aux_out, idx_out, rec_out, lib, counts)
 
 
 def launch_shade(scene, state_in, aux, rec, bounce: int, state_out) -> None:
@@ -611,7 +666,7 @@ GRID_MAX_RAYS = (1 << 31) - (1 << 24)
 
 
 def launch_grid_walk(grid, orig, direction, active, exclude, t_out, u_out, v_out,
-                     idx_out, iterations, lib=None) -> None:
+                     idx_out, iterations, lib=None, it_sum=None) -> None:
     """Launch grid_walk_kernel: the nearest hit of each ray ``orig`` /
     ``direction`` (R, 3) f32 with ``active`` (R,) bool by the walk of
     ``grid`` (``scene.types.GridOperands``), ``exclude`` (R,) int64 (the
@@ -619,6 +674,8 @@ def launch_grid_walk(grid, orig, direction, active, exclude, t_out, u_out, v_out
     ``v_out`` (R,) f32 and ``idx_out`` (R,) int64.  ``iterations`` is (2,)
     int32 scratch that must hold zeros: the loop's iteration count goes
     into [0], and [1] is the counter the warps take ray positions from.
+    ``it_sum`` (1,) int64 (this build only) gets every ray's iterations
+    added.
     From ``lib`` (``load_grid_walk_library``, not counted) when given: a
     build of another source, timed against this one.  Every check runs
     before the library is loaded; CPU tensors raise (the CPU walks with
@@ -640,6 +697,10 @@ def launch_grid_walk(grid, orig, direction, active, exclude, t_out, u_out, v_out
         _check(t, name, dtype, shape, dev)
     if exclude is not None:
         _check(exclude, "exclude", torch.int64, (R,), dev)
+    if it_sum is not None:
+        _check(it_sum, "it_sum", torch.int64, (1,), dev)
+        if lib is not None:
+            raise ValueError("another build's zrc_grid_walk takes no iteration sum")
     if grid.cells.shape[0] != cells or cells >= 1 << 31:
         raise ValueError(f"{grid.cells.shape[0]} cell ranges for a {grid.resolution} grid")
     if grid.tri.shape[0] >= 1 << 31 or grid.tri.shape[0] < 1:
@@ -651,12 +712,11 @@ def launch_grid_walk(grid, orig, direction, active, exclude, t_out, u_out, v_out
     g = ZrcGrid(grid.tri.data_ptr(), grid.cells.data_ptr(), (ctypes.c_float * 3)(*grid.bbox_min),
                 (ctypes.c_float * 3)(*grid.bbox_max), (ctypes.c_float * 3)(*grid.cell_size),
                 (ctypes.c_int * 3)(*grid.resolution), cells)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.zrc_grid_walk(
-        ctypes.byref(g), orig.data_ptr(), direction.data_ptr(), active.data_ptr(),
-        None if exclude is None else exclude.data_ptr(), t_out.data_ptr(), u_out.data_ptr(),
-        v_out.data_ptr(), idx_out.data_ptr(), iterations.data_ptr(), R, dev.index or 0,
-        stream)
+    args = [ctypes.byref(g), orig.data_ptr(), direction.data_ptr(), active.data_ptr(),
+            None if exclude is None else exclude.data_ptr(), t_out.data_ptr(), u_out.data_ptr(),
+            v_out.data_ptr(), idx_out.data_ptr(), iterations.data_ptr(), R, dev.index or 0,
+            torch.cuda.current_stream(dev).cuda_stream]
+    err = _call(lib, "zrc_grid_walk", args, it_sum, counted)
     if _launched(err, lib.zrc_error_string, "grid_walk_kernel") and counted:
         _count("grid_walk")
 

@@ -448,9 +448,11 @@ __device__ __forceinline__ bool warp_sweep(const ZrcScene& sc, int j, const Trac
 // order; each lane culls tile j against its own best after tile j - 1, so
 // a ray sees its tiles and its triangles in the order of the one-ray loop
 // and replaces its best only on a strictly smaller t, whichever way a tile
-// is swept: the same t, u, v and winner.
+// is swept: the same t, u, v and winner.  ``swept`` (the same in every
+// lane) gets the tiles the warp's rays swept added.
 __device__ Hit trace_nearest_warp(const ZrcScene& sc, bool active, const float o[3],
-                                  const float d[3], int prev, int lane) {
+                                  const float d[3], int prev, int lane,
+                                  unsigned& swept) {
     TraceRay r;
     for (int a = 0; a < 3; ++a) {
         r.o[a] = o[a];
@@ -463,6 +465,7 @@ __device__ Hit trace_nearest_warp(const ZrcScene& sc, bool active, const float o
         bool mine = active && tile_passes(sc.tile_bbox, sc.nt, j, r.o, r.inv, h.t);
         unsigned pass = __ballot_sync(FULL_MASK, mine);
         if (!pass) continue;
+        swept += __popc(pass);
         if (__popc(pass) >= LANE_LOOP_MIN) {
             if (mine) sweep_tile(sc, j, r.o, r.d, prev, h);
             continue;
@@ -768,21 +771,33 @@ __device__ int emit_sort_key(const float* par, const float s[S_ROWS]) {
 // warp (the trace is the warp's): a lane whose ray is dead, or that has no
 // ray, traces and shades nothing.  ``prev`` is excluded at the first bounce
 // (-1: none); each later bounce excludes the one before.  Returns the last
-// traced winner (``idx`` if the ray never traced).
+// traced winner (``idx`` if the ray never traced).  The warp adds to
+// ``counts`` its rays alive at each bounce's trace, the tiles they swept
+// and the boxes they tested (the flat loop culls every tile for a live
+// ray), summed over the bounces: the sums of the per-bounce trace's aux
+// rows 4-6, one atomicAdd each.
 __device__ int run_bounces(const ZrcScene& sc, float s[S_ROWS], int bounce0,
-                           int n, int prev, int idx) {
+                           int n, int prev, int idx, unsigned long long* counts) {
     const int lane = threadIdx.x & 31;
+    unsigned alive = 0, swept = 0;  // the warp's, the same in every lane
     for (int b = bounce0; b < bounce0 + n; ++b) {
         bool live = s[S_ALIVE] > 0.0f;
-        if (!__any_sync(FULL_MASK, live)) break;
+        const unsigned lives = __popc(__ballot_sync(FULL_MASK, live));
+        if (!lives) break;
+        alive += lives;
         float o[3] = {s[S_OX], s[S_OX + 1], s[S_OX + 2]};
         float d[3] = {s[S_DX], s[S_DX + 1], s[S_DX + 2]};
-        Hit h = trace_nearest_warp(sc, live, o, d, prev, lane);
+        Hit h = trace_nearest_warp(sc, live, o, d, prev, lane, swept);
         if (live) {
             shade_bounce(sc, s, h, b);
             idx = h.idx;
             prev = idx;
         }
+    }
+    if (lane == 0 && alive) {
+        atomicAdd(counts, (unsigned long long)alive);
+        atomicAdd(counts + 1, (unsigned long long)swept);
+        atomicAdd(counts + 2, (unsigned long long)alive * (unsigned)sc.nt);
     }
     return idx;
 }
@@ -796,13 +811,14 @@ constexpr int kThreads = 128;
 __global__ void __launch_bounds__(kThreads, 8) path_trace_gen_kernel(
                                       ZrcScene sc, ZrcGen g, int max_bounce,
                                       int emit_key, float* __restrict__ state_out,
-                                      int* __restrict__ idx_out, int R) {
+                                      int* __restrict__ idx_out,
+                                      unsigned long long* __restrict__ counts, int R) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     const bool in = i < R;
     float s[S_ROWS];
     gen_ray(g, i, s);
     if (!in) s[S_ALIVE] = 0.0f;
-    int idx = run_bounces(sc, s, 0, max_bounce, -1, 0);
+    int idx = run_bounces(sc, s, 0, max_bounce, -1, 0, counts);
     if (!in) return;
     if (emit_key) s[S_KEY] = __int_as_float(emit_sort_key(g.par, s));
 #pragma unroll
@@ -814,14 +830,15 @@ __global__ void __launch_bounds__(kThreads, 8) path_trace_kernel(
                                   ZrcScene sc, const float* __restrict__ state_in,
                                   const int* __restrict__ prev, int bounce0,
                                   int max_bounce, float* __restrict__ state_out,
-                                  int* __restrict__ idx_out, int R) {
+                                  int* __restrict__ idx_out,
+                                  unsigned long long* __restrict__ counts, int R) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     const bool in = i < R;
     float s[S_ROWS];
 #pragma unroll
     for (int f = 0; f < S_ROWS; ++f) s[f] = in ? state_in[(size_t)f * R + i] : 0.0f;
     int p = in && prev ? prev[i] : -1;
-    int idx = run_bounces(sc, s, bounce0, max_bounce, p, prev ? p : 0);
+    int idx = run_bounces(sc, s, bounce0, max_bounce, p, prev ? p : 0, counts);
     if (!in) return;
 #pragma unroll
     for (int f = 0; f < S_ROWS; ++f) state_out[(size_t)f * R + i] = s[f];
@@ -842,15 +859,18 @@ __global__ void __launch_bounds__(kThreads, 8) path_trace_kernel(
 // loads and stores) and walks its ray (advance_walk); in rounds, every lane
 // of the warp walks to its next tile, then the warp sweeps the tiles the
 // lanes asked for, one after the other, all 32 lanes on each
-// (warp_sweep), until every walk has ended.  Launched with TRACE_THREADS
-// threads per block.
+// (warp_sweep), until every walk has ended.  The warp adds its rays
+// alive, tiles swept and boxes tested (aux rows 4-6 of its lanes, as
+// integers) to counts[0..2], one atomicAdd each.  Launched with
+// TRACE_THREADS threads per block.
 template <bool kGroups>
 __device__ void trace_warp(const ZrcScene& sc, const ZrcHeap& hp,
                            const float* __restrict__ state,
                            const int* __restrict__ prev,
                            const float* __restrict__ table, int table_cols,
                            float* __restrict__ aux, int* __restrict__ idx_out,
-                           float* __restrict__ rec_out, int R) {
+                           float* __restrict__ rec_out,
+                           unsigned long long* __restrict__ counts, int R) {
     __shared__ int stack_n[TREE_STACK * TRACE_THREADS];
     __shared__ float stack_e[TREE_STACK * TRACE_THREADS];
     const size_t n = (size_t)R;
@@ -897,6 +917,14 @@ __device__ void trace_warp(const ZrcScene& sc, const ZrcHeap& hp,
             }
         } while (asks);
     }
+    const unsigned live = __popc(__ballot_sync(FULL_MASK, alive > 0.0f));
+    const unsigned tiles = __reduce_add_sync(FULL_MASK, (unsigned)swept);
+    const unsigned boxes = __reduce_add_sync(FULL_MASK, (unsigned)tested);
+    if (lane == 0 && live) {
+        atomicAdd(counts, (unsigned long long)live);
+        atomicAdd(counts + 1, (unsigned long long)tiles);
+        atomicAdd(counts + 2, (unsigned long long)boxes);
+    }
     if (!in) return;
     aux[0 * n + i] = h.u;
     aux[1 * n + i] = h.v;
@@ -921,8 +949,9 @@ __global__ void __launch_bounds__(TRACE_THREADS, 8) trace_emit_kernel(ZrcScene s
                                   const int* __restrict__ prev,
                                   const float* __restrict__ table, int table_cols,
                                   float* __restrict__ aux, int* __restrict__ idx_out,
-                                  float* __restrict__ rec_out, int R) {
-    trace_warp<false>(sc, hp, state, prev, table, table_cols, aux, idx_out, rec_out, R);
+                                  float* __restrict__ rec_out,
+                                  unsigned long long* __restrict__ counts, int R) {
+    trace_warp<false>(sc, hp, state, prev, table, table_cols, aux, idx_out, rec_out, counts, R);
 }
 
 // Streaming scenes: the walk of the group heap.
@@ -931,8 +960,9 @@ __global__ void __launch_bounds__(TRACE_THREADS, 8) trace_stream_kernel(ZrcScene
                                     const int* __restrict__ prev,
                                     const float* __restrict__ table, int table_cols,
                                     float* __restrict__ aux, int* __restrict__ idx_out,
-                                    float* __restrict__ rec_out, int R) {
-    trace_warp<true>(sc, hp, state, prev, table, table_cols, aux, idx_out, rec_out, R);
+                                    float* __restrict__ rec_out,
+                                    unsigned long long* __restrict__ counts, int R) {
+    trace_warp<true>(sc, hp, state, prev, table, table_cols, aux, idx_out, rec_out, counts, R);
 }
 
 // One bounce of shading of a (16, R) state from the trace's aux and
@@ -1139,7 +1169,13 @@ __global__ void __launch_bounds__(kThreads) ray_sort_key_kernel(
 // done when its best t is at most the crossing t (leaving the grid: inf <=
 // inf).  The loop's iteration count is the largest ray's: each lane keeps
 // the largest of the rays it walked, then a warp max and one atomicMax a
-// warp.  No host synchronisation.
+// warp.  Every ray's iterations are summed into ``it_sum`` the same way (a
+// lane's sum, a warp sum, one atomicAdd a warp).  A lane keeps
+// both in its slots of shared memory, not in registers, and the kernel is
+// held to 7 blocks an SM (at most 72 registers): the occupancy the walk had
+// before it summed its iterations (kept in registers the sum took it to
+// 76 registers, 6 blocks an SM and 5-7% more time a wave; PERF.md §6).
+// No host synchronisation.
 // Parity: the twin's order of operations, each op rounded once
 // (--fmad=false), IEEE divides, NaN-keeping min/max in the slab test,
 // (long long) of a float as PyTorch's cast on the card (cvt.rzi).
@@ -1187,6 +1223,8 @@ __global__ void __launch_bounds__(kThreads) ray_sort_key_kernel(
 #define GRID_COOP_MAX 20
 // the idle lanes a warp waits for before it hands out new rays
 #define GRID_REFILL_MIN 8
+// the blocks an SM holds: bounds the walk's registers (65536 / (7 * 128))
+#define GRID_BLOCKS_PER_SM 7
 
 struct ZrcGrid {
     const float4* tri;   // (D + 1, 12) f32: v0 xyz, e1 x | e1 yz, e2 xy | e2 z,
@@ -1439,20 +1477,25 @@ __device__ __forceinline__ void grid_coop_tests(const ZrcGrid& g, bool has_ex, G
 }
 
 // iterations[0] (the loop's count) and iterations[1] (the positions handed
-// out) must hold 0.
-__global__ void __launch_bounds__(GRID_THREADS) grid_walk_kernel(
+// out) must hold 0; ``it_sum`` (one uint64) gets every ray's iterations
+// added.
+__global__ void __launch_bounds__(GRID_THREADS, GRID_BLOCKS_PER_SM) grid_walk_kernel(
         ZrcGrid g, const float* __restrict__ orig, const float* __restrict__ dir,
         const bool* __restrict__ active, const long long* __restrict__ exclude,
         float* __restrict__ t_out, float* __restrict__ u_out, float* __restrict__ v_out,
-        long long* __restrict__ idx_out, int* __restrict__ iterations, int R) {
+        long long* __restrict__ idx_out, int* __restrict__ iterations,
+        unsigned long long* __restrict__ it_sum, int R) {
     const bool has_ex = exclude != nullptr;
     const unsigned lane = threadIdx.x & 31;
     __shared__ unsigned long long s_keys[GRID_THREADS];
     unsigned long long* s_key = s_keys + (threadIdx.x & ~31u);
+    // each lane's most iterations of a ray, and its rays' iterations summed
+    // (shared memory: two more registers would cost the kernel a block an SM)
+    __shared__ unsigned s_max[GRID_THREADS], s_sum[GRID_THREADS];
+    s_max[threadIdx.x] = s_sum[threadIdx.x] = 0u;
     GridLane L;
     L.ray = -1;
     L.cursor = L.end = 0;
-    int it_max = 0;  // the most iterations of the rays this lane walked
     const unsigned below = (1u << lane) - 1u;
     int pool = 0, pool_end = 0;  // positions this warp took and has not handed out
     bool more = true;            // the counter may still hold positions
@@ -1492,33 +1535,80 @@ __global__ void __launch_bounds__(GRID_THREADS) grid_walk_kernel(
         bool run = L.ray >= 0;
         for (int m = 0; run && m < GRID_PASS; ++m) {
             if (grid_iteration(g, has_ex, L, t_out, u_out, v_out, idx_out)) {
-                it_max = max(it_max, L.it);
+                s_max[threadIdx.x] = max(s_max[threadIdx.x], (unsigned)L.it);
+                s_sum[threadIdx.x] += L.it;
                 L.ray = -1;
                 break;
             }
             run = !coop || L.cursor == L.end;
         }
     }
-    const int warp_max = __reduce_max_sync(FULL_MASK, it_max);
+    const int warp_max = (int)__reduce_max_sync(FULL_MASK, s_max[threadIdx.x]);
     if (lane == 0 && warp_max > 0) atomicMax(iterations, warp_max);
+    unsigned long long warp_sum = s_sum[threadIdx.x];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+        warp_sum += __shfl_down_sync(FULL_MASK, warp_sum, off);
+    if (lane == 0 && warp_sum > 0) atomicAdd(it_sum, warp_sum);
 }
 
 // ------------------------------------------------------------ launchers
 // Plain C entry points for ctypes (kernels/__init__.py).  They launch on
 // the caller's stream, allocate nothing, and return cudaGetLastError(), or
 // ZRC_NOTHING_LAUNCHED when the work is empty.
+//
+// The trace kernels always count their work.  An entry point ``*_counted``
+// takes the counters it adds to; the entry point of the same name without
+// the suffix takes the arguments of earlier builds, which the probes
+// compare this one with, and its kernel adds to zrc_discard instead.
 
 #define ZRC_NOTHING_LAUNCHED (-1)
+
+// The counters of the launches that take none: written, never read.
+__device__ unsigned long long zrc_discard[3];
+
+// ``counts``, or zrc_discard on the current device when it is null.
+static cudaError_t counts_or_discard(unsigned long long** counts) {
+    if (*counts) return cudaSuccess;
+    return cudaGetSymbolAddress((void**)counts, zrc_discard);
+}
+
+// ``counts``: null, or three uint64 the kernel adds the rays alive at each
+// bounce's trace, the tiles swept and the boxes tested to.
+extern "C" int zrc_path_trace_gen_counted(const ZrcScene* sc, const ZrcGen* g,
+                                          int max_bounce, int emit_key, float* state_out,
+                                          int* idx_out, unsigned long long* counts, int R,
+                                          int device, void* stream) {
+    if (R <= 0) return ZRC_NOTHING_LAUNCHED;
+    cudaError_t err = cudaSetDevice(device);
+    if (err == cudaSuccess) err = counts_or_discard(&counts);
+    if (err != cudaSuccess) return (int)err;
+    int blocks = (R + kThreads - 1) / kThreads;
+    path_trace_gen_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        *sc, *g, max_bounce, emit_key, state_out, idx_out, counts, R);
+    return (int)cudaGetLastError();
+}
 
 extern "C" int zrc_path_trace_gen(const ZrcScene* sc, const ZrcGen* g,
                                   int max_bounce, int emit_key, float* state_out,
                                   int* idx_out, int R, int device, void* stream) {
+    return zrc_path_trace_gen_counted(sc, g, max_bounce, emit_key, state_out, idx_out,
+                                      nullptr, R, device, stream);
+}
+
+// ``counts`` as zrc_path_trace_gen_counted's.
+extern "C" int zrc_path_trace_counted(const ZrcScene* sc, const float* state_in,
+                                      const int* prev, int bounce0, int max_bounce,
+                                      float* state_out, int* idx_out,
+                                      unsigned long long* counts, int R, int device,
+                                      void* stream) {
     if (R <= 0) return ZRC_NOTHING_LAUNCHED;
     cudaError_t err = cudaSetDevice(device);
+    if (err == cudaSuccess) err = counts_or_discard(&counts);
     if (err != cudaSuccess) return (int)err;
     int blocks = (R + kThreads - 1) / kThreads;
-    path_trace_gen_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        *sc, *g, max_bounce, emit_key, state_out, idx_out, R);
+    path_trace_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        *sc, state_in, prev, bounce0, max_bounce, state_out, idx_out, counts, R);
     return (int)cudaGetLastError();
 }
 
@@ -1526,35 +1616,43 @@ extern "C" int zrc_path_trace(const ZrcScene* sc, const float* state_in,
                               const int* prev, int bounce0, int max_bounce,
                               float* state_out, int* idx_out, int R, int device,
                               void* stream) {
-    if (R <= 0) return ZRC_NOTHING_LAUNCHED;
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
-    int blocks = (R + kThreads - 1) / kThreads;
-    path_trace_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        *sc, state_in, prev, bounce0, max_bounce, state_out, idx_out, R);
-    return (int)cudaGetLastError();
+    return zrc_path_trace_counted(sc, state_in, prev, bounce0, max_bounce, state_out,
+                                  idx_out, nullptr, R, device, stream);
 }
 
 // A heap with group boxes launches trace_stream_kernel, else
-// trace_emit_kernel, TRACE_THREADS threads per block.
+// trace_emit_kernel, TRACE_THREADS threads per block.  ``counts``: null, or
+// three uint64 the kernel adds the rays alive, tiles swept and boxes tested
+// to.
+extern "C" int zrc_trace_emit_counted(const ZrcScene* sc, const ZrcHeap* hp,
+                                      const float* state, const int* prev,
+                                      const float* table, int table_cols, float* aux,
+                                      int* idx_out, float* rec_out,
+                                      unsigned long long* counts, int R, int device,
+                                      void* stream) {
+    if (R <= 0) return ZRC_NOTHING_LAUNCHED;
+    if (hp->p2 < 1 || hp->p2 > (1 << TREE_STACK) || (hp->gbox && hp->group_tiles < 1))
+        return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaSetDevice(device);
+    if (err == cudaSuccess) err = counts_or_discard(&counts);
+    if (err != cudaSuccess) return (int)err;
+    int blocks = (R + TRACE_THREADS - 1) / TRACE_THREADS;
+    if (hp->gbox)
+        trace_stream_kernel<<<blocks, TRACE_THREADS, 0, (cudaStream_t)stream>>>(
+            *sc, *hp, state, prev, table, table_cols, aux, idx_out, rec_out, counts, R);
+    else
+        trace_emit_kernel<<<blocks, TRACE_THREADS, 0, (cudaStream_t)stream>>>(
+            *sc, *hp, state, prev, table, table_cols, aux, idx_out, rec_out, counts, R);
+    return (int)cudaGetLastError();
+}
+
 extern "C" int zrc_trace_emit(const ZrcScene* sc, const ZrcHeap* hp,
                               const float* state, const int* prev,
                               const float* table, int table_cols, float* aux,
                               int* idx_out, float* rec_out, int R, int device,
                               void* stream) {
-    if (R <= 0) return ZRC_NOTHING_LAUNCHED;
-    if (hp->p2 < 1 || hp->p2 > (1 << TREE_STACK) || (hp->gbox && hp->group_tiles < 1))
-        return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
-    int blocks = (R + TRACE_THREADS - 1) / TRACE_THREADS;
-    if (hp->gbox)
-        trace_stream_kernel<<<blocks, TRACE_THREADS, 0, (cudaStream_t)stream>>>(
-            *sc, *hp, state, prev, table, table_cols, aux, idx_out, rec_out, R);
-    else
-        trace_emit_kernel<<<blocks, TRACE_THREADS, 0, (cudaStream_t)stream>>>(
-            *sc, *hp, state, prev, table, table_cols, aux, idx_out, rec_out, R);
-    return (int)cudaGetLastError();
+    return zrc_trace_emit_counted(sc, hp, state, prev, table, table_cols, aux, idx_out,
+                                  rec_out, nullptr, R, device, stream);
 }
 
 extern "C" int zrc_shade(const ZrcScene* sc, const float* state_in,
@@ -1605,14 +1703,17 @@ extern "C" int zrc_ray_sort_key(const float* state, const float* bbox_min,
 }
 
 // iterations must hold two zeros (the loop's count, the ray counter) before
-// the launch.  About as many blocks as the card holds at once (the
-// occupancy of the kernel on the device, read once a device).
-extern "C" int zrc_grid_walk(const ZrcGrid* g, const float* orig, const float* dir,
-                             const bool* active, const long long* exclude, float* t,
-                             float* u, float* v, long long* idx, int* iterations, int R,
-                             int device, void* stream) {
+// the launch; it_sum is null (zrc_discard) or one uint64 that the rays'
+// iterations are added to.  About as many blocks as the card holds at once (the occupancy
+// of the kernel on the device, read once a device).
+extern "C" int zrc_grid_walk_counted(const ZrcGrid* g, const float* orig, const float* dir,
+                                     const bool* active, const long long* exclude, float* t,
+                                     float* u, float* v, long long* idx, int* iterations,
+                                     unsigned long long* it_sum, int R, int device,
+                                     void* stream) {
     if (R <= 0) return ZRC_NOTHING_LAUNCHED;
     cudaError_t err = cudaSetDevice(device);
+    if (err == cudaSuccess) err = counts_or_discard(&it_sum);
     if (err != cudaSuccess) return (int)err;
     static int resident[64];  // blocks the card holds at once, by device (0: not read)
     if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
@@ -1627,8 +1728,16 @@ extern "C" int zrc_grid_walk(const ZrcGrid* g, const float* orig, const float* d
     }
     const int blocks = min((R + GRID_THREADS - 1) / GRID_THREADS, resident[device]);
     grid_walk_kernel<<<blocks, GRID_THREADS, 0, (cudaStream_t)stream>>>(
-        *g, orig, dir, active, exclude, t, u, v, idx, iterations, R);
+        *g, orig, dir, active, exclude, t, u, v, idx, iterations, it_sum, R);
     return (int)cudaGetLastError();
+}
+
+extern "C" int zrc_grid_walk(const ZrcGrid* g, const float* orig, const float* dir,
+                             const bool* active, const long long* exclude, float* t,
+                             float* u, float* v, long long* idx, int* iterations, int R,
+                             int device, void* stream) {
+    return zrc_grid_walk_counted(g, orig, dir, active, exclude, t, u, v, idx, iterations,
+                                 nullptr, R, device, stream);
 }
 
 // An empty kernel, one block of one thread: what a launch through this

@@ -336,10 +336,12 @@ def records_ref(table: torch.Tensor, t: torch.Tensor, idx: torch.Tensor):
     return torch.where((t < INF)[None, :], table[:, idx], 0.0)
 
 
-def trace_emit_aux_ref(scene, state16: torch.Tensor, rec_table=None, prev=None):
+def trace_emit_aux_ref(scene, state16: torch.Tensor, rec_table=None, prev=None,
+                       counts=None):
     """Plain twin of ``trace_emit_aux``: the flat tile loop and the record
     load.  aux rows 5-6 count, per ray, the tiles swept and the tile boxes
-    tested (every real tile for a live ray)."""
+    tested (every real tile for a live ray); ``counts`` gets their sums
+    and the rays alive added, as the kernels add theirs."""
     alive = state16[12] > 0.0
     t, idx, u, v, swept = nearest_hit_ref(
         scene.tri_data, scene.tile_bbox, scene.tile, state16[0:3], state16[3:6],
@@ -349,6 +351,9 @@ def trace_emit_aux_ref(scene, state16: torch.Tensor, rec_table=None, prev=None):
     aux = torch.stack([u, v, t, state16[13], state16[12], swept, tested,
                        torch.zeros_like(t)])
     rec = None if rec_table is None else records_ref(rec_table, t, idx)
+    if counts is not None:
+        counts += torch.stack([alive.sum(), swept.to(torch.int64).sum(),
+                               tested.to(torch.int64).sum()])
     return aux, idx.to(torch.int32), rec
 
 
@@ -358,7 +363,7 @@ def streams_bank(scene) -> bool:
     return scene.tri_data.shape[1] > VMEM_RESIDENT_MAX_TRIS
 
 
-def trace_emit_aux(scene, state16: torch.Tensor, rec_table=None, prev=None):
+def trace_emit_aux(scene, state16: torch.Tensor, rec_table=None, prev=None, counts=None):
     """Field-major nearest hit of the per-bounce pipeline (the JAX
     package's ``trace_emit_aux``): (16, R) state → (aux (8, R) f32,
     idx (R,) int32 Morton index, rec (24, R) f32 or None).
@@ -367,7 +372,10 @@ def trace_emit_aux(scene, state16: torch.Tensor, rec_table=None, prev=None):
     dead or missing ray has t = +inf, u = v = 0, idx = 0 and an all-zero
     record.  ``rec_table`` (24, Tp): the Morton-ordered packed records to
     emit the winner's from (None: no record).  ``prev`` (R,) int32: each
-    ray's previous hit, never hit again.
+    ray's previous hit, never hit again.  ``counts``: None, or (3,) int64
+    on the scene's device that gets the sums of aux rows 4-6 added (rays
+    alive, tiles swept, boxes tested): inside the kernel on the card, so
+    the call adds no operation.
 
     On a CUDA scene this launches ``trace_emit_kernel`` (a per-ray walk of
     ``scene.tree_bbox``) or, past VMEM_RESIDENT_MAX_TRIS padded triangles,
@@ -378,7 +386,7 @@ def trace_emit_aux(scene, state16: torch.Tensor, rec_table=None, prev=None):
     loop the lower index."""
     kind = scene.device.type
     if kind == "cpu":
-        return trace_emit_aux_ref(scene, state16, rec_table, prev)
+        return trace_emit_aux_ref(scene, state16, rec_table, prev, counts)
     if kind != "cuda":
         raise ValueError(f"no trace kernel for device {scene.device}")
     R = state16.shape[1]
@@ -388,7 +396,9 @@ def trace_emit_aux(scene, state16: torch.Tensor, rec_table=None, prev=None):
     rec = (None if rec_table is None
            else torch.empty((24, R), dtype=torch.float32, device=dev))
     if streams_bank(scene):
-        kernels.launch_trace_stream(scene, state16, prev, rec_table, aux, idx, rec)
+        kernels.launch_trace_stream(scene, state16, prev, rec_table, aux, idx, rec,
+                                    counts=counts)
     else:
-        kernels.launch_trace_emit(scene, state16, prev, rec_table, aux, idx, rec)
+        kernels.launch_trace_emit(scene, state16, prev, rec_table, aux, idx, rec,
+                                  counts=counts)
     return aux, idx, rec

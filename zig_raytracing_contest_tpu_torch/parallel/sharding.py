@@ -38,6 +38,7 @@ from ..render.pipeline import (
     _render_frame_waves,
     device_slot_map,
     finalize_image_rows,
+    frame_counters,
     frame_graph,
     frame_plan,
     image_to_host,
@@ -136,12 +137,12 @@ def _device_frames(replicas: dict, plans: dict, camera: Camera, as_graph: bool) 
 
 def finish_frame(outs: dict, mesh: Mesh, plan: FramePlan,
                  slot_perm: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
-    """(img (num_pixels·3,) u8, segments 0-d int64) on ``mesh[0]`` from
-    the devices' framebuffers and segments (``outs``: {device: (fb, _,
-    segments)}, each fb its tiles' ``plan.tile_cols`` columns in turn):
-    each tile's slots copied to the first device without blocking the
-    host, in tile order, then mapped back to raster pixels and encoded
-    there as ``render_scene`` does."""
+    """(img (num_pixels·3,) u8, tally int64: segments and work counters)
+    on ``mesh[0]`` from the devices' framebuffers and tallies (``outs``:
+    {device: (fb, _, tally)}, each fb its tiles' ``plan.tile_cols``
+    columns in turn): each tile's slots copied to the first device without
+    blocking the host, in tile order, then mapped back to raster pixels and
+    encoded there as ``render_scene`` does; the tallies summed there."""
     first = mesh[0]
     seen = dict.fromkeys(outs, 0)
     cols = []
@@ -149,9 +150,9 @@ def finish_frame(outs: dict, mesh: Mesh, plan: FramePlan,
         c0 = seen[d] * plan.tile_cols
         seen[d] += 1
         cols.append(outs[d][0][:, c0 : c0 + plan.tile_slots].to(first, non_blocking=True))
-    segments = torch.stack([o[2].to(first, non_blocking=True) for o in outs.values()]).sum()
+    tally = torch.stack([o[2].to(first, non_blocking=True) for o in outs.values()]).sum(0)
     return finalize_image_rows(torch.cat(cols, dim=1), plan.num_pixels, plan.spp,
-                               slot_perm), segments
+                               slot_perm), tally
 
 
 def render_scene_sharded(
@@ -190,17 +191,18 @@ def render_scene_sharded(
     with timers.phase("render", "Rendered"):
         outs = _device_frames(replicas, plans, camera, as_graph)
         if plan.encode:
-            _, img, segments = outs[mesh[0]]
+            _, img, tally = outs[mesh[0]]
         else:
             first = replicas[mesh[0]]
-            img, segments = finish_frame(
+            img, tally = finish_frame(
                 outs, mesh, plan, device_slot_map(first, plan.width, plan.height,
                                                   plan.tiles_x))
-        img, segments = image_to_host(img, segments, plan)
+        img, tally = image_to_host(img, tally, plan)
 
     stats = RenderStats(
         width=plan.width, height=plan.height, spp=plan.spp, max_bounce=config.max_bounce,
-        segments=segments, phases=timers.phases,
+        segments=tally[0], phases=timers.phases,
+        counters=frame_counters(list(plans.values()), tally),
     )
     return img, stats
 

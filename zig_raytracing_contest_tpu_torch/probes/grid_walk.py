@@ -91,13 +91,19 @@ def edge_rays(params, n: int, seed: int = 0):
     return torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(active)
 
 
-def walk_differs(scene, orig, direction, active, exclude=None):
+def walk_differs(scene, orig, direction, active, exclude=None, it_sums=None):
     """grid_walk_kernel (``trace_wave`` on the card) against
     ``trace_wave_ref`` on the same rays → (lanes where t, u or v bits or
     the reference differ, the kernel's iteration count, the twin's, the
-    twin's TraceResult with its work counters)."""
-    k = wavefront.trace_wave(scene, orig, direction, active, exclude)
-    r = wavefront.trace_wave_ref(scene, orig, direction, active, exclude, work=True)
+    twin's TraceResult with its work counters).  ``it_sums``: a list that
+    gets (the kernel's iterations summed over the rays, the twin's)
+    appended."""
+    sums = [torch.zeros(1, dtype=torch.int64, device=orig.device) for _ in range(2)]
+    k = wavefront.trace_wave(scene, orig, direction, active, exclude, it_sum=sums[0])
+    r = wavefront.trace_wave_ref(scene, orig, direction, active, exclude, work=True,
+                                 it_sum=sums[1])
+    if it_sums is not None:
+        it_sums.append((int(sums[0]), int(sums[1])))
     off = k.dup_idx != r.dup_idx
     for a, b in ((k.t, r.t), (k.u, r.u), (k.v, r.v)):
         off |= a.view(torch.int32) != b.view(torch.int32)
@@ -144,7 +150,8 @@ REPS, ROUNDS = 10, 8
 
 class Walk:
     """One build's walk of a wave into outputs of its own: ``run()``
-    launches it (zeroing its scratch first)."""
+    launches it (zeroing its scratch first); this build's (``lib`` None)
+    with the iteration sum the main path passes."""
 
     def __init__(self, lib, grid, o, d, live, prev):
         R, dev = o.shape[0], o.device
@@ -152,13 +159,15 @@ class Walk:
         self.u, self.v = torch.empty_like(self.t), torch.empty_like(self.t)
         self.idx = torch.empty(R, dtype=torch.int64, device=dev)
         self.scratch = torch.zeros(2, dtype=torch.int32, device=dev)
+        self.it_sum = None if lib is not None else torch.zeros(1, dtype=torch.int64,
+                                                               device=dev)
         self.args = (grid, o, d, live, prev)
         self.lib = lib
 
     def run(self):
         self.scratch.zero_()
         kernels.launch_grid_walk(*self.args, self.t, self.u, self.v, self.idx, self.scratch,
-                                 lib=self.lib)
+                                 lib=self.lib, it_sum=self.it_sum)
 
     def differs(self, other: "Walk") -> int:
         off = self.idx != other.idx

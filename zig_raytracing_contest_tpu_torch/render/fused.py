@@ -310,19 +310,25 @@ def interleave_key(dead, q, dq) -> torch.Tensor:
     return (dead << 30) | key
 
 
-def _bounces_ref(scene: TorchScene, state, idx, prev_first, bounces):
+def _bounces_ref(scene: TorchScene, state, idx, prev_first, bounces, counts=None):
     """Trace + shade each bounce in ``bounces`` for the live rays.
     ``prev_first`` excludes each ray's previous hit at the first bounce;
-    later bounces exclude the winner of the bounce before."""
+    later bounces exclude the winner of the bounce before.  ``counts``
+    (3,) int64 gets each bounce's rays alive, tiles swept and boxes tested
+    (every tile for a live ray) added, as the kernels add theirs."""
     prev = prev_first
     for bounce in bounces:
         alive = state[12] > 0.0
         if not bool(alive.any()):
             break
-        t, hit, u, v, _ = nearest_hit_ref(
+        t, hit, u, v, swept = nearest_hit_ref(
             scene.tri_data, scene.tile_bbox, scene.tile, state[0:3],
             state[3:6], alive, prev,
         )
+        if counts is not None:
+            live = alive.sum()
+            counts += torch.stack([live, swept.to(torch.int64).sum(),
+                                   live * scene.tile_bbox.shape[1]])
         state = shade_ref(state, t, u, v, records_ref(scene.rec_table, t, hit),
                           scene.bank, bounce, scene.emissive_dummy)
         idx = torch.where(alive, hit, idx)
@@ -332,25 +338,26 @@ def _bounces_ref(scene: TorchScene, state, idx, prev_first, bounces):
 
 def path_trace_gen_ref(scene: TorchScene, par, meta, wave_size: int,
                        max_bounce: int, gen: GenParams, emit_key: bool = False,
-                       emit_idx: bool = False):
+                       emit_idx: bool = False, counts=None):
     """Plain twin of ``path_trace_gen``."""
     state = gen_rays_ref(par, meta, wave_size, gen)
     idx = torch.zeros(wave_size, dtype=torch.int64, device=state.device)
-    state, idx = _bounces_ref(scene, state, idx, None, range(max_bounce))
+    state, idx = _bounces_ref(scene, state, idx, None, range(max_bounce), counts)
     if emit_key:
         state[15] = sort_key_ref(state, par).view(torch.float32)
     return (state, idx.to(torch.int32)) if emit_idx else state
 
 
 def path_trace_fused_ref(scene: TorchScene, state16, max_bounce: int,
-                         bounce0: int = 0, prev=None, emit_idx: bool = False):
+                         bounce0: int = 0, prev=None, emit_idx: bool = False,
+                         counts=None):
     """Plain twin of ``path_trace_fused``."""
     R = state16.shape[1]
     idx = (prev.to(torch.int64) if prev is not None
            else torch.zeros(R, dtype=torch.int64, device=state16.device))
     state, idx = _bounces_ref(
         scene, state16.clone(), idx,
-        None if prev is None else idx, range(bounce0, bounce0 + max_bounce),
+        None if prev is None else idx, range(bounce0, bounce0 + max_bounce), counts,
     )
     return (state, idx.to(torch.int32)) if emit_idx else state
 
@@ -377,7 +384,7 @@ def _device_kind(scene: TorchScene) -> str:
 
 def path_trace_gen(scene: TorchScene, par, meta, wave_size: int,
                    max_bounce: int, gen: GenParams, emit_key: bool = False,
-                   emit_idx: bool = False):
+                   emit_idx: bool = False, counts=None):
     """Generate one wave of primary rays and path-trace its first
     ``max_bounce`` bounces.  Returns the (16, R) state; with ``emit_key``
     row 15 holds the beam-sort key (int32 bit pattern); with ``emit_idx``
@@ -385,30 +392,33 @@ def path_trace_gen(scene: TorchScene, par, meta, wave_size: int,
     seeds the continuation's previous-hit exclusion.
 
     ``par`` (32,) f32 on the scene's device (PAR_* rows); ``meta`` 8 ints
-    (META_* rows)."""
+    (META_* rows).  ``counts`` (3,) int64 on the scene's device gets the
+    wave's rays alive at each bounce's trace, tiles swept and boxes tested
+    added (inside the kernel on the card: no operation of its own)."""
     if _device_kind(scene) == "cpu":
         return path_trace_gen_ref(scene, par, meta, wave_size, max_bounce,
-                                  gen, emit_key, emit_idx)
+                                  gen, emit_key, emit_idx, counts)
     state = torch.empty((16, wave_size), dtype=torch.float32, device=scene.device)
     idx = torch.empty(wave_size, dtype=torch.int32, device=scene.device)
     kernels.launch_path_trace_gen(scene, par, meta, gen, max_bounce, emit_key,
-                                  state, idx)
+                                  state, idx, counts=counts)
     return (state, idx) if emit_idx else state
 
 
 def path_trace_fused(scene: TorchScene, state16, max_bounce: int,
-                     bounce0: int = 0, prev=None, emit_idx: bool = False):
+                     bounce0: int = 0, prev=None, emit_idx: bool = False, counts=None):
     """Path-trace ``max_bounce`` bounces numbered from ``bounce0`` (the RNG
     tags are per absolute bounce).  ``prev`` (R,) int32: each ray's previous
     hit, excluded at the first bounce.  Returns the (16, R) state, or
-    (state, idx) with ``emit_idx``."""
+    (state, idx) with ``emit_idx``.  ``counts`` as ``path_trace_gen``'s."""
     if _device_kind(scene) == "cpu":
         return path_trace_fused_ref(scene, state16, max_bounce, bounce0, prev,
-                                    emit_idx)
+                                    emit_idx, counts)
     R = state16.shape[1]
     state = torch.empty((16, R), dtype=torch.float32, device=scene.device)
     idx = torch.empty(R, dtype=torch.int32, device=scene.device)
-    kernels.launch_path_trace(scene, state16, prev, bounce0, max_bounce, state, idx)
+    kernels.launch_path_trace(scene, state16, prev, bounce0, max_bounce, state, idx,
+                              counts=counts)
     return (state, idx) if emit_idx else state
 
 

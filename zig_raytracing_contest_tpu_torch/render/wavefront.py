@@ -82,6 +82,15 @@ TRI_BATCH = 4
 # left, every GRID_CHECK_EVERY iterations: one host sync each time.
 GRID_CHECK_EVERY = 8
 
+# A wave's work counters, in the order of the (4,) int64 ``counts`` a wave
+# adds them to (the frame's tally after its segments: render.pipeline),
+# summed over its bounces: the rays alive at each bounce's trace, the tiles
+# swept and the boxes tested by the tile traces (the per-bounce traces'
+# aux rows 4-6, the whole-path kernels' same sums), and the grid walk's
+# iterations summed over its rays.  Every route counts all four; work a
+# route does not do (tiles on the grid, a walk over tiles) counts 0.
+WORK_COUNTERS = ("alive", "tiles", "boxes", "walk_iterations")
+
 
 def xla_path(scene: TorchScene, ext: ExtFlags | None = None) -> bool:
     """True when the wave takes the XLA shading path: an extension is on,
@@ -212,11 +221,12 @@ def unsort_rows(order: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 
 
 def finish_path_sorted(scene: TorchScene, state, idx0, max_bounce: int,
-                       key0=None, plain: bool = False):
+                       key0=None, plain: bool = False, counts=None):
     """Whole-path continuation after bounce 0: beam-sort the wave, trace the
     remaining bounces in one ``path_trace_fused`` call per resort segment,
     and unsort.  ``idx0`` is the bounce-0 winner per lane; ``key0`` the
-    kernel-emitted key (the host key when None).  ``plain`` runs the twin.
+    kernel-emitted key (the host key when None).  ``plain`` runs the twin;
+    ``counts`` (3,) int64 gets the traces' work added (``path_trace_gen``).
 
     Returns rows4 (4, R) in wave order: radiance rows 9-11 and the segment
     counter row 14."""
@@ -236,7 +246,7 @@ def finish_path_sorted(scene: TorchScene, state, idx0, max_bounce: int,
         order = perm if order is None else extras[1]
         last = i == len(bounds) - 2
         out = trace(scene, state, b_end - b_start, bounce0=b_start,
-                    prev=idx_cur, emit_idx=not last)
+                    prev=idx_cur, emit_idx=not last, counts=counts)
         if last:
             state = out
         else:
@@ -285,14 +295,16 @@ def gen_rays_raster(par: torch.Tensor, seed: int, slot_base: int,
 
 def render_wave_per_bounce(scene: TorchScene, par, width: int, spp: int,
                            max_bounce: int, slot_base: int, wave_size: int,
-                           seed: int, plain: bool = False) -> torch.Tensor:
+                           seed: int, plain: bool = False, counts=None) -> torch.Tensor:
     """One per-bounce wave in raster slot order → rows4 (4, R) in wave
     order: radiance rows 9-11 and the segment counter row 14.
 
     Per bounce: a beam sort (scenes past SORT_MIN_TRIS) that carries each
     lane's original position and previous hit, ``trace_emit_aux`` with the
     previous hit excluded, ``shade_fused`` from its aux and records.
-    ``plain`` runs the twins on any device."""
+    ``plain`` runs the twins on any device.  ``counts`` (WORK_COUNTERS):
+    each trace adds its rays alive, tiles swept and boxes tested."""
+    work = None if counts is None else counts[0:3]
     trace = mxu_intersect.trace_emit_aux_ref if plain else mxu_intersect.trace_emit_aux
     shade = fused.shade_fused_ref if plain else fused.shade_fused
     host_key = ray_sort_key_ref if plain else ray_sort_key
@@ -307,7 +319,8 @@ def render_wave_per_bounce(scene: TorchScene, par, width: int, spp: int,
             order = extras[0]
             if prev is not None:
                 prev = extras[1]
-        aux, prev, rec = trace(scene, state, rec_table=scene.rec_table, prev=prev)
+        aux, prev, rec = trace(scene, state, rec_table=scene.rec_table, prev=prev,
+                               counts=work)
         state = shade(scene, state, aux, prev, bounce, rec)
     rows4 = torch.cat([state[9:12], state[14:15]])
     return unsort_rows(order, rows4) if sort_rays else rows4
@@ -316,10 +329,12 @@ def render_wave_per_bounce(scene: TorchScene, par, width: int, spp: int,
 def render_wave_whole_path(scene: TorchScene, par, width: int, height: int,
                            spp: int, max_bounce: int, slot_base: int,
                            wave_size: int, seed: int, tiles_x: int,
-                           plain: bool = False) -> torch.Tensor:
+                           plain: bool = False, counts=None) -> torch.Tensor:
     """One whole-path wave → rows4 (4, R) in wave order: radiance rows 9-11
     and the segment counter row 14.  ``plain`` runs the twins on any
-    device."""
+    device.  ``counts`` (WORK_COUNTERS): the kernels add their rays alive,
+    tiles swept and boxes tested."""
+    work = None if counts is None else counts[0:3]
     gen = fused.GenParams(spp=spp, width=width, img_w=width, img_h=height,
                           tiles_x=tiles_x)
     y_base, x_base = divmod(slot_base, width)
@@ -328,13 +343,13 @@ def render_wave_whole_path(scene: TorchScene, par, width: int, height: int,
     do_sort = max_bounce > 1  # split at bounce 0, beam-sort the survivors
     gen_fn = fused.path_trace_gen_ref if plain else fused.path_trace_gen
     out = gen_fn(scene, par, meta, wave_size, 1 if do_sort else max_bounce, gen,
-                 emit_key=do_sort, emit_idx=do_sort)
+                 emit_key=do_sort, emit_idx=do_sort, counts=work)
     if not do_sort:
         return torch.cat([out[9:12], out[14:15]])
     state, idx0 = out
     key = state[15].contiguous().view(torch.int32)
     return finish_path_sorted(scene, state, idx0, max_bounce, key0=key,
-                              plain=plain)
+                              plain=plain, counts=work)
 
 
 class WalkWork(NamedTuple):
@@ -367,7 +382,7 @@ class TraceResult(NamedTuple):
 
 
 def trace_any(scene: TorchScene, orig, direction, active, exclude=None,
-              plain: bool = False):
+              plain: bool = False, counts=None):
     """Nearest hit of each ray (orig, direction: (R, 3); active: (R,) bool)
     → (t, u, v, tri, prev): ``tri`` the unique triangle id (on a miss 0
     with the bake, the first reference's triangle on the grid, as in the
@@ -379,10 +394,13 @@ def trace_any(scene: TorchScene, orig, direction, active, exclude=None,
     kernel compares; else the grid walk ``trace_wave`` (grid_walk_kernel
     on the card, ``trace_wave_ref`` on the CPU or with ``plain``), ``prev``
     the unique id.  Both find the same nearest hit (the grid only prunes
-    work)."""
+    work).  ``counts`` (WORK_COUNTERS): the grid walk adds its rays'
+    iterations, the bake's trace its rays alive, tiles swept and boxes
+    tested."""
     if scene.tri_data is None:
         walk = trace_wave_ref if plain else trace_wave
-        hit = walk(scene, orig, direction, active, exclude=exclude)
+        hit = walk(scene, orig, direction, active, exclude=exclude,
+                   it_sum=None if counts is None else counts[3:4])
         if orig.device.type == "cpu":  # reading the count on a card would sync
             log.debug("grid walk: %d loop iterations over %d rays", int(hit.iterations),
                       orig.shape[0])
@@ -394,22 +412,26 @@ def trace_any(scene: TorchScene, orig, direction, active, exclude=None,
     state[3:6] = direction.T
     state[12] = active.to(torch.float32)
     trace = mxu_intersect.trace_emit_aux_ref if plain else mxu_intersect.trace_emit_aux
-    aux, idx, _ = trace(scene, state, None, prev=exclude)
+    aux, idx, _ = trace(scene, state, None, prev=exclude,
+                        counts=None if counts is None else counts[0:3])
     t = aux[2]
     tri = torch.where(torch.isfinite(t), scene.perm[idx.to(torch.int64)], 0)
     return t, aux[0], aux[1], tri, idx
 
 
-def trace_wave(scene: TorchScene, orig, direction, active, exclude=None) -> TraceResult:
+def trace_wave(scene: TorchScene, orig, direction, active, exclude=None,
+               it_sum=None) -> TraceResult:
     """Nearest hit of a wave of rays by the grid's DDA and Möller–Trumbore
     (Scene.traceRay, src/stage3.zig:152-186; the JAX ``trace_wave``):
     one launch of ``grid_walk_kernel`` on CUDA tensors (bit for bit
     ``trace_wave_ref``'s results and iteration count; no host
     synchronisation), ``trace_wave_ref`` on CPU tensors.  ``exclude`` (R,)
-    is each ray's previous hit in unique triangle space."""
+    is each ray's previous hit in unique triangle space.  ``it_sum`` (1,)
+    int64: every ray's iterations are added to it (by the kernel's warps,
+    with no operation of its own)."""
     kind = orig.device.type
     if kind == "cpu":
-        return trace_wave_ref(scene, orig, direction, active, exclude)
+        return trace_wave_ref(scene, orig, direction, active, exclude, it_sum=it_sum)
     if kind != "cuda":
         raise ValueError(f"no grid walk kernel for device {orig.device}")
     R = orig.shape[0]
@@ -423,12 +445,12 @@ def trace_wave(scene: TorchScene, orig, direction, active, exclude=None) -> Trac
     kernels.launch_grid_walk(
         scene.grid.kernel_operands(), orig.contiguous(), direction.contiguous(),
         active.contiguous(), None if exclude is None else exclude.to(torch.int64).contiguous(),
-        t, u, v, idx, scratch)
+        t, u, v, idx, scratch, it_sum=it_sum)
     return TraceResult(t, u, v, idx, scratch[0])
 
 
 def trace_wave_ref(scene: TorchScene, orig, direction, active, exclude=None,
-                   work: bool = False) -> TraceResult:
+                   work: bool = False, it_sum=None) -> TraceResult:
     """Plain twin of ``trace_wave``, on any device.
 
     Per iteration a ray tests up to TRI_BATCH references of its cell, then
@@ -439,7 +461,11 @@ def trace_wave_ref(scene: TorchScene, orig, direction, active, exclude=None,
     GRID_CHECK_EVERY iterations the finished ones are dropped (one host
     sync).  A finished ray's state does not change, so the results are the
     JAX loop's.  Rays not active, or missing the grid, are misses.
-    ``work`` counts what the walk did (``WalkWork``)."""
+    ``work`` counts what the walk did (``WalkWork``).  ``it_sum`` (1,)
+    int64 gets each ray's iterations added: the iteration in which it was
+    done (1 for a ray done in its first), 0 for a ray that does not walk;
+    the loop's count is the largest of them, and their sum is the rays
+    walking at the start of each iteration, summed over the iterations."""
     g = scene.grid
     grid = g.params
     R = orig.shape[0]
@@ -483,10 +509,13 @@ def trace_wave_ref(scene: TorchScene, orig, direction, active, exclude=None,
         visited[cell_lin] = True
     batch = torch.arange(TRI_BATCH, device=dev)
     iterations = 0
+    walked = torch.zeros((), dtype=torch.int64, device=dev)
     while True:
         walking = []
         for _ in range(GRID_CHECK_EVERY):
             alive = ~done
+            if it_sum is not None:
+                walked += alive.sum()
             # triangle phase: up to TRI_BATCH tests against the current
             # cell; the JAX loop's sequential strict-< update keeps the
             # first of the batch's smallest t, which argmin returns
@@ -530,6 +559,8 @@ def trace_wave_ref(scene: TorchScene, orig, direction, active, exclude=None,
             # the JAX loop stops after the first iteration that leaves no
             # ray walking
             iterations += int(torch.stack(walking).sum()) + 1
+            if it_sum is not None:
+                it_sum += walked
             return result(iterations)
         iterations += GRID_CHECK_EVERY
         lanes, o, d = lanes[keep], o[keep], d[keep]
@@ -603,11 +634,15 @@ def xla_primary_rays(par, width: int, spp: int, slot_base: int, wave_size: int,
 
 def render_wave_xla(scene: TorchScene, par, width: int, spp: int, max_bounce: int,
                     slot_base: int, wave_size: int, seed: int,
-                    ext: ExtFlags | None = None, plain: bool = False) -> torch.Tensor:
+                    ext: ExtFlags | None = None, plain: bool = False,
+                    counts=None) -> torch.Tensor:
     """One wave of the XLA shading path (the XLA branch of the JAX
     ``render_wave``) in raster slot order → rows4 (4, R): radiance and the
     segment count per ray.  ``ext`` switches the extensions on; ``plain``
-    traces with the twin on any device."""
+    traces with the twin on any device.  ``counts`` (WORK_COUNTERS): the
+    nearest hits add their work (``trace_any``: no operation of its own)
+    and, on the grid, which counts no rays alive, the wave adds its lanes'
+    segment counts, summed once a wave (three operations)."""
     ext = ext or ExtFlags()
     dev = par.device
     R = wave_size
@@ -626,7 +661,7 @@ def render_wave_xla(scene: TorchScene, par, width: int, spp: int, max_bounce: in
             throughput, alive = roulette(throughput, streams, bounce, alive)
         segments = segments + alive.to(torch.int32)
         t, u, v, tri, prev = trace_any(scene, orig, direction, alive, exclude=prev,
-                                       plain=plain)
+                                       plain=plain, counts=counts)
         new_orig, new_dir, emissive, albedo, pass_through, missed, normal = (
             shade_and_scatter(scene, orig, direction, t, u, v, tri, streams, bounce))
         add_env = alive & missed
@@ -655,32 +690,39 @@ def render_wave_xla(scene: TorchScene, par, width: int, spp: int, max_bounce: in
         del t, u, v, tri, new_orig, new_dir, emissive, albedo, normal
         # rays alive after the last bounce add nothing: depth exhaustion
         # returns black (src/stage3.zig:189-191)
+    if counts is not None and scene.tri_data is None:
+        # a lane's segments are the bounces it was alive; summed in int32
+        # where the sum fits (no cast of the wave to int64)
+        exact = torch.int32 if R * max_bounce < 1 << 31 else torch.int64
+        counts[0].add_(segments.sum(dtype=exact))
     return torch.cat([radiance.T, segments[None].to(torch.float32)])
 
 
 def render_wave_rows(scene: TorchScene, par, width: int, height: int,
                      spp: int, max_bounce: int, slot_base: int, slot_cap: int,
                      wave_size: int, seed: int, tiles_x: int,
-                     plain: bool = False, ext: ExtFlags | None = None):
+                     plain: bool = False, ext: ExtFlags | None = None, counts=None):
     """One wave → (rows3 (3, R) radiance in wave-slot order, segments as a
     0-d int64 tensor).  Rays past ``slot_cap`` contribute exact zeros.
     Whole-path scenes take the slot order ``tiles_x`` gives; per-bounce
     and XLA-path waves take raster order (``tiles_x`` = 0).  ``plain``
-    runs the twins on any device; ``ext`` the extensions."""
+    runs the twins on any device; ``ext`` the extensions.  ``counts``
+    (4,) int64 on the scene's device gets the wave's WORK_COUNTERS added
+    (every lane counts, past ``slot_cap`` too)."""
     if xla_path(scene, ext):
         if tiles_x:
             raise ValueError("tiled slot order requires the whole-path regime")
         rows4 = render_wave_xla(scene, par, width, spp, max_bounce, slot_base,
-                                wave_size, seed, ext, plain)
+                                wave_size, seed, ext, plain, counts)
     elif whole_path_regime(scene):
         rows4 = render_wave_whole_path(scene, par, width, height, spp,
                                        max_bounce, slot_base, wave_size, seed,
-                                       tiles_x, plain)
+                                       tiles_x, plain, counts)
     elif tiles_x:
         raise ValueError("tiled slot order requires the whole-path regime")
     else:
         rows4 = render_wave_per_bounce(scene, par, width, spp, max_bounce,
-                                       slot_base, wave_size, seed, plain)
+                                       slot_base, wave_size, seed, plain, counts)
     slot_lane = slot_base + torch.arange(wave_size, device=scene.device) // spp
     mask = slot_lane < slot_cap
     rows3 = torch.where(mask[None, :], rows4[0:3], 0.0)

@@ -1,4 +1,5 @@
-"""Phase wall-clock timing, mirroring the reference's six-phase log.
+"""Phase wall-clock timing, mirroring the reference's six-phase log, and
+the program's host spans.
 
 (src/main.zig:24-27 getDuration; log calls at :106,113,119,127,140,142 —
 load / preprocess / compile / render / save / total.)
@@ -11,8 +12,12 @@ import time
 from contextlib import contextmanager
 
 import torch
+from torch._C._autograd import _profiler_enabled
 
 log = logging.getLogger("zig_raytracing_contest_tpu_torch")
+# the prefix of a span's profiler range: a span ``render.plan`` records as
+# ``zrc.render.plan``
+SPAN_PREFIX = "zrc."
 
 
 def _fmt(seconds: float) -> str:
@@ -27,19 +32,35 @@ def _fmt(seconds: float) -> str:
 
 
 class PhaseTimers:
-    """Collects named phase durations; emits reference-style log lines."""
+    """Collects named phase durations (``phases``, seconds summed over
+    every time a phase ran); emits reference-style log lines.
+
+    A phase is a span of host time.  Spans nest: a child span is opened
+    inside its parent and named under it with a dot (``render.plan``
+    inside ``render``).  Only a span given a ``message`` is logged.  While
+    a ``torch.profiler`` records on this thread, a span also opens the
+    profiler range ``zrc.<name>`` (``record_function``), so it lands in the
+    profiler's trace beside the device's operations, on the same clock;
+    otherwise it costs two clock reads and a dict update."""
 
     def __init__(self):
         self.phases: dict[str, float] = {}
         self._start = time.perf_counter()
 
     @contextmanager
-    def phase(self, name: str, message: str):
-        t0 = time.perf_counter()
-        yield
-        dt = time.perf_counter() - t0
+    def phase(self, name: str, message: str | None = None):
+        if _profiler_enabled():
+            with torch.profiler.record_function(SPAN_PREFIX + name):
+                t0 = time.perf_counter()
+                yield
+                dt = time.perf_counter() - t0
+        else:
+            t0 = time.perf_counter()
+            yield
+            dt = time.perf_counter() - t0
         self.phases[name] = self.phases.get(name, 0.0) + dt
-        log.info("%s in %s", message, _fmt(dt))
+        if message is not None:
+            log.info("%s in %s", message, _fmt(dt))
 
     def done(self) -> float:
         total = time.perf_counter() - self._start
