@@ -136,10 +136,14 @@ k. the ``--large`` terrain with ``backend: "grid"`` at the default 128³
    an edge decision) or the run fails; the kernel against the twin on
    65,536 built edge lanes (probes/grid_walk.py edge_rays) with and
    without an exclusion; the same on a 127×37×131 grid of the terrain,
-   with the first 2^18 rays of its bounce-0 wave; the frame: a warmup and
+   with the first 2^18 rays of its bounce-0 wave; both instantiations'
+   ptxas lines (the walk alone, the shaded walk); the frame's wave through
+   the shaded walk (the main path's) against render_wave_xla bit for bit,
+   its counters equal, each launch's ms; the frame: a warmup and
    5 timed renders
-   (grid_walk_kernel 3 launches a frame, the frame one CUDA graph from its
-   second render), one profile, the graph's frame bit for bit against the
+   (grid_walk_kernel B + 1 = 4 launches a frame, the shaded walk's; the
+   frame one CUDA graph from its second render), one profile, the graph's
+   frame bit for bit against the
    eager frame, and its gate against the per-bounce MXU frame (diff > 2 on
    < 2% of channels, tests/test_render.py's bound);
 l. the extensions: the Cornell box at 1920×1080, 4 bounces, held to the
@@ -1532,12 +1536,15 @@ def grid_phases(card, timing, errs, bounds, launches, base_lib) -> None:
     from zig_raytracing_contest_tpu_torch.config import Config
     from zig_raytracing_contest_tpu_torch.grid.builder import build_grid
     from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
+    from zig_raytracing_contest_tpu_torch import kernels
     from zig_raytracing_contest_tpu_torch.probes.grid_walk import (
         Walk,
         edge_rays,
+        shaded_ab,
         time_builds,
         walk_bound,
         walk_differs,
+        walk_ptxas,
     )
     from zig_raytracing_contest_tpu_torch.render import wavefront as wf
     from zig_raytracing_contest_tpu_torch.render.pipeline import prepare_scene, render_scene
@@ -1568,6 +1575,7 @@ def grid_phases(card, timing, errs, bounds, launches, base_lib) -> None:
           f"grid built and uploaded in {timers.phases['compile']:.2f} s")
     if reg != "XLA shading, grid" or scene.tri_data is not None:
         fail(f"the grid scene renders {reg}")
+    print(f"  grid_walk_kernel ptxas: {walk_ptxas(kernels.build_log('path_trace'))}")
     mcfg = Config(**kw)
     mscene, _, _ = prepare_scene(str(path), mcfg, camera_name="Camera 1", width=L_W,
                                  height=L_H, device=dev)
@@ -1641,6 +1649,10 @@ def grid_phases(card, timing, errs, bounds, launches, base_lib) -> None:
         live, prev = stepped, tri_g
     errs["grid_walk"] = 0.0  # every bit equal, or the run failed
     del o, d, streams, live, prev, res, new_o, new_d
+    # the same wave through the shaded walk (the main path's: B + 1
+    # launches), against render_wave_xla bit for bit, each launch timed
+    if shaded_ab(scene, cam, card, GW_ROUNDS):
+        fail("the shaded walk's wave differs from render_wave_xla's")
     # the built edge lanes, with and without an exclusion
     eo, ed, ea = (x.to(dev) for x in edge_rays(scene.grid.params, 1 << 16, seed=SEED))
     rng = np.random.default_rng(SEED)
@@ -1677,9 +1689,9 @@ def grid_phases(card, timing, errs, bounds, launches, base_lib) -> None:
     del oscene, og, o, d, lit, eo, ed, ea, ex
 
     # the frame, through the main path (one CUDA graph a frame from the
-    # second on): the walk's launches
+    # second on): the shaded walk's B + 1 launches a wave
     got = render_timed(render_scene, scene, cam, cfg, "grid --large", card,
-                       {"grid_walk": 6 * L_BOUNCES, "trace_emit": 0, "trace_stream": 0,
+                       {"grid_walk": 6 * (L_BOUNCES + 1), "trace_emit": 0, "trace_stream": 0,
                         "shade": 0, "path_trace": 0, "path_trace_gen": 0})
     launches["grid_walk"] = got["grid_walk"]
     profile_frame(render_scene, scene, cam, cfg, card)

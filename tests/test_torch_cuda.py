@@ -11,6 +11,8 @@ chip_smoke.py runs the same comparisons at the shapes of the official and
 ``--large`` frames.
 """
 
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -792,3 +794,113 @@ def test_extension_frames_take_their_own_graph_on_cuda(tmp_path):
     assert not np.array_equal(imgs[0], imgs[1])
     graphs = [v for v in scene.frame_cache().values() if isinstance(v, pipeline.FrameGraph)]
     assert len(graphs) == 2
+
+
+def _shaded_wave_scene(tmp_path, case):
+    """A grid scene and the camera scalars of one wave of it, for the
+    shaded walk against ``render_wave_xla``: (scene, par, width, spp, seed).
+    "large": the --large terrain's 128³ grid at 1280×720, 2 spp; "alpha":
+    the alpha asset (OPAQUE, MASK and BLEND quads: pass-through lanes) on a
+    16³ grid at 128×96, 4 spp; "miss": the --large terrain with a camera
+    above its box looking up, so that every primary ray misses."""
+    from zig_raytracing_contest_tpu_torch.render import fused
+    from zig_raytracing_contest_tpu_torch.render.wavefront import build_gen_par
+
+    if case == "alpha":
+        path = Path(__file__).parent / "assets" / "alpha_modes.gltf"
+        cfg = Config(grid_resolution=(16, 16, 16), num_samples=4, backend="grid")
+        scene, cam, _ = prepare_scene(str(path), cfg, width=128, height=96, device="cuda")
+        width, spp = 128, 4
+    else:
+        path = tproc.large_scene(tmp_path / "l.gltf")
+        cfg = Config(num_samples=2, backend="grid")
+        scene, cam, _ = prepare_scene(str(path), cfg, camera_name="Camera 1", width=1280,
+                                      height=720, device="cuda")
+        width, spp = 1280, 2
+    par = build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
+    if case == "miss":
+        top = scene.grid.params.bbox_max.to("cuda")
+        par[fused.PAR_ORIGIN: fused.PAR_ORIGIN + 3] = top + 1.0
+        par[fused.PAR_LLC: fused.PAR_LLC + 3] = torch.tensor([-0.5, 1.0, -0.5])
+        par[fused.PAR_RIGHT: fused.PAR_RIGHT + 3] = torch.tensor([1.0 / width, 0.0, 0.0])
+        par[fused.PAR_UP: fused.PAR_UP + 3] = torch.tensor([0.0, 0.0, 1.0 / 720])
+    return scene, par, width, spp, 5 if case == "alpha" else 2300000121
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, bounces, rays", [
+    ("large", 3, 1280 * 720 * 2),
+    ("large", 1, 1 << 16),
+    ("large", 2, (1 << 16) + 17),
+    ("alpha", 3, 128 * 96 * 4 - 5),
+    ("miss", 2, 4099),
+], ids=["large_3b_full", "large_1b", "large_2b_ragged", "alpha_3b_ragged", "miss_2b"])
+def test_shaded_walk_equals_xla_wave_on_cuda(tmp_path, case, bounces, rays):
+    """The shaded walk's wave (``render_wave_grid``: B + 1 launches of
+    grid_walk_kernel<true>) against ``render_wave_xla`` on the card (the
+    walk alone, then the PyTorch shade) on the same wave: radiance and
+    segments bit for bit, and the rays alive and walk iterations they add
+    to the work counters equal; the alpha asset's wave has pass-through
+    lanes, the "miss" wave only misses."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    from zig_raytracing_contest_tpu_torch import kernels
+    from zig_raytracing_contest_tpu_torch.render import wavefront as wf
+
+    scene, par, width, spp, seed = _shaded_wave_scene(tmp_path, case)
+    assert wf.shaded_walk(scene) and not wf.shaded_walk(scene, plain=True)
+    counts = {k: torch.zeros(4, dtype=torch.int64, device="cuda") for k in ("walk", "xla")}
+    kernels.reset_launches()
+    got = wf.render_wave_grid(scene, par, width, spp, bounces, 0, rays, seed, counts["walk"])
+    assert kernels.launches_since({k: 0 for k in kernels.LAUNCHES}) == {"grid_walk": bounces + 1}
+    want = wf.render_wave_xla(scene, par, width, spp, bounces, 0, rays, seed,
+                              counts=counts["xla"])
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (4, rays)
+    differ = (got.view(torch.int32) != want.view(torch.int32)).any(dim=0)
+    assert int(differ.sum()) == 0, (case, int(differ.sum()), differ.nonzero()[:4, 0].tolist())
+    assert torch.equal(counts["walk"], counts["xla"]), (counts["walk"], counts["xla"])
+    segments = int(want[3].sum())
+    assert int(counts["walk"][0]) == segments > 0
+    if case == "miss":
+        assert segments == rays and int(counts["walk"][3]) == 0
+    else:
+        assert segments > rays or bounces == 1
+        assert int(counts["walk"][3]) > 0
+    if case == "alpha":
+        o, d, streams = wf.xla_primary_rays(par, width, spp, 0, rays, seed)
+        hit = wf.trace_wave(scene, o.contiguous(), d, torch.ones(rays, dtype=torch.bool,
+                                                                   device="cuda"))
+        tri = scene.grid.dup_to_tri[hit.dup_idx]
+        *_, through, missed, _ = wf.shade_and_scatter(scene, o, d, hit.t, hit.u, hit.v, tri,
+                                                      streams, 0)
+        assert int((through & ~missed).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_grid_frame_launches_only_the_shaded_walk_on_cuda(tmp_path):
+    """A grid frame of the --large terrain at 320×180 (2 spp, 3 bounces, waves
+    of 2^15 rays: four waves, the last one short) on the card, eager and as
+    its CUDA graph: grid_walk_kernel alone, B + 1 = 4 launches a wave, and
+    the graph's frames equal the eager one bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    import numpy as np
+
+    from zig_raytracing_contest_tpu_torch import kernels
+    from zig_raytracing_contest_tpu_torch.render import pipeline
+
+    path = tproc.large_scene(tmp_path / "l.gltf")
+    cfg = Config(num_samples=2, max_bounce=3, backend="grid", wave_size=1 << 15)
+    scene, cam, _ = prepare_scene(str(path), cfg, camera_name="Camera 1", width=320,
+                                  height=180, device="cuda")
+    plan = pipeline.frame_plan(scene, cam, cfg)
+    assert plan.waves_run == 4
+    kernels.reset_launches()
+    want, st = pipeline.render_scene(scene, cam, cfg, graph=False)
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {"grid_walk": 4 * 4}
+    for _ in range(3):
+        img, st_g = pipeline.render_scene(scene, cam, cfg)
+        np.testing.assert_array_equal(img, want)
+        assert st_g.segments == st.segments
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {"grid_walk": 4 * 4 * 4}

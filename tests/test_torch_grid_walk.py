@@ -10,16 +10,19 @@ on the CPU.
   faces and inside the grid, zero directions, inactive lanes), with and
   without the previous-hit exclusion; and the JAX package's
   ``trace_wave`` run op by op, bit for bit;
-* ``kernels.launch_grid_walk`` checks its operands and refuses CPU
-  tensors before it loads anything (no silent fallback), and the CPU path
-  never reaches it;
+* ``kernels.launch_grid_walk`` and ``kernels.launch_grid_walk_shaded``
+  check their operands and refuse CPU tensors before they load anything
+  (no silent fallback), and the CPU path never reaches them;
 * the grid's kernel operands hold the grid's values bit for bit;
 * ``FramePlan.key`` tells the extensions apart, ``graph_route`` sends the
   XLA shading path's frames to the graph, and a grid frame with NEE
-  through the graph route (a stub capture) equals its eager frame.
+  through the graph route (a stub capture) equals its eager frame;
+* ``render_wave_rows`` sends a grid wave with no extension on a card to
+  the shaded walk (``render_wave_grid``) and every other XLA-path wave to
+  ``render_wave_xla``; the CPU never reaches the shaded walk's kernel.
 
-grid_walk_kernel itself runs only on the card (tests/test_torch_cuda.py,
-chip_smoke.py phase k).
+grid_walk_kernel itself, and its shaded walk, run only on the card
+(tests/test_torch_cuda.py, chip_smoke.py phase k).
 """
 
 from types import SimpleNamespace
@@ -275,6 +278,44 @@ def test_launch_grid_walk_refuses(over, match, monkeypatch):
     assert kernels.LAUNCHES["grid_walk"] == 0
 
 
+def _shaded_args(**over):
+    """Arguments of kernels.launch_grid_walk_shaded on CPU tensors (8 rays, a
+    2×2×2 grid of 5 references, a shade table of 3 triangles, 4 texels)."""
+    R = 8
+    args = dict(_walk_args(), shade=torch.zeros(3, 32), bank=torch.zeros(4, 4),
+                direction=torch.ones(R, 3), thr=torch.empty(R, 3),
+                rows4=torch.empty(4, R), streams=torch.zeros(R, dtype=torch.int64),
+                bounce=1, bounces=3, counts=torch.zeros(4, dtype=torch.int64))
+    del args["active"], args["exclude"]
+    args.update(over)
+    return args
+
+
+@pytest.mark.parametrize("over, match", [
+    ({}, "needs CUDA tensors"),
+    ({"bounce": 4}, "launch 4 of a wave of 3 bounces"),
+    ({"rows4": torch.empty(8, 4)}, "rows4 has shape"),
+    ({"streams": torch.zeros(8, dtype=torch.int32)}, "streams has dtype"),
+    ({"shade": torch.zeros(3, 24)}, "shade has shape"),
+    ({"counts": torch.zeros(3, dtype=torch.int64)}, "counts has shape"),
+    ({"bank": torch.zeros(17)[1:].view(4, 4)}, "bank is not 16-byte aligned"),
+], ids=["cpu", "bounce", "rows4_shape", "streams_dtype", "shade_shape", "counts_shape",
+        "bank_aligned"])
+def test_launch_grid_walk_shaded_refuses(over, match, monkeypatch):
+    """The shaded walk's launcher checks every operand before the library
+    loads, as launch_grid_walk does: CPU tensors, a launch past the wave's
+    bounces, wrong shapes, dtypes or alignment raise ValueError, and nothing
+    is built or counted."""
+    def no_load():
+        raise AssertionError("the library was loaded")
+
+    monkeypatch.setattr(kernels, "load", no_load)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match=match):
+        kernels.launch_grid_walk_shaded(**_shaded_args(**over))
+    assert kernels.LAUNCHES["grid_walk"] == 0
+
+
 @pytest.mark.parametrize("flag", ["nee", "russian_roulette", "pbr"])
 def test_frame_plan_key_has_extension_flags(flag, tmp_path):
     """One grid scene at one size with and without an extension: the plans
@@ -308,15 +349,64 @@ def test_graph_route_takes_the_xla_path(case, want):
                                 case.get("progressive", False)) == want
 
 
+_EXTS = {"none": ExtFlags(), "nee": ExtFlags(nee=True),
+         "russian_roulette": ExtFlags(russian_roulette=True), "pbr": ExtFlags(pbr=True)}
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("plain", [False, True], ids=["kernels", "plain"])
+@pytest.mark.parametrize("ext", list(_EXTS))
+@pytest.mark.parametrize("kind", ["grid", "baked"])
+def test_wave_route_shades_in_the_walk_only_on_a_bare_grid_card(kind, ext, plain, device,
+                                                                 monkeypatch):
+    """Which route ``render_wave_rows`` sends a wave down (stub scenes): the
+    shaded walk (``render_wave_grid``) for a grid scene with no extension,
+    through the kernels, on a card; ``render_wave_xla`` for every other wave
+    of the XLA shading path (an extension on, on the grid or the bake;
+    ``plain``; the CPU); a baked scene with no extension neither.  The
+    shaded walk's entry point is made to raise, and no route reaches it."""
+    class Took(Exception):
+        pass
+
+    def route(name):
+        def take(*a, **k):
+            raise Took(name)
+        return take
+
+    def refuse(*a, **k):
+        raise AssertionError("the route reached the shaded walk's kernel")
+
+    monkeypatch.setattr(kernels, "launch_grid_walk_shaded", refuse)
+    monkeypatch.setattr(wavefront, "render_wave_grid", route("walk"))
+    monkeypatch.setattr(wavefront, "render_wave_xla", route("xla"))
+    monkeypatch.setattr(wavefront, "render_wave_whole_path", route("bake"))
+    monkeypatch.setattr(wavefront, "render_wave_per_bounce", route("bake"))
+    scene = SimpleNamespace(device=torch.device(device), bank_resident=True,
+                            tri_data=None if kind == "grid" else torch.empty(16, 8))
+    flags = _EXTS[ext]
+    if ext == "none":
+        bare = "walk" if device == "cuda" and not plain else "xla"
+        want = bare if kind == "grid" else "bake"
+    else:
+        want = "xla"
+    assert wavefront.shaded_walk(scene, flags, plain) == (want == "walk")
+    with pytest.raises(Took) as took:
+        wavefront.render_wave_rows(scene, torch.zeros(32), 64, 48, 2, 3, 0, 64 * 48, 1024, 1,
+                                   0, plain=plain, ext=flags)
+    assert took.value.args[0] == want
+
+
 def test_cpu_grid_path_never_reaches_the_kernel(tmp_path, monkeypatch):
-    """On the CPU the grid walk is the twin: with launch_grid_walk and the
-    library's loader made to raise, trace_any (plain or not) and a grid
-    frame with NEE and RR render; trace_wave on a CPU wave is the twin's
-    result, its iteration count a 0-d int32 on the CPU."""
+    """On the CPU the grid walk is the twin: with launch_grid_walk, the
+    shaded walk's launcher and the library's loader made to raise,
+    trace_any (plain or not) and grid frames with and without NEE and RR
+    render; trace_wave on a CPU wave is the twin's result, its iteration
+    count a 0-d int32 on the CPU."""
     def refuse(*a, **k):
         raise AssertionError("the CPU path reached the kernel")
 
     monkeypatch.setattr(kernels, "launch_grid_walk", refuse)
+    monkeypatch.setattr(kernels, "launch_grid_walk_shaded", refuse)
     monkeypatch.setattr(kernels, "load", refuse)
     cam, _, _, _, tg, _ = _scenes("cornell", tmp_path)
     o, d, act = edge_rays(tg.grid.params, 128, seed=3)
@@ -331,8 +421,11 @@ def test_cpu_grid_path_never_reaches_the_kernel(tmp_path, monkeypatch):
     cfg = Config(grid_resolution=(8, 8, 8), num_samples=1, max_bounce=3, backend="grid",
                  nee=True, russian_roulette=True)
     scene, c, _ = pipeline.prepare_scene(str(path), cfg, width=32, height=24, device="cpu")
-    img, st = pipeline.render_scene(scene, c, cfg)
-    assert img.shape == (24, 32, 3) and st.segments > 0
+    for ext in (dict(nee=True, russian_roulette=True), {}):
+        frame_cfg = Config(grid_resolution=(8, 8, 8), num_samples=1, max_bounce=3,
+                           backend="grid", **ext)
+        img, st = pipeline.render_scene(scene, c, frame_cfg)
+        assert img.shape == (24, 32, 3) and st.segments > 0
 
 
 def test_grid_nee_frames_through_the_graph_route(tmp_path, monkeypatch):

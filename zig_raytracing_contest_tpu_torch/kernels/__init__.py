@@ -174,6 +174,22 @@ class ZrcGrid(ctypes.Structure):
     ]
 
 
+class ZrcGridWave(ctypes.Structure):
+    _fields_ = [
+        ("orig", ctypes.c_void_p),
+        ("dir", ctypes.c_void_p),
+        ("thr", ctypes.c_void_p),
+        ("rows4", ctypes.c_void_p),
+        ("streams", ctypes.c_void_p),
+        ("shade", ctypes.c_void_p),
+        ("bank", ctypes.c_void_p),
+        ("num_texels", ctypes.c_int),
+        ("bounce", ctypes.c_int),
+        ("walk", ctypes.c_int),
+        ("alive", ctypes.c_void_p),
+    ]
+
+
 def _nvcc() -> str:
     for cand in (
         os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
@@ -343,6 +359,11 @@ def load():
                 fn = getattr(lib, name + "_counted")
                 fn.restype = i32
                 fn.argtypes = plain.argtypes[:at] + [ptr] + plain.argtypes[at:]
+            lib.zrc_grid_walk_shaded.restype = i32
+            lib.zrc_grid_walk_shaded.argtypes = [
+                ctypes.POINTER(ZrcGrid), ctypes.POINTER(ZrcGridWave), ptr, ptr, ptr, ptr, ptr,
+                ptr, i32, i32, i32, i32, ptr,
+            ]
             lib.zrc_empty.restype = i32
             lib.zrc_empty.argtypes = [i32, ptr]
             _libs["path_trace"] = lib
@@ -665,6 +686,24 @@ def launch_ray_sort_key(state, bbox_min, bbox_max, key_out, lib=None) -> None:
 GRID_MAX_RAYS = (1 << 31) - (1 << 24)
 
 
+def _grid_struct(grid, device) -> ZrcGrid:
+    """Check the grid's operands (``scene.types.GridOperands``) on
+    ``device`` → the ``ZrcGrid`` the walk reads.  Refused: a grid of 2^31
+    cells or more (its int32 indices)."""
+    rx, ry, rz = grid.resolution
+    cells = rx * ry * rz
+    _check(grid.tri, "grid.tri", torch.float32, (grid.tri.shape[0], 12), device)
+    _check(grid.cells, "grid.cells", torch.int32, (grid.cells.shape[0], 2), device)
+    if grid.cells.shape[0] != cells or cells >= 1 << 31:
+        raise ValueError(f"{grid.cells.shape[0]} cell ranges for a {grid.resolution} grid")
+    if grid.tri.shape[0] >= 1 << 31 or grid.tri.shape[0] < 1:
+        raise ValueError(f"{grid.tri.shape[0]} references: 1 to 2^31 - 1")
+    return ZrcGrid(grid.tri.data_ptr(), grid.cells.data_ptr(),
+                   (ctypes.c_float * 3)(*grid.bbox_min), (ctypes.c_float * 3)(*grid.bbox_max),
+                   (ctypes.c_float * 3)(*grid.cell_size), (ctypes.c_int * 3)(*grid.resolution),
+                   cells)
+
+
 def launch_grid_walk(grid, orig, direction, active, exclude, t_out, u_out, v_out,
                      idx_out, iterations, lib=None, it_sum=None) -> None:
     """Launch grid_walk_kernel: the nearest hit of each ray ``orig`` /
@@ -685,15 +724,11 @@ def launch_grid_walk(grid, orig, direction, active, exclude, t_out, u_out, v_out
     R = orig.shape[0]
     if R > GRID_MAX_RAYS:
         raise ValueError(f"{R} rays: at most {GRID_MAX_RAYS} a walk")
-    rx, ry, rz = grid.resolution
-    cells = rx * ry * rz
     for name, t, dtype, shape in (
             ("orig", orig, torch.float32, (R, 3)), ("direction", direction, torch.float32, (R, 3)),
             ("active", active, torch.bool, (R,)), ("t_out", t_out, torch.float32, (R,)),
             ("u_out", u_out, torch.float32, (R,)), ("v_out", v_out, torch.float32, (R,)),
-            ("idx_out", idx_out, torch.int64, (R,)), ("iterations", iterations, torch.int32, (2,)),
-            ("grid.tri", grid.tri, torch.float32, (grid.tri.shape[0], 12)),
-            ("grid.cells", grid.cells, torch.int32, (grid.cells.shape[0], 2))):
+            ("idx_out", idx_out, torch.int64, (R,)), ("iterations", iterations, torch.int32, (2,))):
         _check(t, name, dtype, shape, dev)
     if exclude is not None:
         _check(exclude, "exclude", torch.int64, (R,), dev)
@@ -701,23 +736,72 @@ def launch_grid_walk(grid, orig, direction, active, exclude, t_out, u_out, v_out
         _check(it_sum, "it_sum", torch.int64, (1,), dev)
         if lib is not None:
             raise ValueError("another build's zrc_grid_walk takes no iteration sum")
-    if grid.cells.shape[0] != cells or cells >= 1 << 31:
-        raise ValueError(f"{grid.cells.shape[0]} cell ranges for a {grid.resolution} grid")
-    if grid.tri.shape[0] >= 1 << 31 or grid.tri.shape[0] < 1:
-        raise ValueError(f"{grid.tri.shape[0]} references: 1 to 2^31 - 1")
+    g = _grid_struct(grid, dev)
     if dev.type != "cuda":
         raise ValueError(f"grid_walk_kernel needs CUDA tensors, got {dev}")
     counted = lib is None
     lib = load() if lib is None else lib
-    g = ZrcGrid(grid.tri.data_ptr(), grid.cells.data_ptr(), (ctypes.c_float * 3)(*grid.bbox_min),
-                (ctypes.c_float * 3)(*grid.bbox_max), (ctypes.c_float * 3)(*grid.cell_size),
-                (ctypes.c_int * 3)(*grid.resolution), cells)
     args = [ctypes.byref(g), orig.data_ptr(), direction.data_ptr(), active.data_ptr(),
             None if exclude is None else exclude.data_ptr(), t_out.data_ptr(), u_out.data_ptr(),
             v_out.data_ptr(), idx_out.data_ptr(), iterations.data_ptr(), R, dev.index or 0,
             torch.cuda.current_stream(dev).cuda_stream]
     err = _call(lib, "zrc_grid_walk", args, it_sum, counted)
     if _launched(err, lib.zrc_error_string, "grid_walk_kernel") and counted:
+        _count("grid_walk")
+
+
+def launch_grid_walk_shaded(grid, shade, bank, orig, direction, thr, rows4, streams, t_out,
+                            u_out, v_out, idx_out, iterations, bounce: int, bounces: int,
+                            counts=None) -> None:
+    """Launch ``bounce`` (0 .. ``bounces``) of a shaded wave of grid_walk_kernel
+    (``wavefront.render_wave_grid``: launches 0 .. bounces in turn make a
+    wave of ``bounces`` bounces, equal to ``wavefront.render_wave_xla``).
+    The wave's state, kept between its launches: ``orig``, ``direction``
+    and ``thr`` (R, 3) f32 (origin, direction, throughput; launch 0 reads the
+    primary rays and sets the throughput), ``rows4`` (4, R) f32 (radiance,
+    segments; set by launch 0, the wave's result after the last),
+    ``streams`` (R,) int64 (read only) and the hits ``t_out``, ``u_out``,
+    ``v_out`` (R,) f32 and ``idx_out`` (R,) int64.  ``shade`` (T, 32) f32
+    and ``bank`` (P, 4) f32 are the scene's shade table and texel bank
+    (``shade_table``, ``color_data``); ``iterations`` (2,) int32 scratch
+    that must hold zeros, as ``launch_grid_walk``'s.  ``counts`` (4,) int64
+    (``wavefront.WORK_COUNTERS``) or None: the launch adds the rays it walks
+    to [0] and their iterations to [3].  Every check runs before the library
+    is loaded; CPU tensors raise."""
+    dev = orig.device
+    R = orig.shape[0]
+    if R > GRID_MAX_RAYS:
+        raise ValueError(f"{R} rays: at most {GRID_MAX_RAYS} a walk")
+    if not 0 <= bounce <= bounces:
+        raise ValueError(f"launch {bounce} of a wave of {bounces} bounces")
+    for name, t, dtype, shape in (
+            ("orig", orig, torch.float32, (R, 3)), ("direction", direction, torch.float32, (R, 3)),
+            ("thr", thr, torch.float32, (R, 3)), ("rows4", rows4, torch.float32, (4, R)),
+            ("streams", streams, torch.int64, (R,)), ("t_out", t_out, torch.float32, (R,)),
+            ("u_out", u_out, torch.float32, (R,)), ("v_out", v_out, torch.float32, (R,)),
+            ("idx_out", idx_out, torch.int64, (R,)), ("iterations", iterations, torch.int32, (2,)),
+            ("shade", shade, torch.float32, (shade.shape[0], 32)),
+            ("bank", bank, torch.float32, (bank.shape[0], 4))):
+        _check(t, name, dtype, shape, dev)
+    if counts is not None:
+        _check(counts, "counts", torch.int64, (4,), dev)
+    if not 1 <= bank.shape[0] < 1 << 31:
+        raise ValueError(f"{bank.shape[0]} texels: 1 to 2^31 - 1")
+    for name, t in (("shade", shade), ("bank", bank)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned (float4 rows)")
+    g = _grid_struct(grid, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"grid_walk_kernel needs CUDA tensors, got {dev}")
+    lib = load()
+    w = ZrcGridWave(orig.data_ptr(), direction.data_ptr(), thr.data_ptr(), rows4.data_ptr(),
+                    streams.data_ptr(), shade.data_ptr(), bank.data_ptr(), bank.shape[0], 0, 0,
+                    None)
+    err = lib.zrc_grid_walk_shaded(
+        ctypes.byref(g), ctypes.byref(w), t_out.data_ptr(), u_out.data_ptr(), v_out.data_ptr(),
+        idx_out.data_ptr(), iterations.data_ptr(), None if counts is None else counts.data_ptr(),
+        bounce, bounces, R, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    if _launched(err, lib.zrc_error_string, "grid_walk_kernel"):
         _count("grid_walk")
 
 

@@ -25,7 +25,10 @@
 //                             XLA fusion inside the jitted wave)
 //   grid_walk_kernel       <- zig_raytracing_contest_tpu/render/wavefront.py:360
 //                             trace_wave (the grid's DDA walk, a
-//                             jax.lax.while_loop inside the jitted wave)
+//                             jax.lax.while_loop inside the jitted wave);
+//                             grid_walk_kernel<true> also the shading round
+//                             of render_wave's XLA branch (XLA fusions and
+//                             gathers inside the jitted wave)
 // with the shared device functions
 //   gen_ray        <- fused._gen_rays (:844)
 //   trace_nearest_warp <- mxu_intersect._trace_body_resident (:1027), the
@@ -164,6 +167,8 @@ enum {
 };
 // Packed record columns (scene/types.py PCOL_*).
 enum { P_NRM = 0, P_UV = 9, P_BASE = 15, P_EMIS = 19, P_COLS = 24 };
+// Shade table columns (scene/types.py COL_*): the XLA shading path's rows.
+enum { COL_NRM = 0, COL_UV = 9, COL_BASE_DESC = 15, COL_EMIS_DESC = 23, SHADE_COLS = 32 };
 // Gen parameter rows (fused.py PAR_*).
 enum { PAR_ORIGIN = 0, PAR_LLC = 3, PAR_RIGHT = 6, PAR_UP = 9,
        PAR_BMIN = 12, PAR_SCALE = 15 };
@@ -1214,6 +1219,25 @@ __global__ void __launch_bounds__(kThreads) ray_sort_key_kernel(
 // bounce-0 wave (0.73 against 1.05 ms), lost the most at bounces 1-2 (2.19
 // / 2.76 against 1.40 / 1.46 ms).  Those builds are in commit b6739df's
 // path_trace.cu and probes/grid_walk.py.
+//
+// The shaded walk, grid_walk_kernel<true> (zrc_grid_walk_shaded): the XLA
+// shading path's whole wave on a grid scene with no extension on, in B + 1
+// launches for B bounces, which replace render_wave_xla's per-bounce
+// PyTorch shade (~450 gathers and elementwise ops over the whole wave a
+// bounce, dead lanes included) and are equal to it bit for bit.  The wave's
+// ray state stays on the device between the launches (ZrcGridWave): origin,
+// direction, throughput, radiance and segments, the streams, and the
+// previous hit (t, u, v and the reference, the walk's own outputs).  At
+// launch b a lane that takes ray r first shades r's hit of bounce b - 1 as
+// shade_and_scatter and the wave's updates do (the sky on a miss, which
+// ends the ray; else the shade table's row of the reference's unique
+// triangle, the two bilinear samples of ops/texture.py, the alpha draw and
+// the Gaussian, the radiance, throughput, origin and direction), then walks
+// bounce b from the new origin with that triangle excluded, exactly as the
+// walk alone does; launch 0 walks the primary rays, launch B only shades.
+// A ray is alive at launch b when it walked at every launch before (its
+// segments equal b), so a ray that ended costs one load, and a lane shades
+// beside the other lanes the warp hands rays to at once.
 
 #define GRID_TRI_BATCH 4
 #define GRID_THREADS 128
@@ -1225,6 +1249,10 @@ __global__ void __launch_bounds__(kThreads) ray_sort_key_kernel(
 #define GRID_REFILL_MIN 8
 // the blocks an SM holds: bounds the walk's registers (65536 / (7 * 128))
 #define GRID_BLOCKS_PER_SM 7
+// the blocks an SM holds of the shaded walk, whose take shades a ray (at
+// most 102 registers; 4 to 7 measured on the --large frame's wave, PERF.md:
+// 5 the fastest, with a spill of 60 bytes)
+#define GRID_SHADE_BLOCKS_PER_SM 5
 
 struct ZrcGrid {
     const float4* tri;   // (D + 1, 12) f32: v0 xyz, e1 x | e1 yz, e2 xy | e2 z,
@@ -1235,6 +1263,22 @@ struct ZrcGrid {
     float cell[3];       // cell size
     int res[3];
     int num_cells;       // C
+};
+
+// The shaded walk's wave: the rays' state, kept on the device between the
+// wave's launches, and what the shade reads.
+struct ZrcGridWave {
+    float* orig;                  // (R, 3) f32: each ray's origin
+    float* dir;                   // (R, 3) f32: its direction
+    float* thr;                   // (R, 3) f32: its throughput
+    float* rows4;                 // (4, R) f32: radiance (rows 0-2), segments (row 3)
+    const long long* streams;     // (R,) int64: each ray's RNG stream (uint32 values)
+    const float4* shade;          // (T, 8) float4: the shade table, 32 f32 a triangle
+    const float4* bank;           // (P, 4) f32: the texel bank (color_data)
+    int num_texels;               // P
+    int bounce;                   // b: this launch shades bounce b - 1's hits
+    int walk;                     // b < B: then walks bounce b
+    unsigned long long* alive;    // one uint64: += the rays this launch walks
 };
 
 // linalg.moller_trumbore (ops/linalg.py): pvec, det, 1/det, u, qvec, v, t,
@@ -1288,8 +1332,12 @@ __device__ __forceinline__ void grid_enter(const ZrcGrid& g, GridLane& L) {
 }
 
 // Take ray r: the slab test and dda.dda_setup, then enter its first cell.
-// A ray that is not active or misses the box is written out at once (t
-// +inf, u v 0, reference 0) and false returned.
+// A ray that misses the box, or (the walk alone) is not active, is written
+// out at once (t +inf, u v 0, reference 0) and false returned.  The walk
+// alone reads ray r of ``orig``, ``dir`` and ``exclude``; the shaded walk
+// passes the ray's own origin and direction (3 floats each) and sets L.ex
+// itself.
+template <bool kShade>
 __device__ __forceinline__ bool grid_setup(const ZrcGrid& g, const float* __restrict__ orig,
                                            const float* __restrict__ dir,
                                            const bool* __restrict__ active,
@@ -1302,10 +1350,11 @@ __device__ __forceinline__ bool grid_setup(const ZrcGrid& g, const float* __rest
     L.best_t = INFINITY;
     L.best_u = L.best_v = 0.0f;
     L.best_i = 0;
+    const size_t at = kShade ? 0 : 3 * (size_t)r;
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-        L.o[a] = orig[3 * (size_t)r + a];
-        L.d[a] = dir[3 * (size_t)r + a];
+        L.o[a] = orig[at + a];
+        L.d[a] = dir[at + a];
     }
     // linalg.ray_bbox_intersection: narrowing y then z
     bool sign[3];
@@ -1322,7 +1371,7 @@ __device__ __forceinline__ bool grid_setup(const ZrcGrid& g, const float* __rest
     tmax = nan_min(tmax, far_[1]);
     miss = miss || tmin > far_[2] || tmax < near_[2];
     tmin = nan_max(tmin, near_[2]);
-    if (miss || !active[r]) {
+    if (miss || (!kShade && !active[r])) {
         t_out[r] = INFINITY;
         u_out[r] = 0.0f;
         v_out[r] = 0.0f;
@@ -1348,9 +1397,198 @@ __device__ __forceinline__ bool grid_setup(const ZrcGrid& g, const float* __rest
     L.stride[0] = sign[0] ? -1 : 1;
     L.stride[1] = sign[1] ? -g.res[0] : g.res[0];
     L.stride[2] = sign[2] ? -g.res[0] * g.res[1] : g.res[0] * g.res[1];
-    L.ex = exclude != nullptr ? exclude[r] : 0;
+    if (!kShade) L.ex = exclude != nullptr ? exclude[r] : 0;
     grid_enter(g, L);
     return true;
+}
+
+// ---------------------------------------------------- the shaded walk's take
+
+// A bank index of ops/texture.py: (offset + y w + x) in int32 as PyTorch
+// computes it (wrapping), clamped to [0, P - 1] before the load.
+__device__ __forceinline__ float4 bank_texel(const float4* __restrict__ bank, int P, int off,
+                                             int w, int x, int y) {
+    const int i = (int)((unsigned)off + (unsigned)y * (unsigned)w + (unsigned)x);
+    return __ldg(bank + min(max(i, 0), P - 1));
+}
+
+// ops/texture.py _texel_pair, of one axis: repeat wraps the floored
+// fraction; clamp clips c to ±(2^31 - 2) (as f32: ±2^31; torch.clamp keeps
+// NaN), floors size·c and clamps it and its successor to [lo, hi].
+__device__ __forceinline__ void bank_axis(float c, float size, float lo, float hi, bool repeat,
+                                          int& i1, int& i2) {
+    const float fc = c - floorf(c);
+    const float r1 = nan_min(floorf(size * fc), size - 1.0f);
+    float r2 = r1 + 1.0f;
+    if (r2 >= size) r2 = r2 - size;
+    const float cl = c != c ? c : fminf(fmaxf(c, -2147483648.0f), 2147483648.0f);
+    const float cc = floorf(size * cl);
+    const float c1 = nan_min(nan_max(cc, lo), hi);
+    const float c2 = nan_min(nan_max(cc + 1.0f, lo), hi);
+    i1 = (int)(repeat ? r1 : c1);
+    i2 = (int)(repeat ? r2 : c2);
+}
+
+// ops/texture.py sample_texture at one point of the f32 bank: the
+// descriptor [offset, w, h, u_min, u_max, v_min, v_max] (repeat: sentinel
+// bounds, a negative lower one); the weights frac(u) = |u - trunc(u)| of
+// the raw uv.
+__device__ __forceinline__ float4 sample_bank(const float4* __restrict__ bank, int P,
+                                              const float* desc, float u, float v) {
+    int x1, x2, y1, y2;
+    bank_axis(u, desc[1], desc[3], desc[4], desc[3] < 0.0f, x1, x2);
+    bank_axis(v, desc[2], desc[5], desc[6], desc[5] < 0.0f, y1, y2);
+    const int off = (int)desc[0], w = (int)desc[1];
+    const float4 p11 = bank_texel(bank, P, off, w, x1, y1);
+    const float4 p21 = bank_texel(bank, P, off, w, x2, y1);
+    const float4 p12 = bank_texel(bank, P, off, w, x1, y2);
+    const float4 p22 = bank_texel(bank, P, off, w, x2, y2);
+    const float fu = fabsf(u - truncf(u)), fv = fabsf(v - truncf(v));
+    return make_float4(bilerp(p11.x, p21.x, p12.x, p22.x, fu, fv),
+                       bilerp(p11.y, p21.y, p12.y, p22.y, fu, fv),
+                       bilerp(p11.z, p21.z, p12.z, p22.z, fu, fv),
+                       bilerp(p11.w, p21.w, p12.w, p22.w, fu, fv));
+}
+
+// linalg.normalize: a · (1 / length(a)), the length's square root
+// correctly rounded and the reciprocal an IEEE division.
+__device__ __forceinline__ void normalize3(float a[3]) {
+    const float inv = 1.0f / __fsqrt_rn(a[0] * a[0] + a[1] * a[1] + a[2] * a[2]);
+    a[0] = a[0] * inv;
+    a[1] = a[1] * inv;
+    a[2] = a[2] * inv;
+}
+
+// The shaded walk takes ray r at launch b = w.bounce: a ray that ended
+// before is passed over; a live ray first shades its hit of bounce b - 1
+// (render_wave_xla's shade_and_scatter and updates: the sky on a miss,
+// which ends it), then, if b < B, counts a segment and walks bounce b with
+// that hit's triangle excluded.  Returns true when the ray walks on (L
+// holds it); ``walks``: the ray was alive at this launch's trace.
+__device__ __forceinline__ bool grid_shade_take(const ZrcGrid& g, const ZrcGridWave& w, int r,
+                                                int R, GridLane& L, float* __restrict__ t_out,
+                                                float* __restrict__ u_out,
+                                                float* __restrict__ v_out,
+                                                long long* __restrict__ idx_out, bool& walks) {
+    float* const seg = w.rows4 + 3 * (size_t)R + r;
+    float* const rad = w.rows4 + r;  // radiance channel a at rad[a R]
+    float* const thr = w.thr + 3 * (size_t)r;
+    float* const orig = w.orig + 3 * (size_t)r;
+    float* const dir = w.dir + 3 * (size_t)r;
+    const int b = w.bounce;
+    walks = false;
+    float o[3], d[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+        o[a] = orig[a];
+        d[a] = dir[a];
+    }
+    long long ex = 0;
+    if (b == 0) {
+        // the primary ray: throughput 1, no radiance yet
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+            thr[a] = 1.0f;
+            rad[a * (size_t)R] = 0.0f;
+        }
+        if (!w.walk) *seg = 0.0f;
+    } else {
+        if (*seg != (float)b) return false;  // ended at an earlier launch
+        float tr[3], rr[3];
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+            tr[a] = thr[a];
+            rr[a] = rad[a * (size_t)R];
+        }
+        const float t = t_out[r];
+        if (t == INFINITY) {
+            // linalg.env_color: white (1 - s) + (0.5, 0.7, 1.0) s, s = (d.y + 1) / 2
+            const float s = 0.5f * (d[1] + 1.0f);
+            const float one = 1.0f - s;
+            const float env[3] = {one + 0.5f * s, one + 0.7f * s, one + 1.0f * s};
+#pragma unroll
+            for (int a = 0; a < 3; ++a) rad[a * (size_t)R] = rr[a] + tr[a] * env[a];
+            return false;
+        }
+        const float u = u_out[r], v = v_out[r];
+        const int tri = __float_as_int(__ldg(g.tri + 3 * (size_t)idx_out[r] + 2).y);
+        float row[SHADE_COLS];
+        const float4* rp = w.shade + (SHADE_COLS / 4) * (size_t)tri;
+#pragma unroll
+        for (int q = 0; q < SHADE_COLS / 4; ++q) {
+            const float4 x = __ldg(rp + q);
+            row[4 * q + 0] = x.x;
+            row[4 * q + 1] = x.y;
+            row[4 * q + 2] = x.z;
+            row[4 * q + 3] = x.w;
+        }
+        // _interpolate: v0 (1 - u - v) + v1 u + v2 v
+        const float w0 = 1.0f - u - v;
+        const float tc_u = row[COL_UV + 0] * w0 + row[COL_UV + 2] * u + row[COL_UV + 4] * v;
+        const float tc_v = row[COL_UV + 1] * w0 + row[COL_UV + 3] * u + row[COL_UV + 5] * v;
+        float n[3];
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+            n[a] = row[COL_NRM + a] * w0 + row[COL_NRM + 3 + a] * u + row[COL_NRM + 6 + a] * v;
+        const float4 base = sample_bank(w.bank, w.num_texels, row + COL_BASE_DESC, tc_u, tc_v);
+        const float4 emis = sample_bank(w.bank, w.num_texels, row + COL_EMIS_DESC, tc_u, tc_v);
+        // stochastic alpha (tag 2b' + 1) and the Gaussian (tag 2b' + 2) of
+        // the hit's bounce b' = b - 1: ops/rng.py uniform and normal3
+        const uint32_t streams = (uint32_t)w.streams[r];
+        const bool through = u01(draw_bits(streams, 2 * b - 1, 0)) > base.w;
+        const int g_tag = 2 * b;
+        const float u1 = u01(draw_bits(streams, g_tag, 0));
+        const float u2 = u01(draw_bits(streams, g_tag, 1));
+        const float u3 = u01(draw_bits(streams, g_tag, 2));
+        const float u4 = u01(draw_bits(streams, g_tag, 3));
+        const float r1 = __fsqrt_rn(-2.0f * logf(u1));
+        const float r2 = __fsqrt_rn(-2.0f * logf(u3));
+        float gs[3] = {r1 * cosf(TWO_PI * u2), r1 * sinf(TWO_PI * u2), r2 * cosf(TWO_PI * u4)};
+        normalize3(gs);
+        float sc[3] = {n[0] + gs[0], n[1] + gs[1], n[2] + gs[2]};
+        normalize3(sc);
+        // the hit: emissive and albedo unless the ray passes through, then
+        // the re-origin at t + FLT_EPSILON (src/stage3.zig:209)
+        const float em[3] = {emis.x, emis.y, emis.z};
+        const float al[3] = {base.x, base.y, base.z};
+        const float t_step = t + FLT_EPS;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+            rad[a * (size_t)R] = rr[a] + (through ? 0.0f : tr[a] * em[a]);
+            if (!through) thr[a] = tr[a] * al[a];
+            o[a] = o[a] + d[a] * t_step;
+            if (!through) d[a] = sc[a];
+            orig[a] = o[a];
+            dir[a] = d[a];
+        }
+        ex = tri;
+    }
+    if (!w.walk) return false;
+    *seg = (float)(b + 1);
+    walks = true;
+    L.ex = ex;
+    return grid_setup<true>(g, o, d, nullptr, nullptr, r, L, t_out, u_out, v_out, idx_out);
+}
+
+// grid_shade_take, and a lane left without a ray gets every field of L
+// set: no field of the lane's last ray then lives through the shade, whose
+// values take its registers (the --large frame's wave 2% faster, PERF.md).
+__device__ __forceinline__ bool grid_take_shaded(const ZrcGrid& g, const ZrcGridWave& w, int r,
+                                                 int R, GridLane& L, float* __restrict__ t_out,
+                                                 float* __restrict__ u_out,
+                                                 float* __restrict__ v_out,
+                                                 long long* __restrict__ idx_out, bool& walks) {
+    if (grid_shade_take(g, w, r, R, L, t_out, u_out, v_out, idx_out, walks)) return true;
+    L.ray = -1;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+        L.o[a] = L.d[a] = L.t_delta[a] = L.t_next[a] = 0.0f;
+        L.left[a] = L.stride[a] = 0;
+    }
+    L.lin = L.best_i = L.cursor = L.end = L.it = 0;
+    L.best_t = L.best_u = L.best_v = 0.0f;
+    L.ex = 0;
+    return false;
 }
 
 // One iteration of the lane's walk: up to GRID_TRI_BATCH tests, then, once
@@ -1478,14 +1716,19 @@ __device__ __forceinline__ void grid_coop_tests(const ZrcGrid& g, bool has_ex, G
 
 // iterations[0] (the loop's count) and iterations[1] (the positions handed
 // out) must hold 0; ``it_sum`` (one uint64) gets every ray's iterations
-// added.
-__global__ void __launch_bounds__(GRID_THREADS, GRID_BLOCKS_PER_SM) grid_walk_kernel(
-        ZrcGrid g, const float* __restrict__ orig, const float* __restrict__ dir,
-        const bool* __restrict__ active, const long long* __restrict__ exclude,
-        float* __restrict__ t_out, float* __restrict__ u_out, float* __restrict__ v_out,
-        long long* __restrict__ idx_out, int* __restrict__ iterations,
-        unsigned long long* __restrict__ it_sum, int R) {
-    const bool has_ex = exclude != nullptr;
+// added.  The walk alone (kShade false) reads its rays from orig, dir,
+// active and exclude; the shaded walk (kShade true) from ``w``, whose
+// ``alive`` gets the rays the launch walks added, and t, u, v and idx hold
+// the previous launch's hits when it starts.
+template <bool kShade>
+__global__ void __launch_bounds__(GRID_THREADS,
+                                  kShade ? GRID_SHADE_BLOCKS_PER_SM : GRID_BLOCKS_PER_SM)
+grid_walk_kernel(ZrcGrid g, const float* __restrict__ orig, const float* __restrict__ dir,
+                 const bool* __restrict__ active, const long long* __restrict__ exclude,
+                 float* __restrict__ t_out, float* __restrict__ u_out, float* __restrict__ v_out,
+                 long long* __restrict__ idx_out, int* __restrict__ iterations,
+                 unsigned long long* __restrict__ it_sum, int R, ZrcGridWave w) {
+    const bool has_ex = kShade ? w.bounce > 0 : exclude != nullptr;
     const unsigned lane = threadIdx.x & 31;
     __shared__ unsigned long long s_keys[GRID_THREADS];
     unsigned long long* s_key = s_keys + (threadIdx.x & ~31u);
@@ -1499,6 +1742,7 @@ __global__ void __launch_bounds__(GRID_THREADS, GRID_BLOCKS_PER_SM) grid_walk_ke
     const unsigned below = (1u << lane) - 1u;
     int pool = 0, pool_end = 0;  // positions this warp took and has not handed out
     bool more = true;            // the counter may still hold positions
+    unsigned warp_alive = 0;     // the shaded walk: the rays this warp walked
     for (;;) {
         // hand positions to the idle lanes; a ray that misses the box or is
         // not active is written at once and its lane asks again
@@ -1517,11 +1761,16 @@ __global__ void __launch_bounds__(GRID_THREADS, GRID_BLOCKS_PER_SM) grid_walk_ke
             }
             const int n = min(__popc(idle), pool_end - pool);
             const int rank = __popc(idle & below);
+            bool walks = false;
             if (L.ray < 0 && rank < n) {
-                if (!grid_setup(g, orig, dir, active, exclude, pool + rank, L, t_out, u_out,
-                                v_out, idx_out))
-                    L.ray = -1;
+                const bool took =
+                    kShade ? grid_take_shaded(g, w, pool + rank, R, L, t_out, u_out, v_out,
+                                              idx_out, walks)
+                           : grid_setup<false>(g, orig, dir, active, exclude, pool + rank, L,
+                                               t_out, u_out, v_out, idx_out);
+                if (!took) L.ray = -1;
             }
+            if (kShade) warp_alive += __popc(__ballot_sync(FULL_MASK, walks));
             pool += n;
             idle = __ballot_sync(FULL_MASK, L.ray < 0);
         }
@@ -1550,6 +1799,8 @@ __global__ void __launch_bounds__(GRID_THREADS, GRID_BLOCKS_PER_SM) grid_walk_ke
     for (int off = 16; off > 0; off >>= 1)
         warp_sum += __shfl_down_sync(FULL_MASK, warp_sum, off);
     if (lane == 0 && warp_sum > 0) atomicAdd(it_sum, warp_sum);
+    if (kShade && lane == 0 && warp_alive > 0)
+        atomicAdd(w.alive, (unsigned long long)warp_alive);
 }
 
 // ------------------------------------------------------------ launchers
@@ -1565,7 +1816,7 @@ __global__ void __launch_bounds__(GRID_THREADS, GRID_BLOCKS_PER_SM) grid_walk_ke
 #define ZRC_NOTHING_LAUNCHED (-1)
 
 // The counters of the launches that take none: written, never read.
-__device__ unsigned long long zrc_discard[3];
+__device__ unsigned long long zrc_discard[4];
 
 // ``counts``, or zrc_discard on the current device when it is null.
 static cudaError_t counts_or_discard(unsigned long long** counts) {
@@ -1702,10 +1953,29 @@ extern "C" int zrc_ray_sort_key(const float* state, const float* bbox_min,
     return (int)cudaGetLastError();
 }
 
+// Blocks of grid_walk_kernel<kShade> to launch for R rays on ``device``:
+// about as many as the card holds at once (its occupancy, read once a
+// device and instantiation).
+template <bool kShade>
+static cudaError_t grid_blocks(int R, int device, int* blocks) {
+    static int resident[64];  // blocks the card holds at once, by device (0: not read)
+    if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+    if (resident[device] == 0) {
+        int sms = 0, per_sm = 0;
+        cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+        if (err != cudaSuccess) return err;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grid_walk_kernel<kShade>,
+                                                            GRID_THREADS, 0);
+        if (err != cudaSuccess) return err;
+        resident[device] = sms * (per_sm > 0 ? per_sm : 1);
+    }
+    *blocks = min((R + GRID_THREADS - 1) / GRID_THREADS, resident[device]);
+    return cudaSuccess;
+}
+
 // iterations must hold two zeros (the loop's count, the ray counter) before
 // the launch; it_sum is null (zrc_discard) or one uint64 that the rays'
-// iterations are added to.  About as many blocks as the card holds at once (the occupancy
-// of the kernel on the device, read once a device).
+// iterations are added to.
 extern "C" int zrc_grid_walk_counted(const ZrcGrid* g, const float* orig, const float* dir,
                                      const bool* active, const long long* exclude, float* t,
                                      float* u, float* v, long long* idx, int* iterations,
@@ -1714,21 +1984,11 @@ extern "C" int zrc_grid_walk_counted(const ZrcGrid* g, const float* orig, const 
     if (R <= 0) return ZRC_NOTHING_LAUNCHED;
     cudaError_t err = cudaSetDevice(device);
     if (err == cudaSuccess) err = counts_or_discard(&it_sum);
+    int blocks = 0;
+    if (err == cudaSuccess) err = grid_blocks<false>(R, device, &blocks);
     if (err != cudaSuccess) return (int)err;
-    static int resident[64];  // blocks the card holds at once, by device (0: not read)
-    if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
-    if (resident[device] == 0) {
-        int sms = 0, per_sm = 0;
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-        if (err != cudaSuccess) return (int)err;
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grid_walk_kernel,
-                                                            GRID_THREADS, 0);
-        if (err != cudaSuccess) return (int)err;
-        resident[device] = sms * (per_sm > 0 ? per_sm : 1);
-    }
-    const int blocks = min((R + GRID_THREADS - 1) / GRID_THREADS, resident[device]);
-    grid_walk_kernel<<<blocks, GRID_THREADS, 0, (cudaStream_t)stream>>>(
-        *g, orig, dir, active, exclude, t, u, v, idx, iterations, it_sum, R);
+    grid_walk_kernel<false><<<blocks, GRID_THREADS, 0, (cudaStream_t)stream>>>(
+        *g, orig, dir, active, exclude, t, u, v, idx, iterations, it_sum, R, ZrcGridWave{});
     return (int)cudaGetLastError();
 }
 
@@ -1738,6 +1998,32 @@ extern "C" int zrc_grid_walk(const ZrcGrid* g, const float* orig, const float* d
                              int device, void* stream) {
     return zrc_grid_walk_counted(g, orig, dir, active, exclude, t, u, v, idx, iterations,
                                  nullptr, R, device, stream);
+}
+
+// Launch ``bounce`` of a shaded wave of B = ``bounces`` bounces (0..B: B
+// launches in turn make the wave): ``w`` holds the wave's state (its
+// ``bounce``, ``walk`` and ``alive`` are set here), t, u, v and idx the
+// hits, iterations two zeros; ``counts`` is null (zrc_discard) or the
+// wave's four uint64 work counters (rays alive, tiles, boxes, walk
+// iterations), of which the launch adds to the first and the last.
+extern "C" int zrc_grid_walk_shaded(const ZrcGrid* g, const ZrcGridWave* w, float* t, float* u,
+                                    float* v, long long* idx, int* iterations,
+                                    unsigned long long* counts, int bounce, int bounces, int R,
+                                    int device, void* stream) {
+    if (R <= 0) return ZRC_NOTHING_LAUNCHED;
+    if (bounce < 0 || bounce > bounces) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaSetDevice(device);
+    if (err == cudaSuccess) err = counts_or_discard(&counts);
+    int blocks = 0;
+    if (err == cudaSuccess) err = grid_blocks<true>(R, device, &blocks);
+    if (err != cudaSuccess) return (int)err;
+    ZrcGridWave wave = *w;
+    wave.bounce = bounce;
+    wave.walk = bounce < bounces;
+    wave.alive = counts;
+    grid_walk_kernel<true><<<blocks, GRID_THREADS, 0, (cudaStream_t)stream>>>(
+        *g, nullptr, nullptr, nullptr, nullptr, t, u, v, idx, iterations, counts + 3, R, wave);
+    return (int)cudaGetLastError();
 }
 
 // An empty kernel, one block of one thread: what a launch through this

@@ -17,7 +17,9 @@ grid (1,843,200 rays each, walked as ``render_wave_xla`` walks them), this
 checkout's build held to ``trace_wave_ref`` bit for bit, every other build
 to this one (t, u, v bits, the reference and the iteration count), each
 build timed queued behind a spin (``utils.timing.queued_ms``), its median
-over ``--rounds`` readings taken in turns:
+over ``--rounds`` readings taken in turns; then the same wave through the
+shaded walk (``shaded_ab``: ``render_wave_grid``'s launches against
+``render_wave_xla`` bit for bit, each launch's ms):
 
     python -m zig_raytracing_contest_tpu_torch.probes.grid_walk \
         --against parent.cu
@@ -178,14 +180,20 @@ class Walk:
 
 def walk_ptxas(log: str) -> str:
     """What ptxas reported for grid_walk_kernel in an nvcc log (``-Xptxas=-v``):
-    its stack, spills and registers, on one line."""
-    out, on = [], False
+    the stack, spills and registers of each instantiation, the walk alone
+    (``walk``: ``grid_walk_kernel<false>``, or an earlier build's only one)
+    and the shaded walk (``shaded``: ``grid_walk_kernel<true>``), on one
+    line."""
+    out, on = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            on = "grid_walk_kernel" in line
+            on = None
+            if "grid_walk_kernel" in line:
+                on = "shaded" if "ILb1E" in line else "walk"
+                out.append(f"{on}:")
         elif on and ("spill" in line or "registers" in line):
-            out.append(line.split(":", 1)[-1].strip())
-    return "; ".join(out) or "no report"
+            out.append(line.split(":", 1)[-1].strip() + ";")
+    return " ".join(out).rstrip(";") or "no report"
 
 
 def large_grid_scene(where: Path, device):
@@ -237,6 +245,64 @@ def time_builds(fns: dict, rounds: int = ROUNDS, reps: int = REPS) -> dict:
         for k in labels if r % 2 == 0 else labels[::-1]:
             ms[k].append(queued_ms(fns[k], reps))
     return ms
+
+
+def shaded_wave(scene, cam, rounds: int = ROUNDS):
+    """The frame's one wave through the shaded walk, as
+    ``wavefront.render_wave_grid`` launches it, ``rounds`` times after a
+    warmup, each launch timed by CUDA events → (rows4, the wave's work
+    counters, each launch's median ms, the whole wave's median ms)."""
+    R = WIDTH * HEIGHT * SPP
+    dev = scene.device
+    par = wavefront.build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
+    o, d, streams = wavefront.xla_primary_rays(par, WIDTH, SPP, 0, R, SEED)
+    ops = scene.grid.kernel_operands()
+    f32 = dict(dtype=torch.float32, device=dev)
+    thr, rows4 = torch.empty((R, 3), **f32), torch.empty((4, R), **f32)
+    t, u, v = (torch.empty(R, **f32) for _ in range(3))
+    idx = torch.empty(R, dtype=torch.int64, device=dev)
+    scratch = torch.zeros((BOUNCES + 1, 2), dtype=torch.int32, device=dev)
+    counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    ms = [[] for _ in range(BOUNCES + 2)]
+    for r in range(rounds + 1):
+        orig, direction = o.contiguous().clone(), d.clone()
+        scratch.zero_()
+        counts.zero_()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(BOUNCES + 2)]
+        ev[0].record()
+        for b in range(BOUNCES + 1):
+            kernels.launch_grid_walk_shaded(ops, scene.shade_table, scene.color_data, orig,
+                                            direction, thr, rows4, streams, t, u, v, idx,
+                                            scratch[b], b, BOUNCES, counts)
+            ev[b + 1].record()
+        torch.cuda.synchronize()
+        if r:  # the first round is the warmup
+            for b in range(BOUNCES + 1):
+                ms[b].append(ev[b].elapsed_time(ev[b + 1]))
+            ms[-1].append(ev[0].elapsed_time(ev[-1]))
+    med = [statistics.median(x) for x in ms]
+    return rows4, counts, med[:-1], med[-1]
+
+
+def shaded_ab(scene, cam, card: str, rounds: int = ROUNDS) -> int:
+    """The shaded walk on the card: its wave against ``render_wave_xla``
+    (the walk alone, then the PyTorch shade) bit for bit, the rays alive and
+    the walk iterations it counts, and each launch's ms.  Prints two lines;
+    returns the lanes (and counters) that differ."""
+    R = WIDTH * HEIGHT * SPP
+    rows4, counts, per, wave_ms = shaded_wave(scene, cam, rounds)
+    par = wavefront.build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
+    want_counts = torch.zeros(4, dtype=torch.int64, device=scene.device)
+    want = wavefront.render_wave_xla(scene, par, WIDTH, SPP, BOUNCES, 0, R, SEED,
+                                     counts=want_counts)
+    off = int((rows4.view(torch.int32) != want.view(torch.int32)).any(dim=0).sum())
+    off += int((counts != want_counts).sum())
+    print(f"shaded walk vs render_wave_xla: {off} of {R} lanes differ (radiance and segment "
+          f"bits), counters {counts.tolist()} vs {want_counts.tolist()}", flush=True)
+    print(f"  shaded walk, launch ms (0: the primary rays' walk, {BOUNCES}: shade only): "
+          f"{[round(x, 4) for x in per]}, the wave {wave_ms:.4f} ms; medians of {rounds} "
+          f"({card})", flush=True)
+    return off
 
 
 def walk_ab(scene, cam, builds: dict, card: str, rounds: int = ROUNDS) -> int:
@@ -305,6 +371,7 @@ def main(argv=None) -> int:
             print(f"ptxas, {k}: {walk_ptxas(kernels.build_log('grid_walk_other', src, dirs[k]))}")
         scene, cam = large_grid_scene(tmp, dev)
         faults = walk_ab(scene, cam, builds, card, args.rounds)
+        faults += shaded_ab(scene, cam, card, args.rounds)
     print(f"grid_walk A/B: {faults} lanes differ in all")
     return 1 if faults else 0
 

@@ -30,7 +30,11 @@ sampler), then the extensions.  ``trace_any`` finds the nearest hit with
 ``trace_emit_aux`` on a scene with the MXU bake, so its kernels run under
 this path too, and with the grid walk ``trace_wave`` on a grid scene
 (``grid_walk_kernel`` on the card, its twin ``trace_wave_ref`` on the
-CPU).
+CPU).  On the card a grid scene with no extension on shades inside the
+walk instead (``render_wave_grid``: B + 1 launches of the shaded
+``grid_walk_kernel`` for B bounces, bit for bit ``render_wave_xla``, which
+stays its twin and the route of the extensions, whose PyTorch code reads
+the shade's intermediates).
 
 A ray's result does not depend on its lane, so the sorts change speed,
 not the image.  Sorting is PyTorch: a stable ``torch.sort`` of the int32
@@ -144,11 +148,24 @@ def trace_walk(scene: TorchScene, ext: ExtFlags | None = None) -> str:
     return "group heap" if mxu_intersect.streams_bank(scene) else "tile heap"
 
 
+def shaded_walk(scene: TorchScene, ext: ExtFlags | None = None, plain: bool = False) -> bool:
+    """True when a wave shades inside the grid walk (``render_wave_grid``):
+    a grid scene, no extension on, through the kernels, on a card.  Every
+    other XLA-path wave takes ``render_wave_xla``: the extensions read the
+    shade's intermediates between the shade and the next trace, ``plain``
+    and CPU waves run the twins."""
+    return (scene.tri_data is None and not (ext is not None and ext.any) and not plain
+            and scene.device.type == "cuda")
+
+
 def shade_bank(scene: TorchScene, ext: ExtFlags | None = None) -> str:
     """Which shade of the JAX package the scene's bank takes: "resident
     bank" (one kernel) or "3-stage bank" (prep, gather, shade), which the
     port's ``shade_kernel`` both serves, or on the XLA shading path "XLA
-    sampler" (``shade_and_scatter`` on the f32 bank)."""
+    sampler" (``shade_and_scatter`` on the f32 bank), on the card's grid
+    with no extension "sampler in the walk" (``render_wave_grid``)."""
+    if shaded_walk(scene, ext):
+        return "sampler in the walk"
     if xla_path(scene, ext):
         return "XLA sampler"
     return "resident bank" if scene.bank_resident else "3-stage bank"
@@ -698,6 +715,34 @@ def render_wave_xla(scene: TorchScene, par, width: int, spp: int, max_bounce: in
     return torch.cat([radiance.T, segments[None].to(torch.float32)])
 
 
+def render_wave_grid(scene: TorchScene, par, width: int, spp: int, max_bounce: int,
+                     slot_base: int, wave_size: int, seed: int, counts=None) -> torch.Tensor:
+    """``render_wave_xla`` of a grid scene with no extension on the card,
+    bit for bit: its primary rays, then ``max_bounce`` + 1 launches of the
+    shaded grid_walk_kernel (``kernels.launch_grid_walk_shaded``) over the
+    wave's state on the device: launch b shades each live ray's hit of
+    bounce b - 1 and walks bounce b, launch 0 walks the primary rays,
+    the last only shades.  → rows4 (4, R): radiance and the segment count
+    per ray.  ``counts`` (WORK_COUNTERS): the launches add the rays they
+    walk and their iterations."""
+    R = wave_size
+    dev = par.device
+    orig, direction, streams = xla_primary_rays(par, width, spp, slot_base, R, seed)
+    orig = orig.contiguous()  # the wave's own buffers: the launches rewrite them
+    f32 = dict(dtype=torch.float32, device=dev)
+    thr = torch.empty((R, 3), **f32)
+    rows4 = torch.empty((4, R), **f32)
+    t, u, v = (torch.empty(R, **f32) for _ in range(3))
+    idx = torch.empty(R, dtype=torch.int64, device=dev)
+    scratch = torch.zeros((max_bounce + 1, 2), dtype=torch.int32, device=dev)
+    ops = scene.grid.kernel_operands()
+    for bounce in range(max_bounce + 1):
+        kernels.launch_grid_walk_shaded(ops, scene.shade_table, scene.color_data, orig,
+                                        direction, thr, rows4, streams, t, u, v, idx,
+                                        scratch[bounce], bounce, max_bounce, counts)
+    return rows4
+
+
 def render_wave_rows(scene: TorchScene, par, width: int, height: int,
                      spp: int, max_bounce: int, slot_base: int, slot_cap: int,
                      wave_size: int, seed: int, tiles_x: int,
@@ -705,15 +750,20 @@ def render_wave_rows(scene: TorchScene, par, width: int, height: int,
     """One wave → (rows3 (3, R) radiance in wave-slot order, segments as a
     0-d int64 tensor).  Rays past ``slot_cap`` contribute exact zeros.
     Whole-path scenes take the slot order ``tiles_x`` gives; per-bounce
-    and XLA-path waves take raster order (``tiles_x`` = 0).  ``plain``
+    and XLA-path waves take raster order (``tiles_x`` = 0); an XLA-path wave
+    that ``shaded_walk`` admits shades inside the grid walk.  ``plain``
     runs the twins on any device; ``ext`` the extensions.  ``counts``
     (4,) int64 on the scene's device gets the wave's WORK_COUNTERS added
     (every lane counts, past ``slot_cap`` too)."""
     if xla_path(scene, ext):
         if tiles_x:
             raise ValueError("tiled slot order requires the whole-path regime")
-        rows4 = render_wave_xla(scene, par, width, spp, max_bounce, slot_base,
-                                wave_size, seed, ext, plain, counts)
+        if shaded_walk(scene, ext, plain):
+            rows4 = render_wave_grid(scene, par, width, spp, max_bounce, slot_base,
+                                     wave_size, seed, counts)
+        else:
+            rows4 = render_wave_xla(scene, par, width, spp, max_bounce, slot_base,
+                                    wave_size, seed, ext, plain, counts)
     elif whole_path_regime(scene):
         rows4 = render_wave_whole_path(scene, par, width, height, spp,
                                        max_bounce, slot_base, wave_size, seed,
