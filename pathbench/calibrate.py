@@ -4,12 +4,12 @@ cell's own size, in one process.
 For every ``--seeds`` seed the program renders the cell's frame as the
 window does (the warm-up, the capture, then a replay of the frame's CUDA
 graph, whose image is judged) and ``compare.judge`` holds it to the
-reference's float32 frame.  For every ``--control-seeds`` seed the
-control, the reference computed in bfloat16 (the precision below the
-float32 the renderer states), is put in the program's place and judged
-the same way: it has to come out not correct.  The lower reading of a
-number is the largest of the program's, the upper the smallest of the
-control's.
+float32 frame of the cell's reference (``spec.load_reference``, as a run
+finds it).  For every ``--control-seeds`` seed the control, that
+reference computed in bfloat16 (the precision below the float32 the
+renderer states), is put in the program's place and judged the same way:
+it has to come out not correct.  The lower reading of a number is the
+largest of the program's, the upper the smallest of the control's.
 
 Run from the checkout's root, on the card:
 
@@ -53,7 +53,7 @@ def main(argv=None) -> int:
     scene, camera, _ = prepare_scene(str(path), harness.program_config(tr, 0),
                                      workload.config["camera"], tr.width, tr.height,
                                      device="cuda")
-    ref = harness.reference_scene(workload, path, "cuda")
+    ref = spec.load_reference(workload.reference).prepare(workload, path, "cuda")
 
     def judged(frame, seed):
         t = time.perf_counter()

@@ -18,9 +18,11 @@ of every frame's wall ms, from the call to the image on the host.  With
 metrics are read instead.
 
 Once the window has closed, the memory peak is read, the program's state
-is freed, and the reference renders the frame of the same scene file,
-camera and seed: every checked frame (CHECKED drawn from the seed, and
-the last) is compared with it (``compare.judge``).
+is freed, and the cell's reference (``spec.load_reference``) renders the
+frame of the same scene file, camera and seed: every checked frame
+(CHECKED drawn from the seed, and the last) is compared with it
+(``compare.judge``).  A cell whose reference cannot compute its traffic's
+extensions is refused when it is loaded, before set-up.
 """
 
 from __future__ import annotations
@@ -143,50 +145,6 @@ def run_window(render, seconds: float, seed: int, trace: bool, device) -> Window
     return Window(end - start, frame_s, segments, checked, read)
 
 
-@dataclass
-class ReferenceScene:
-    """The reference's own reading of the cell's scene file, on the device."""
-    workload: spec.Workload
-    scene: object  # reference.scene.RefScene
-    camera: object  # reference.scene.RefCamera
-    device_scene: object  # reference.render.DeviceScene
-
-    def render(self, seed: int, dtype=None):
-        """(image, segments) of the cell's frame at ``seed``, in float32 or
-        in ``dtype``."""
-        import torch
-
-        from .reference import render as ref_render
-
-        tr = self.workload.traffic
-        return ref_render.render(self.device_scene, self.camera, tr.spp, tr.bounces, seed,
-                                 dtype or torch.float32)
-
-    def grid_size(self) -> tuple:
-        """(cells, triangle references) of the reference's binning at the
-        traffic's grid resolution; (0, 0) off the grid backend."""
-        import numpy as np
-
-        from .reference import render as ref_render
-
-        tr = self.workload.traffic
-        if tr.backend != "grid":
-            return 0, 0
-        grid = ref_render.build_grid(self.device_scene.tri.new_tensor(self.scene.positions),
-                                     tr.grid_resolution)
-        return int(np.prod(tr.grid_resolution)), grid.num_refs
-
-
-def reference_scene(workload: spec.Workload, path, device) -> ReferenceScene:
-    from .reference import render as ref_render
-    from .reference import scene as ref_scene
-
-    tr = workload.traffic
-    scene, cam = ref_scene.read_scene(path, workload.config["camera"], tr.width, tr.height)
-    return ReferenceScene(workload, scene, cam,
-                          ref_render.upload(scene, device, tr.triangle_test))
-
-
 def run(workload_name: str, seed: int, seconds: float, trace: bool, t0: float,
         device="cuda", root=spec.ROOT, checkout=spec.CHECKOUT, cache=None, log=print):
     """One run: the result line's object and the checks' lines for the
@@ -241,10 +199,10 @@ def run(workload_name: str, seed: int, seconds: float, trace: bool, t0: float,
         torch.cuda.empty_cache()
 
     t = time.perf_counter()
-    ref = reference_scene(workload, path, dev)
+    ref = spec.load_reference(workload.reference, root).prepare(workload, path, dev)
     ref_image, ref_segments = ref.render(seed)
     cells, refs = ref.grid_size()
-    triangles = ref.scene.num_triangles
+    triangles = ref.triangles
     del ref
     log(f"reference frame: {time.perf_counter() - t:.3f} s, {ref_segments} segments",
         file=sys.stderr)

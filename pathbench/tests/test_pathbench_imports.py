@@ -55,7 +55,7 @@ def test_a_process_running_the_port_holds_no_jax():
     code = (
         "import sys, types\n"
         "from pathbench import harness, calibrate\n"
-        "from pathbench.reference import render, scene\n"
+        "from pathbench.reference import plain, render, scene\n"
         "from zig_raytracing_contest_tpu_torch.render import pipeline\n"
         "from zig_raytracing_contest_tpu_torch import kernels\n"
         "print(harness.loaded_forbidden())\n"

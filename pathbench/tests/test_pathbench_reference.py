@@ -2,7 +2,8 @@
 reading of the scenes beside the port's, its grid (which only prunes),
 agreement with the port's plain twins at a tiny frame of each cell's
 scene and traffic, and its control (bfloat16), which the cells' limits
-must fail."""
+must fail; ``plain`` through the entry point a cell names renders as the
+harness's own reference object did."""
 
 import dataclasses
 
@@ -96,10 +97,35 @@ def tiny(cell):
     return dataclasses.replace(wl, traffic=traffic)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("cell", ["sponza-720p", "sponza-720p-grid"])
+def test_the_plain_entry_point_renders_as_before(tmp_path, cell, dtype):
+    """At a tiny frame of each cell, ``plain`` as the harness obtains it
+    renders what the harness's own reference object rendered before the
+    reference became a cell's choice: the same bytes and segments, in
+    float32 and in bfloat16, and the same grid and triangle count."""
+    wl = tiny(cell)
+    tr = wl.traffic
+    path = scene_file(wl.config, tmp_path)
+    ref = spec.load_reference(wl.reference).prepare(wl, path, "cpu")
+    image, segments = ref.render(2**31 + 13, None if dtype == torch.float32 else dtype)
+    scene, cam = rs.read_scene(path, wl.config["camera"], tr.width, tr.height)
+    ds = rr.upload(scene, "cpu", tr.triangle_test)
+    before, before_segments = rr.render(ds, cam, tr.spp, tr.bounces, 2**31 + 13, dtype)
+    assert segments == before_segments and image.tobytes() == before.tobytes()
+    cells, refs = ref.grid_size()
+    if tr.backend == "grid":
+        grid = rr.build_grid(torch.as_tensor(scene.positions), tr.grid_resolution)
+        assert (cells, refs) == (16 ** 3, grid.num_refs)
+    else:
+        assert (cells, refs) == (0, 0)
+    assert ref.triangles == scene.num_triangles == 261966
+
+
 @pytest.mark.parametrize("cell", CELLS)
 def test_the_twins_pass_and_the_control_fails(tmp_path, cell):
     """At a tiny frame of the cell's scene and traffic, the port's plain
-    twins are within the cell's limits of the reference, and the
+    twins are within the cell's limits of the cell's reference, and that
     reference computed in bfloat16 is outside one of them."""
     from zig_raytracing_contest_tpu_torch.render.pipeline import prepare_scene, render_scene
 
@@ -112,11 +138,10 @@ def test_the_twins_pass_and_the_control_fails(tmp_path, cell):
     scene, cam, _ = prepare_scene(str(path), cfg, wl.config["camera"], tr.width, tr.height,
                                   device="cpu")
     image, stats = render_scene(scene, cam, cfg)
-    rscene, rcam = rs.read_scene(path, wl.config["camera"], tr.width, tr.height)
-    ds = rr.upload(rscene, "cpu", tr.triangle_test)
-    ref, segments = rr.render(ds, rcam, tr.spp, tr.bounces, cfg.seed)
+    reference = spec.load_reference(wl.reference).prepare(wl, path, "cpu")
+    ref, segments = reference.render(cfg.seed)
     ok, failed, checks = compare.judge([(0, image, stats.segments)], ref, segments, None, wl)
     assert ok, checks
-    low, low_segments = rr.render(ds, rcam, tr.spp, tr.bounces, cfg.seed, torch.bfloat16)
+    low, low_segments = reference.render(cfg.seed, torch.bfloat16)
     ok, failed, checks = compare.judge([(0, low, low_segments)], ref, segments, None, wl)
     assert not ok and failed == 1, checks
