@@ -849,7 +849,8 @@ def test_shaded_walk_equals_xla_wave_on_cuda(tmp_path, case, bounces, rays):
 
     scene, par, width, spp, seed = _shaded_wave_scene(tmp_path, case)
     assert wf.shaded_walk(scene) and not wf.shaded_walk(scene, plain=True)
-    counts = {k: torch.zeros(4, dtype=torch.int64, device="cuda") for k in ("walk", "xla")}
+    counts = {k: torch.zeros(len(wf.WORK_COUNTERS), dtype=torch.int64, device="cuda")
+              for k in ("walk", "xla")}
     kernels.reset_launches()
     got = wf.render_wave_grid(scene, par, width, spp, bounces, 0, rays, seed, counts["walk"])
     assert kernels.launches_since({k: 0 for k in kernels.LAUNCHES}) == {"grid_walk": bounces + 1}

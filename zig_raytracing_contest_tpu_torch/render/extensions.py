@@ -90,10 +90,15 @@ def build_light_set(geometry, materials) -> LightSet | None:
 
 
 def sample_direct_light(scene, x, n, albedo, throughput, streams, bounce: int,
-                        shaded, plain: bool = False) -> torch.Tensor:
+                        shaded, plain: bool = False, counts=None) -> torch.Tensor:
     """One NEE sample per shaded ray → its radiance contribution (R, 3):
     zero where ``shaded`` is False, the light faces away or the shadow ray
-    is blocked.  ``plain`` traces the shadow rays with the twin."""
+    is blocked.  ``plain`` traces the shadow rays with the twin.
+    ``counts`` (3,) int64 (shadow rays, tiles, boxes): the bake's trace
+    adds its rays alive (the facing lanes), tiles swept and boxes tested,
+    with no operation of its own; on the grid, whose walk counts no rays,
+    the facing lanes are summed (two operations) and the walk's iterations
+    are not counted."""
     from .wavefront import trace_any  # wavefront imports this module
 
     lights = scene.lights
@@ -135,7 +140,9 @@ def sample_direct_light(scene, x, n, albedo, throughput, streams, bounce: int,
 
     # any hit nearer than the light occludes (the nearest hit is the light
     # triangle itself when it is visible)
-    t_sh = trace_any(scene, x, wi, facing, plain=plain)[0]
+    t_sh = trace_any(scene, x, wi, facing, plain=plain, counts=counts)[0]
+    if counts is not None and scene.tri_data is None:
+        counts[0].add_(facing.sum())
     visible = facing & (t_sh >= dist * (1.0 - 1e-3))
 
     # Lambertian albedo/π × Le × G / pdf_area, pdf_area = 1/total_area

@@ -86,14 +86,21 @@ TRI_BATCH = 4
 # left, every GRID_CHECK_EVERY iterations: one host sync each time.
 GRID_CHECK_EVERY = 8
 
-# A wave's work counters, in the order of the (4,) int64 ``counts`` a wave
+# A wave's work counters, in the order of the (8,) int64 ``counts`` a wave
 # adds them to (the frame's tally after its segments: render.pipeline),
 # summed over its bounces: the rays alive at each bounce's trace, the tiles
 # swept and the boxes tested by the tile traces (the per-bounce traces'
 # aux rows 4-6, the whole-path kernels' same sums), and the grid walk's
-# iterations summed over its rays.  Every route counts all four; work a
-# route does not do (tiles on the grid, a walk over tiles) counts 0.
-WORK_COUNTERS = ("alive", "tiles", "boxes", "walk_iterations")
+# iterations summed over its rays; then NEE's shadow rays (the lanes whose
+# light sample faces them, which trace), the tiles and boxes their traces
+# swept and tested, and the specular bounces ``pbr`` took.  Every route
+# counts all eight; work a route does not do (tiles on the grid, a walk
+# over tiles, shadow rays without NEE) counts 0.
+WORK_COUNTERS = ("alive", "tiles", "boxes", "walk_iterations",
+                 "shadow_rays", "shadow_tiles", "shadow_boxes", "specular")
+# slices of a wave's counts: the tile traces' three, the walk's iterations,
+# the shadow traces' three, the specular bounces
+NEAREST, WALK, SHADOW, SPECULAR = slice(0, 3), slice(3, 4), slice(4, 7), 7
 
 
 def xla_path(scene: TorchScene, ext: ExtFlags | None = None) -> bool:
@@ -399,7 +406,7 @@ class TraceResult(NamedTuple):
 
 
 def trace_any(scene: TorchScene, orig, direction, active, exclude=None,
-              plain: bool = False, counts=None):
+              plain: bool = False, counts=None, it_sum=None):
     """Nearest hit of each ray (orig, direction: (R, 3); active: (R,) bool)
     → (t, u, v, tri, prev): ``tri`` the unique triangle id (on a miss 0
     with the bake, the first reference's triangle on the grid, as in the
@@ -411,13 +418,13 @@ def trace_any(scene: TorchScene, orig, direction, active, exclude=None,
     kernel compares; else the grid walk ``trace_wave`` (grid_walk_kernel
     on the card, ``trace_wave_ref`` on the CPU or with ``plain``), ``prev``
     the unique id.  Both find the same nearest hit (the grid only prunes
-    work).  ``counts`` (WORK_COUNTERS): the grid walk adds its rays'
-    iterations, the bake's trace its rays alive, tiles swept and boxes
-    tested."""
+    work).  ``counts`` (3,) int64: the bake's trace adds its rays alive,
+    tiles swept and boxes tested (no operation of its own; the grid walk
+    counts none of them); ``it_sum`` (1,) int64: the grid walk adds its
+    rays' iterations."""
     if scene.tri_data is None:
         walk = trace_wave_ref if plain else trace_wave
-        hit = walk(scene, orig, direction, active, exclude=exclude,
-                   it_sum=None if counts is None else counts[3:4])
+        hit = walk(scene, orig, direction, active, exclude=exclude, it_sum=it_sum)
         if orig.device.type == "cpu":  # reading the count on a card would sync
             log.debug("grid walk: %d loop iterations over %d rays", int(hit.iterations),
                       orig.shape[0])
@@ -429,8 +436,7 @@ def trace_any(scene: TorchScene, orig, direction, active, exclude=None,
     state[3:6] = direction.T
     state[12] = active.to(torch.float32)
     trace = mxu_intersect.trace_emit_aux_ref if plain else mxu_intersect.trace_emit_aux
-    aux, idx, _ = trace(scene, state, None, prev=exclude,
-                        counts=None if counts is None else counts[0:3])
+    aux, idx, _ = trace(scene, state, None, prev=exclude, counts=counts)
     t = aux[2]
     tri = torch.where(torch.isfinite(t), scene.perm[idx.to(torch.int64)], 0)
     return t, aux[0], aux[1], tri, idx
@@ -659,7 +665,9 @@ def render_wave_xla(scene: TorchScene, par, width: int, spp: int, max_bounce: in
     traces with the twin on any device.  ``counts`` (WORK_COUNTERS): the
     nearest hits add their work (``trace_any``: no operation of its own)
     and, on the grid, which counts no rays alive, the wave adds its lanes'
-    segment counts, summed once a wave (three operations)."""
+    segment counts, summed once a wave (three operations); NEE's shadow
+    rays add theirs (``sample_direct_light``), and with ``pbr`` each
+    bounce adds its specular bounces (three operations)."""
     ext = ext or ExtFlags()
     dev = par.device
     R = wave_size
@@ -677,8 +685,10 @@ def render_wave_xla(scene: TorchScene, par, width: int, spp: int, max_bounce: in
         if ext.russian_roulette:
             throughput, alive = roulette(throughput, streams, bounce, alive)
         segments = segments + alive.to(torch.int32)
-        t, u, v, tri, prev = trace_any(scene, orig, direction, alive, exclude=prev,
-                                       plain=plain, counts=counts)
+        t, u, v, tri, prev = trace_any(
+            scene, orig, direction, alive, exclude=prev, plain=plain,
+            counts=None if counts is None else counts[NEAREST],
+            it_sum=None if counts is None else counts[WALK])
         new_orig, new_dir, emissive, albedo, pass_through, missed, normal = (
             shade_and_scatter(scene, orig, direction, t, u, v, tri, streams, bounce))
         add_env = alive & missed
@@ -692,11 +702,13 @@ def render_wave_xla(scene: TorchScene, par, width: int, spp: int, max_bounce: in
             spec_or_diff, take_spec = pbr_scatter(scene, tri, direction, normal, new_dir,
                                                   streams, bounce)
             new_dir = torch.where(pass_through[:, None], direction, spec_or_diff)
+            if counts is not None:
+                counts[SPECULAR].add_((shaded & take_spec).sum())
         if use_nee:
             nee_lanes = shaded if take_spec is None else shaded & ~take_spec
             radiance = radiance + sample_direct_light(
                 scene, new_orig, normal, albedo, throughput, streams, bounce, nee_lanes,
-                plain=plain)
+                plain=plain, counts=None if counts is None else counts[SHADOW])
             # the next hit's emissive is counted twice only on NEE'd lanes
             count_emissive = torch.where(shaded, ~nee_lanes, count_emissive)
         throughput = torch.where(shaded[:, None], throughput * albedo, throughput)
@@ -724,7 +736,7 @@ def render_wave_grid(scene: TorchScene, par, width: int, spp: int, max_bounce: i
     bounce b - 1 and walks bounce b, launch 0 walks the primary rays,
     the last only shades.  → rows4 (4, R): radiance and the segment count
     per ray.  ``counts`` (WORK_COUNTERS): the launches add the rays they
-    walk and their iterations."""
+    walk and their iterations (its first four)."""
     R = wave_size
     dev = par.device
     orig, direction, streams = xla_primary_rays(par, width, spp, slot_base, R, seed)
@@ -739,7 +751,8 @@ def render_wave_grid(scene: TorchScene, par, width: int, spp: int, max_bounce: i
     for bounce in range(max_bounce + 1):
         kernels.launch_grid_walk_shaded(ops, scene.shade_table, scene.color_data, orig,
                                         direction, thr, rows4, streams, t, u, v, idx,
-                                        scratch[bounce], bounce, max_bounce, counts)
+                                        scratch[bounce], bounce, max_bounce,
+                                        None if counts is None else counts[0:4])
     return rows4
 
 
@@ -753,7 +766,7 @@ def render_wave_rows(scene: TorchScene, par, width: int, height: int,
     and XLA-path waves take raster order (``tiles_x`` = 0); an XLA-path wave
     that ``shaded_walk`` admits shades inside the grid walk.  ``plain``
     runs the twins on any device; ``ext`` the extensions.  ``counts``
-    (4,) int64 on the scene's device gets the wave's WORK_COUNTERS added
+    (8,) int64 on the scene's device gets the wave's WORK_COUNTERS added
     (every lane counts, past ``slot_cap`` too)."""
     if xla_path(scene, ext):
         if tiles_x:
