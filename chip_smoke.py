@@ -152,10 +152,12 @@ l. the extensions: the Cornell box at 1920×1080, 4 bounces, held to the
    noise at 2 spp, RR's mean within 6% at 32 spp with fewer segments), each
    frame's Mrays/s; the NEE and RR frames at 2 spp as one CUDA graph against
    their eager frames (as in phase o); the ``--large`` terrain with nee,
-   russian_roulette and pbr at its frame settings: a warmup and 5 timed renders (the launch
-   counts of trace_emit_kernel, which the XLA path's nearest hits and
-   shadow rays run), one profile, and a 320×180 frame with the kernels
-   against the twins under the golden gates;
+   russian_roulette and pbr at its frame settings: its first wave through
+   the shaded trace_emit_kernel against render_wave_xla, as in phase p; a
+   warmup and 5 timed renders (trace_emit_kernel 2B launches a frame: the
+   shaded trace's nearest and shadow launch a bounce), one profile, and a
+   320×180 frame with the kernels against the twins under the golden
+   gates;
 
 then multi-device pixel tiling and the host C++ libraries:
 
@@ -210,7 +212,22 @@ o. ray_sort_key_kernel against its twin, bit for bit, on the official,
    rows of the bench: images and segments bit for bit, the launch
    counts of 2 graph frames equal to 2 eager frames', the walls in
    alternating (eager, graph, graph, eager) rounds, the device busy time
-   and idle share of one profiled frame of each, the graph's pool bytes.
+   and idle share of one profiled frame of each, the graph's pool bytes;
+
+then the benchmark's extension cell (pathbench, EXT_CELL):
+
+p. the cell's scene (pathbench's scene writer, sponza_interior_pbr) and
+   frame (1280×720, 2 spp, 4 bounces, nee, russian_roulette and pbr, one
+   wave of 1,843,200 rays), the program's configuration as the benchmark
+   builds it: the ptxas lines of the four shaded trace instantiations (a
+   spill fails the run); the frame's wave through the shaded
+   trace_stream_kernel (render_wave_shaded_trace, the main path's)
+   against render_wave_xla: radiance and segment bits and the eight work
+   counters exactly, each of the 8 launches timed (medians of 5 waves),
+   render_wave_xla's wave timed, the wave's bound from its counters; the
+   frame through the main path: a warmup and 5 timed renders
+   (trace_stream_kernel 8 launches a frame and no other kernel of the
+   library), one profile.
 
 Run from the repository root: ``python3 chip_smoke.py``.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
@@ -282,6 +299,10 @@ KERNELS = [
     ("probe_gather_shfl", "probe_gather_kernel", "scripts/probe_gather.py:36"),
     ("ray_sort_key", "ray_sort_key_kernel", "zig_raytracing_contest_tpu/render/wavefront.py:125"),
     ("grid_walk", "grid_walk_kernel", "zig_raytracing_contest_tpu/render/wavefront.py:360"),
+    ("trace_emit_shaded", "trace_emit_kernel",
+     "zig_raytracing_contest_tpu/render/wavefront.py:725"),
+    ("trace_stream_shaded", "trace_stream_kernel",
+     "zig_raytracing_contest_tpu/render/wavefront.py:725"),
 ]
 PROBE_KERNELS = ("micro_trace_kernel", "micro_bf16_kernel", "probe_gather_kernel")
 # The card's peaks (NVIDIA H100 SXM data sheet): f32 outside the tensor
@@ -343,6 +364,10 @@ TIE_RTOL, TIE_ATOL, EDGE_UV, EDGE_SHARE = 1e-5, 4e-6, 1e-3, 1e-4
 # 500k terrain's time a ray)
 BIG_REPS = 3
 M2_LANES = 1 << 14
+# phase p: the benchmark's cell whose frame takes the shaded trace over the
+# streaming bake; the waves of the shaded trace timed in phases l and p
+EXT_CELL = "sponza-720p-ext"
+SHADED_ROUNDS = 5
 
 
 def fail(msg: str) -> None:
@@ -487,7 +512,9 @@ def walk_exact(name, scene, state, prev, aux, idx, groups: bool) -> None:
 
 def profile_frame(render_scene, scene, cam, cfg, card) -> None:
     """Where one frame's time goes: torch.profiler's CUDA kernel time by
-    name against the frame's wall time (the rest is device idle)."""
+    name against the frame's wall time (the rest is device idle).  The
+    program's ``zrc.*`` ranges, which the profiler also lists on the
+    device, span kernels and are left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -501,6 +528,7 @@ def profile_frame(render_scene, scene, cam, cfg, card) -> None:
         (e.device_time_total / 1e3, e.count, e.key)
         for e in prof.key_averages()
         if str(e.device_type).endswith("CUDA") and e.device_time_total > 0
+        and not e.key.startswith("zrc.")
     ]
     busy_ms = sum(k[0] for k in kernels)
     if not kernels:
@@ -1731,8 +1759,9 @@ def timed_frame(render_scene, scene, cam, cfg, what, card):
     return img.astype("float64"), st
 
 
-def extension_phases(card, launches) -> None:
-    """Phase l: the extensions through the XLA shading path."""
+def extension_phases(card, timing, errs, bounds, launches) -> None:
+    """Phase l: the extensions through the XLA shading path (on the card, a
+    baked scene's waves through the shaded trace)."""
     import torch
 
     from zig_raytracing_contest_tpu_torch import kernels
@@ -1801,10 +1830,13 @@ def extension_phases(card, launches) -> None:
     n_lights = 0 if scene.lights is None else scene.lights.tri.numel()
     print(f"  --large with nee, russian_roulette, pbr: regime "
           f"{wf.regime(scene, cfg.ext_flags)}, lights {n_lights}")
+    timing["trace_emit_shaded"], bounds["trace_emit_shaded"] = shaded_trace_ab(
+        "--large extensions", scene, cam, cfg, card)
+    errs["trace_emit_shaded"] = 0.0  # every bit equal, or the run failed
+    # the shaded trace: a nearest and a shadow launch a bounce
     got = render_timed(render_scene, scene, cam, cfg, "--large extensions", card,
-                       {"trace_emit": 6 * L_BOUNCES * (2 if n_lights else 1),
-                        "trace_stream": 0, "shade": 0})
-    launches["trace_emit_norec"] = xla_launches + got["trace_emit"]
+                       {"trace_emit": 6 * 2 * L_BOUNCES, "trace_stream": 0, "shade": 0})
+    launches["trace_emit_shaded"] = xla_launches + got["trace_emit"]
     profile_frame(render_scene, scene, cam, cfg, card)
     s_scene, s_cam, _ = prepare_scene(str(path), cfg, camera_name="Camera 1", width=320,
                                       height=180, device=dev)
@@ -2266,7 +2298,8 @@ def profiled_frame(scene, cam, cfg, graph: bool) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     avg = prof.key_averages()
-    device = [e for e in avg if str(e.device_type).endswith("CUDA") and e.device_time_total > 0]
+    device = [e for e in avg if str(e.device_type).endswith("CUDA") and e.device_time_total > 0
+              and not e.key.startswith("zrc.")]  # the program's ranges span kernels
     launches = sum(e.count for e in avg
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                                 "cudaGraphLaunch"))
@@ -2449,6 +2482,131 @@ def frame_phases(card, timing, errs, bounds, official) -> None:
         torch.cuda.empty_cache()
     tmp.cleanup()
     print(f"phase o: {time.perf_counter() - t_phase:.1f} s")
+
+def shaded_trace_ab(what, scene, cam, cfg, card, rounds: int = SHADED_ROUNDS):
+    """The frame's first wave through the bake's shaded trace as the main
+    path runs it (wavefront.render_wave_shaded_trace at the frame plan's
+    wave size) against render_wave_xla on the same inputs: radiance and
+    segment bits and the eight work counters exactly, else the run fails.
+    Each of its 2B launches is timed by CUDA events (medians of ``rounds``
+    waves after a warmup), render_wave_xla's wave once after a warmup.
+    Returns ((the wave's ms, render_wave_xla's ms, rays, rays), the wave's
+    bound from its counters)."""
+    import torch
+
+    from zig_raytracing_contest_tpu_torch import kernels
+    from zig_raytracing_contest_tpu_torch.render import wavefront as wf
+    from zig_raytracing_contest_tpu_torch.render.pipeline import frame_plan
+
+    ext = cfg.ext_flags
+    if not wf.shaded_trace(scene, ext, False):
+        fail(f"{what}: the wave does not take the shaded trace")
+    R, B, spp = frame_plan(scene, cam, cfg).wave_size, cfg.max_bounce, cfg.num_samples
+    par = wf.build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
+    launch, ev = kernels.launch_trace_shaded, []
+
+    def timed_launch(*args, **kw):  # events around each launch of the wave
+        ev.append(torch.cuda.Event(enable_timing=True))
+        ev[-1].record()
+        launch(*args, **kw)
+        ev.append(torch.cuda.Event(enable_timing=True))
+        ev[-1].record()
+
+    counts = torch.zeros(len(wf.WORK_COUNTERS), dtype=torch.int64, device=par.device)
+    ms = [[] for _ in range(2 * B + 1)]
+    kernels.launch_trace_shaded = timed_launch
+    try:
+        for r in range(rounds + 1):
+            ev.clear()
+            counts.zero_()
+            rows4 = wf.render_wave_shaded_trace(scene, par, cam.width, spp, B, 0, R, cfg.seed,
+                                                ext, counts)
+            torch.cuda.synchronize()
+            if len(ev) != 4 * B:
+                fail(f"{what}: the wave made {len(ev) // 2} launches, not {2 * B}")
+            if r:  # the first wave is the warmup
+                for k in range(2 * B):
+                    ms[k].append(ev[2 * k].elapsed_time(ev[2 * k + 1]))
+                ms[-1].append(ev[0].elapsed_time(ev[-1]))
+    finally:
+        kernels.launch_trace_shaded = launch
+    med = [statistics.median(x) for x in ms]
+    want_counts = torch.zeros_like(counts)
+    for _ in range(2):  # a warmup, then the timed wave
+        want_counts.zero_()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        want = wf.render_wave_xla(scene, par, cam.width, spp, B, 0, R, cfg.seed, ext,
+                                  counts=want_counts)
+        e1.record()
+        torch.cuda.synchronize()
+    plain_ms = e0.elapsed_time(e1)
+    off = int((rows4.view(torch.int32) != want.view(torch.int32)).any(dim=0).sum())
+    c = [int(x) for x in counts.tolist()]
+    # the least work of the wave: each traced ray's tiles swept × tile
+    # triangles and boxes tested, both traces, and one surface shade a
+    # nearest ray; bytes: the bake once, the primary rays and the radiance
+    # and segments once, each lane's flags at every launch
+    b = bound((c[1] + c[5]) * scene.tile * OPS_TRI + (c[2] + c[6]) * OPS_BOX
+              + c[0] * OPS_SHADE,
+              scene.tri_data.numel() * 4 + R * (12 + 8 + 16) + 2 * B * R)
+    print(f"  {what}: the shaded trace's wave ({R} rays, {B} bounces) vs render_wave_xla: "
+          f"{off} lanes differ (radiance and segment bits); launch ms (nearest, shadow a "
+          f"bounce) {[round(x, 4) for x in med[:-1]]}, the wave {med[-1]:.4f} ms (medians "
+          f"of {rounds}), render_wave_xla {plain_ms:.3f} ms; bound {b[0]:.4f} ms ({b[1]}), "
+          f"{b[0] / med[-1]:.1%} of it ({card})", flush=True)
+    held_counts(f"{what}: the shaded trace's wave", c, want_counts.tolist())
+    if off:
+        fail(f"{what}: the shaded trace's wave differs from render_wave_xla's")
+    return (med[-1], plain_ms, R, R), b
+
+
+def ext_cell_phases(card, timing, errs, bounds, launches) -> None:
+    """Phase p: the benchmark's EXT_CELL frame, through the shaded
+    trace_stream_kernel."""
+    import torch
+
+    from pathbench import harness, spec
+    from pathbench.scenes import scene_file
+    from zig_raytracing_contest_tpu_torch.render import wavefront as wf
+    from zig_raytracing_contest_tpu_torch.render.pipeline import (
+        backend_line,
+        prepare_scene,
+        render_scene,
+    )
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    tmp = tempfile.TemporaryDirectory()
+    cell = spec.load_workload(EXT_CELL)
+    tr = cell.traffic
+    cfg = harness.program_config(tr, SEED)
+    t0 = time.perf_counter()
+    path = scene_file(cell.config, Path(tmp.name))
+    write_s = time.perf_counter() - t0
+    scene, cam, timers = prepare_scene(str(path), cfg, cell.config["camera"], tr.width,
+                                       tr.height, device=dev)
+    reg = wf.regime(scene, cfg.ext_flags)
+    print(f"phase p: {EXT_CELL}: {cell.config['name']} written in {write_s:.2f} s, "
+          f"{scene.tri_data.shape[1]} padded triangles, {scene.lights.tri.numel()} light "
+          f"triangles, {cam.width}x{cam.height}, {cfg.num_samples} spp, {cfg.max_bounce} "
+          f"bounces, {', '.join(tr.extensions)}; {backend_line(scene, cfg.ext_flags)}; "
+          f"scene phases {timers.phases}")
+    if reg != "XLA shading, group heap":
+        fail(f"{EXT_CELL} renders {reg}, expected XLA shading, group heap")
+    ptxas_no_spill(tuple(f"{k}_kernelILi{f}E" for k in ("trace_stream", "trace_emit")
+                         for f in (1, 2)), "a shaded trace")
+    timing["trace_stream_shaded"], bounds["trace_stream_shaded"] = shaded_trace_ab(
+        EXT_CELL, scene, cam, cfg, card)
+    errs["trace_stream_shaded"] = 0.0  # every bit equal, or the run failed
+    got = render_timed(render_scene, scene, cam, cfg, EXT_CELL, card,
+                       {"trace_stream": 6 * 2 * cfg.max_bounce})
+    if {k for k, n in got.items() if n} != {"trace_stream"}:
+        fail(f"{EXT_CELL}: the frame launched {got}, not trace_stream_kernel alone")
+    launches["trace_stream_shaded"] = got["trace_stream"]
+    profile_frame(render_scene, scene, cam, cfg, card)
+    tmp.cleanup()
+    print(f"phase p: {time.perf_counter() - t_phase:.1f} s")
 
 
 def official_frame(render_scene, scene, cam, cfg, card) -> dict:
@@ -2666,10 +2824,11 @@ def main() -> int:
     library = {}
     trace_probe_phases(card, timing, errs, bounds, launches, library)
     grid_phases(card, timing, errs, bounds, launches, base_lib)
-    extension_phases(card, launches)
+    extension_phases(card, timing, errs, bounds, launches)
     sharding_phases(card, path, scene, cam, cfg)
     bench_phases(card, errs)
     frame_phases(card, timing, errs, bounds, (scene, cam, cfg))
+    ext_cell_phases(card, timing, errs, bounds, launches)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [

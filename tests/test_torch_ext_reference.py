@@ -57,9 +57,14 @@ def two_threads():
 
 @pytest.fixture(scope="module")
 def scene_path(tmp_path_factory):
-    """A floor, an emissive panel above it and 30 seeded one-sided quads of
-    five materials: two metals, one half metal, two dielectrics (one with
-    glTF's default factors, 1 and 1, so a metal too)."""
+    return write_scene(tmp_path_factory.mktemp("ext") / "ext.gltf")
+
+
+def write_scene(path, light: bool = True):
+    """A floor, an emissive panel above it (``light``; else the panel does
+    not emit) and 30 seeded one-sided quads of five materials: two metals,
+    one half metal, two dielectrics (one with glTF's default factors, 1 and
+    1, so a metal too)."""
     rng = np.random.default_rng(23)
     b = SceneBuilder()
     checker = np.zeros((8, 8, 4), np.uint8)
@@ -67,7 +72,8 @@ def scene_path(tmp_path_factory):
     checker[::2, 1::2] = checker[1::2, ::2] = [60, 60, 60, 255]
     tex = b.add_texture(b.add_image_png(checker), b.add_sampler())
     floor = b.add_material(base_color_texture=tex, metallic=0.0, roughness=0.5)
-    light = b.add_material(base_color_factor=(0, 0, 0, 1), emissive_factor=(6, 6, 6),
+    light = b.add_material(base_color_factor=(0, 0, 0, 1),
+                           emissive_factor=(6, 6, 6) if light else (0, 0, 0),
                            metallic=0.0, roughness=1.0)
     mats = [b.add_material(base_color_factor=(0.9, 0.7, 0.3, 1), metallic=1.0, roughness=0.2),
             b.add_material(base_color_factor=(0.7, 0.7, 0.75, 1), metallic=1.0, roughness=0.6),
@@ -89,7 +95,7 @@ def scene_path(tmp_path_factory):
         p, i, n, t = quad(c, u * size, v * size)
         b.add_mesh_node(p, i, mats[k % len(mats)], normals=n, texcoords=t)
     b.add_camera_node((0, 2.5, 12), (0, 0.5, 0), yfov=0.8, name="Camera 1")
-    return b.write_gltf(tmp_path_factory.mktemp("ext") / "ext.gltf")
+    return b.write_gltf(path)
 
 
 def workload(extensions, backend="auto"):

@@ -18,8 +18,10 @@ on the CPU.
   XLA shading path's frames to the graph, and a grid frame with NEE
   through the graph route (a stub capture) equals its eager frame;
 * ``render_wave_rows`` sends a grid wave with no extension on a card to
-  the shaded walk (``render_wave_grid``) and every other XLA-path wave to
-  ``render_wave_xla``; the CPU never reaches the shaded walk's kernel.
+  the shaded walk (``render_wave_grid``), a baked wave with an extension
+  on a card to the shaded trace (``render_wave_shaded_trace``) and every
+  other XLA-path wave to ``render_wave_xla``; the CPU never reaches the
+  shaded kernels.
 
 grid_walk_kernel itself, and its shaded walk, run only on the card
 (tests/test_torch_cuda.py, chip_smoke.py phase k).
@@ -361,10 +363,12 @@ def test_wave_route_shades_in_the_walk_only_on_a_bare_grid_card(kind, ext, plain
                                                                  monkeypatch):
     """Which route ``render_wave_rows`` sends a wave down (stub scenes): the
     shaded walk (``render_wave_grid``) for a grid scene with no extension,
+    through the kernels, on a card; the shaded trace
+    (``render_wave_shaded_trace``) for a baked scene with an extension on,
     through the kernels, on a card; ``render_wave_xla`` for every other wave
-    of the XLA shading path (an extension on, on the grid or the bake;
-    ``plain``; the CPU); a baked scene with no extension neither.  The
-    shaded walk's entry point is made to raise, and no route reaches it."""
+    of the XLA shading path (an extension on the grid; ``plain``; the CPU);
+    a baked scene with no extension none of them.  The shaded kernels'
+    entry points are made to raise, and no route reaches them."""
     class Took(Exception):
         pass
 
@@ -377,19 +381,22 @@ def test_wave_route_shades_in_the_walk_only_on_a_bare_grid_card(kind, ext, plain
         raise AssertionError("the route reached the shaded walk's kernel")
 
     monkeypatch.setattr(kernels, "launch_grid_walk_shaded", refuse)
+    monkeypatch.setattr(kernels, "launch_trace_shaded", refuse)
     monkeypatch.setattr(wavefront, "render_wave_grid", route("walk"))
+    monkeypatch.setattr(wavefront, "render_wave_shaded_trace", route("trace"))
     monkeypatch.setattr(wavefront, "render_wave_xla", route("xla"))
     monkeypatch.setattr(wavefront, "render_wave_whole_path", route("bake"))
     monkeypatch.setattr(wavefront, "render_wave_per_bounce", route("bake"))
     scene = SimpleNamespace(device=torch.device(device), bank_resident=True,
                             tri_data=None if kind == "grid" else torch.empty(16, 8))
     flags = _EXTS[ext]
+    card = device == "cuda" and not plain
     if ext == "none":
-        bare = "walk" if device == "cuda" and not plain else "xla"
-        want = bare if kind == "grid" else "bake"
+        want = ("walk" if card else "xla") if kind == "grid" else "bake"
     else:
-        want = "xla"
+        want = "trace" if card and kind == "baked" else "xla"
     assert wavefront.shaded_walk(scene, flags, plain) == (want == "walk")
+    assert wavefront.shaded_trace(scene, flags, plain) == (want == "trace")
     with pytest.raises(Took) as took:
         wavefront.render_wave_rows(scene, torch.zeros(32), 64, 48, 2, 3, 0, 64 * 48, 1024, 1,
                                    0, plain=plain, ext=flags)

@@ -190,6 +190,35 @@ class ZrcGridWave(ctypes.Structure):
     ]
 
 
+class ZrcTraceWave(ctypes.Structure):
+    _fields_ = [
+        ("orig", ctypes.c_void_p),
+        ("dir", ctypes.c_void_p),
+        ("thr", ctypes.c_void_p),
+        ("rows4", ctypes.c_void_p),
+        ("streams", ctypes.c_void_p),
+        ("hit", ctypes.c_void_p),
+        ("idx", ctypes.c_void_p),
+        ("flags", ctypes.c_void_p),
+        ("shade", ctypes.c_void_p),
+        ("bank", ctypes.c_void_p),
+        ("num_texels", ctypes.c_int),
+        ("perm", ctypes.c_void_p),
+        ("mr", ctypes.c_void_p),
+        ("light_tri", ctypes.c_void_p),
+        ("light_v0", ctypes.c_void_p),
+        ("light_e1", ctypes.c_void_p),
+        ("light_e2", ctypes.c_void_p),
+        ("light_n", ctypes.c_void_p),
+        ("light_cdf", ctypes.c_void_p),
+        ("light_area", ctypes.c_void_p),
+        ("lights", ctypes.c_int),
+        ("bounce", ctypes.c_int),
+        ("roulette", ctypes.c_int),
+        ("counts", ctypes.c_void_p),
+    ]
+
+
 def _nvcc() -> str:
     for cand in (
         os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
@@ -363,6 +392,11 @@ def load():
             lib.zrc_grid_walk_shaded.argtypes = [
                 ctypes.POINTER(ZrcGrid), ctypes.POINTER(ZrcGridWave), ptr, ptr, ptr, ptr, ptr,
                 ptr, i32, i32, i32, i32, ptr,
+            ]
+            lib.zrc_trace_shaded.restype = i32
+            lib.zrc_trace_shaded.argtypes = [
+                ctypes.POINTER(ZrcScene), ctypes.POINTER(ZrcHeap), ctypes.POINTER(ZrcTraceWave),
+                i32, i32, i32, ptr,
             ]
             lib.zrc_empty.restype = i32
             lib.zrc_empty.argtypes = [i32, ptr]
@@ -559,6 +593,18 @@ def _launch_trace(scene, heap: ZrcHeap, state, prev, table, aux_out, idx_out,
         _count(name)
 
 
+def _scene_heap(scene, groups: bool) -> ZrcHeap:
+    """The heap a trace of ``scene`` walks: the group heap (trace_stream_kernel)
+    or the tile heap (trace_emit_kernel)."""
+    nt = scene.tile_bbox.shape[1]
+    if not groups:
+        return _heap(scene.tree_bbox, None, 0, nt, scene.device)
+    ng = scene.group_bbox.shape[1]
+    if ng != -(-nt // scene.group_tiles):
+        raise ValueError(f"{ng} groups of {scene.group_tiles} do not cover {nt} tiles")
+    return _heap(scene.group_tree_bbox, scene.group_bbox, scene.group_tiles, ng, scene.device)
+
+
 def launch_trace_emit(scene, state, prev, table, aux_out, idx_out, rec_out,
                       lib=None, counts=None) -> None:
     """Launch trace_emit_kernel (the walk of ``scene.tree_bbox``):
@@ -567,8 +613,8 @@ def launch_trace_emit(scene, state, prev, table, aux_out, idx_out, rec_out,
     int32 or None; ``lib``: another build (``load_trace_library``);
     ``counts`` (3,) int64 (this build only) gets the sums of aux rows 4-6
     (rays alive, tiles swept, boxes tested) added."""
-    heap = _heap(scene.tree_bbox, None, 0, scene.tile_bbox.shape[1], scene.device)
-    _launch_trace(scene, heap, state, prev, table, aux_out, idx_out, rec_out, lib, counts)
+    _launch_trace(scene, _scene_heap(scene, False), state, prev, table, aux_out, idx_out,
+                  rec_out, lib, counts)
 
 
 def launch_trace_stream(scene, state, prev, table, aux_out, idx_out, rec_out,
@@ -576,13 +622,87 @@ def launch_trace_stream(scene, state, prev, table, aux_out, idx_out, rec_out,
     """Launch trace_stream_kernel (the walk of ``scene.group_tree_bbox``,
     each reached group's tiles culled and swept); arguments as
     ``launch_trace_emit``."""
-    ng = scene.group_bbox.shape[1]
-    nt = scene.tile_bbox.shape[1]
-    if ng != -(-nt // scene.group_tiles):
-        raise ValueError(f"{ng} groups of {scene.group_tiles} do not cover {nt} tiles")
-    heap = _heap(scene.group_tree_bbox, scene.group_bbox, scene.group_tiles, ng,
-                 scene.device)
-    _launch_trace(scene, heap, state, prev, table, aux_out, idx_out, rec_out, lib, counts)
+    _launch_trace(scene, _scene_heap(scene, True), state, prev, table, aux_out, idx_out,
+                  rec_out, lib, counts)
+
+
+def launch_trace_shaded(scene, groups: bool, orig, direction, thr, rows4, streams, hit, idx,
+                        flags, bounce: int, shadow: bool, lights=None, mr=None,
+                        roulette: bool = False, counts=None) -> None:
+    """Launch one of the 2B launches of the bake's shaded wave
+    (``wavefront.render_wave_shaded_trace``: for each bounce b of B, the
+    nearest launch, then the shadow launch, ``shadow``; equal to
+    ``wavefront.render_wave_xla``): trace_stream_kernel's shaded form on
+    the group heap (``groups``), else trace_emit_kernel's on the tile heap.
+    The wave's state, kept between its launches: ``orig``, ``direction``
+    and ``thr`` (R, 3) f32 (origin, direction, throughput; the nearest
+    launch of bounce 0 reads the primary rays and sets the rest), ``rows4``
+    (4, R) f32 (radiance, segments: the wave's result after the last
+    launch), ``streams`` (R,) int64 (read only), ``hit`` (3, R) f32 (t, u, v
+    of each lane's last nearest hit), ``idx`` (R,) int32 (its Morton index)
+    and ``flags`` (R,) uint8.  The shade reads the scene's shade table,
+    texel bank and ``perm``; ``lights`` (``extensions.LightSet``) or None
+    switches NEE on, ``mr`` ((T, 2) f32 metallic and roughness) or None
+    ``pbr``, ``roulette`` Russian roulette.  ``counts`` (8,) int64
+    (``wavefront.WORK_COUNTERS``) or None: the nearest launch adds its rays,
+    tiles and boxes to [0:3], the shadow launch its shadow rays, tiles and
+    boxes to [4:7] and its specular bounces to [7].  Every check of the
+    wave runs before the library is loaded; CPU tensors raise."""
+    dev = orig.device
+    R = orig.shape[0]
+    if not 0 < R < 1 << 31:
+        raise ValueError(f"{R} rays: 1 to 2^31 - 1 a wave")
+    if bounce < 0:
+        raise ValueError(f"bounce {bounce}")
+    shade, bank = scene.shade_table, scene.color_data
+    checks = [("orig", orig, torch.float32, (R, 3)),
+              ("direction", direction, torch.float32, (R, 3)),
+              ("thr", thr, torch.float32, (R, 3)), ("rows4", rows4, torch.float32, (4, R)),
+              ("streams", streams, torch.int64, (R,)), ("hit", hit, torch.float32, (3, R)),
+              ("idx", idx, torch.int32, (R,)), ("flags", flags, torch.uint8, (R,)),
+              ("shade", shade, torch.float32, (shade.shape[0], 32)),
+              ("bank", bank, torch.float32, (bank.shape[0], 4)),
+              ("perm", scene.perm, torch.int64, (scene.perm.shape[0],))]
+    if mr is not None:
+        checks.append(("mr", mr, torch.float32, (shade.shape[0], 2)))
+    if lights is not None:
+        L = lights.tri.shape[0]
+        checks += [("lights.tri", lights.tri, torch.int64, (L,)),
+                   ("lights.cdf", lights.cdf, torch.float32, (L,)),
+                   ("lights.total_area", lights.total_area, torch.float32, (1,))]
+        checks += [(f"lights.{k}", getattr(lights, k), torch.float32, (L, 3))
+                   for k in ("v0", "e1", "e2", "normal")]
+        if L < 1:
+            raise ValueError("a light set of no light")
+    if counts is not None:
+        checks.append(("counts", counts, torch.int64, (8,)))
+    for name, t, dtype, shape in checks:
+        _check(t, name, dtype, shape, dev)
+    if not 1 <= bank.shape[0] < 1 << 31:
+        raise ValueError(f"{bank.shape[0]} texels: 1 to 2^31 - 1")
+    for name, t in (("shade", shade), ("bank", bank)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned (float4 rows)")
+    if dev.type != "cuda":
+        raise ValueError(f"the shaded trace needs CUDA tensors, got {dev}")
+    sc = _scene_struct(scene, dev)
+    heap = _scene_heap(scene, groups)
+    lib = load()
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    lt = (None,) * 7 if lights is None else (
+        lights.tri, lights.v0, lights.e1, lights.e2, lights.normal, lights.cdf,
+        lights.total_area)
+    w = ZrcTraceWave(orig.data_ptr(), direction.data_ptr(), thr.data_ptr(), rows4.data_ptr(),
+                     streams.data_ptr(), hit.data_ptr(), idx.data_ptr(), flags.data_ptr(),
+                     shade.data_ptr(), bank.data_ptr(), bank.shape[0], scene.perm.data_ptr(),
+                     ptr(mr), *(ptr(t) for t in lt), 0 if lights is None else L,
+                     int(bounce), int(roulette), ptr(counts))
+    err = lib.zrc_trace_shaded(ctypes.byref(sc), ctypes.byref(heap), ctypes.byref(w),
+                               int(shadow), R, dev.index or 0,
+                               torch.cuda.current_stream(dev).cuda_stream)
+    name = "trace_stream" if groups else "trace_emit"
+    if _launched(err, lib.zrc_error_string, f"{name}_kernel"):
+        _count(name)
 
 
 def launch_shade(scene, state_in, aux, rec, bounce: int, state_out) -> None:

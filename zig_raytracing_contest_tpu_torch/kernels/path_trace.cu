@@ -11,7 +11,12 @@
 //                             trace_emit_aux (_make_trace_kernel_t_rec :1326,
 //                             _make_trace_kernel_t :1309)
 //   trace_stream_kernel    <- the same call's streaming kernel
-//                             (_make_trace_kernel_t_hbm :1344, body :1380)
+//                             (_make_trace_kernel_t_hbm :1344, body :1380);
+//                             trace_stream_kernel<kShade> and
+//                             trace_emit_kernel<kShade> also the shading
+//                             round and the extensions of render_wave's XLA
+//                             branch over the bake (XLA fusions and gathers
+//                             inside the jitted wave)
 //   shade_kernel           <- zig_raytracing_contest_tpu/render/fused.py:1191
 //                             shade_fused (_make_shade1_kernel :668)
 //   texel_fetch_kernel     <- scripts/check_paged_tpu.py:57 run_fetch (the
@@ -856,15 +861,58 @@ __global__ void __launch_bounds__(kThreads, 8) path_trace_kernel(
 // bounces done by PyTorch.  State, aux and records are field-major (rows of
 // R floats), so thread i reads and writes column i: coalesced.
 
+// The walk of the warp's rays, every lane of the warp calling it with its
+// ray ``mine`` (origin, direction, reciprocal and the Morton index it may
+// not hit), its best hit ``h`` (+inf) and its walk ``w`` (done, or started
+// at the root: walk_start).  Each lane walks its ray (advance_walk); in
+// rounds, every lane of the warp walks to its next tile, then the warp
+// sweeps the tiles the lanes asked for, one after the other, all 32 lanes
+// on each (warp_sweep), until every walk has ended.  ``h`` ends as the
+// lane's nearest hit; ``swept`` and ``tested`` get the tiles it swept and
+// the boxes it tested.
+template <bool kGroups>
+__device__ __forceinline__ void walk_warp(const ZrcScene& sc, const ZrcHeap& hp,
+                                          const TraceRay& mine, int lane, Hit& h, LaneWalk& w,
+                                          int& swept, int& tested, int* stack_n, float* stack_e) {
+    while (true) {
+        advance_walk<kGroups>(sc, hp, mine, h.t, w, stack_n, stack_e, tested);
+        unsigned asks = __ballot_sync(FULL_MASK, w.req >= 0);
+        if (!asks) break;
+        do {
+            int k = __ffs(asks) - 1;
+            asks &= asks - 1u;
+            TraceRay r;
+            for (int a = 0; a < 3; ++a) {
+                r.o[a] = __shfl_sync(FULL_MASK, mine.o[a], k);
+                r.d[a] = __shfl_sync(FULL_MASK, mine.d[a], k);
+            }
+            r.prev = __shfl_sync(FULL_MASK, mine.prev, k);
+            int j = __shfl_sync(FULL_MASK, w.req, k);
+            Hit hk = {__shfl_sync(FULL_MASK, h.t, k), 0.0f, 0.0f, 0};
+            bool better = warp_sweep<false>(sc, j, r, lane, hk);
+            if (lane == k) {
+                if (better) h = hk;
+                ++swept;
+                w.req = -1;
+            }
+        } while (asks);
+    }
+}
+
+// Start a lane's walk at the heap's root (one box tested).
+__device__ __forceinline__ void walk_start(const ZrcHeap& hp, const TraceRay& mine, LaneWalk& w,
+                                           int& tested) {
+    tested = 1;
+    w.node = node_entry(hp.tree, 2 * hp.p2, 1, mine, INFINITY) < INFINITY ? 1 : 0;
+    w.done = false;
+}
+
 // Nearest hit of every ray of a (16, R) state -> aux (8, R) [u, v, t,
 // streams, alive, tiles swept, boxes tested, 0], idx (R,) Morton index and,
 // when ``rec_out`` is given, the winner's 24-float record read from the
 // field-major (24, table_cols) ``table`` (zeros on a miss).  A dead ray
 // traces nothing: t = +inf, idx = 0.  Thread i owns column i (coalesced
-// loads and stores) and walks its ray (advance_walk); in rounds, every lane
-// of the warp walks to its next tile, then the warp sweeps the tiles the
-// lanes asked for, one after the other, all 32 lanes on each
-// (warp_sweep), until every walk has ended.  The warp adds its rays
+// loads and stores) and walks its ray (walk_warp).  The warp adds its rays
 // alive, tiles swept and boxes tested (aux rows 4-6 of its lanes, as
 // integers) to counts[0..2], one atomicAdd each.  Launched with
 // TRACE_THREADS threads per block.
@@ -895,33 +943,9 @@ __device__ void trace_warp(const ZrcScene& sc, const ZrcHeap& hp,
             mine.inv[a] = 1.0f / mine.d[a];
         }
         if (prev) mine.prev = prev[i];
-        tested = 1;
-        w.node = node_entry(hp.tree, 2 * hp.p2, 1, mine, INFINITY) < INFINITY ? 1 : 0;
-        w.done = false;
+        walk_start(hp, mine, w, tested);
     }
-    while (true) {
-        advance_walk<kGroups>(sc, hp, mine, h.t, w, stack_n, stack_e, tested);
-        unsigned asks = __ballot_sync(FULL_MASK, w.req >= 0);
-        if (!asks) break;
-        do {
-            int k = __ffs(asks) - 1;
-            asks &= asks - 1u;
-            TraceRay r;
-            for (int a = 0; a < 3; ++a) {
-                r.o[a] = __shfl_sync(FULL_MASK, mine.o[a], k);
-                r.d[a] = __shfl_sync(FULL_MASK, mine.d[a], k);
-            }
-            r.prev = __shfl_sync(FULL_MASK, mine.prev, k);
-            int j = __shfl_sync(FULL_MASK, w.req, k);
-            Hit hk = {__shfl_sync(FULL_MASK, h.t, k), 0.0f, 0.0f, 0};
-            bool better = warp_sweep<false>(sc, j, r, lane, hk);
-            if (lane == k) {
-                if (better) h = hk;
-                ++swept;
-                w.req = -1;
-            }
-        } while (asks);
-    }
+    walk_warp<kGroups>(sc, hp, mine, lane, h, w, swept, tested, stack_n, stack_e);
     const unsigned live = __popc(__ballot_sync(FULL_MASK, alive > 0.0f));
     const unsigned tiles = __reduce_add_sync(FULL_MASK, (unsigned)swept);
     const unsigned boxes = __reduce_add_sync(FULL_MASK, (unsigned)tested);
@@ -1803,6 +1827,399 @@ grid_walk_kernel(ZrcGrid g, const float* __restrict__ orig, const float* __restr
         atomicAdd(w.alive, (unsigned long long)warp_alive);
 }
 
+// ---------------------------------------------------- the bake's shaded trace
+// trace_stream_kernel<kShade> and trace_emit_kernel<kShade>
+// (zrc_trace_shaded): the XLA shading path's wave on a baked scene with an
+// extension on (nee, russian_roulette, pbr), in 2B launches of the bake's
+// trace for B bounces.  They replace render_wave_xla's per-bounce PyTorch
+// shade and extensions (the shade table's, the texels' and the light
+// table's row gathers and a few hundred elementwise ops over the whole
+// wave a bounce, dead lanes included) and are equal to it bit for bit.
+// The wave's state stays on the device between the launches
+// (ZrcTraceWave).  Bounce b is the two traces render_wave_xla makes, each
+// lane the ray of its thread, walked as trace_warp walks it (walk_warp):
+// * the nearest launch (TRACE_NEAREST): a live lane first rolls Russian
+//   roulette (from b = 2, tag TAG_RR + b: it dies, or its throughput is
+//   divided by its chance), counts its segment, then traces its ray with
+//   the previous hit excluded and keeps the hit;
+// * the shadow launch (TRACE_SHADOW): a live lane shades its hit: the sky
+//   on a miss, which ends the ray; else the shade table's row, the base
+//   and emissive samples, the alpha draw and the Gaussian
+//   (shade_and_scatter), pbr_scatter, the emissive term (not counted after
+//   a NEE sample) and NEE's light sample (sample_direct_light); it then
+//   traces the shadow ray where the sample faces the surface and the light,
+//   and adds the sample's radiance where nothing nearer than the light was
+//   hit.  A lane that traces nothing keeps only its place in the warp.
+// The work counters are the two traces' (rays, tiles, boxes), added as
+// trace_warp adds them, and the specular bounces, a ballot a warp.
+// Parity: render_wave_xla's ops in its order and with PyTorch's roundings
+// on the card: a sum over the last axis of an (R, 3) tensor is
+// (a0 + a2) + a1 (two threads an output, the first adding elements 0 and
+// 2); a division by a Python float multiplies by its f32 reciprocal; a
+// Python constant is its double rounded to f32; torch.rsqrt is rsqrtf.
+
+#define TAG_RR (1 << 20)
+#define TAG_NEE (1 << 21)
+#define TAG_PBR (1 << 22)
+// the blocks an SM holds of either shaded form (TRACE_THREADS threads
+// each): at most 80 registers, no spills.  Measured on the sponza-720p-ext
+// wave (PERF.md): the nearest form at 8 blocks (64 registers) 1.8% slower
+// a wave, at 7 (72) as fast as 6; the shadow form spills at 7 and 8, is
+// the same code at 5 and takes 92 registers at 4, no faster.
+#define TRACE_SHADED_BLOCKS_PER_SM 6
+
+enum { TRACE_NEAREST = 1, TRACE_SHADOW = 2 };
+// each lane's flags: its ray is alive; its next emissive hit counts (NEE)
+enum { WAVE_ALIVE = 1, WAVE_EMISSIVE = 2 };
+
+struct ZrcTraceWave {
+    float* orig;                  // (R, 3) f32: each ray's origin
+    float* dir;                   // (R, 3) f32: its direction
+    float* thr;                   // (R, 3) f32: its throughput
+    float* rows4;                 // (4, R) f32: radiance (rows 0-2), segments (row 3)
+    const long long* streams;     // (R,) int64: each ray's RNG stream (uint32 values)
+    float* hit;                   // (3, R) f32: t, u, v of its last nearest hit
+    int* idx;                     // (R,) int32: that hit's Morton index
+    unsigned char* flags;         // (R,) uint8: WAVE_ALIVE | WAVE_EMISSIVE
+    const float4* shade;          // (T, 8) float4: the shade table, 32 f32 a triangle
+    const float4* bank;           // (P, 4) f32: the texel bank (color_data)
+    int num_texels;               // P
+    const long long* perm;        // (Tp,) int64: Morton position -> triangle
+    const float* mr;              // (T, 2) f32 metallic, roughness; null: pbr off
+    const long long* light_tri;   // (L,) int64: NEE's lights (extensions.LightSet)
+    const float* light_v0;        // (L, 3) f32
+    const float* light_e1;        // (L, 3) f32
+    const float* light_e2;        // (L, 3) f32
+    const float* light_n;         // (L, 3) f32
+    const float* light_cdf;       // (L,) f32
+    const float* light_area;      // (1,) f32
+    int lights;                   // L; 0: NEE off
+    int bounce;                   // b
+    int roulette;                 // Russian roulette on
+    unsigned long long* counts;   // (8,) uint64: the wave's work counters
+};
+
+// What a shadow launch's lane keeps across its walk: the radiance NEE adds
+// and the t a hit must reach for the light to be seen.
+struct ShadowCarry {
+    float contrib[3];
+    float lim;
+};
+
+__device__ __forceinline__ float torch_sum3(float a0, float a1, float a2) {
+    return (a0 + a2) + a1;
+}
+
+// ops/rng.py normal3 (Box-Muller): three normals of the (stream, tag) draw.
+__device__ __forceinline__ void normal3_draw(uint32_t streams, int tag, float g[3]) {
+    const float u1 = u01(draw_bits(streams, tag, 0));
+    const float u2 = u01(draw_bits(streams, tag, 1));
+    const float u3 = u01(draw_bits(streams, tag, 2));
+    const float u4 = u01(draw_bits(streams, tag, 3));
+    const float r1 = __fsqrt_rn(-2.0f * logf(u1));
+    const float r2 = __fsqrt_rn(-2.0f * logf(u3));
+    g[0] = r1 * cosf(TWO_PI * u2);
+    g[1] = r1 * sinf(TWO_PI * u2);
+    g[2] = r2 * cosf(TWO_PI * u4);
+}
+
+// The nearest launch's take of lane i < R (render_wave_xla before its
+// trace): false when the ray is dead or dies by Russian roulette; else its
+// segment is counted and ``ray`` holds it, the previous hit excluded.
+// Launch 0 sets the primary ray's throughput, radiance, segments and flags.
+__device__ __forceinline__ bool nearest_take(const ZrcTraceWave& w, int i, int R,
+                                             TraceRay& ray) {
+    const size_t n = (size_t)R;
+    const int b = w.bounce;
+    float* const thr = w.thr + 3 * (size_t)i;
+    float* const seg = w.rows4 + 3 * n + i;
+    if (b == 0) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+            thr[a] = 1.0f;
+            w.rows4[a * n + i] = 0.0f;
+        }
+        w.flags[i] = WAVE_ALIVE | WAVE_EMISSIVE;
+        *seg = 1.0f;
+    } else {
+        const unsigned char f = w.flags[i];
+        if (!(f & WAVE_ALIVE)) return false;
+        if (w.roulette && b >= 2) {
+            // extensions.roulette: p = clamp(max T, 0.05, 1), survive if u < p
+            const float tr[3] = {thr[0], thr[1], thr[2]};
+            const float p =
+                nan_min(nan_max(nan_max(nan_max(tr[0], tr[1]), tr[2]), (float)0.05), 1.0f);
+            if (!(u01(draw_bits((uint32_t)w.streams[i], TAG_RR + b, 0)) < p)) {
+                w.flags[i] = f & ~WAVE_ALIVE;
+                return false;
+            }
+#pragma unroll
+            for (int a = 0; a < 3; ++a) thr[a] = tr[a] / p;
+        }
+        *seg = *seg + 1.0f;
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+        ray.o[a] = w.orig[3 * (size_t)i + a];
+        ray.d[a] = w.dir[3 * (size_t)i + a];
+        ray.inv[a] = 1.0f / ray.d[a];
+    }
+    ray.prev = b > 0 ? w.idx[i] : -1;
+    return true;
+}
+
+// NEE's light sample of a shaded lane (extensions.sample_direct_light) at
+// the hit point ``x`` with the interpolated normal ``nrm``: the light by a
+// binary search of the area cdf (torch.searchsorted, side "left", clamped
+// to the last light), a uniform point on it, the direction and distance to
+// it.  Returns whether the sample faces the surface and the light; then
+// ``ray`` is the shadow ray (from x lifted along the unit normal) and
+// ``carry`` what it adds if nothing nearer than the light is hit.
+__device__ __forceinline__ bool light_sample(const ZrcTraceWave& w, uint32_t streams, int b,
+                                             const float x[3], const float nrm[3],
+                                             const float tr[3], const float al[3],
+                                             TraceRay& ray, ShadowCarry& carry) {
+    const int tag = TAG_NEE + 4 * b;
+    const float u_sel = u01(draw_bits(streams, tag, 0));
+    const float u_a = u01(draw_bits(streams, tag + 1, 0));
+    const float u_b = u01(draw_bits(streams, tag + 2, 0));
+    int lo = 0, hi = w.lights;
+    while (lo < hi) {
+        const int mid = lo + ((hi - lo) >> 1);
+        if (!(__ldg(w.light_cdf + mid) >= u_sel)) lo = mid + 1;
+        else hi = mid;
+    }
+    const size_t li = (size_t)min(lo, w.lights - 1);
+    const float su = __fsqrt_rn(u_a);
+    const float b1 = su * (1.0f - u_b);
+    const float b2 = su * u_b;
+    float wi[3], ln[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+        const float y = (__ldg(w.light_v0 + 3 * li + a) + __ldg(w.light_e1 + 3 * li + a) * b1) +
+                        __ldg(w.light_e2 + 3 * li + a) * b2;
+        wi[a] = y - x[a];
+        ln[a] = __ldg(w.light_n + 3 * li + a);
+    }
+    const float dist_sq = torch_sum3(wi[0] * wi[0], wi[1] * wi[1], wi[2] * wi[2]);
+    const float dist = __fsqrt_rn(dist_sq);
+    const float div = nan_max(dist, (float)1e-20);
+    const float r = rsqrtf(torch_sum3(nrm[0] * nrm[0], nrm[1] * nrm[1], nrm[2] * nrm[2]));
+    float nn[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+        wi[a] = wi[a] / div;
+        nn[a] = nrm[a] * r;
+    }
+    const float cos_x = torch_sum3(nn[0] * wi[0], nn[1] * wi[1], nn[2] * wi[2]);
+    const float cos_y = torch_sum3(ln[0] * -wi[0], ln[1] * -wi[1], ln[2] * -wi[2]);
+    if (!(cos_x > 0.0f && cos_y > 0.0f && dist_sq > (float)1e-12)) return false;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+        ray.o[a] = x[a] + nn[a] * (float)1e-4;
+        ray.d[a] = wi[a];
+        ray.inv[a] = 1.0f / wi[a];
+    }
+    ray.prev = -1;
+    // the light's emissive texture at the sample's uv
+    const float* lrow = reinterpret_cast<const float*>(w.shade + (SHADE_COLS / 4) *
+                                                       (size_t)__ldg(w.light_tri + li));
+    const float w0 = (1.0f - b1) - b2;
+    const float tu = (lrow[COL_UV + 0] * w0 + lrow[COL_UV + 2] * b1) + lrow[COL_UV + 4] * b2;
+    const float tv = (lrow[COL_UV + 1] * w0 + lrow[COL_UV + 3] * b1) + lrow[COL_UV + 5] * b2;
+    const float4 le = sample_bank(w.bank, w.num_texels, lrow + COL_EMIS_DESC, tu, tv);
+    // albedo / pi x Le x G / pdf_area, pdf_area = 1 / total_area
+    const float g = (cos_x * cos_y) / nan_max(dist_sq, (float)1e-12);
+    const float scale = (g * __ldg(w.light_area)) * (1.0f / (float)3.141592653589793);
+    const float lev[3] = {le.x, le.y, le.z};
+#pragma unroll
+    for (int a = 0; a < 3; ++a) carry.contrib[a] = ((tr[a] * al[a]) * lev[a]) * scale;
+    carry.lim = dist * (float)(1.0 - 1e-3);
+    return true;
+}
+
+// The shadow launch's take of lane i < R (render_wave_xla from its
+// shade_and_scatter to the step): a live ray shades its hit of bounce b
+// and steps to its next segment.  Returns whether it traces a shadow ray
+// (``ray``, ``carry``); ``spec``: the hit was shaded and reflected
+// specularly.
+__device__ __forceinline__ bool shadow_take(const ZrcTraceWave& w, int i, int R,
+                                            TraceRay& ray, ShadowCarry& carry, bool& spec) {
+    const size_t n = (size_t)R;
+    const int b = w.bounce;
+    spec = false;
+    const unsigned char f = w.flags[i];
+    if (!(f & WAVE_ALIVE)) return false;
+    float* const rad = w.rows4 + i;  // radiance channel a at rad[a n]
+    float* const thr = w.thr + 3 * (size_t)i;
+    float* const orig = w.orig + 3 * (size_t)i;
+    float* const dir = w.dir + 3 * (size_t)i;
+    float tr[3], rr[3], o[3], d[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+        tr[a] = thr[a];
+        rr[a] = rad[a * n];
+        o[a] = orig[a];
+        d[a] = dir[a];
+    }
+    const float t = w.hit[i];
+    if (t == INFINITY) {
+        // linalg.env_color: white (1 - s) + (0.5, 0.7, 1.0) s, s = (d.y + 1) / 2
+        const float s = 0.5f * (d[1] + 1.0f);
+        const float one = 1.0f - s;
+        const float env[3] = {one + 0.5f * s, one + 0.7f * s, one + 1.0f * s};
+#pragma unroll
+        for (int a = 0; a < 3; ++a) rad[a * n] = rr[a] + tr[a] * env[a];
+        w.flags[i] = f & ~WAVE_ALIVE;
+        return false;
+    }
+    const float u = w.hit[n + i], v = w.hit[2 * n + i];
+    const long long tri = w.perm[w.idx[i]];
+    float row[SHADE_COLS];
+    const float4* rp = w.shade + (SHADE_COLS / 4) * (size_t)tri;
+#pragma unroll
+    for (int q = 0; q < SHADE_COLS / 4; ++q) {
+        const float4 c = __ldg(rp + q);
+        row[4 * q + 0] = c.x;
+        row[4 * q + 1] = c.y;
+        row[4 * q + 2] = c.z;
+        row[4 * q + 3] = c.w;
+    }
+    // _interpolate: v0 (1 - u - v) + v1 u + v2 v
+    const float w0 = 1.0f - u - v;
+    const float tc_u = row[COL_UV + 0] * w0 + row[COL_UV + 2] * u + row[COL_UV + 4] * v;
+    const float tc_v = row[COL_UV + 1] * w0 + row[COL_UV + 3] * u + row[COL_UV + 5] * v;
+    float nrm[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+        nrm[a] = row[COL_NRM + a] * w0 + row[COL_NRM + 3 + a] * u + row[COL_NRM + 6 + a] * v;
+    const float4 base = sample_bank(w.bank, w.num_texels, row + COL_BASE_DESC, tc_u, tc_v);
+    const float4 emis = sample_bank(w.bank, w.num_texels, row + COL_EMIS_DESC, tc_u, tc_v);
+    // stochastic alpha (tag 2b + 1) and the diffuse direction (Gaussian tag 2b + 2)
+    const uint32_t streams = (uint32_t)w.streams[i];
+    const bool shaded = !(u01(draw_bits(streams, 2 * b + 1, 0)) > base.w);
+    float sc[3];
+    normal3_draw(streams, 2 * b + 2, sc);
+    normalize3(sc);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) sc[a] = nrm[a] + sc[a];
+    normalize3(sc);
+    // the re-origin at t + FLT_EPSILON (src/stage3.zig:209)
+    const float t_step = t + FLT_EPS;
+    float x[3], nd[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+        x[a] = o[a] + d[a] * t_step;
+        nd[a] = shaded ? sc[a] : d[a];
+    }
+    const bool nee = w.lights > 0;
+    bool emissive = f & WAVE_EMISSIVE;
+    const float em[3] = {emis.x, emis.y, emis.z};
+    const float al[3] = {base.x, base.y, base.z};
+    if (shaded && (emissive || !nee)) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) rr[a] = rr[a] + tr[a] * em[a];
+    }
+    bool take_spec = false;
+    if (w.mr != nullptr) {
+        // pbr_scatter: with probability ``metallic`` the mirror direction
+        // perturbed by ``roughness``, unless it falls below the surface
+        const float metallic = __ldg(w.mr + 2 * tri), rough = __ldg(w.mr + 2 * tri + 1);
+        const float dn2 = 2.0f * torch_sum3(d[0] * nrm[0], d[1] * nrm[1], d[2] * nrm[2]);
+        float sp[3], jt[3];
+        normal3_draw(streams, TAG_PBR + 2 * b, jt);
+        normalize3(jt);
+#pragma unroll
+        for (int a = 0; a < 3; ++a) sp[a] = (d[a] - dn2 * nrm[a]) + rough * jt[a];
+        normalize3(sp);
+        const bool below = torch_sum3(sp[0] * nrm[0], sp[1] * nrm[1], sp[2] * nrm[2]) <= 0.0f;
+        take_spec = u01(draw_bits(streams, TAG_PBR + 2 * b + 1, 0)) < metallic && !below;
+        if (shaded && take_spec) {
+#pragma unroll
+            for (int a = 0; a < 3; ++a) nd[a] = sp[a];
+        }
+    }
+    spec = shaded && take_spec;
+    bool facing = false;
+    if (nee && shaded) {
+        // a lane that NEE samples does not count its next emissive hit
+        if (!take_spec) facing = light_sample(w, streams, b, x, nrm, tr, al, ray, carry);
+        emissive = take_spec;
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+        rad[a * n] = rr[a];
+        if (shaded) thr[a] = tr[a] * al[a];
+        orig[a] = x[a];
+        dir[a] = nd[a];
+    }
+    w.flags[i] = WAVE_ALIVE | (emissive ? WAVE_EMISSIVE : 0);
+    return facing;
+}
+
+// One launch of the bake's shaded wave: every lane of the warp takes its
+// ray (nearest_take / shadow_take), the warp walks them (walk_warp), and a
+// lane keeps its nearest hit or adds its light's radiance.  The warp adds
+// its rays traced, tiles swept and boxes tested to counts[0..2] (nearest)
+// or [4..6] (shadow), and a shadow launch its specular bounces to [7].
+template <bool kGroups, int kShade>
+__device__ __forceinline__ void trace_warp_shaded(const ZrcScene& sc, const ZrcHeap& hp,
+                                                  const ZrcTraceWave& w, int R) {
+    __shared__ int stack_n[TREE_STACK * TRACE_THREADS];
+    __shared__ float stack_e[TREE_STACK * TRACE_THREADS];
+    const size_t n = (size_t)R;
+    const int lane = threadIdx.x & 31;
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    TraceRay mine = {};
+    mine.prev = -1;
+    ShadowCarry carry = {};
+    bool live = false, spec = false;
+    if (i < R)
+        live = kShade == TRACE_NEAREST ? nearest_take(w, i, R, mine)
+                                       : shadow_take(w, i, R, mine, carry, spec);
+    unsigned long long* const counts = w.counts + (kShade == TRACE_NEAREST ? 0 : 4);
+    if (kShade == TRACE_SHADOW) {
+        const unsigned specs = __popc(__ballot_sync(FULL_MASK, spec));
+        if (lane == 0 && specs) atomicAdd(w.counts + 7, (unsigned long long)specs);
+    }
+    Hit h = {INFINITY, 0.0f, 0.0f, 0};
+    LaneWalk lw = {0, 0, 0, 0, -1, true};
+    int swept = 0, tested = 0;
+    if (live) walk_start(hp, mine, lw, tested);
+    walk_warp<kGroups>(sc, hp, mine, lane, h, lw, swept, tested, stack_n, stack_e);
+    const unsigned lives = __popc(__ballot_sync(FULL_MASK, live));
+    const unsigned tiles = __reduce_add_sync(FULL_MASK, (unsigned)swept);
+    const unsigned boxes = __reduce_add_sync(FULL_MASK, (unsigned)tested);
+    if (lane == 0 && lives) {
+        atomicAdd(counts, (unsigned long long)lives);
+        atomicAdd(counts + 1, (unsigned long long)tiles);
+        atomicAdd(counts + 2, (unsigned long long)boxes);
+    }
+    if (!live) return;
+    if (kShade == TRACE_NEAREST) {
+        w.hit[i] = h.t;
+        w.hit[n + i] = h.u;
+        w.hit[2 * n + i] = h.v;
+        w.idx[i] = h.idx;
+    } else if (h.t >= carry.lim) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) w.rows4[a * n + i] = w.rows4[a * n + i] + carry.contrib[a];
+    }
+}
+
+// The shaded forms of the two traces, under the plain forms' names.
+template <int kShade>
+__global__ void __launch_bounds__(TRACE_THREADS, TRACE_SHADED_BLOCKS_PER_SM)
+trace_emit_kernel(ZrcScene sc, ZrcHeap hp, ZrcTraceWave w, int R) {
+    trace_warp_shaded<false, kShade>(sc, hp, w, R);
+}
+
+template <int kShade>
+__global__ void __launch_bounds__(TRACE_THREADS, TRACE_SHADED_BLOCKS_PER_SM)
+trace_stream_kernel(ZrcScene sc, ZrcHeap hp, ZrcTraceWave w, int R) {
+    trace_warp_shaded<true, kShade>(sc, hp, w, R);
+}
+
 // ------------------------------------------------------------ launchers
 // Plain C entry points for ctypes (kernels/__init__.py).  They launch on
 // the caller's stream, allocate nothing, and return cudaGetLastError(), or
@@ -1816,7 +2233,7 @@ grid_walk_kernel(ZrcGrid g, const float* __restrict__ orig, const float* __restr
 #define ZRC_NOTHING_LAUNCHED (-1)
 
 // The counters of the launches that take none: written, never read.
-__device__ unsigned long long zrc_discard[4];
+__device__ unsigned long long zrc_discard[8];
 
 // ``counts``, or zrc_discard on the current device when it is null.
 static cudaError_t counts_or_discard(unsigned long long** counts) {
@@ -2023,6 +2440,36 @@ extern "C" int zrc_grid_walk_shaded(const ZrcGrid* g, const ZrcGridWave* w, floa
     wave.alive = counts;
     grid_walk_kernel<true><<<blocks, GRID_THREADS, 0, (cudaStream_t)stream>>>(
         *g, nullptr, nullptr, nullptr, nullptr, t, u, v, idx, iterations, counts + 3, R, wave);
+    return (int)cudaGetLastError();
+}
+
+// Launch one of the 2B launches of the bake's shaded wave
+// (wavefront.render_wave_shaded_trace): bounce ``bounce``'s nearest launch
+// (``shadow`` 0) or its shadow launch (1), of trace_stream_kernel when the
+// heap has group boxes, else of trace_emit_kernel, TRACE_THREADS threads a
+// block.  ``w`` holds the wave's state, its bounce and its ``counts``:
+// null (zrc_discard) or the wave's eight uint64 work counters
+// (wavefront.WORK_COUNTERS).
+extern "C" int zrc_trace_shaded(const ZrcScene* sc, const ZrcHeap* hp, const ZrcTraceWave* w,
+                                int shadow, int R, int device, void* stream) {
+    if (R <= 0) return ZRC_NOTHING_LAUNCHED;
+    if (hp->p2 < 1 || hp->p2 > (1 << TREE_STACK) || (hp->gbox && hp->group_tiles < 1) ||
+        w->bounce < 0)
+        return (int)cudaErrorInvalidValue;
+    ZrcTraceWave wave = *w;
+    cudaError_t err = cudaSetDevice(device);
+    if (err == cudaSuccess) err = counts_or_discard(&wave.counts);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = (R + TRACE_THREADS - 1) / TRACE_THREADS;
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (hp->gbox && shadow)
+        trace_stream_kernel<TRACE_SHADOW><<<blocks, TRACE_THREADS, 0, s>>>(*sc, *hp, wave, R);
+    else if (hp->gbox)
+        trace_stream_kernel<TRACE_NEAREST><<<blocks, TRACE_THREADS, 0, s>>>(*sc, *hp, wave, R);
+    else if (shadow)
+        trace_emit_kernel<TRACE_SHADOW><<<blocks, TRACE_THREADS, 0, s>>>(*sc, *hp, wave, R);
+    else
+        trace_emit_kernel<TRACE_NEAREST><<<blocks, TRACE_THREADS, 0, s>>>(*sc, *hp, wave, R);
     return (int)cudaGetLastError();
 }
 

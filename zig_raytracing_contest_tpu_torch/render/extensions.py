@@ -5,7 +5,9 @@ reference has none of them (plain recursive path tracing,
 src/stage3.zig:188-220; metallic and roughness parsed and ignored,
 src/stage1.zig:471-483), so they are off by default (config keys ``nee``,
 ``russian_roulette``, ``pbr``) and run only on the XLA shading path
-(render/wavefront.py ``render_wave_xla``).
+(render/wavefront.py ``render_wave_xla``; on the card's bake inside the
+trace, ``render_wave_shaded_trace``, whose kernels compute these functions
+bit for bit).
 
 The reference's scatter ``normalize(normal + unit_vector)`` is cosine-
 weighted hemisphere sampling, so its implicit BRDF is Lambertian

@@ -32,9 +32,11 @@ this path too, and with the grid walk ``trace_wave`` on a grid scene
 (``grid_walk_kernel`` on the card, its twin ``trace_wave_ref`` on the
 CPU).  On the card a grid scene with no extension on shades inside the
 walk instead (``render_wave_grid``: B + 1 launches of the shaded
-``grid_walk_kernel`` for B bounces, bit for bit ``render_wave_xla``, which
-stays its twin and the route of the extensions, whose PyTorch code reads
-the shade's intermediates).
+``grid_walk_kernel`` for B bounces), and a baked scene with an extension
+on inside the bake's trace (``render_wave_shaded_trace``: 2B launches of
+the shaded ``trace_stream_kernel`` or ``trace_emit_kernel``), each bit for
+bit ``render_wave_xla``, which stays their twin and the route of the CPU,
+``plain`` and the grid with an extension on.
 
 A ray's result does not depend on its lane, so the sorts change speed,
 not the image.  Sorting is PyTorch: a stable ``torch.sort`` of the int32
@@ -157,11 +159,21 @@ def trace_walk(scene: TorchScene, ext: ExtFlags | None = None) -> str:
 
 def shaded_walk(scene: TorchScene, ext: ExtFlags | None = None, plain: bool = False) -> bool:
     """True when a wave shades inside the grid walk (``render_wave_grid``):
-    a grid scene, no extension on, through the kernels, on a card.  Every
-    other XLA-path wave takes ``render_wave_xla``: the extensions read the
-    shade's intermediates between the shade and the next trace, ``plain``
-    and CPU waves run the twins."""
+    a grid scene, no extension on, through the kernels, on a card.  The
+    bake with an extension on shades inside its trace instead
+    (``shaded_trace``); every other XLA-path wave takes ``render_wave_xla``:
+    the grid's extensions, ``plain`` and CPU waves."""
     return (scene.tri_data is None and not (ext is not None and ext.any) and not plain
+            and scene.device.type == "cuda")
+
+
+def shaded_trace(scene: TorchScene, ext: ExtFlags | None = None, plain: bool = False) -> bool:
+    """True when a wave shades inside the bake's trace
+    (``render_wave_shaded_trace``): a scene with the MXU bake, an extension
+    on, through the kernels, on a card.  Its twin ``render_wave_xla`` keeps
+    the CPU, ``plain`` and the grid with an extension on; a bake with no
+    extension takes the whole path or the per-bounce pipeline."""
+    return (scene.tri_data is not None and ext is not None and ext.any and not plain
             and scene.device.type == "cuda")
 
 
@@ -170,9 +182,13 @@ def shade_bank(scene: TorchScene, ext: ExtFlags | None = None) -> str:
     bank" (one kernel) or "3-stage bank" (prep, gather, shade), which the
     port's ``shade_kernel`` both serves, or on the XLA shading path "XLA
     sampler" (``shade_and_scatter`` on the f32 bank), on the card's grid
-    with no extension "sampler in the walk" (``render_wave_grid``)."""
+    with no extension "sampler in the walk" (``render_wave_grid``), on the
+    card's bake with an extension "sampler in the trace"
+    (``render_wave_shaded_trace``)."""
     if shaded_walk(scene, ext):
         return "sampler in the walk"
+    if shaded_trace(scene, ext):
+        return "sampler in the trace"
     if xla_path(scene, ext):
         return "XLA sampler"
     return "resident bank" if scene.bank_resident else "3-stage bank"
@@ -661,8 +677,12 @@ def render_wave_xla(scene: TorchScene, par, width: int, spp: int, max_bounce: in
                     counts=None) -> torch.Tensor:
     """One wave of the XLA shading path (the XLA branch of the JAX
     ``render_wave``) in raster slot order → rows4 (4, R): radiance and the
-    segment count per ray.  ``ext`` switches the extensions on; ``plain``
-    traces with the twin on any device.  ``counts`` (WORK_COUNTERS): the
+    segment count per ray, the route of the CPU, ``plain`` and the card's
+    grid with an extension on; on a card the grid with no extension takes
+    ``render_wave_grid`` and the bake with an extension
+    ``render_wave_shaded_trace``, which equal it bit for bit.  ``ext``
+    switches the extensions on; ``plain`` traces with the twin on any
+    device.  ``counts`` (WORK_COUNTERS): the
     nearest hits add their work (``trace_any``: no operation of its own)
     and, on the grid, which counts no rays alive, the wave adds its lanes'
     segment counts, summed once a wave (three operations); NEE's shadow
@@ -756,6 +776,45 @@ def render_wave_grid(scene: TorchScene, par, width: int, spp: int, max_bounce: i
     return rows4
 
 
+def render_wave_shaded_trace(scene: TorchScene, par, width: int, spp: int, max_bounce: int,
+                             slot_base: int, wave_size: int, seed: int, ext: ExtFlags,
+                             counts=None) -> torch.Tensor:
+    """``render_wave_xla`` of a baked scene with an extension on, on the
+    card, bit for bit: its primary rays, then for each bounce two launches
+    of the bake's trace (``kernels.launch_trace_shaded``:
+    trace_stream_kernel past VMEM_RESIDENT_MAX_TRIS padded triangles, else
+    trace_emit_kernel) over the wave's state on the device, the two traces
+    ``render_wave_xla`` makes: the nearest launch rolls Russian roulette,
+    counts each live ray's segment and finds its nearest hit; the shadow
+    launch shades that hit (the sky, the shade table's row and texels,
+    ``pbr_scatter``, the emissive term, NEE's light sample), traces NEE's
+    shadow rays and steps the rays.  → rows4 (4, R): radiance and the
+    segment count per ray.  ``counts`` (WORK_COUNTERS): the nearest
+    launches add their rays, tiles and boxes, the shadow launches their
+    shadow rays, tiles, boxes and specular bounces."""
+    R = wave_size
+    dev = par.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    if max_bounce < 1:
+        return torch.zeros((4, R), **f32)
+    orig, direction, streams = xla_primary_rays(par, width, spp, slot_base, R, seed)
+    orig = orig.contiguous()  # the wave's own buffers: the launches rewrite them
+    thr = torch.empty((R, 3), **f32)
+    rows4 = torch.empty((4, R), **f32)
+    hit = torch.empty((3, R), **f32)
+    idx = torch.empty(R, dtype=torch.int32, device=dev)
+    flags = torch.empty(R, dtype=torch.uint8, device=dev)
+    groups = mxu_intersect.streams_bank(scene)
+    lights = scene.lights if ext.nee else None
+    mr = scene.ext_mr if ext.pbr else None
+    for bounce in range(max_bounce):
+        for shadow in (False, True):
+            kernels.launch_trace_shaded(scene, groups, orig, direction, thr, rows4, streams, hit,
+                                        idx, flags, bounce, shadow, lights, mr,
+                                        ext.russian_roulette, counts)
+    return rows4
+
+
 def render_wave_rows(scene: TorchScene, par, width: int, height: int,
                      spp: int, max_bounce: int, slot_base: int, slot_cap: int,
                      wave_size: int, seed: int, tiles_x: int,
@@ -763,17 +822,25 @@ def render_wave_rows(scene: TorchScene, par, width: int, height: int,
     """One wave → (rows3 (3, R) radiance in wave-slot order, segments as a
     0-d int64 tensor).  Rays past ``slot_cap`` contribute exact zeros.
     Whole-path scenes take the slot order ``tiles_x`` gives; per-bounce
-    and XLA-path waves take raster order (``tiles_x`` = 0); an XLA-path wave
-    that ``shaded_walk`` admits shades inside the grid walk.  ``plain``
-    runs the twins on any device; ``ext`` the extensions.  ``counts``
-    (8,) int64 on the scene's device gets the wave's WORK_COUNTERS added
-    (every lane counts, past ``slot_cap`` too)."""
+    and XLA-path waves take raster order (``tiles_x`` = 0).  An XLA-path
+    wave takes one of three routes: on a card, a grid scene with no
+    extension shades inside the grid walk (``shaded_walk``:
+    ``render_wave_grid``) and a baked scene with an extension inside the
+    bake's trace (``shaded_trace``: ``render_wave_shaded_trace``); every
+    other wave (the CPU, ``plain``, the grid with an extension) takes
+    ``render_wave_xla``.  ``plain`` runs the twins on any device; ``ext``
+    the extensions.  ``counts`` (8,) int64 on the scene's device gets the
+    wave's WORK_COUNTERS added (every lane counts, past ``slot_cap``
+    too)."""
     if xla_path(scene, ext):
         if tiles_x:
             raise ValueError("tiled slot order requires the whole-path regime")
         if shaded_walk(scene, ext, plain):
             rows4 = render_wave_grid(scene, par, width, spp, max_bounce, slot_base,
                                      wave_size, seed, counts)
+        elif shaded_trace(scene, ext, plain):
+            rows4 = render_wave_shaded_trace(scene, par, width, spp, max_bounce, slot_base,
+                                             wave_size, seed, ext, counts)
         else:
             rows4 = render_wave_xla(scene, par, width, spp, max_bounce, slot_base,
                                     wave_size, seed, ext, plain, counts)
