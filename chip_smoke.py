@@ -125,10 +125,8 @@ k. the ``--large`` terrain with ``backend: "grid"`` at the default 128³
    frame's one wave through grid_walk_kernel against its twin
    trace_wave_ref, lane by lane (t, u, v bits, the reference, the iteration
    count and the iterations summed over the rays: a lane or a count that
-   differs fails the run), the kernel (with its sum) and the walk of
-   commit 8108396, one thread a ray (probes/grid_walk_one_thread.cu, built
-   beside the sources, held to the same bits) timed queued behind a spin
-   in turns (medians of 8 readings each), the twin by CUDA events, the bound from the twin's
+   differs fails the run), the kernel (with its sum) timed queued behind a
+   spin (the median of 8 readings), the twin by CUDA events, the bound from the twin's
    counts of tests and cells (probes/grid_walk.py walk_bound) and the share
    of the cells entered that hold references, and the nearest hits against
    trace_emit_kernel on the MXU bake of the same terrain, every lane where
@@ -349,11 +347,9 @@ WALK_LANES = 1024
 # 0.1-unit terrain triangle 20 units away, ~1e-4 on a grazing ray); ties
 # and edge decisions together on at most EDGE_SHARE of the lanes
 G_RES = (128, 128, 128)
-# the grid walk as commit 8108396 ran it, and the queued readings of each
-# build that phase k takes in turns
-GRID_WALK_BASE = Path(__file__).resolve().parent / (
-    "zig_raytracing_contest_tpu_torch/probes/grid_walk_one_thread.cu")
-GW_ROUNDS = 8
+# the queued readings of the grid walk that phase k takes, and the walks a
+# reading
+GW_ROUNDS, GW_REPS = 8, 10
 # a grid of the same terrain with odd sides (no row a multiple of 32
 # cells), and the rays of its bounce-0 wave walked there
 G_ODD_RES, G_ODD_RAYS = (127, 37, 131), 1 << 18
@@ -373,6 +369,31 @@ SHADED_ROUNDS = 5
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     raise SystemExit(1)
+
+
+def bounce_waves(scene, cam, rays: int, spp: int, seed: int):
+    """The main path's first two bounces of one wave of ``rays`` on the
+    card's kernels (gen, sort, trace, shade, sort with the previous hit,
+    trace, shade).  Returns (state, aux, idx, rec, shaded) of bounce 0 and
+    (state, prev, aux, idx, rec, shaded) of bounce 1."""
+    from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
+    from zig_raytracing_contest_tpu_torch.render import fused
+    from zig_raytracing_contest_tpu_torch.render.wavefront import (
+        build_gen_par,
+        gen_rays_raster,
+        ray_sort_key,
+        sort_state_payload,
+    )
+
+    par = build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
+    st0 = gen_rays_raster(par, seed, 0, rays, spp, cam.width)
+    _, st0, _ = sort_state_payload(ray_sort_key(scene, st0), st0)
+    a0, i0, r0 = mi.trace_emit_aux(scene, st0, scene.rec_table)
+    s0 = fused.shade_fused(scene, st0, a0, i0, 0, r0)
+    _, st1, (prev,) = sort_state_payload(ray_sort_key(scene, s0), s0, (i0,))
+    a1, i1, r1 = mi.trace_emit_aux(scene, st1, scene.rec_table, prev)
+    s1 = fused.shade_fused(scene, st1, a1, i1, 1, r1)
+    return (st0, a0, i0, r0, s0), (st1, prev, a1, i1, r1, s1)
 
 
 def lanes_off(k_state, t_state):
@@ -603,7 +624,6 @@ def large_phases(card, timing, errs, bounds, launches) -> None:
 
     from zig_raytracing_contest_tpu_torch.config import Config
     from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
-    from zig_raytracing_contest_tpu_torch.probes.trace_ab import bounce_waves
     from zig_raytracing_contest_tpu_torch.render import fused, wavefront
     from zig_raytracing_contest_tpu_torch.render.pipeline import prepare_scene, render_scene
     from zig_raytracing_contest_tpu_torch.render.wavefront import regime
@@ -838,7 +858,6 @@ def stream_phases(card, timing, errs, bounds, launches) -> None:
     from zig_raytracing_contest_tpu_torch import kernels
     from zig_raytracing_contest_tpu_torch.config import Config
     from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
-    from zig_raytracing_contest_tpu_torch.probes.trace_ab import bounce_waves
     from zig_raytracing_contest_tpu_torch.render import fused
     from zig_raytracing_contest_tpu_torch.render.pipeline import prepare_scene, render_scene
     from zig_raytracing_contest_tpu_torch.render.wavefront import regime, shade_bank
@@ -960,7 +979,6 @@ def bank_phases(card, timing, errs, bounds, launches) -> None:
     import torch
 
     from zig_raytracing_contest_tpu_torch.config import Config
-    from zig_raytracing_contest_tpu_torch.probes.trace_ab import bounce_waves
     from zig_raytracing_contest_tpu_torch.render import fused
     from zig_raytracing_contest_tpu_torch.render.pipeline import prepare_scene, render_scene
     from zig_raytracing_contest_tpu_torch.render.wavefront import regime, shade_bank
@@ -1554,10 +1572,9 @@ def grid_differences(what, card, t_g, tri_g, u_g, v_g, aux, tri_k) -> None:
              f"{int(tri_g[lane])}, kernel t {float(t_k[lane])} tri {int(tri_k[lane])}")
 
 
-def grid_phases(card, timing, errs, bounds, launches, base_lib) -> None:
+def grid_phases(card, timing, errs, bounds, launches) -> None:
     """Phase k: the --large terrain through the grid backend (the XLA
-    shading path, the DDA walk grid_walk_kernel on the card); ``base_lib``
-    the build of probes/grid_walk_one_thread.cu, timed beside it."""
+    shading path, the DDA walk grid_walk_kernel on the card)."""
     import numpy as np
     import torch
 
@@ -1566,10 +1583,8 @@ def grid_phases(card, timing, errs, bounds, launches, base_lib) -> None:
     from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
     from zig_raytracing_contest_tpu_torch import kernels
     from zig_raytracing_contest_tpu_torch.probes.grid_walk import (
-        Walk,
         edge_rays,
         shaded_ab,
-        time_builds,
         walk_bound,
         walk_differs,
         walk_ptxas,
@@ -1579,7 +1594,7 @@ def grid_phases(card, timing, errs, bounds, launches, base_lib) -> None:
     from zig_raytracing_contest_tpu_torch.scene.geometry import load_geometry
     from zig_raytracing_contest_tpu_torch.scene.gltf import load_gltf
     from zig_raytracing_contest_tpu_torch.scene.procedural import large_scene
-    from zig_raytracing_contest_tpu_torch.utils.timing import cuda_ms
+    from zig_raytracing_contest_tpu_torch.utils.timing import cuda_ms, queued_ms
 
     t_phase = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -1613,30 +1628,27 @@ def grid_phases(card, timing, errs, bounds, launches, base_lib) -> None:
 
     # bounces 0, 1 and 2 of the frame's one wave, as render_wave_xla runs
     # them: grid_walk_kernel against its twin lane by lane, both timed, the
-    # design of commit 8108396 (probes/grid_walk_one_thread.cu) timed beside
-    # it in turns on the same rays, the bound from the twin's counts; the
-    # nearest hits against trace_emit_kernel's
+    # bound from the twin's counts; the nearest hits against
+    # trace_emit_kernel's
     R = L_W * L_H * L_SPP
     par = wf.build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
     o, d, streams = wf.xla_primary_rays(par, L_W, L_SPP, 0, R, SEED)
     o = o.contiguous()
     live = torch.ones(R, dtype=torch.bool, device=dev)
     prev = None
-    ops = scene.grid.kernel_operands()
+    it_sum = torch.zeros(1, dtype=torch.int64, device=dev)
     for bounce in range(L_BOUNCES):
         it_sums = []
         off, k_it, t_it, res = walk_differs(scene, o, d, live, prev, it_sums)
-        this, base = Walk(None, ops, o, d, live, prev), Walk(base_lib, ops, o, d, live, prev)
-        ms = time_builds({"this": this.run, "base": base.run}, GW_ROUNDS)
-        k_ms, base_ms = statistics.median(ms["this"]), statistics.median(ms["base"])
-        base_off = base.differs(this)
+        readings = [queued_ms(lambda: wf.trace_wave(scene, o, d, live, prev, it_sum=it_sum),
+                              GW_REPS) for _ in range(GW_ROUNDS)]
+        k_ms = statistics.median(readings)
         t_ms = cuda_ms(lambda: wf.trace_wave_ref(scene, o, d, live, prev), 1)
         b = walk_bound(scene, res.work, R, prev is not None, PEAK_F32_FLOPS, PEAK_BYTES)
         occupied = float(res.work.occupied.sum()) / max(b["cells"], 1.0)
         print(f"  grid_walk_kernel vs trace_wave_ref, bounce {bounce}: {off} of {R} lanes "
               f"differ (t, u, v bits, reference), iterations {k_it} vs {t_it}; kernel "
-              f"{k_ms:.4f} ms, commit 8108396's walk {base_ms:.4f} ms ({base_off} lanes "
-              f"differ from it; medians of {GW_ROUNDS} queued readings in turns), twin "
+              f"{k_ms:.4f} ms (the median of {GW_ROUNDS} queued readings), twin "
               f"{t_ms:.1f} ms; {int(live.sum())} live rays, "
               f"{int(b['walking'])} walking, {int(torch.isfinite(res.t).sum())} hits; "
               f"{b['tests']:.0f} tests, {b['cells']:.0f} cells entered, {occupied:.4f} of "
@@ -1647,15 +1659,12 @@ def grid_phases(card, timing, errs, bounds, launches, base_lib) -> None:
               f"{b['gathered_ms']:.4f} ms), {b['bound_ms'] / k_ms:.1%} of it ({card})")
         print("  grid_walk: " + json.dumps({"bounce": bounce, "rays": R, "differ": off,
                                             "iterations": k_it, "ms": k_ms, "plain_ms": t_ms,
-                                            "base_ms": base_ms, "ms_readings": ms["this"],
-                                            "base_readings": ms["base"],
+                                            "ms_readings": readings,
                                             "occupied_share": occupied, **b, "card": card}))
         held_counts(f"grid_walk_kernel's iteration sum, bounce {bounce}", it_sums[0][:1],
                     it_sums[0][1:])
-        if off or k_it != t_it or base_off:
-            fail(f"grid_walk_kernel differs from trace_wave_ref or from commit 8108396's "
-                 f"walk at bounce {bounce}")
-        del this, base
+        if off or k_it != t_it:
+            fail(f"grid_walk_kernel differs from trace_wave_ref at bounce {bounce}")
         if bounce == 1:  # the kernels line keeps the bounce-1 wave, as before
             timing["grid_walk"] = (k_ms, t_ms, R, R)
             bounds["grid_walk"] = (b["bound_ms"], b["bound_by"])
@@ -1830,7 +1839,7 @@ def extension_phases(card, timing, errs, bounds, launches) -> None:
     n_lights = 0 if scene.lights is None else scene.lights.tri.numel()
     print(f"  --large with nee, russian_roulette, pbr: regime "
           f"{wf.regime(scene, cfg.ext_flags)}, lights {n_lights}")
-    timing["trace_emit_shaded"], bounds["trace_emit_shaded"] = shaded_trace_ab(
+    timing["trace_emit_shaded"], bounds["trace_emit_shaded"] = shaded_trace_check(
         "--large extensions", scene, cam, cfg, card)
     errs["trace_emit_shaded"] = 0.0  # every bit equal, or the run failed
     # the shaded trace: a nearest and a shadow launch a bounce
@@ -2143,7 +2152,6 @@ def bench_phases(card, errs) -> None:
     from zig_raytracing_contest_tpu_torch import bench, kernels
     from zig_raytracing_contest_tpu_torch.config import Config
     from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as mi
-    from zig_raytracing_contest_tpu_torch.probes.trace_ab import bounce_waves
     from zig_raytracing_contest_tpu_torch.render import wavefront as wf
     from zig_raytracing_contest_tpu_torch.render.pipeline import (
         backend_line,
@@ -2400,7 +2408,6 @@ def frame_phases(card, timing, errs, bounds, official) -> None:
     from zig_raytracing_contest_tpu_torch import bench, kernels
     from zig_raytracing_contest_tpu_torch.probes import sort_key
     from zig_raytracing_contest_tpu_torch.render.pipeline import render_scene
-    from zig_raytracing_contest_tpu_torch.probes.trace_ab import bounce_waves
     from zig_raytracing_contest_tpu_torch.render.wavefront import ray_sort_key, ray_sort_key_ref
     from zig_raytracing_contest_tpu_torch.utils.timing import cuda_ms, queued_ms
 
@@ -2483,7 +2490,8 @@ def frame_phases(card, timing, errs, bounds, official) -> None:
     tmp.cleanup()
     print(f"phase o: {time.perf_counter() - t_phase:.1f} s")
 
-def shaded_trace_ab(what, scene, cam, cfg, card, rounds: int = SHADED_ROUNDS):
+
+def shaded_trace_check(what, scene, cam, cfg, card, rounds: int = SHADED_ROUNDS):
     """The frame's first wave through the bake's shaded trace as the main
     path runs it (wavefront.render_wave_shaded_trace at the frame plan's
     wave size) against render_wave_xla on the same inputs: radiance and
@@ -2596,7 +2604,7 @@ def ext_cell_phases(card, timing, errs, bounds, launches) -> None:
         fail(f"{EXT_CELL} renders {reg}, expected XLA shading, group heap")
     ptxas_no_spill(tuple(f"{k}_kernelILi{f}E" for k in ("trace_stream", "trace_emit")
                          for f in (1, 2)), "a shaded trace")
-    timing["trace_stream_shaded"], bounds["trace_stream_shaded"] = shaded_trace_ab(
+    timing["trace_stream_shaded"], bounds["trace_stream_shaded"] = shaded_trace_check(
         EXT_CELL, scene, cam, cfg, card)
     errs["trace_stream_shaded"] = 0.0  # every bit equal, or the run failed
     got = render_timed(render_scene, scene, cam, cfg, EXT_CELL, card,
@@ -2657,14 +2665,10 @@ def main() -> int:
     from zig_raytracing_contest_tpu_torch.scene.procedural import bench_scene
     from zig_raytracing_contest_tpu_torch.utils.timing import cuda_ms
 
-    # 2. build: one nvcc per source, all started together (the grid walk of
-    # commit 8108396 too, which phase k times beside the renderer's)
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels.SOURCES) + 1) as pool:
-        base_job = pool.submit(kernels.load_grid_walk_library, GRID_WALK_BASE,
-                               kernels.BUILD_DIR)
+    with ThreadPoolExecutor(len(kernels.SOURCES)) as pool:
         list(pool.map(kernels.build, kernels.SOURCES))
-        base_lib = base_job.result()
     kernels.load()
     kernels.load_probes()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc " + ", ".join(
@@ -2823,7 +2827,7 @@ def main() -> int:
     probe_phases(card, timing, errs, bounds, launches, duck)
     library = {}
     trace_probe_phases(card, timing, errs, bounds, launches, library)
-    grid_phases(card, timing, errs, bounds, launches, base_lib)
+    grid_phases(card, timing, errs, bounds, launches)
     extension_phases(card, timing, errs, bounds, launches)
     sharding_phases(card, path, scene, cam, cfg)
     bench_phases(card, errs)

@@ -5,9 +5,11 @@ the probes of its device functions) and ``probes.cu`` (the trace
 micro-benchmarks).  At first use each is compiled on its own with ``nvcc``
 into a shared library with a plain C interface, under ``kernels/_build/``
 (keyed on a hash of the source and the flags), and loaded with ``ctypes``:
-``load()`` builds path_trace.cu, ``load_probes()`` probes.cu.  The
-wrappers take tensors, check them, and launch on PyTorch's current stream;
-they allocate nothing and do not synchronise.
+``load()`` builds path_trace.cu, ``load_probes()`` probes.cu, and binds
+each C entry point as ``ENTRY_POINTS`` declares it (one entry point a
+kernel).  The wrappers take tensors, check them, and launch on PyTorch's
+current stream; they allocate nothing, do not synchronise, and count
+their launches in ``LAUNCHES``.
 
 Flags: ``-O3 -arch=sm_90a --fmad=false``.  ``--fmad=false`` keeps every
 a*b+c rounded twice, as the PyTorch twins round it; without it nvcc fuses
@@ -36,9 +38,9 @@ NVCC_FLAGS = ["-O3", "-arch=sm_90a", "--fmad=false", "-Xptxas=-v",
 
 _lock = threading.Lock()
 _libs: dict = {}
-# The compiles this process ran, by source name (another file: "name path"):
-# {"seconds": wall seconds of the nvcc run, "log": its report (ptxas
-# registers / spills per kernel)}.
+# The compiles this process ran, by source name: {"seconds": wall seconds
+# of the nvcc run, "log": its report (ptxas registers / spills per
+# kernel)}.
 BUILD_INFO: dict = {}
 
 # Launches per CUDA kernel, counted by the launchers below right after a
@@ -229,27 +231,24 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (CUDA_HOME/bin/nvcc or PATH)")
 
 
-def library_path(name: str, src: Path | None = None, build_dir: Path = BUILD_DIR) -> Path:
-    """Where the library of source ``name`` (or of the file ``src``) is
-    built: keyed on a hash of the source and the flags."""
-    src = SOURCES[name] if src is None else src
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return build_dir / f"libzrc_{name}_{key}.so"
+def library_path(name: str, build_dir: Path = BUILD_DIR) -> Path:
+    """Where the library of source ``name`` is built: keyed on a hash of the
+    source and the flags."""
+    key = hashlib.sha256(SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return build_dir / f"libzrc_{name}_{key[:16]}.so"
 
 
-def build(name: str, src: Path | None = None, build_dir: Path = BUILD_DIR) -> Path:
-    """The library of source ``name`` (or of the file ``src``, built into
-    ``build_dir``), compiled by nvcc if it does not exist yet (raises if nvcc
-    fails).  Builds of different sources, or of one into different
-    directories, may run at once, from separate threads."""
-    key = _build_key(name, src)
-    src = SOURCES[name] if src is None else Path(src)
-    out = library_path(name, src, build_dir)
+def build(name: str, build_dir: Path = BUILD_DIR) -> Path:
+    """The library of source ``name``, built into ``build_dir``, compiled by
+    nvcc if it does not exist yet (raises if nvcc fails).  Builds of
+    different sources, or of one into different directories, may run at
+    once, from separate threads."""
+    out = library_path(name, build_dir)
     if out.exists():
         return out
     build_dir.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -258,12 +257,8 @@ def build(name: str, src: Path | None = None, build_dir: Path = BUILD_DIR) -> Pa
     log = proc.stdout + proc.stderr
     _log_path(out).write_text(log)
     os.replace(tmp, out)
-    BUILD_INFO[key] = {"seconds": time.perf_counter() - t0, "log": log}
+    BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "log": log}
     return out
-
-
-def _build_key(name: str, src) -> str:
-    return name if src is None else f"{name} {Path(src)}"
 
 
 def _log_path(lib: Path) -> Path:
@@ -271,181 +266,76 @@ def _log_path(lib: Path) -> Path:
     return lib.with_name(lib.name + ".log")
 
 
-def build_log(name: str, src: Path | None = None, build_dir: Path = BUILD_DIR) -> str:
+def build_log(name: str, build_dir: Path = BUILD_DIR) -> str:
     """The nvcc report (ptxas registers / spills per kernel) of the build of
-    ``name`` (or of the file ``src``, built into ``build_dir``): this
-    process's, else the one kept beside the library; empty if it was never
-    built."""
-    info = BUILD_INFO.get(_build_key(name, src))
+    ``name`` into ``build_dir``: this process's, else the one kept beside
+    the library; empty if it was never built."""
+    info = BUILD_INFO.get(name)
     if info:
         return info["log"]
-    src = SOURCES[name] if src is None else Path(src)
-    log = _log_path(library_path(name, src, build_dir))
+    log = _log_path(library_path(name, build_dir))
     return log.read_text() if log.exists() else ""
 
 
-def _bind_trace(lib) -> None:
-    """Bind the entry points of path_trace.cu that another build of it is
-    compared on: the whole-path kernels, the per-bounce traces and the host
-    beam-sort key."""
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.zrc_path_trace_gen.restype = i32
-    lib.zrc_path_trace_gen.argtypes = [
-        ctypes.POINTER(ZrcScene), ctypes.POINTER(ZrcGen), i32, i32,
-        ptr, ptr, i32, i32, ptr,
-    ]
-    lib.zrc_path_trace.restype = i32
-    lib.zrc_path_trace.argtypes = [
-        ctypes.POINTER(ZrcScene), ptr, ptr, i32, i32, ptr, ptr, i32,
-        i32, ptr,
-    ]
-    lib.zrc_trace_emit.restype = i32
-    lib.zrc_trace_emit.argtypes = [
-        ctypes.POINTER(ZrcScene), ctypes.POINTER(ZrcHeap), ptr, ptr, ptr,
-        i32, ptr, ptr, ptr, i32, i32, ptr,
-    ]
-    lib.zrc_ray_sort_key.restype = i32
-    lib.zrc_ray_sort_key.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
-    lib.zrc_error_string.restype = ctypes.c_char_p
-    lib.zrc_error_string.argtypes = [i32]
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+_P = ctypes.POINTER
+# Every C entry point of each source, (restype, argtypes), bound by _load.
+# A pointer to counters (``counts``, ``it_sum``) may be None: the kernel
+# then counts into a buffer of the library's that nothing reads.
+ENTRY_POINTS = {
+    "path_trace": {
+        "zrc_path_trace_gen": (_i32, [_P(ZrcScene), _P(ZrcGen), _i32, _i32, _ptr, _ptr, _ptr,
+                                      _i32, _i32, _ptr]),
+        "zrc_path_trace": (_i32, [_P(ZrcScene), _ptr, _ptr, _i32, _i32, _ptr, _ptr, _ptr, _i32,
+                                  _i32, _ptr]),
+        "zrc_trace_emit": (_i32, [_P(ZrcScene), _P(ZrcHeap), _ptr, _ptr, _ptr, _i32, _ptr, _ptr,
+                                  _ptr, _ptr, _i32, _i32, _ptr]),
+        "zrc_shade": (_i32, [_P(ZrcScene), _ptr, _ptr, _ptr, _i32, _ptr, _i32, _i32, _ptr]),
+        "zrc_texel_fetch": (_i32, [_P(ZrcScene), _P(ZrcTexture), _ptr, _ptr, _ptr, _i32, _i32,
+                                   _ptr]),
+        "zrc_sort_key": (_i32, [_ptr, _ptr, _ptr, _i32, _i32, _ptr]),
+        "zrc_ray_sort_key": (_i32, [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _ptr]),
+        "zrc_grid_walk": (_i32, [_P(ZrcGrid), _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
+                                 _ptr, _ptr, _i32, _i32, _ptr]),
+        "zrc_grid_walk_shaded": (_i32, [_P(ZrcGrid), _P(ZrcGridWave), _ptr, _ptr, _ptr, _ptr,
+                                        _ptr, _ptr, _i32, _i32, _i32, _i32, _ptr]),
+        "zrc_trace_shaded": (_i32, [_P(ZrcScene), _P(ZrcHeap), _P(ZrcTraceWave), _i32, _i32,
+                                    _i32, _ptr]),
+        "zrc_empty": (_i32, [_i32, _ptr]),
+        "zrc_error_string": (ctypes.c_char_p, [_i32]),
+    },
+    "probes": {
+        "zrc_micro_trace": (_i32, [_ptr, _i32, _ptr, _i32, _i32, _ptr, _i32, _i32, _i32, _ptr,
+                                   _ptr, _i32, _i32, _ptr]),
+        "zrc_micro_bf16": (_i32, [_ptr, _i32, _ptr, _i32, _i32, _i32, _ptr, _i32, _ptr]),
+        "zrc_probe_gather_chunks": (_i32, [_ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _ptr, _ptr,
+                                           _i32, _ptr]),
+        "zrc_probes_error_string": (ctypes.c_char_p, [_i32]),
+    },
+}
 
 
-def _bind_grid_walk(lib) -> None:
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.zrc_grid_walk.restype = i32
-    lib.zrc_grid_walk.argtypes = [
-        ctypes.POINTER(ZrcGrid), ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, ptr,
-    ]
-    lib.zrc_error_string.restype = ctypes.c_char_p
-    lib.zrc_error_string.argtypes = [i32]
-
-
-def load_grid_walk_library(src: Path, build_dir: Path):
-    """Another build of grid_walk_kernel: a source whose ``zrc_grid_walk``
-    takes the same arguments and ``ZrcGrid`` (an earlier commit's
-    path_trace.cu, or ``probes/grid_walk_one_thread.cu``), built into
-    ``build_dir`` and loaded, for the ``lib`` argument of
-    ``launch_grid_walk``."""
-    lib = ctypes.CDLL(str(build("grid_walk_other", Path(src), Path(build_dir))))
-    _bind_grid_walk(lib)
-    return lib
-
-
-def load_trace_library(src: Path, build_dir: Path):
-    """Another build of a path_trace.cu whose ``zrc_path_trace_gen``,
-    ``zrc_path_trace``, ``zrc_trace_emit`` and ``zrc_ray_sort_key`` take the
-    same arguments (an earlier commit's, to compare with): built into
-    ``build_dir`` and loaded, for the ``lib`` argument of
-    ``launch_path_trace_gen``, ``launch_path_trace``, ``launch_trace_emit``,
-    ``launch_trace_stream`` and ``launch_ray_sort_key``."""
-    lib = ctypes.CDLL(str(build("path_trace_other", Path(src), Path(build_dir))))
-    _bind_trace(lib)
-    return lib
-
-
-# The entry points whose ``*_counted`` twin takes the kernel's work
-# counters, and where their pointer goes in the arguments.
-_COUNTED_AT = {"zrc_path_trace_gen": 6, "zrc_path_trace": 7, "zrc_trace_emit": 9,
-               "zrc_grid_walk": 10}
-
-
-def _call(lib, name: str, args: list, counts, own: bool):
-    """Call entry point ``name`` of ``lib`` with ``args``, or with
-    ``counts`` (a checked int64 tensor) its ``*_counted`` twin, which this
-    build alone (``own``) has.  The kernel counts its work either way:
-    without ``counts`` into a buffer of the library's that nothing reads."""
-    if counts is None:
-        return getattr(lib, name)(*args)
-    if not own:
-        raise ValueError(f"another build's {name} takes no counts")
-    at = _COUNTED_AT[name]
-    return getattr(lib, name + "_counted")(*args[:at], counts.data_ptr(), *args[at:])
+def _load(name: str):
+    """The loaded library of source ``name`` (built at first call), its
+    ENTRY_POINTS bound."""
+    with _lock:
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build(name)))
+            for fn, (restype, argtypes) in ENTRY_POINTS[name].items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = argtypes
+            _libs[name] = lib
+        return _libs[name]
 
 
 def load():
     """The loaded library of path_trace.cu (built at first call)."""
-    with _lock:
-        if "path_trace" not in _libs:
-            lib = ctypes.CDLL(str(build("path_trace")))
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            _bind_trace(lib)
-            lib.zrc_shade.restype = i32
-            lib.zrc_shade.argtypes = [
-                ctypes.POINTER(ZrcScene), ptr, ptr, ptr, i32, ptr, i32, i32, ptr,
-            ]
-            lib.zrc_texel_fetch.restype = i32
-            lib.zrc_texel_fetch.argtypes = [
-                ctypes.POINTER(ZrcScene), ctypes.POINTER(ZrcTexture), ptr, ptr, ptr,
-                i32, i32, ptr,
-            ]
-            lib.zrc_sort_key.restype = i32
-            lib.zrc_sort_key.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
-            _bind_grid_walk(lib)
-            # this build's entry points that take the work counters: each
-            # the one without the suffix with a pointer before R
-            for name, at in _COUNTED_AT.items():
-                plain = getattr(lib, name)
-                fn = getattr(lib, name + "_counted")
-                fn.restype = i32
-                fn.argtypes = plain.argtypes[:at] + [ptr] + plain.argtypes[at:]
-            lib.zrc_grid_walk_shaded.restype = i32
-            lib.zrc_grid_walk_shaded.argtypes = [
-                ctypes.POINTER(ZrcGrid), ctypes.POINTER(ZrcGridWave), ptr, ptr, ptr, ptr, ptr,
-                ptr, i32, i32, i32, i32, ptr,
-            ]
-            lib.zrc_trace_shaded.restype = i32
-            lib.zrc_trace_shaded.argtypes = [
-                ctypes.POINTER(ZrcScene), ctypes.POINTER(ZrcHeap), ctypes.POINTER(ZrcTraceWave),
-                i32, i32, i32, ptr,
-            ]
-            lib.zrc_empty.restype = i32
-            lib.zrc_empty.argtypes = [i32, ptr]
-            _libs["path_trace"] = lib
-        return _libs["path_trace"]
-
-
-def _bind_micro(lib) -> None:
-    """Bind the entry points of probes.cu that another build of it is
-    compared on: the two trace micro-benchmarks and the gather probe."""
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.zrc_micro_trace.restype = i32
-    lib.zrc_micro_trace.argtypes = [
-        ptr, i32, ptr, i32, i32, ptr, i32, i32, i32, ptr, ptr, i32, i32, ptr,
-    ]
-    lib.zrc_micro_bf16.restype = i32
-    lib.zrc_micro_bf16.argtypes = [ptr, i32, ptr, i32, i32, i32, ptr, i32, ptr]
-    # probe_gather: the chunked entry point, or an earlier build's one-block
-    # entry point (page, col, row, reps, shfl, out, cycles, device, stream)
-    if hasattr(lib, "zrc_probe_gather_chunks"):
-        lib.zrc_probe_gather_chunks.restype = i32
-        lib.zrc_probe_gather_chunks.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr, ptr,
-                                                i32, ptr]
-    else:
-        lib.zrc_probe_gather.restype = i32
-        lib.zrc_probe_gather.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr, i32, ptr]
-    lib.zrc_probes_error_string.restype = ctypes.c_char_p
-    lib.zrc_probes_error_string.argtypes = [i32]
-
-
-def load_probes_library(src: Path, build_dir: Path):
-    """Another build of a probes.cu whose ``zrc_micro_trace`` and
-    ``zrc_micro_bf16`` take the same arguments (an earlier commit's, to
-    compare with): built into ``build_dir`` and loaded, for the ``lib``
-    argument of ``launch_micro_trace``, ``launch_micro_bf16`` and
-    ``launch_probe_gather``."""
-    lib = ctypes.CDLL(str(build("probes_other", Path(src), Path(build_dir))))
-    _bind_micro(lib)
-    return lib
+    return _load("path_trace")
 
 
 def load_probes():
     """The loaded library of probes.cu (built at first call)."""
-    with _lock:
-        if "probes" not in _libs:
-            lib = ctypes.CDLL(str(build("probes")))
-            _bind_micro(lib)
-            _libs["probes"] = lib
-        return _libs["probes"]
+    return _load("probes")
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -487,16 +377,18 @@ def _launched(err: int, message, what: str) -> bool:
     return True
 
 
+def _addr(t):
+    """A tensor's device pointer, or None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()
+
+
 def launch_path_trace_gen(scene, par, meta, gen, max_bounce: int,
-                          emit_key: bool, state_out, idx_out, lib=None,
-                          counts=None) -> None:
+                          emit_key: bool, state_out, idx_out, counts=None) -> None:
     """Launch path_trace_gen_kernel into ``state_out`` (16, R) and
-    ``idx_out`` (R,) int32; from ``lib`` (``load_trace_library``, not
-    counted) when given.  ``counts`` (3,) int64 (this build only) gets the
-    wave's rays alive at each bounce's trace, tiles swept and boxes tested
+    ``idx_out`` (R,) int32.  ``counts`` (3,) int64 or None gets the wave's
+    rays alive at each bounce's trace, tiles swept and boxes tested
     added."""
-    counted = lib is None
-    lib = load() if lib is None else lib
+    lib = load()
     dev = scene.device
     R = state_out.shape[1]
     _check(par, "par", torch.float32, (32,), dev)
@@ -511,21 +403,18 @@ def launch_path_trace_gen(scene, par, meta, gen, max_bounce: int,
                int(meta[3]) & 0xFFFFFFFF, gen.spp, gen.width, gen.img_w,
                gen.img_h, gen.tiles_x)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _call(lib, "zrc_path_trace_gen", [
+    err = lib.zrc_path_trace_gen(
         ctypes.byref(sc), ctypes.byref(g), int(max_bounce), int(emit_key),
-        state_out.data_ptr(), idx_out.data_ptr(), R, dev.index or 0, stream,
-    ], counts, counted)
-    if _launched(err, lib.zrc_error_string, "path_trace_gen_kernel") and counted:
+        state_out.data_ptr(), idx_out.data_ptr(), _addr(counts), R, dev.index or 0, stream)
+    if _launched(err, lib.zrc_error_string, "path_trace_gen_kernel"):
         _count("path_trace_gen")
 
 
 def launch_path_trace(scene, state_in, prev, bounce0: int, max_bounce: int,
-                      state_out, idx_out, lib=None, counts=None) -> None:
+                      state_out, idx_out, counts=None) -> None:
     """Launch path_trace_kernel: ``state_in`` (16, R) → ``state_out``;
-    ``prev`` (R,) int32 or None; ``lib`` and ``counts`` as
-    ``launch_path_trace_gen``."""
-    counted = lib is None
-    lib = load() if lib is None else lib
+    ``prev`` (R,) int32 or None; ``counts`` as ``launch_path_trace_gen``."""
+    lib = load()
     dev = scene.device
     R = state_in.shape[1]
     _check(state_in, "state_in", torch.float32, (16, R), dev)
@@ -537,13 +426,10 @@ def launch_path_trace(scene, state_in, prev, bounce0: int, max_bounce: int,
         _check(counts, "counts", torch.int64, (3,), dev)
     sc = _scene_struct(scene, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _call(lib, "zrc_path_trace", [
-        ctypes.byref(sc), state_in.data_ptr(),
-        None if prev is None else prev.data_ptr(), int(bounce0),
-        int(max_bounce), state_out.data_ptr(), idx_out.data_ptr(), R,
-        dev.index or 0, stream,
-    ], counts, counted)
-    if _launched(err, lib.zrc_error_string, "path_trace_kernel") and counted:
+    err = lib.zrc_path_trace(
+        ctypes.byref(sc), state_in.data_ptr(), _addr(prev), int(bounce0), int(max_bounce),
+        state_out.data_ptr(), idx_out.data_ptr(), _addr(counts), R, dev.index or 0, stream)
+    if _launched(err, lib.zrc_error_string, "path_trace_kernel"):
         _count("path_trace")
 
 
@@ -563,12 +449,10 @@ def _heap(tree, gbox, group_tiles: int, leaves: int, device) -> ZrcHeap:
 
 
 def _launch_trace(scene, heap: ZrcHeap, state, prev, table, aux_out, idx_out,
-                  rec_out, lib=None, counts=None) -> None:
+                  rec_out, counts=None) -> None:
     """Launch the walk of ``heap``: trace_stream_kernel when it has group
-    boxes, else trace_emit_kernel; from ``lib`` (``load_trace_library``,
-    not counted) when given; ``counts`` as ``launch_trace_emit``."""
-    counted = lib is None
-    lib = load() if lib is None else lib
+    boxes, else trace_emit_kernel; ``counts`` as ``launch_trace_emit``."""
+    lib = load()
     dev = scene.device
     R = state.shape[1]
     _check(state, "state", torch.float32, (16, R), dev)
@@ -582,14 +466,13 @@ def _launch_trace(scene, heap: ZrcHeap, state, prev, table, aux_out, idx_out,
         _check(rec_out, "rec_out", torch.float32, (24, R), dev)
     if counts is not None:
         _check(counts, "counts", torch.int64, (3,), dev)
-    args = [ctypes.byref(_scene_struct(scene, dev)), ctypes.byref(heap), state.data_ptr(),
-            None if prev is None else prev.data_ptr(),
-            None if table is None else table.data_ptr(), tp, aux_out.data_ptr(),
-            idx_out.data_ptr(), None if table is None else rec_out.data_ptr(), R,
-            dev.index or 0, torch.cuda.current_stream(dev).cuda_stream]
-    err = _call(lib, "zrc_trace_emit", args, counts, counted)
+    err = lib.zrc_trace_emit(
+        ctypes.byref(_scene_struct(scene, dev)), ctypes.byref(heap), state.data_ptr(),
+        _addr(prev), _addr(table), tp, aux_out.data_ptr(), idx_out.data_ptr(),
+        None if table is None else rec_out.data_ptr(), _addr(counts), R, dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream)
     name = "trace_stream" if heap.gbox else "trace_emit"
-    if _launched(err, lib.zrc_error_string, f"{name}_kernel") and counted:
+    if _launched(err, lib.zrc_error_string, f"{name}_kernel"):
         _count(name)
 
 
@@ -606,24 +489,23 @@ def _scene_heap(scene, groups: bool) -> ZrcHeap:
 
 
 def launch_trace_emit(scene, state, prev, table, aux_out, idx_out, rec_out,
-                      lib=None, counts=None) -> None:
+                      counts=None) -> None:
     """Launch trace_emit_kernel (the walk of ``scene.tree_bbox``):
     ``state`` (16, R) → ``aux_out`` (8, R), ``idx_out`` (R,) int32 and,
     when ``table`` (24, Tp) is given, ``rec_out`` (24, R); ``prev`` (R,)
-    int32 or None; ``lib``: another build (``load_trace_library``);
-    ``counts`` (3,) int64 (this build only) gets the sums of aux rows 4-6
-    (rays alive, tiles swept, boxes tested) added."""
+    int32 or None; ``counts`` (3,) int64 or None gets the sums of aux rows
+    4-6 (rays alive, tiles swept, boxes tested) added."""
     _launch_trace(scene, _scene_heap(scene, False), state, prev, table, aux_out, idx_out,
-                  rec_out, lib, counts)
+                  rec_out, counts)
 
 
 def launch_trace_stream(scene, state, prev, table, aux_out, idx_out, rec_out,
-                        lib=None, counts=None) -> None:
+                        counts=None) -> None:
     """Launch trace_stream_kernel (the walk of ``scene.group_tree_bbox``,
     each reached group's tiles culled and swept); arguments as
     ``launch_trace_emit``."""
     _launch_trace(scene, _scene_heap(scene, True), state, prev, table, aux_out, idx_out,
-                  rec_out, lib, counts)
+                  rec_out, counts)
 
 
 def launch_trace_shaded(scene, groups: bool, orig, direction, thr, rows4, streams, hit, idx,
@@ -688,15 +570,14 @@ def launch_trace_shaded(scene, groups: bool, orig, direction, thr, rows4, stream
     sc = _scene_struct(scene, dev)
     heap = _scene_heap(scene, groups)
     lib = load()
-    ptr = (lambda t: None if t is None else t.data_ptr())
     lt = (None,) * 7 if lights is None else (
         lights.tri, lights.v0, lights.e1, lights.e2, lights.normal, lights.cdf,
         lights.total_area)
     w = ZrcTraceWave(orig.data_ptr(), direction.data_ptr(), thr.data_ptr(), rows4.data_ptr(),
                      streams.data_ptr(), hit.data_ptr(), idx.data_ptr(), flags.data_ptr(),
                      shade.data_ptr(), bank.data_ptr(), bank.shape[0], scene.perm.data_ptr(),
-                     ptr(mr), *(ptr(t) for t in lt), 0 if lights is None else L,
-                     int(bounce), int(roulette), ptr(counts))
+                     _addr(mr), *(_addr(t) for t in lt), 0 if lights is None else L,
+                     int(bounce), int(roulette), _addr(counts))
     err = lib.zrc_trace_shaded(ctypes.byref(sc), ctypes.byref(heap), ctypes.byref(w),
                                int(shadow), R, dev.index or 0,
                                torch.cuda.current_stream(dev).cuda_stream)
@@ -769,12 +650,11 @@ def launch_sort_key(state, par, key_out) -> None:
         _count("sort_key")
 
 
-def launch_ray_sort_key(state, bbox_min, bbox_max, key_out, lib=None) -> None:
+def launch_ray_sort_key(state, bbox_min, bbox_max, key_out) -> None:
     """Launch ray_sort_key_kernel: the host beam-sort key
     (``wavefront.ray_sort_key_ref``) of every column of ``state`` (16, R)
     in the scene box ``bbox_min`` / ``bbox_max`` (3,), into ``key_out``
-    (R,) int32; from ``lib`` (``load_trace_library``, not counted) when
-    given.  A thread takes two lanes with float2 loads and an int2 store:
+    (R,) int32.  A thread takes two lanes with float2 loads and an int2 store:
     R must be even and ``state`` and ``key_out`` 8-byte aligned (every
     wave is; a view that is not raises).  Every check runs before the
     library is loaded; CPU tensors raise (the CPU keys with
@@ -792,12 +672,11 @@ def launch_ray_sort_key(state, bbox_min, bbox_max, key_out, lib=None) -> None:
             raise ValueError(f"{name} is not 8-byte aligned (float2 / int2 rows)")
     if dev.type != "cuda":
         raise ValueError(f"ray_sort_key_kernel needs CUDA tensors, got {dev}")
-    counted = lib is None
-    lib = load() if lib is None else lib
+    lib = load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.zrc_ray_sort_key(state.data_ptr(), bbox_min.data_ptr(), bbox_max.data_ptr(),
                                key_out.data_ptr(), R, dev.index or 0, stream)
-    if _launched(err, lib.zrc_error_string, "ray_sort_key_kernel") and counted:
+    if _launched(err, lib.zrc_error_string, "ray_sort_key_kernel"):
         _count("ray_sort_key")
 
 
@@ -825,7 +704,7 @@ def _grid_struct(grid, device) -> ZrcGrid:
 
 
 def launch_grid_walk(grid, orig, direction, active, exclude, t_out, u_out, v_out,
-                     idx_out, iterations, lib=None, it_sum=None) -> None:
+                     idx_out, iterations, it_sum=None) -> None:
     """Launch grid_walk_kernel: the nearest hit of each ray ``orig`` /
     ``direction`` (R, 3) f32 with ``active`` (R,) bool by the walk of
     ``grid`` (``scene.types.GridOperands``), ``exclude`` (R,) int64 (the
@@ -833,11 +712,9 @@ def launch_grid_walk(grid, orig, direction, active, exclude, t_out, u_out, v_out
     ``v_out`` (R,) f32 and ``idx_out`` (R,) int64.  ``iterations`` is (2,)
     int32 scratch that must hold zeros: the loop's iteration count goes
     into [0], and [1] is the counter the warps take ray positions from.
-    ``it_sum`` (1,) int64 (this build only) gets every ray's iterations
-    added.
-    From ``lib`` (``load_grid_walk_library``, not counted) when given: a
-    build of another source, timed against this one.  Every check runs
-    before the library is loaded; CPU tensors raise (the CPU walks with
+    ``it_sum`` (1,) int64 or None gets every ray's iterations added.
+    Every check runs before the library is loaded; CPU tensors raise (the
+    CPU walks with
     ``wavefront.trace_wave_ref``).  Refused: a grid of 2^31 cells or more
     (its int32 indices) and R above GRID_MAX_RAYS."""
     dev = orig.device
@@ -854,19 +731,16 @@ def launch_grid_walk(grid, orig, direction, active, exclude, t_out, u_out, v_out
         _check(exclude, "exclude", torch.int64, (R,), dev)
     if it_sum is not None:
         _check(it_sum, "it_sum", torch.int64, (1,), dev)
-        if lib is not None:
-            raise ValueError("another build's zrc_grid_walk takes no iteration sum")
     g = _grid_struct(grid, dev)
     if dev.type != "cuda":
         raise ValueError(f"grid_walk_kernel needs CUDA tensors, got {dev}")
-    counted = lib is None
-    lib = load() if lib is None else lib
-    args = [ctypes.byref(g), orig.data_ptr(), direction.data_ptr(), active.data_ptr(),
-            None if exclude is None else exclude.data_ptr(), t_out.data_ptr(), u_out.data_ptr(),
-            v_out.data_ptr(), idx_out.data_ptr(), iterations.data_ptr(), R, dev.index or 0,
-            torch.cuda.current_stream(dev).cuda_stream]
-    err = _call(lib, "zrc_grid_walk", args, it_sum, counted)
-    if _launched(err, lib.zrc_error_string, "grid_walk_kernel") and counted:
+    lib = load()
+    err = lib.zrc_grid_walk(
+        ctypes.byref(g), orig.data_ptr(), direction.data_ptr(), active.data_ptr(), _addr(exclude),
+        t_out.data_ptr(), u_out.data_ptr(), v_out.data_ptr(), idx_out.data_ptr(),
+        iterations.data_ptr(), _addr(it_sum), R, dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if _launched(err, lib.zrc_error_string, "grid_walk_kernel"):
         _count("grid_walk")
 
 
@@ -919,8 +793,8 @@ def launch_grid_walk_shaded(grid, shade, bank, orig, direction, thr, rows4, stre
                     None)
     err = lib.zrc_grid_walk_shaded(
         ctypes.byref(g), ctypes.byref(w), t_out.data_ptr(), u_out.data_ptr(), v_out.data_ptr(),
-        idx_out.data_ptr(), iterations.data_ptr(), None if counts is None else counts.data_ptr(),
-        bounce, bounces, R, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+        idx_out.data_ptr(), iterations.data_ptr(), _addr(counts), bounce, bounces, R,
+        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
     if _launched(err, lib.zrc_error_string, "grid_walk_kernel"):
         _count("grid_walk")
 
@@ -944,15 +818,13 @@ PROBE_GATHER_FORMS = ("smem", "shfl")
 
 
 def launch_micro_trace(tri_data, tile_bbox, tile: int, state, cull: str,
-                       extract_uv: bool, threads: int, aux_out, idx_out, lib=None) -> None:
+                       extract_uv: bool, threads: int, aux_out, idx_out) -> None:
     """Launch micro_trace_kernel: the nearest hit of every column of
     ``state`` (16, R) over the flat loop of the field-major (16, Tp)
     ``tri_data`` in tiles of ``tile`` with boxes ``tile_bbox`` (6, nt), into
     ``aux_out`` (8, R) and ``idx_out`` (1, R) int32; ``cull`` one of
-    MICRO_TRACE_CULLS, ``threads`` per block 128, 256 or 512; from ``lib``
-    (``load_probes_library``, not counted) when given."""
-    counted = lib is None
-    lib = load_probes() if lib is None else lib
+    MICRO_TRACE_CULLS, ``threads`` per block 128, 256 or 512."""
+    lib = load_probes()
     dev = state.device
     R, tp, nt = state.shape[1], tri_data.shape[1], tile_bbox.shape[1]
     _check(tri_data, "tri_data", torch.float32, (16, tp), dev)
@@ -972,20 +844,18 @@ def launch_micro_trace(tri_data, tile_bbox, tile: int, state, cull: str,
         tri_data.data_ptr(), tp, tile_bbox.data_ptr(), nt, tile, state.data_ptr(),
         MICRO_TRACE_CULLS.index(cull), int(extract_uv), threads, aux_out.data_ptr(),
         idx_out.data_ptr(), R, dev.index or 0, stream)
-    if _launched(err, lib.zrc_probes_error_string, "micro_trace_kernel") and counted:
+    if _launched(err, lib.zrc_probes_error_string, "micro_trace_kernel"):
         _count(f"micro_trace_{cull}")
 
 
-def launch_micro_bf16(bank, state, iters: int, best_out, lib=None) -> None:
+def launch_micro_bf16(bank, state, iters: int, best_out) -> None:
     """Launch micro_bf16_kernel: ``iters`` sweeps of the (13, nt·128)
     ``bank`` (sweep i over tile i mod nt) against the rays of ``state`` (6,
     L) f32 or bf16 (the transform's working type), each lane's positive hit
     t min-folded into ``best_out`` (1, L) f32, which must hold +inf (or a
     bound) before the launch: the kernel cuts the iterations into chunks
-    run by separate blocks, folded with atomicMin on the f32 bits; from
-    ``lib`` (``load_probes_library``, not counted) when given."""
-    counted = lib is None
-    lib = load_probes() if lib is None else lib
+    run by separate blocks, folded with atomicMin on the f32 bits."""
+    lib = load_probes()
     dev = state.device
     L = state.shape[1]
     nt = bank.shape[1] // MICRO_BF16_TILE
@@ -1000,23 +870,20 @@ def launch_micro_bf16(bank, state, iters: int, best_out, lib=None) -> None:
     err = lib.zrc_micro_bf16(bank.data_ptr(), nt, state.data_ptr(),
                              int(state.dtype == torch.bfloat16), L, int(iters),
                              best_out.data_ptr(), dev.index or 0, stream)
-    if _launched(err, lib.zrc_probes_error_string, "micro_bf16_kernel") and counted:
+    if _launched(err, lib.zrc_probes_error_string, "micro_bf16_kernel"):
         _count(f"micro_bf16_{'bf16' if state.dtype == torch.bfloat16 else 'f32'}")
 
 
 def launch_probe_gather(page, col, row, reps: int, chunks: int, per: int, form: str, out,
-                        cycles=None, lib=None) -> None:
+                        cycles=None) -> None:
     """Launch probe_gather_kernel: ``out`` (8, 128) int32 = the sum over r <
     ``reps`` of take(take(page + r, col, axis=1), row, axis=0) for the (8,
     128) int32 ``page``, ``col`` and ``row``, in ``chunks`` blocks of
     ``per`` reps (``probes.probe_gather.rep_chunks``); ``form`` "smem" (the
     page in shared memory, indexed loads) or "shfl" (a warp a chunk,
     __shfl_sync).  With ``cycles`` (1,) int64, the SM clock cycles of the
-    reps loop summed over the chunks.  From ``lib`` (``load_probes_library``,
-    not counted) when given; a build without the chunked entry point runs
-    the reps in one block whatever the plan."""
-    counted = lib is None
-    lib = load_probes() if lib is None else lib
+    reps loop summed over the chunks."""
+    lib = load_probes()
     dev = page.device
     for name, t in (("page", page), ("col", col), ("row", row), ("out", out)):
         _check(t, name, torch.int32, (8, 128), dev)
@@ -1027,12 +894,9 @@ def launch_probe_gather(page, col, row, reps: int, chunks: int, per: int, form: 
     if reps < 0 or chunks < 1 or per < 0 or chunks * per < reps:
         raise ValueError(f"{chunks} chunks of {per} do not cover {reps} repetitions")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    args = (page.data_ptr(), col.data_ptr(), row.data_ptr(), int(reps))
-    tail = (PROBE_GATHER_FORMS.index(form), out.data_ptr(),
-            None if cycles is None else cycles.data_ptr(), dev.index or 0, stream)
-    if hasattr(lib, "zrc_probe_gather_chunks"):
-        err = lib.zrc_probe_gather_chunks(*args, int(chunks), int(per), *tail)
-    else:
-        err = lib.zrc_probe_gather(*args, *tail)
-    if _launched(err, lib.zrc_probes_error_string, "probe_gather_kernel") and counted:
+    err = lib.zrc_probe_gather_chunks(page.data_ptr(), col.data_ptr(), row.data_ptr(),
+                                      int(reps), int(chunks), int(per),
+                                      PROBE_GATHER_FORMS.index(form), out.data_ptr(),
+                                      _addr(cycles), dev.index or 0, stream)
+    if _launched(err, lib.zrc_probes_error_string, "probe_gather_kernel"):
         _count(f"probe_gather_{form}")

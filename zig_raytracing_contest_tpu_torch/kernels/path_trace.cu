@@ -85,7 +85,7 @@
 // runs 32 rays wide, sweeps 32 triangles wide, and no lane sweeps alone.
 // The visit order and the arithmetic are the per-ray walk's, so t, u, v,
 // idx and the counts are the same bits as before.  Measured on an NVIDIA
-// H100 80GB HBM3 at 700 W (PERF.md, probes/trace_ab.py, same rays):
+// H100 80GB HBM3 at 700 W (PERF.md, both designs on the same rays):
 // --large bounce 1 6.27 ms (the earlier design: 15.72), 500k bounce 1
 // 12.61 ms (57.44), against bounds of 0.73 and 1.44 ms.  The TPU's
 // streaming kernel DMAs each surviving group's tiles through a
@@ -121,7 +121,7 @@
 // over a back-facing triangle before the divide.  At most 64 registers
 // (8 blocks an SM), no spills.  The same bits as the one-thread-per-ray
 // loop, in less time at every bounce of the official and Duck waves
-// (PERF.md, probes/path_ab.py).  The TPU kernel's one-hot matmuls become
+// (PERF.md).  The TPU kernel's one-hot matmuls become
 // direct loads: the winner's 24-float record is read once after the tile
 // loop (a miss reads zeros), texels are float4 loads from the row-major
 // (P, 4) bank.  No shared-memory staging, wgmma or TMA.
@@ -1125,32 +1125,19 @@ __device__ __forceinline__ int host_sort_key(const float o[3], const float d[3],
     return (dead << 30) | k;
 }
 
-// Lanes a thread of ray_sort_key_kernel: 2 (float2 rows, one int2 store).
-// probes/sort_key.py --lanes 4 builds this file with 4 (float4, int4) to
-// time the two against each other (PERF.md).
-#ifndef RAY_SORT_KEY_LANES
-#define RAY_SORT_KEY_LANES 2
-#endif
+// Lanes a thread of ray_sort_key_kernel: float2 rows, one int2 store (4
+// lanes, float4 and int4, measured slower: PERF.md).
+constexpr int kSortKeyLanes = 2;
 
-template <int L> struct SortKeyVec;
-template <> struct SortKeyVec<2> { using F = float2; using I = int2; };
-template <> struct SortKeyVec<4> { using F = float4; using I = int4; };
-
-// Lane j of a vector row (j known at compile time once unrolled: a
-// register, where indexing the struct's memory would spill it).
+// Lane j of a row (j known at compile time once unrolled: a register,
+// where indexing the struct's memory would spill it).
 __device__ __forceinline__ float component(const float2& v, int j) {
     return j == 0 ? v.x : v.y;
 }
-__device__ __forceinline__ float component(const float4& v, int j) {
-    return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-}
 __device__ __forceinline__ int2 pack_keys(const int (&k)[2]) { return make_int2(k[0], k[1]); }
-__device__ __forceinline__ int4 pack_keys(const int (&k)[4]) {
-    return make_int4(k[0], k[1], k[2], k[3]);
-}
 
 // host_sort_key of every column of a (16, R) state into key[i],
-// RAY_SORT_KEY_LANES consecutive lanes a thread.  Bound by bytes: 28 B of
+// kSortKeyLanes consecutive lanes a thread.  Bound by bytes: 28 B of
 // state in and 4 B out per lane.  A thread reads each of its seven rows
 // (origin, direction, alive) with one vector load and writes its keys with
 // one vector store, so R must be a multiple of the lanes and the state and
@@ -1158,9 +1145,9 @@ __device__ __forceinline__ int4 pack_keys(const int (&k)[4]) {
 __global__ void __launch_bounds__(kThreads) ray_sort_key_kernel(
         const float* __restrict__ state, const float* __restrict__ bbox_min,
         const float* __restrict__ bbox_max, int* __restrict__ key, int R) {
-    constexpr int L = RAY_SORT_KEY_LANES;
-    using F = typename SortKeyVec<L>::F;
-    using I = typename SortKeyVec<L>::I;
+    constexpr int L = kSortKeyLanes;
+    using F = float2;
+    using I = int2;
     const int q = blockIdx.x * blockDim.x + threadIdx.x;
     if (q >= R / L) return;
     const size_t n = (size_t)R;
@@ -2225,14 +2212,13 @@ trace_stream_kernel(ZrcScene sc, ZrcHeap hp, ZrcTraceWave w, int R) {
 // the caller's stream, allocate nothing, and return cudaGetLastError(), or
 // ZRC_NOTHING_LAUNCHED when the work is empty.
 //
-// The trace kernels always count their work.  An entry point ``*_counted``
-// takes the counters it adds to; the entry point of the same name without
-// the suffix takes the arguments of earlier builds, which the probes
-// compare this one with, and its kernel adds to zrc_discard instead.
+// The trace kernels always count their work, into the counters their entry
+// point takes (``counts`` / ``it_sum``), or into zrc_discard when that
+// pointer is null.
 
 #define ZRC_NOTHING_LAUNCHED (-1)
 
-// The counters of the launches that take none: written, never read.
+// The counters of the launches given none: written, never read.
 __device__ unsigned long long zrc_discard[8];
 
 // ``counts``, or zrc_discard on the current device when it is null.
@@ -2243,10 +2229,10 @@ static cudaError_t counts_or_discard(unsigned long long** counts) {
 
 // ``counts``: null, or three uint64 the kernel adds the rays alive at each
 // bounce's trace, the tiles swept and the boxes tested to.
-extern "C" int zrc_path_trace_gen_counted(const ZrcScene* sc, const ZrcGen* g,
-                                          int max_bounce, int emit_key, float* state_out,
-                                          int* idx_out, unsigned long long* counts, int R,
-                                          int device, void* stream) {
+extern "C" int zrc_path_trace_gen(const ZrcScene* sc, const ZrcGen* g,
+                                  int max_bounce, int emit_key, float* state_out,
+                                  int* idx_out, unsigned long long* counts, int R,
+                                  int device, void* stream) {
     if (R <= 0) return ZRC_NOTHING_LAUNCHED;
     cudaError_t err = cudaSetDevice(device);
     if (err == cudaSuccess) err = counts_or_discard(&counts);
@@ -2257,19 +2243,12 @@ extern "C" int zrc_path_trace_gen_counted(const ZrcScene* sc, const ZrcGen* g,
     return (int)cudaGetLastError();
 }
 
-extern "C" int zrc_path_trace_gen(const ZrcScene* sc, const ZrcGen* g,
-                                  int max_bounce, int emit_key, float* state_out,
-                                  int* idx_out, int R, int device, void* stream) {
-    return zrc_path_trace_gen_counted(sc, g, max_bounce, emit_key, state_out, idx_out,
-                                      nullptr, R, device, stream);
-}
-
-// ``counts`` as zrc_path_trace_gen_counted's.
-extern "C" int zrc_path_trace_counted(const ZrcScene* sc, const float* state_in,
-                                      const int* prev, int bounce0, int max_bounce,
-                                      float* state_out, int* idx_out,
-                                      unsigned long long* counts, int R, int device,
-                                      void* stream) {
+// ``counts`` as zrc_path_trace_gen's.
+extern "C" int zrc_path_trace(const ZrcScene* sc, const float* state_in,
+                              const int* prev, int bounce0, int max_bounce,
+                              float* state_out, int* idx_out,
+                              unsigned long long* counts, int R, int device,
+                              void* stream) {
     if (R <= 0) return ZRC_NOTHING_LAUNCHED;
     cudaError_t err = cudaSetDevice(device);
     if (err == cudaSuccess) err = counts_or_discard(&counts);
@@ -2280,24 +2259,16 @@ extern "C" int zrc_path_trace_counted(const ZrcScene* sc, const float* state_in,
     return (int)cudaGetLastError();
 }
 
-extern "C" int zrc_path_trace(const ZrcScene* sc, const float* state_in,
-                              const int* prev, int bounce0, int max_bounce,
-                              float* state_out, int* idx_out, int R, int device,
-                              void* stream) {
-    return zrc_path_trace_counted(sc, state_in, prev, bounce0, max_bounce, state_out,
-                                  idx_out, nullptr, R, device, stream);
-}
-
 // A heap with group boxes launches trace_stream_kernel, else
 // trace_emit_kernel, TRACE_THREADS threads per block.  ``counts``: null, or
 // three uint64 the kernel adds the rays alive, tiles swept and boxes tested
 // to.
-extern "C" int zrc_trace_emit_counted(const ZrcScene* sc, const ZrcHeap* hp,
-                                      const float* state, const int* prev,
-                                      const float* table, int table_cols, float* aux,
-                                      int* idx_out, float* rec_out,
-                                      unsigned long long* counts, int R, int device,
-                                      void* stream) {
+extern "C" int zrc_trace_emit(const ZrcScene* sc, const ZrcHeap* hp,
+                              const float* state, const int* prev,
+                              const float* table, int table_cols, float* aux,
+                              int* idx_out, float* rec_out,
+                              unsigned long long* counts, int R, int device,
+                              void* stream) {
     if (R <= 0) return ZRC_NOTHING_LAUNCHED;
     if (hp->p2 < 1 || hp->p2 > (1 << TREE_STACK) || (hp->gbox && hp->group_tiles < 1))
         return (int)cudaErrorInvalidValue;
@@ -2312,15 +2283,6 @@ extern "C" int zrc_trace_emit_counted(const ZrcScene* sc, const ZrcHeap* hp,
         trace_emit_kernel<<<blocks, TRACE_THREADS, 0, (cudaStream_t)stream>>>(
             *sc, *hp, state, prev, table, table_cols, aux, idx_out, rec_out, counts, R);
     return (int)cudaGetLastError();
-}
-
-extern "C" int zrc_trace_emit(const ZrcScene* sc, const ZrcHeap* hp,
-                              const float* state, const int* prev,
-                              const float* table, int table_cols, float* aux,
-                              int* idx_out, float* rec_out, int R, int device,
-                              void* stream) {
-    return zrc_trace_emit_counted(sc, hp, state, prev, table, table_cols, aux, idx_out,
-                                  rec_out, nullptr, R, device, stream);
 }
 
 extern "C" int zrc_shade(const ZrcScene* sc, const float* state_in,
@@ -2363,7 +2325,7 @@ extern "C" int zrc_ray_sort_key(const float* state, const float* bbox_min,
     if (R <= 0) return ZRC_NOTHING_LAUNCHED;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    const int threads = R / RAY_SORT_KEY_LANES;
+    const int threads = R / kSortKeyLanes;
     int blocks = (threads + kThreads - 1) / kThreads;
     ray_sort_key_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         state, bbox_min, bbox_max, key, R);
@@ -2393,11 +2355,11 @@ static cudaError_t grid_blocks(int R, int device, int* blocks) {
 // iterations must hold two zeros (the loop's count, the ray counter) before
 // the launch; it_sum is null (zrc_discard) or one uint64 that the rays'
 // iterations are added to.
-extern "C" int zrc_grid_walk_counted(const ZrcGrid* g, const float* orig, const float* dir,
-                                     const bool* active, const long long* exclude, float* t,
-                                     float* u, float* v, long long* idx, int* iterations,
-                                     unsigned long long* it_sum, int R, int device,
-                                     void* stream) {
+extern "C" int zrc_grid_walk(const ZrcGrid* g, const float* orig, const float* dir,
+                             const bool* active, const long long* exclude, float* t,
+                             float* u, float* v, long long* idx, int* iterations,
+                             unsigned long long* it_sum, int R, int device,
+                             void* stream) {
     if (R <= 0) return ZRC_NOTHING_LAUNCHED;
     cudaError_t err = cudaSetDevice(device);
     if (err == cudaSuccess) err = counts_or_discard(&it_sum);
@@ -2407,14 +2369,6 @@ extern "C" int zrc_grid_walk_counted(const ZrcGrid* g, const float* orig, const 
     grid_walk_kernel<false><<<blocks, GRID_THREADS, 0, (cudaStream_t)stream>>>(
         *g, orig, dir, active, exclude, t, u, v, idx, iterations, it_sum, R, ZrcGridWave{});
     return (int)cudaGetLastError();
-}
-
-extern "C" int zrc_grid_walk(const ZrcGrid* g, const float* orig, const float* dir,
-                             const bool* active, const long long* exclude, float* t,
-                             float* u, float* v, long long* idx, int* iterations, int R,
-                             int device, void* stream) {
-    return zrc_grid_walk_counted(g, orig, dir, active, exclude, t, u, v, idx, iterations,
-                                 nullptr, R, device, stream);
 }
 
 // Launch ``bounce`` of a shaded wave of B = ``bounces`` bounces (0..B: B

@@ -16,10 +16,11 @@ micro-benchmarks, held on their own against their plain PyTorch versions.
 * ``walk_check``: trace_emit_kernel's tile-heap walk against the flat loop
   lane by lane, with a NumPy replay of the walk for one ray;
 * ``grid_walk``: grid_walk_kernel against its twin on a wave and on built
-  edge rays, and the bound of a wave's walk (helpers of chip_smoke.py and
-  the tests; no entry point of its own);
-* ``probe_ab``, ``trace_ab``, ``path_ab``: this checkout's kernels against
-  another build of their source (bits, and times in alternating pairs).
+  edge rays, the bound of a wave's walk, and the shaded walk against
+  ``render_wave_xla`` (helpers of chip_smoke.py and the tests; no entry
+  point of its own);
+* ``sharded_frame``: the official frame sharded beside ``render_scene``,
+  timed in turns.
 
 Each module with an entry point runs on the card by default: ``python -m
 zig_raytracing_contest_tpu_torch.probes.check_fetch`` (``--device cpu``

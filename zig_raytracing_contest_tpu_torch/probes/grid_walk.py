@@ -11,34 +11,15 @@ origins inside the grid, zero directions and inactive lanes.
 twin's work counters (``WalkWork``) into the least time the card could
 take for the walk (chip_smoke.py phase k).
 
-Run on the card, the probe times builds of the kernel against each other
-in one call: the ``--large`` frame's bounce-0, 1 and 2 waves on its 128³
-grid (1,843,200 rays each, walked as ``render_wave_xla`` walks them), this
-checkout's build held to ``trace_wave_ref`` bit for bit, every other build
-to this one (t, u, v bits, the reference and the iteration count), each
-build timed queued behind a spin (``utils.timing.queued_ms``), its median
-over ``--rounds`` readings taken in turns; then the same wave through the
-shaded walk (``shaded_ab``: ``render_wave_grid``'s launches against
-``render_wave_xla`` bit for bit, each launch's ms):
-
-    python -m zig_raytracing_contest_tpu_torch.probes.grid_walk \
-        --against parent.cu
-
-``--against OTHER.cu`` (repeatable) names a source whose ``zrc_grid_walk``
-takes the same arguments (an earlier commit's path_trace.cu, from ``git
-show COMMIT:zig_raytracing_contest_tpu_torch/kernels/path_trace.cu``); by
-default the probe times ``grid_walk_one_thread.cu`` beside this file, the
-walk of one thread a ray to its end.
+``shaded_ab`` holds the shaded walk (``render_wave_grid``'s launches) to
+``render_wave_xla`` bit for bit on the ``--large`` frame's wave and times
+each launch.  Helpers of chip_smoke.py and the tests; no entry point of
+its own.
 """
 
 from __future__ import annotations
 
-import argparse
 import statistics
-import sys
-import tempfile
-from pathlib import Path
-from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -141,49 +122,17 @@ def walk_bound(scene, work, rays: int, exclude: bool, peak_flops: float,
             "bound_by": "operations" if op_ms >= byte_ms else "bytes"}
 
 
-# The --large frame as chip_smoke.py phase k renders it through the grid
+# The --large frame as chip_smoke.py phase k renders it through the grid,
+# and the timed rounds of its shaded wave
 WIDTH, HEIGHT, SPP, BOUNCES, SEED = 1280, 720, 2, 3, 0
-RESOLUTION = (128, 128, 128)
-# The walk of one thread a ray to its end, timed against by default
-ONE_THREAD = Path(__file__).resolve().parent / "grid_walk_one_thread.cu"
-# Queued walks a reading, readings a build
-REPS, ROUNDS = 10, 8
-
-
-class Walk:
-    """One build's walk of a wave into outputs of its own: ``run()``
-    launches it (zeroing its scratch first); this build's (``lib`` None)
-    with the iteration sum the main path passes."""
-
-    def __init__(self, lib, grid, o, d, live, prev):
-        R, dev = o.shape[0], o.device
-        self.t = torch.empty(R, dtype=torch.float32, device=dev)
-        self.u, self.v = torch.empty_like(self.t), torch.empty_like(self.t)
-        self.idx = torch.empty(R, dtype=torch.int64, device=dev)
-        self.scratch = torch.zeros(2, dtype=torch.int32, device=dev)
-        self.it_sum = None if lib is not None else torch.zeros(1, dtype=torch.int64,
-                                                               device=dev)
-        self.args = (grid, o, d, live, prev)
-        self.lib = lib
-
-    def run(self):
-        self.scratch.zero_()
-        kernels.launch_grid_walk(*self.args, self.t, self.u, self.v, self.idx, self.scratch,
-                                 lib=self.lib, it_sum=self.it_sum)
-
-    def differs(self, other: "Walk") -> int:
-        off = self.idx != other.idx
-        for a, b in ((self.t, other.t), (self.u, other.u), (self.v, other.v)):
-            off |= a.view(torch.int32) != b.view(torch.int32)
-        return int(off.sum()) + int(self.scratch[0] != other.scratch[0])
+ROUNDS = 8
 
 
 def walk_ptxas(log: str) -> str:
     """What ptxas reported for grid_walk_kernel in an nvcc log (``-Xptxas=-v``):
     the stack, spills and registers of each instantiation, the walk alone
-    (``walk``: ``grid_walk_kernel<false>``, or an earlier build's only one)
-    and the shaded walk (``shaded``: ``grid_walk_kernel<true>``), on one
-    line."""
+    (``walk``: ``grid_walk_kernel<false>``) and the shaded walk
+    (``shaded``: ``grid_walk_kernel<true>``), on one line."""
     out, on = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -194,57 +143,6 @@ def walk_ptxas(log: str) -> str:
         elif on and ("spill" in line or "registers" in line):
             out.append(line.split(":", 1)[-1].strip() + ";")
     return " ".join(out).rstrip(";") or "no report"
-
-
-def large_grid_scene(where: Path, device):
-    """The ``--large`` terrain on its 128³ grid, prepared as chip_smoke.py
-    phase k prepares it → (scene, camera)."""
-    from ..config import Config
-    from ..render.pipeline import prepare_scene
-    from ..scene.procedural import large_scene
-
-    cfg = Config(backend="grid", grid_resolution=RESOLUTION, num_samples=SPP,
-                 max_bounce=BOUNCES, wave_size=1 << 21, seed=SEED)
-    scene, cam, _ = prepare_scene(str(large_scene(where / "large.gltf")), cfg,
-                                  camera_name="Camera 1", width=WIDTH, height=HEIGHT,
-                                  device=device)
-    return scene, cam
-
-
-def frame_waves(scene, cam, bounces: int = BOUNCES):
-    """Yield (bounce, orig, direction, active, prev) of the frame's one
-    wave for each bounce, as ``render_wave_xla`` walks and shades them
-    (the walk: ``trace_wave``)."""
-    R = WIDTH * HEIGHT * SPP
-    par = wavefront.build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
-    o, d, streams = wavefront.xla_primary_rays(par, WIDTH, SPP, 0, R, SEED)
-    o = o.contiguous()
-    live = torch.ones(R, dtype=torch.bool, device=o.device)
-    prev = None
-    for bounce in range(bounces):
-        yield bounce, o, d, live, prev
-        hit = wavefront.trace_wave(scene, o, d, live, prev)
-        tri = scene.grid.dup_to_tri[hit.dup_idx]
-        new_o, new_d, *_, missed, _ = wavefront.shade_and_scatter(
-            scene, o, d, hit.t, hit.u, hit.v, tri, streams, bounce)
-        stepped = live & ~missed
-        o = torch.where(stepped[:, None], new_o, o).contiguous()
-        d = torch.where(stepped[:, None], new_d, d).contiguous()
-        live, prev = stepped, tri
-
-
-def time_builds(fns: dict, rounds: int = ROUNDS, reps: int = REPS) -> dict:
-    """Each of ``fns`` (label -> callable) timed with ``queued_ms`` over
-    ``reps`` calls, ``rounds`` readings each, in turns (forward, then
-    backward) → label -> the list of readings."""
-    from ..utils.timing import queued_ms
-
-    ms = {k: [] for k in fns}
-    labels = list(fns)
-    for r in range(rounds):
-        for k in labels if r % 2 == 0 else labels[::-1]:
-            ms[k].append(queued_ms(fns[k], reps))
-    return ms
 
 
 def shaded_wave(scene, cam, rounds: int = ROUNDS):
@@ -303,78 +201,3 @@ def shaded_ab(scene, cam, card: str, rounds: int = ROUNDS) -> int:
           f"{[round(x, 4) for x in per]}, the wave {wave_ms:.4f} ms; medians of {rounds} "
           f"({card})", flush=True)
     return off
-
-
-def walk_ab(scene, cam, builds: dict, card: str, rounds: int = ROUNDS) -> int:
-    """The A/B on the card: per bounce, this build against the twin, every
-    build of ``builds`` (label -> library) against this one, and the
-    medians of their queued times.  Prints a line per build and bounce;
-    returns the lanes (and iteration counts) that differ."""
-    faults = 0
-    ops = scene.grid.kernel_operands()
-    for bounce, o, d, live, prev in frame_waves(scene, cam):
-        R = o.shape[0]
-        this = Walk(None, ops, o, d, live, prev)
-        this.run()
-        ref = wavefront.trace_wave_ref(scene, o, d, live, prev, work=True)
-        off = this.differs(SimpleNamespace(t=ref.t, u=ref.u, v=ref.v, idx=ref.dup_idx,
-                                           scratch=ref.iterations.view(1)))
-        faults += off
-        w = ref.work
-        cells = float(w.cells.sum())
-        print(f"grid_walk bounce {bounce}: this build vs trace_wave_ref {off} of {R} lanes "
-              f"differ, iterations {int(this.scratch[0])} vs {int(ref.iterations)}; "
-              f"{int((w.cells > 0).sum())} walking rays, {cells:.0f} cells entered, "
-              f"{float(w.occupied.sum()) / max(cells, 1.0):.4f} of them occupied, "
-              f"{float(w.tests.sum()):.0f} tests", flush=True)
-        walks = {"this": this}
-        walks.update({label: Walk(lib, ops, o, d, live, prev) for label, lib in builds.items()})
-        ms = time_builds({k: wk.run for k, wk in walks.items()}, rounds)
-        for label, wk in walks.items():
-            off = wk.differs(this) if wk is not this else 0
-            faults += off
-            med = statistics.median(ms[label])
-            print(f"  {label}: {off} lanes differ from this build, iterations "
-                  f"{int(wk.scratch[0])}; median {med:.4f} ms queued "
-                  f"{[round(x, 4) for x in ms[label]]} ({card})", flush=True)
-    return faults
-
-
-def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description="grid_walk_kernel's builds timed against each "
-                                            "other on the --large frame's waves (the card)")
-    p.add_argument("--against", type=Path, action="append", default=[],
-                   help="another source with the same zrc_grid_walk (repeatable; default "
-                        "grid_walk_one_thread.cu)")
-    p.add_argument("--rounds", type=int, default=ROUNDS)
-    args = p.parse_args(argv)
-    if not torch.cuda.is_available():
-        p.error("the probe times builds on the card: PyTorch sees no CUDA card")
-    from concurrent.futures import ThreadPoolExecutor
-
-    from ..bench import card_line
-
-    card = card_line()
-    print(card)
-    dev = torch.device("cuda", 0)
-    sources = {src.name: src for src in args.against or [ONE_THREAD]}
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        dirs = {k: tmp / str(n) for n, k in enumerate(sources)}
-        with ThreadPoolExecutor(len(sources) + 1) as pool:
-            jobs = {k: pool.submit(kernels.load_grid_walk_library, src, dirs[k])
-                    for k, src in sources.items()}
-            kernels.load()
-            builds = {k: j.result() for k, j in jobs.items()}
-        print(f"ptxas, this build: {walk_ptxas(kernels.build_log('path_trace'))}")
-        for k, src in sources.items():
-            print(f"ptxas, {k}: {walk_ptxas(kernels.build_log('grid_walk_other', src, dirs[k]))}")
-        scene, cam = large_grid_scene(tmp, dev)
-        faults = walk_ab(scene, cam, builds, card, args.rounds)
-        faults += shaded_ab(scene, cam, card, args.rounds)
-    print(f"grid_walk A/B: {faults} lanes differ in all")
-    return 1 if faults else 0
-
-
-if __name__ == "__main__":
-    sys.exit(main())

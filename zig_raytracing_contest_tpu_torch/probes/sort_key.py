@@ -24,33 +24,20 @@ same state and on each case of ``edge_lanes``.  Run on the card:
 
     python -m zig_raytracing_contest_tpu_torch.probes.sort_key
 
-(``--device cpu`` runs the plain version against itself.)  With
-``--against OTHER.cu`` (repeatable: another path_trace.cu whose
-``zrc_ray_sort_key`` takes the same arguments, e.g. an earlier commit's)
-``key_ab`` also holds ray_sort_key_kernel of each build to this one's on
-the ``--large`` frame's wave after bounce 1 (1,843,200 lanes) and on its
-first 522,240 lanes (the official frame's wave size): keys equal, and each
-build timed queued behind a spin in rounds (other, this, this, other).
-``--lanes N`` (repeatable) adds this checkout's path_trace.cu built with
-``RAY_SORT_KEY_LANES`` N (4: float4 rows and an int4 store, where the
-renderer's build takes 2) to those builds.
+(``--device cpu`` runs the plain version against itself.)
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
-import tempfile
-from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 from .. import kernels
-from ..config import Config
 from ..render import fused, wavefront
-from ..render.pipeline import prepare_scene
 
 LANES = 256
 DEAD = slice(5, 9)
@@ -197,68 +184,12 @@ def run_host_key_checks(device) -> list:
     return out
 
 
-def key_ab(against, build_dir: Path, rounds: int = 4) -> int:
-    """ray_sort_key_kernel of each build of ``against`` (path_trace.cu
-    files) against this checkout's, on the card: the ``--large`` frame's
-    wave after bounce 1 and its first 522,240 lanes.  Prints the lanes
-    where the keys differ and each build's queued ms per call in
-    ``rounds`` rounds of (other, this, this, other); returns the lanes that
-    differ."""
-    import statistics
-
-    from ..bench import card_line
-    from ..scene.procedural import large_scene
-    from ..utils.timing import queued_ms
-    from .trace_ab import HEIGHT, SPP, WIDTH, bounce_waves
-
-    card = card_line()
-    others = {Path(src).name: kernels.load_trace_library(Path(src), build_dir / str(k))
-              for k, src in enumerate(against)}
-    dev = torch.device("cuda", 0)
-    cfg = Config(num_samples=SPP, max_bounce=3, wave_size=1 << 21)
-    path = large_scene(build_dir / "large.gltf")
-    scene, cam, _ = prepare_scene(str(path), cfg, camera_name="Camera 1", width=WIDTH,
-                                  height=HEIGHT, device=dev)
-    _, (st1, *_) = bounce_waves(scene, cam, WIDTH * HEIGHT * SPP)
-    faults = 0
-    for state in (st1, st1[:, :522240].contiguous()):
-        R = state.shape[1]
-        keys = {}
-
-        def run(name, lib):
-            keys[name] = torch.empty(R, dtype=torch.int32, device=dev)
-            return lambda: kernels.launch_ray_sort_key(state, scene.bbox_min, scene.bbox_max,
-                                                       keys[name], lib=lib)
-
-        for name, lib in others.items():
-            ms = {name: [], "this": []}
-            for _ in range(rounds):
-                for who in (name, "this", "this", name):
-                    ms[who].append(queued_ms(run(who, None if who == "this" else lib), 50))
-            off = int((keys[name] != keys["this"]).sum())
-            faults += off
-            print(f"ray_sort_key_kernel {name} vs this, {R} lanes: {off} lanes differ; "
-                  f"queued ms, {name} median {statistics.median(ms[name]):.5f} "
-                  f"{[round(x, 5) for x in ms[name]]}, this median "
-                  f"{statistics.median(ms['this']):.5f} {[round(x, 5) for x in ms['this']]}; "
-                  f"bound {R * 32 / 3.35e12 * 1e3:.5f} ms (bytes) ({card})")
-    return faults
-
-
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    p.add_argument("--against", type=Path, action="append", default=[],
-                   help="another path_trace.cu to time ray_sort_key_kernel against "
-                        "(repeatable; the card only)")
-    p.add_argument("--lanes", type=int, choices=(2, 4), action="append", default=[],
-                   help="also time this path_trace.cu built with RAY_SORT_KEY_LANES N "
-                        "(repeatable; the card only)")
     args = p.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         p.error("--device cuda: PyTorch sees no CUDA card; pass --device cpu")
-    if (args.against or args.lanes) and args.device != "cuda":
-        p.error("--against and --lanes time builds on the card: --device cuda")
     failures = 0
     for label, lanes, n_ref, n_host in run_checks(args.device):
         failures += bool(n_ref or n_host)
@@ -268,15 +199,6 @@ def main(argv=None) -> int:
         failures += bool(n)
         print(f"{'FAIL' if n else 'PASS'} ray_sort_key, {label}: {n} of {lanes} lanes "
               f"differ from ray_sort_key_ref")
-    if args.against or args.lanes:
-        with tempfile.TemporaryDirectory() as tmp:
-            against = list(args.against)
-            for n in args.lanes:
-                src = Path(tmp) / f"path_trace_lanes{n}.cu"
-                src.write_text(f"#define RAY_SORT_KEY_LANES {n}\n"
-                               + kernels.SOURCES["path_trace"].read_text())
-                against.append(src)
-            failures += bool(key_ab(against, Path(tmp)))
     return 1 if failures else 0
 
 
