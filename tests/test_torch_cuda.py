@@ -828,33 +828,46 @@ def _shaded_wave_scene(tmp_path, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case, bounces, rays", [
-    ("large", 3, 1280 * 720 * 2),
-    ("large", 1, 1 << 16),
-    ("large", 2, (1 << 16) + 17),
-    ("alpha", 3, 128 * 96 * 4 - 5),
-    ("miss", 2, 4099),
-], ids=["large_3b_full", "large_1b", "large_2b_ragged", "alpha_3b_ragged", "miss_2b"])
-def test_shaded_walk_equals_xla_wave_on_cuda(tmp_path, case, bounces, rays):
+@pytest.mark.parametrize("case, bounces, rays, gen", [
+    ("large", 3, 1280 * 720 * 2, {}),
+    ("large", 1, 1 << 16, {}),
+    ("large", 2, (1 << 16) + 17, {}),
+    ("alpha", 3, 128 * 96 * 4 - 5, {}),
+    ("miss", 2, 4099, {}),
+    ("large", 2, (1 << 16) + 17, dict(spp=1, slot_base=1280 * 300 + 611)),
+    ("large", 2, 3 * 40000 + 2, dict(spp=3, slot_base=987654, width=1277)),
+    ("large", 1, 1 << 16, dict(spp=(1 << 20) + 3, slot_base=4099)),
+    ("alpha", 3, 128 * 96 * 3 - 5, dict(spp=3, slot_base=4099, width=123)),
+], ids=["large_3b_full", "large_1b", "large_2b_ragged", "alpha_3b_ragged", "miss_2b",
+        "large_2b_spp1_slot", "large_2b_spp3_slot_width", "large_1b_wrap32",
+        "alpha_3b_spp3_slot_width"])
+def test_shaded_walk_equals_xla_wave_on_cuda(tmp_path, case, bounces, rays, gen):
     """The shaded walk's wave (``render_wave_grid``: B + 1 launches of
-    grid_walk_kernel<true>) against ``render_wave_xla`` on the card (the
-    walk alone, then the PyTorch shade) on the same wave: radiance and
-    segments bit for bit, and the rays alive and walk iterations they add
-    to the work counters equal; the alpha asset's wave has pass-through
-    lanes, the "miss" wave only misses."""
+    grid_walk_kernel<true>, the first making the primary rays) against
+    ``render_wave_xla`` on the card (the walk alone, then the PyTorch
+    shade) on the same wave: radiance and segments bit for bit, and the
+    rays alive and walk iterations they add to the work counters equal; the
+    alpha asset's wave has pass-through lanes, the "miss" wave only misses.
+    ``gen`` moves the wave off its frame's first: another ``spp``, a slot
+    base other than 0, a width that does not divide the wave (the pixel
+    walk wraps rows), one pixel's 2^20 + 3 samples (global ray ids past
+    2^32, which wrap)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
     from zig_raytracing_contest_tpu_torch import kernels
     from zig_raytracing_contest_tpu_torch.render import wavefront as wf
 
     scene, par, width, spp, seed = _shaded_wave_scene(tmp_path, case)
+    width, spp = gen.get("width", width), gen.get("spp", spp)
+    slot_base = gen.get("slot_base", 0)
     assert wf.shaded_walk(scene) and not wf.shaded_walk(scene, plain=True)
     counts = {k: torch.zeros(len(wf.WORK_COUNTERS), dtype=torch.int64, device="cuda")
               for k in ("walk", "xla")}
     kernels.reset_launches()
-    got = wf.render_wave_grid(scene, par, width, spp, bounces, 0, rays, seed, counts["walk"])
+    got = wf.render_wave_grid(scene, par, width, spp, bounces, slot_base, rays, seed,
+                              counts["walk"])
     assert kernels.launches_since({k: 0 for k in kernels.LAUNCHES}) == {"grid_walk": bounces + 1}
-    want = wf.render_wave_xla(scene, par, width, spp, bounces, 0, rays, seed,
+    want = wf.render_wave_xla(scene, par, width, spp, bounces, slot_base, rays, seed,
                               counts=counts["xla"])
     torch.cuda.synchronize()
     assert got.shape == want.shape == (4, rays)
@@ -868,7 +881,7 @@ def test_shaded_walk_equals_xla_wave_on_cuda(tmp_path, case, bounces, rays):
     else:
         assert segments > rays or bounces == 1
         assert int(counts["walk"][3]) > 0
-    if case == "alpha":
+    if case == "alpha" and not gen:
         o, d, streams = wf.xla_primary_rays(par, width, spp, 0, rays, seed)
         hit = wf.trace_wave(scene, o.contiguous(), d, torch.ones(rays, dtype=torch.bool,
                                                                    device="cuda"))

@@ -282,11 +282,12 @@ def test_launch_grid_walk_refuses(over, match, monkeypatch):
 
 def _shaded_args(**over):
     """Arguments of kernels.launch_grid_walk_shaded on CPU tensors (8 rays, a
-    2×2×2 grid of 5 references, a shade table of 3 triangles, 4 texels)."""
+    2×2×2 grid of 5 references, a shade table of 3 triangles, 4 texels, the
+    generator of a 5-pixel-wide image from slot 3, 2 spp)."""
     R = 8
     args = dict(_walk_args(), shade=torch.zeros(3, 32), bank=torch.zeros(4, 4),
-                direction=torch.ones(R, 3), thr=torch.empty(R, 3),
-                rows4=torch.empty(4, R), streams=torch.zeros(R, dtype=torch.int64),
+                par=torch.zeros(32), width=5, spp=2, slot_base=3, seed=2**40 + 7,
+                direction=torch.ones(R, 3), thr=torch.empty(R, 3), rows4=torch.empty(4, R),
                 bounce=1, bounces=3, counts=torch.zeros(4, dtype=torch.int64))
     del args["active"], args["exclude"]
     args.update(over)
@@ -297,12 +298,18 @@ def _shaded_args(**over):
     ({}, "needs CUDA tensors"),
     ({"bounce": 4}, "launch 4 of a wave of 3 bounces"),
     ({"rows4": torch.empty(8, 4)}, "rows4 has shape"),
-    ({"streams": torch.zeros(8, dtype=torch.int32)}, "streams has dtype"),
     ({"shade": torch.zeros(3, 24)}, "shade has shape"),
     ({"counts": torch.zeros(3, dtype=torch.int64)}, "counts has shape"),
     ({"bank": torch.zeros(17)[1:].view(4, 4)}, "bank is not 16-byte aligned"),
-], ids=["cpu", "bounce", "rows4_shape", "streams_dtype", "shade_shape", "counts_shape",
-        "bank_aligned"])
+    ({"spp": 0}, "0 samples a pixel"),
+    ({"width": 0}, "width 0"),
+    ({"slot_base": -1}, "slot base -1"),
+    ({"slot_base": 5 << 31}, "row 2147483648 past"),
+    ({"par": torch.zeros(32, device="meta")}, "par on meta"),
+    ({"par": torch.zeros(16)}, "par has shape"),
+    ({"par": torch.zeros(32, dtype=torch.float64)}, "par has dtype"),
+], ids=["cpu", "bounce", "rows4_shape", "shade_shape", "counts_shape", "bank_aligned",
+        "spp", "width", "slot_base", "slot_row", "par_device", "par_shape", "par_dtype"])
 def test_launch_grid_walk_shaded_refuses(over, match, monkeypatch):
     """The shaded walk's launcher checks every operand before the library
     loads, as launch_grid_walk does: CPU tensors, a launch past the wave's

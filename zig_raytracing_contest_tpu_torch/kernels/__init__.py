@@ -182,7 +182,7 @@ class ZrcGridWave(ctypes.Structure):
         ("dir", ctypes.c_void_p),
         ("thr", ctypes.c_void_p),
         ("rows4", ctypes.c_void_p),
-        ("streams", ctypes.c_void_p),
+        ("gen", ZrcGen),
         ("shade", ctypes.c_void_p),
         ("bank", ctypes.c_void_p),
         ("num_texels", ctypes.c_int),
@@ -198,7 +198,7 @@ class ZrcTraceWave(ctypes.Structure):
         ("dir", ctypes.c_void_p),
         ("thr", ctypes.c_void_p),
         ("rows4", ctypes.c_void_p),
-        ("streams", ctypes.c_void_p),
+        ("gen", ZrcGen),
         ("hit", ctypes.c_void_p),
         ("idx", ctypes.c_void_p),
         ("flags", ctypes.c_void_p),
@@ -508,24 +508,49 @@ def launch_trace_stream(scene, state, prev, table, aux_out, idx_out, rec_out,
                   rec_out, counts)
 
 
-def launch_trace_shaded(scene, groups: bool, orig, direction, thr, rows4, streams, hit, idx,
-                        flags, bounce: int, shadow: bool, lights=None, mr=None,
-                        roulette: bool = False, counts=None) -> None:
+def _wave_gen(par, width: int, spp: int, slot_base: int, seed: int, device) -> ZrcGen:
+    """Check a shaded wave's generator (``wavefront.xla_primary_rays``'
+    inputs: the (32,) f32 ``par`` on ``device``, ``width`` and ``spp`` from
+    1, the raster slot base from 0) → the ``ZrcGen`` its first launch makes
+    the primary rays from and every launch its streams.  The seed and the
+    global ray ids wrap to 32 bits, as ``ops.rng.ray_streams`` masks them."""
+    _check(par, "par", torch.float32, (32,), device)
+    if not 1 <= spp < 1 << 31:
+        raise ValueError(f"{spp} samples a pixel")
+    if not 1 <= width < 1 << 31:
+        raise ValueError(f"width {width}")
+    if slot_base < 0:
+        raise ValueError(f"slot base {slot_base}")
+    y_base, x_base = divmod(int(slot_base), int(width))
+    if y_base >= 1 << 31:
+        raise ValueError(f"slot base {slot_base}: row {y_base} past 2^31 - 1")
+    return ZrcGen(par.data_ptr(), x_base, y_base, 0, int(seed) & 0xFFFFFFFF, int(spp),
+                  int(width), 0, 0, 0)
+
+
+def launch_trace_shaded(scene, groups: bool, par, width: int, spp: int, slot_base: int,
+                        seed: int, orig, direction, thr, rows4, hit, idx, flags, bounce: int,
+                        shadow: bool, lights=None, mr=None, roulette: bool = False,
+                        counts=None) -> None:
     """Launch one of the 2B launches of the bake's shaded wave
     (``wavefront.render_wave_shaded_trace``: for each bounce b of B, the
     nearest launch, then the shadow launch, ``shadow``; equal to
     ``wavefront.render_wave_xla``): trace_stream_kernel's shaded form on
     the group heap (``groups``), else trace_emit_kernel's on the tile heap.
-    The wave's state, kept between its launches: ``orig``, ``direction``
-    and ``thr`` (R, 3) f32 (origin, direction, throughput; the nearest
-    launch of bounce 0 reads the primary rays and sets the rest), ``rows4``
-    (4, R) f32 (radiance, segments: the wave's result after the last
-    launch), ``streams`` (R,) int64 (read only), ``hit`` (3, R) f32 (t, u, v
-    of each lane's last nearest hit), ``idx`` (R,) int32 (its Morton index)
-    and ``flags`` (R,) uint8.  The shade reads the scene's shade table,
-    texel bank and ``perm``; ``lights`` (``extensions.LightSet``) or None
-    switches NEE on, ``mr`` ((T, 2) f32 metallic and roughness) or None
-    ``pbr``, ``roulette`` Russian roulette.  ``counts`` (8,) int64
+    The wave's generator: ``par`` (32,) f32 (``wavefront.build_gen_par``),
+    the image ``width``, ``spp``, the raster ``slot_base`` and ``seed``, as
+    ``wavefront.xla_primary_rays`` takes them: the nearest launch of bounce
+    0 makes each lane's primary ray from them, bit for bit that function's,
+    and every launch each lane's stream.  The wave's state, kept between its
+    launches: ``orig``, ``direction`` and ``thr`` (R, 3) f32 (origin,
+    direction, throughput; written by the nearest launch of bounce 0),
+    ``rows4`` (4, R) f32 (radiance, segments: the wave's result after the
+    last launch), ``hit`` (3, R) f32 (t, u, v of each lane's last nearest
+    hit), ``idx`` (R,) int32 (its Morton index) and ``flags`` (R,) uint8.
+    The shade reads the scene's shade table, texel bank and ``perm``;
+    ``lights`` (``extensions.LightSet``) or None switches NEE on, ``mr``
+    ((T, 2) f32 metallic and roughness) or None ``pbr``, ``roulette``
+    Russian roulette.  ``counts`` (8,) int64
     (``wavefront.WORK_COUNTERS``) or None: the nearest launch adds its rays,
     tiles and boxes to [0:3], the shadow launch its shadow rays, tiles and
     boxes to [4:7] and its specular bounces to [7].  Every check of the
@@ -540,7 +565,7 @@ def launch_trace_shaded(scene, groups: bool, orig, direction, thr, rows4, stream
     checks = [("orig", orig, torch.float32, (R, 3)),
               ("direction", direction, torch.float32, (R, 3)),
               ("thr", thr, torch.float32, (R, 3)), ("rows4", rows4, torch.float32, (4, R)),
-              ("streams", streams, torch.int64, (R,)), ("hit", hit, torch.float32, (3, R)),
+              ("hit", hit, torch.float32, (3, R)),
               ("idx", idx, torch.int32, (R,)), ("flags", flags, torch.uint8, (R,)),
               ("shade", shade, torch.float32, (shade.shape[0], 32)),
               ("bank", bank, torch.float32, (bank.shape[0], 4)),
@@ -560,6 +585,7 @@ def launch_trace_shaded(scene, groups: bool, orig, direction, thr, rows4, stream
         checks.append(("counts", counts, torch.int64, (8,)))
     for name, t, dtype, shape in checks:
         _check(t, name, dtype, shape, dev)
+    gen = _wave_gen(par, width, spp, slot_base, seed, dev)
     if not 1 <= bank.shape[0] < 1 << 31:
         raise ValueError(f"{bank.shape[0]} texels: 1 to 2^31 - 1")
     for name, t in (("shade", shade), ("bank", bank)):
@@ -574,7 +600,7 @@ def launch_trace_shaded(scene, groups: bool, orig, direction, thr, rows4, stream
         lights.tri, lights.v0, lights.e1, lights.e2, lights.normal, lights.cdf,
         lights.total_area)
     w = ZrcTraceWave(orig.data_ptr(), direction.data_ptr(), thr.data_ptr(), rows4.data_ptr(),
-                     streams.data_ptr(), hit.data_ptr(), idx.data_ptr(), flags.data_ptr(),
+                     gen, hit.data_ptr(), idx.data_ptr(), flags.data_ptr(),
                      shade.data_ptr(), bank.data_ptr(), bank.shape[0], scene.perm.data_ptr(),
                      _addr(mr), *(_addr(t) for t in lt), 0 if lights is None else L,
                      int(bounce), int(roulette), _addr(counts))
@@ -744,21 +770,26 @@ def launch_grid_walk(grid, orig, direction, active, exclude, t_out, u_out, v_out
         _count("grid_walk")
 
 
-def launch_grid_walk_shaded(grid, shade, bank, orig, direction, thr, rows4, streams, t_out,
-                            u_out, v_out, idx_out, iterations, bounce: int, bounces: int,
+def launch_grid_walk_shaded(grid, shade, bank, par, width: int, spp: int, slot_base: int,
+                            seed: int, orig, direction, thr, rows4, t_out, u_out, v_out,
+                            idx_out, iterations, bounce: int, bounces: int,
                             counts=None) -> None:
     """Launch ``bounce`` (0 .. ``bounces``) of a shaded wave of grid_walk_kernel
     (``wavefront.render_wave_grid``: launches 0 .. bounces in turn make a
     wave of ``bounces`` bounces, equal to ``wavefront.render_wave_xla``).
-    The wave's state, kept between its launches: ``orig``, ``direction``
-    and ``thr`` (R, 3) f32 (origin, direction, throughput; launch 0 reads the
-    primary rays and sets the throughput), ``rows4`` (4, R) f32 (radiance,
-    segments; set by launch 0, the wave's result after the last),
-    ``streams`` (R,) int64 (read only) and the hits ``t_out``, ``u_out``,
-    ``v_out`` (R,) f32 and ``idx_out`` (R,) int64.  ``shade`` (T, 32) f32
-    and ``bank`` (P, 4) f32 are the scene's shade table and texel bank
-    (``shade_table``, ``color_data``); ``iterations`` (2,) int32 scratch
-    that must hold zeros, as ``launch_grid_walk``'s.  ``counts`` (4,) int64
+    The wave's generator: ``par`` (32,) f32 (``wavefront.build_gen_par``),
+    the image ``width``, ``spp``, the raster ``slot_base`` and ``seed``, as
+    ``wavefront.xla_primary_rays`` takes them: launch 0 makes each ray's
+    primary ray from them, bit for bit that function's, and every launch
+    each ray's stream.  The wave's state, kept between its launches:
+    ``orig``, ``direction`` and ``thr`` (R, 3) f32 (origin, direction,
+    throughput; written by launch 0), ``rows4`` (4, R) f32 (radiance,
+    segments; set by launch 0, the wave's result after the last) and the
+    hits ``t_out``, ``u_out``, ``v_out`` (R,) f32 and ``idx_out`` (R,)
+    int64.  ``shade`` (T, 32) f32 and ``bank`` (P, 4) f32 are the scene's
+    shade table and texel bank (``shade_table``, ``color_data``);
+    ``iterations`` (2,) int32 scratch that must hold zeros, as
+    ``launch_grid_walk``'s.  ``counts`` (4,) int64
     (``wavefront.WORK_COUNTERS``) or None: the launch adds the rays it walks
     to [0] and their iterations to [3].  Every check runs before the library
     is loaded; CPU tensors raise."""
@@ -771,7 +802,7 @@ def launch_grid_walk_shaded(grid, shade, bank, orig, direction, thr, rows4, stre
     for name, t, dtype, shape in (
             ("orig", orig, torch.float32, (R, 3)), ("direction", direction, torch.float32, (R, 3)),
             ("thr", thr, torch.float32, (R, 3)), ("rows4", rows4, torch.float32, (4, R)),
-            ("streams", streams, torch.int64, (R,)), ("t_out", t_out, torch.float32, (R,)),
+            ("t_out", t_out, torch.float32, (R,)),
             ("u_out", u_out, torch.float32, (R,)), ("v_out", v_out, torch.float32, (R,)),
             ("idx_out", idx_out, torch.int64, (R,)), ("iterations", iterations, torch.int32, (2,)),
             ("shade", shade, torch.float32, (shade.shape[0], 32)),
@@ -779,6 +810,7 @@ def launch_grid_walk_shaded(grid, shade, bank, orig, direction, thr, rows4, stre
         _check(t, name, dtype, shape, dev)
     if counts is not None:
         _check(counts, "counts", torch.int64, (4,), dev)
+    gen = _wave_gen(par, width, spp, slot_base, seed, dev)
     if not 1 <= bank.shape[0] < 1 << 31:
         raise ValueError(f"{bank.shape[0]} texels: 1 to 2^31 - 1")
     for name, t in (("shade", shade), ("bank", bank)):
@@ -789,8 +821,7 @@ def launch_grid_walk_shaded(grid, shade, bank, orig, direction, thr, rows4, stre
         raise ValueError(f"grid_walk_kernel needs CUDA tensors, got {dev}")
     lib = load()
     w = ZrcGridWave(orig.data_ptr(), direction.data_ptr(), thr.data_ptr(), rows4.data_ptr(),
-                    streams.data_ptr(), shade.data_ptr(), bank.data_ptr(), bank.shape[0], 0, 0,
-                    None)
+                    gen, shade.data_ptr(), bank.data_ptr(), bank.shape[0], 0, 0, None)
     err = lib.zrc_grid_walk_shaded(
         ctypes.byref(g), ctypes.byref(w), t_out.data_ptr(), u_out.data_ptr(), v_out.data_ptr(),
         idx_out.data_ptr(), iterations.data_ptr(), _addr(counts), bounce, bounces, R,

@@ -1237,15 +1237,18 @@ __global__ void __launch_bounds__(kThreads) ray_sort_key_kernel(
 // PyTorch shade (~450 gathers and elementwise ops over the whole wave a
 // bounce, dead lanes included) and are equal to it bit for bit.  The wave's
 // ray state stays on the device between the launches (ZrcGridWave): origin,
-// direction, throughput, radiance and segments, the streams, and the
-// previous hit (t, u, v and the reference, the walk's own outputs).  At
+// direction, throughput, radiance and segments, and the previous hit (t, u,
+// v and the reference, the walk's own outputs); the streams are recomputed
+// from the generator's scalars (wave_stream), which launch 0 also makes the
+// primary rays from (wave_primary_ray).  At
 // launch b a lane that takes ray r first shades r's hit of bounce b - 1 as
 // shade_and_scatter and the wave's updates do (the sky on a miss, which
 // ends the ray; else the shade table's row of the reference's unique
 // triangle, the two bilinear samples of ops/texture.py, the alpha draw and
 // the Gaussian, the radiance, throughput, origin and direction), then walks
 // bounce b from the new origin with that triangle excluded, exactly as the
-// walk alone does; launch 0 walks the primary rays, launch B only shades.
+// walk alone does; launch 0 makes and walks the primary rays, launch B
+// only shades.
 // A ray is alive at launch b when it walked at every launch before (its
 // segments equal b), so a ray that ended costs one load, and a lane shades
 // beside the other lanes the warp hands rays to at once.
@@ -1283,7 +1286,7 @@ struct ZrcGridWave {
     float* dir;                   // (R, 3) f32: its direction
     float* thr;                   // (R, 3) f32: its throughput
     float* rows4;                 // (4, R) f32: radiance (rows 0-2), segments (row 3)
-    const long long* streams;     // (R,) int64: each ray's RNG stream (uint32 values)
+    ZrcGen gen;                   // the primary rays and the streams (wave_primary_ray)
     const float4* shade;          // (T, 8) float4: the shade table, 32 f32 a triangle
     const float4* bank;           // (P, 4) f32: the texel bank (color_data)
     int num_texels;               // P
@@ -1470,6 +1473,39 @@ __device__ __forceinline__ void normalize3(float a[3]) {
     a[2] = a[2] * inv;
 }
 
+// The shaded waves' primary rays (wavefront.xla_primary_rays), made by
+// their first launch when it takes lane i of a raster-order wave whose
+// first pixel (x_base, y_base) is its slot base; ``g``'s tile fields are
+// unused.  Lane i's stream keys on its global ray id slot_base·spp + i,
+// wrapped to 32 bits as ops/rng.py ray_streams masks it; every launch
+// recomputes it (a few integer ops) instead of reading it from memory.
+__device__ __forceinline__ uint32_t wave_stream(const ZrcGen& g, int i) {
+    const uint32_t gid =
+        ((uint32_t)g.y_base * (uint32_t)g.width + (uint32_t)g.x_base) * (uint32_t)g.spp +
+        (uint32_t)i;
+    return mix32(gid ^ (g.seed * 0x9E3779B9u) ^ 0x85EBCA6Bu);
+}
+
+// Lane i's origin and direction: wave_pixel_coords' pixel, the jitter of
+// the stream's tag 0, normalize(llc + right sx + up sy) (each op rounded
+// once, as the PyTorch ops round it).
+__device__ __forceinline__ void wave_primary_ray(const ZrcGen& g, int i, float o[3],
+                                                 float d[3]) {
+    const unsigned row_off = (unsigned)g.x_base + (unsigned)(i / g.spp);
+    const float x = (float)(row_off % (unsigned)g.width);
+    const float y = (float)((long long)g.y_base + (long long)(row_off / (unsigned)g.width));
+    const uint32_t s = wave_stream(g, i);
+    const float sx = x + u01(draw_bits(s, 0, 0));
+    const float sy = y + u01(draw_bits(s, 0, 1));
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+        o[a] = __ldg(g.par + PAR_ORIGIN + a);
+        d[a] = (__ldg(g.par + PAR_LLC + a) + __ldg(g.par + PAR_RIGHT + a) * sx) +
+               __ldg(g.par + PAR_UP + a) * sy;
+    }
+    normalize3(d);
+}
+
 // The shaded walk takes ray r at launch b = w.bounce: a ray that ended
 // before is passed over; a live ray first shades its hit of bounce b - 1
 // (render_wave_xla's shade_and_scatter and updates: the sky on a miss,
@@ -1489,16 +1525,15 @@ __device__ __forceinline__ bool grid_shade_take(const ZrcGrid& g, const ZrcGridW
     const int b = w.bounce;
     walks = false;
     float o[3], d[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-        o[a] = orig[a];
-        d[a] = dir[a];
-    }
     long long ex = 0;
     if (b == 0) {
-        // the primary ray: throughput 1, no radiance yet
+        // the primary ray, kept for the later launches: throughput 1, no
+        // radiance yet
+        wave_primary_ray(w.gen, r, o, d);
 #pragma unroll
         for (int a = 0; a < 3; ++a) {
+            orig[a] = o[a];
+            dir[a] = d[a];
             thr[a] = 1.0f;
             rad[a * (size_t)R] = 0.0f;
         }
@@ -1508,6 +1543,8 @@ __device__ __forceinline__ bool grid_shade_take(const ZrcGrid& g, const ZrcGridW
         float tr[3], rr[3];
 #pragma unroll
         for (int a = 0; a < 3; ++a) {
+            o[a] = orig[a];
+            d[a] = dir[a];
             tr[a] = thr[a];
             rr[a] = rad[a * (size_t)R];
         }
@@ -1545,7 +1582,7 @@ __device__ __forceinline__ bool grid_shade_take(const ZrcGrid& g, const ZrcGridW
         const float4 emis = sample_bank(w.bank, w.num_texels, row + COL_EMIS_DESC, tc_u, tc_v);
         // stochastic alpha (tag 2b' + 1) and the Gaussian (tag 2b' + 2) of
         // the hit's bounce b' = b - 1: ops/rng.py uniform and normal3
-        const uint32_t streams = (uint32_t)w.streams[r];
+        const uint32_t streams = wave_stream(w.gen, r);
         const bool through = u01(draw_bits(streams, 2 * b - 1, 0)) > base.w;
         const int g_tag = 2 * b;
         const float u1 = u01(draw_bits(streams, g_tag, 0));
@@ -1823,9 +1860,11 @@ grid_walk_kernel(ZrcGrid g, const float* __restrict__ orig, const float* __restr
 // table's row gathers and a few hundred elementwise ops over the whole
 // wave a bounce, dead lanes included) and are equal to it bit for bit.
 // The wave's state stays on the device between the launches
-// (ZrcTraceWave).  Bounce b is the two traces render_wave_xla makes, each
+// (ZrcTraceWave); the streams are recomputed from the generator's scalars
+// (wave_stream).  Bounce b is the two traces render_wave_xla makes, each
 // lane the ray of its thread, walked as trace_warp walks it (walk_warp):
-// * the nearest launch (TRACE_NEAREST): a live lane first rolls Russian
+// * the nearest launch (TRACE_NEAREST): at b = 0 a lane makes its primary
+//   ray (wave_primary_ray) and keeps it; a live lane first rolls Russian
 //   roulette (from b = 2, tag TAG_RR + b: it dies, or its throughput is
 //   divided by its chance), counts its segment, then traces its ray with
 //   the previous hit excluded and keeps the hit;
@@ -1864,7 +1903,7 @@ struct ZrcTraceWave {
     float* dir;                   // (R, 3) f32: its direction
     float* thr;                   // (R, 3) f32: its throughput
     float* rows4;                 // (4, R) f32: radiance (rows 0-2), segments (row 3)
-    const long long* streams;     // (R,) int64: each ray's RNG stream (uint32 values)
+    ZrcGen gen;                   // the primary rays and the streams (wave_primary_ray)
     float* hit;                   // (3, R) f32: t, u, v of its last nearest hit
     int* idx;                     // (R,) int32: that hit's Morton index
     unsigned char* flags;         // (R,) uint8: WAVE_ALIVE | WAVE_EMISSIVE
@@ -1913,7 +1952,8 @@ __device__ __forceinline__ void normal3_draw(uint32_t streams, int tag, float g[
 // The nearest launch's take of lane i < R (render_wave_xla before its
 // trace): false when the ray is dead or dies by Russian roulette; else its
 // segment is counted and ``ray`` holds it, the previous hit excluded.
-// Launch 0 sets the primary ray's throughput, radiance, segments and flags.
+// Launch 0 makes the primary ray (wave_primary_ray), keeps it for the
+// later launches and sets its throughput, radiance, segments and flags.
 __device__ __forceinline__ bool nearest_take(const ZrcTraceWave& w, int i, int R,
                                              TraceRay& ray) {
     const size_t n = (size_t)R;
@@ -1921,8 +1961,11 @@ __device__ __forceinline__ bool nearest_take(const ZrcTraceWave& w, int i, int R
     float* const thr = w.thr + 3 * (size_t)i;
     float* const seg = w.rows4 + 3 * n + i;
     if (b == 0) {
+        wave_primary_ray(w.gen, i, ray.o, ray.d);
 #pragma unroll
         for (int a = 0; a < 3; ++a) {
+            w.orig[3 * (size_t)i + a] = ray.o[a];
+            w.dir[3 * (size_t)i + a] = ray.d[a];
             thr[a] = 1.0f;
             w.rows4[a * n + i] = 0.0f;
         }
@@ -1936,7 +1979,7 @@ __device__ __forceinline__ bool nearest_take(const ZrcTraceWave& w, int i, int R
             const float tr[3] = {thr[0], thr[1], thr[2]};
             const float p =
                 nan_min(nan_max(nan_max(nan_max(tr[0], tr[1]), tr[2]), (float)0.05), 1.0f);
-            if (!(u01(draw_bits((uint32_t)w.streams[i], TAG_RR + b, 0)) < p)) {
+            if (!(u01(draw_bits(wave_stream(w.gen, i), TAG_RR + b, 0)) < p)) {
                 w.flags[i] = f & ~WAVE_ALIVE;
                 return false;
             }
@@ -1944,13 +1987,14 @@ __device__ __forceinline__ bool nearest_take(const ZrcTraceWave& w, int i, int R
             for (int a = 0; a < 3; ++a) thr[a] = tr[a] / p;
         }
         *seg = *seg + 1.0f;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+            ray.o[a] = w.orig[3 * (size_t)i + a];
+            ray.d[a] = w.dir[3 * (size_t)i + a];
+        }
     }
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-        ray.o[a] = w.orig[3 * (size_t)i + a];
-        ray.d[a] = w.dir[3 * (size_t)i + a];
-        ray.inv[a] = 1.0f / ray.d[a];
-    }
+    for (int a = 0; a < 3; ++a) ray.inv[a] = 1.0f / ray.d[a];
     ray.prev = b > 0 ? w.idx[i] : -1;
     return true;
 }
@@ -2083,7 +2127,7 @@ __device__ __forceinline__ bool shadow_take(const ZrcTraceWave& w, int i, int R,
     const float4 base = sample_bank(w.bank, w.num_texels, row + COL_BASE_DESC, tc_u, tc_v);
     const float4 emis = sample_bank(w.bank, w.num_texels, row + COL_EMIS_DESC, tc_u, tc_v);
     // stochastic alpha (tag 2b + 1) and the diffuse direction (Gaussian tag 2b + 2)
-    const uint32_t streams = (uint32_t)w.streams[i];
+    const uint32_t streams = wave_stream(w.gen, i);
     const bool shaded = !(u01(draw_bits(streams, 2 * b + 1, 0)) > base.w);
     float sc[3];
     normal3_draw(streams, 2 * b + 2, sc);

@@ -153,25 +153,24 @@ def shaded_wave(scene, cam, rounds: int = ROUNDS):
     R = WIDTH * HEIGHT * SPP
     dev = scene.device
     par = wavefront.build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
-    o, d, streams = wavefront.xla_primary_rays(par, WIDTH, SPP, 0, R, SEED)
     ops = scene.grid.kernel_operands()
     f32 = dict(dtype=torch.float32, device=dev)
-    thr, rows4 = torch.empty((R, 3), **f32), torch.empty((4, R), **f32)
+    orig, direction, thr = (torch.empty((R, 3), **f32) for _ in range(3))
+    rows4 = torch.empty((4, R), **f32)
     t, u, v = (torch.empty(R, **f32) for _ in range(3))
     idx = torch.empty(R, dtype=torch.int64, device=dev)
     scratch = torch.zeros((BOUNCES + 1, 2), dtype=torch.int32, device=dev)
     counts = torch.zeros(4, dtype=torch.int64, device=dev)
     ms = [[] for _ in range(BOUNCES + 2)]
     for r in range(rounds + 1):
-        orig, direction = o.contiguous().clone(), d.clone()
         scratch.zero_()
         counts.zero_()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(BOUNCES + 2)]
         ev[0].record()
         for b in range(BOUNCES + 1):
-            kernels.launch_grid_walk_shaded(ops, scene.shade_table, scene.color_data, orig,
-                                            direction, thr, rows4, streams, t, u, v, idx,
-                                            scratch[b], b, BOUNCES, counts)
+            kernels.launch_grid_walk_shaded(ops, scene.shade_table, scene.color_data, par,
+                                            WIDTH, SPP, 0, SEED, orig, direction, thr, rows4,
+                                            t, u, v, idx, scratch[b], b, BOUNCES, counts)
             ev[b + 1].record()
         torch.cuda.synchronize()
         if r:  # the first round is the warmup
@@ -197,7 +196,7 @@ def shaded_ab(scene, cam, card: str, rounds: int = ROUNDS) -> int:
     off += int((counts != want_counts).sum())
     print(f"shaded walk vs render_wave_xla: {off} of {R} lanes differ (radiance and segment "
           f"bits), counters {counts.tolist()} vs {want_counts.tolist()}", flush=True)
-    print(f"  shaded walk, launch ms (0: the primary rays' walk, {BOUNCES}: shade only): "
+    print(f"  shaded walk, launch ms (0: the primary rays made and walked, {BOUNCES}: shade only): "
           f"{[round(x, 4) for x in per]}, the wave {wave_ms:.4f} ms; medians of {rounds} "
           f"({card})", flush=True)
     return off

@@ -34,8 +34,9 @@ CPU).  On the card a grid scene with no extension on shades inside the
 walk instead (``render_wave_grid``: B + 1 launches of the shaded
 ``grid_walk_kernel`` for B bounces), and a baked scene with an extension
 on inside the bake's trace (``render_wave_shaded_trace``: 2B launches of
-the shaded ``trace_stream_kernel`` or ``trace_emit_kernel``), each bit for
-bit ``render_wave_xla``, which stays their twin and the route of the CPU,
+the shaded ``trace_stream_kernel`` or ``trace_emit_kernel``); the first
+launch of each makes the primary rays.  Each is bit for bit
+``render_wave_xla``, which stays their twin and the route of the CPU,
 ``plain`` and the grid with an extension on.
 
 A ray's result does not depend on its lane, so the sorts change speed,
@@ -659,7 +660,9 @@ def xla_primary_rays(par, width: int, spp: int, slot_base: int, wave_size: int,
     """The XLA shading path's primary rays of one raster-order wave from
     pixel ``slot_base`` → (orig (R, 3), direction (R, 3), streams (R,)): the
     jittered pixel through ``normalize`` of the camera basis (the JAX
-    ``render_wave``'s XLA branch)."""
+    ``render_wave``'s XLA branch).  ``render_wave_xla``'s; the shaded
+    walk's and the shaded trace's first launches make the same bits on the
+    card (path_trace.cu ``wave_primary_ray``)."""
     local = torch.arange(wave_size, dtype=torch.int64, device=par.device)
     streams = ray_streams(seed, slot_base * spp + local)
     _, x, y = wave_pixel_coords(local, spp, width, slot_base)
@@ -750,28 +753,27 @@ def render_wave_xla(scene: TorchScene, par, width: int, spp: int, max_bounce: in
 def render_wave_grid(scene: TorchScene, par, width: int, spp: int, max_bounce: int,
                      slot_base: int, wave_size: int, seed: int, counts=None) -> torch.Tensor:
     """``render_wave_xla`` of a grid scene with no extension on the card,
-    bit for bit: its primary rays, then ``max_bounce`` + 1 launches of the
-    shaded grid_walk_kernel (``kernels.launch_grid_walk_shaded``) over the
-    wave's state on the device: launch b shades each live ray's hit of
-    bounce b - 1 and walks bounce b, launch 0 walks the primary rays,
-    the last only shades.  → rows4 (4, R): radiance and the segment count
-    per ray.  ``counts`` (WORK_COUNTERS): the launches add the rays they
-    walk and their iterations (its first four)."""
+    bit for bit: ``max_bounce`` + 1 launches of the shaded grid_walk_kernel
+    (``kernels.launch_grid_walk_shaded``) over the wave's state on the
+    device: launch b shades each live ray's hit of bounce b - 1 and walks
+    bounce b, launch 0 makes the primary rays (``xla_primary_rays``' bits,
+    from ``par`` and the wave's scalars) and walks them, the last only
+    shades.  → rows4 (4, R): radiance and the segment count per ray.
+    ``counts`` (WORK_COUNTERS): the launches add the rays they walk and
+    their iterations (its first four)."""
     R = wave_size
     dev = par.device
-    orig, direction, streams = xla_primary_rays(par, width, spp, slot_base, R, seed)
-    orig = orig.contiguous()  # the wave's own buffers: the launches rewrite them
     f32 = dict(dtype=torch.float32, device=dev)
-    thr = torch.empty((R, 3), **f32)
+    orig, direction, thr = (torch.empty((R, 3), **f32) for _ in range(3))
     rows4 = torch.empty((4, R), **f32)
     t, u, v = (torch.empty(R, **f32) for _ in range(3))
     idx = torch.empty(R, dtype=torch.int64, device=dev)
     scratch = torch.zeros((max_bounce + 1, 2), dtype=torch.int32, device=dev)
     ops = scene.grid.kernel_operands()
     for bounce in range(max_bounce + 1):
-        kernels.launch_grid_walk_shaded(ops, scene.shade_table, scene.color_data, orig,
-                                        direction, thr, rows4, streams, t, u, v, idx,
-                                        scratch[bounce], bounce, max_bounce,
+        kernels.launch_grid_walk_shaded(ops, scene.shade_table, scene.color_data, par, width,
+                                        spp, slot_base, seed, orig, direction, thr, rows4, t,
+                                        u, v, idx, scratch[bounce], bounce, max_bounce,
                                         None if counts is None else counts[0:4])
     return rows4
 
@@ -780,12 +782,14 @@ def render_wave_shaded_trace(scene: TorchScene, par, width: int, spp: int, max_b
                              slot_base: int, wave_size: int, seed: int, ext: ExtFlags,
                              counts=None) -> torch.Tensor:
     """``render_wave_xla`` of a baked scene with an extension on, on the
-    card, bit for bit: its primary rays, then for each bounce two launches
-    of the bake's trace (``kernels.launch_trace_shaded``:
-    trace_stream_kernel past VMEM_RESIDENT_MAX_TRIS padded triangles, else
-    trace_emit_kernel) over the wave's state on the device, the two traces
-    ``render_wave_xla`` makes: the nearest launch rolls Russian roulette,
-    counts each live ray's segment and finds its nearest hit; the shadow
+    card, bit for bit: for each bounce two launches of the bake's trace
+    (``kernels.launch_trace_shaded``: trace_stream_kernel past
+    VMEM_RESIDENT_MAX_TRIS padded triangles, else trace_emit_kernel) over
+    the wave's state on the device, the two traces ``render_wave_xla``
+    makes: the nearest launch of bounce 0 makes the primary rays
+    (``xla_primary_rays``' bits, from ``par`` and the wave's scalars); the
+    nearest launch rolls Russian roulette, counts each live ray's segment
+    and finds its nearest hit; the shadow
     launch shades that hit (the sky, the shade table's row and texels,
     ``pbr_scatter``, the emissive term, NEE's light sample), traces NEE's
     shadow rays and steps the rays.  → rows4 (4, R): radiance and the
@@ -797,9 +801,7 @@ def render_wave_shaded_trace(scene: TorchScene, par, width: int, spp: int, max_b
     f32 = dict(dtype=torch.float32, device=dev)
     if max_bounce < 1:
         return torch.zeros((4, R), **f32)
-    orig, direction, streams = xla_primary_rays(par, width, spp, slot_base, R, seed)
-    orig = orig.contiguous()  # the wave's own buffers: the launches rewrite them
-    thr = torch.empty((R, 3), **f32)
+    orig, direction, thr = (torch.empty((R, 3), **f32) for _ in range(3))
     rows4 = torch.empty((4, R), **f32)
     hit = torch.empty((3, R), **f32)
     idx = torch.empty(R, dtype=torch.int32, device=dev)
@@ -809,9 +811,9 @@ def render_wave_shaded_trace(scene: TorchScene, par, width: int, spp: int, max_b
     mr = scene.ext_mr if ext.pbr else None
     for bounce in range(max_bounce):
         for shadow in (False, True):
-            kernels.launch_trace_shaded(scene, groups, orig, direction, thr, rows4, streams, hit,
-                                        idx, flags, bounce, shadow, lights, mr,
-                                        ext.russian_roulette, counts)
+            kernels.launch_trace_shaded(scene, groups, par, width, spp, slot_base, seed, orig,
+                                        direction, thr, rows4, hit, idx, flags, bounce, shadow,
+                                        lights, mr, ext.russian_roulette, counts)
     return rows4
 
 
