@@ -81,7 +81,8 @@ h. the port's Duck-class GLB (scene/duck.py, 9586 triangles in 75 tiles, a
    327,685-texel bank) at the official frame's settings: its bake line and
    walk (the flat tile loop); path_trace_gen and path_trace_fused against
    their twins at 2^16 rays and on a full wave (bounce 0, bounce 1 after
-   the sort, bounces 2-3 after the resort), as in phase 4; each kernel
+   the sort, bounces 2-3 after the resort), as in phase 4, and each call's
+   flat-loop counters (lane_tiles, warp_sweeps) against the twin's; each kernel
    timed at the full wave beside its twin, its bound from the tiles swept
    and boxes tested per live ray (the bounces 2-3 call too); the lane
    occupancy as in phase 4; a 320×180 frame, kernels vs twins, under
@@ -1097,27 +1098,35 @@ def duck_phases(card, timing, errs, bounds, launches) -> dict:
         meta = (slot_base, slot_base % 1920, slot_base // 1920, SEED, slot_base // 1024,
                 0, 0, 0)
         args = (scene, par, meta, R, 1, gen)
+        # the flat loop's (lane_tiles, warp_sweeps) of each call, kernel and twin
+        sw = {k: torch.zeros((3, 2), dtype=torch.int64, device=dev) for k in ("k", "t")}
         st0 = fused.gen_rays_ref(par, meta, R, gen)
-        k0 = fused.path_trace_gen(*args, emit_key=True, emit_idx=True)
-        t0 = fused.path_trace_gen_ref(*args, emit_key=True, emit_idx=True)
+        k0 = fused.path_trace_gen(*args, emit_key=True, emit_idx=True, sweeps=sw["k"][0])
+        t0 = fused.path_trace_gen_ref(*args, emit_key=True, emit_idx=True, sweeps=sw["t"][0])
         torch.cuda.synchronize()
         errs["path_trace_gen_duck"] = max(errs["path_trace_gen_duck"], compare(
             "Duck path_trace_gen (bounce 0, key, idx)", *k0, *t0))
         key = k0[0][15].contiguous().view(torch.int32)
         _, st, (idx_s,) = sort_state_payload(key, k0[0], (k0[1],))
-        k1 = fused.path_trace_fused(scene, st, 1, bounce0=1, prev=idx_s, emit_idx=True)
-        t1 = fused.path_trace_fused_ref(scene, st, 1, bounce0=1, prev=idx_s, emit_idx=True)
+        k1 = fused.path_trace_fused(scene, st, 1, bounce0=1, prev=idx_s, emit_idx=True,
+                                    sweeps=sw["k"][1])
+        t1 = fused.path_trace_fused_ref(scene, st, 1, bounce0=1, prev=idx_s, emit_idx=True,
+                                        sweeps=sw["t"][1])
         torch.cuda.synchronize()
         errs["path_trace_duck"] = max(errs["path_trace_duck"], compare(
             "Duck path_trace_fused (bounce 1 after the sort, prev)", *k1, *t1))
         _, st2, (idx2,) = sort_state_payload(ray_sort_key(scene, k1[0]), k1[0], (k1[1],))
-        k3 = fused.path_trace_fused(scene, st2, 2, bounce0=2, prev=idx2)
-        t3 = fused.path_trace_fused_ref(scene, st2, 2, bounce0=2, prev=idx2)
+        k3 = fused.path_trace_fused(scene, st2, 2, bounce0=2, prev=idx2, sweeps=sw["k"][2])
+        t3 = fused.path_trace_fused_ref(scene, st2, 2, bounce0=2, prev=idx2, sweeps=sw["t"][2])
         torch.cuda.synchronize()
         e23 = compare("Duck path_trace_fused (bounces 2-3 after the resort, prev)", k3, None,
                       t3, None)
         errs["path_trace_duck"] = max(errs["path_trace_duck"], e23)
         errs["path_trace_duck_b23"] = max(errs["path_trace_duck_b23"], e23)
+        print(f"  Duck flat loop at {R} rays, (lane_tiles, warp_sweeps) of bounce 0, bounce 1, "
+              f"bounces 2-3: kernel {sw['k'].tolist()}, twin {sw['t'].tolist()}")
+        if not torch.equal(sw["k"], sw["t"]):
+            fail("the Duck's flat loop sweep counters disagree with the twin's")
     del t0, t1, k3, t3
 
     # the least work of the timed calls on this run's data: tiles swept ×

@@ -918,3 +918,64 @@ def test_grid_frame_launches_only_the_shaded_walk_on_cuda(tmp_path):
         np.testing.assert_array_equal(img, want)
         assert st_g.segments == st.segments
     assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {"grid_walk": 4 * 4 * 4}
+
+
+@pytest.mark.cuda
+def test_duck_wave_counters_equal_the_twins_on_cuda(tmp_path):
+    """The benchmark's duck_room scene (pathbench/configs/duck_room.json)
+    at the duck-1080p cell's frame, on one full wave of 522,240 rays from
+    32x32 pixel tile 920 (it crosses the duck): bounce 0
+    (path_trace_gen_kernel), bounce 1 after the sort and bounces 2-3 after
+    the resort (path_trace_kernel, from the kernel's state) add to the
+    wave's ten WORK_COUNTERS what the twins add on the same input: the
+    eight older (the rays alive, tiles and boxes; zeros elsewhere) and the
+    flat loop's lane_tiles and warp_sweeps, exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    import json
+
+    from zig_raytracing_contest_tpu_torch.ops.mxu_intersect import LANE_LOOP_MIN
+    from zig_raytracing_contest_tpu_torch.render import fused
+    from zig_raytracing_contest_tpu_torch.render import wavefront as wf
+    from zig_raytracing_contest_tpu_torch.render.pipeline import slot_geometry
+    from zig_raytracing_contest_tpu_torch.scene.duck import write_duck_glb
+
+    root = Path(__file__).resolve().parents[1]
+    duck = json.loads((root / "pathbench" / "configs" / "duck_room.json").read_text())
+    path = write_duck_glb(tmp_path / "duck.glb", **duck["writer_args"])
+    cfg = Config(num_samples=3, max_bounce=4, wave_size=1 << 19)
+    scene, cam, _ = prepare_scene(str(path), cfg, duck["camera"], None, 1080, device="cuda")
+    assert wf.regime(scene) == "whole path" and cam.width == 1920
+    par = wf.build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
+    _, tiles_x = slot_geometry(1920, 1080, True)
+    gen = fused.GenParams(spp=3, width=1920, img_w=1920, img_h=1080, tiles_x=tiles_x)
+    R, slot_base = 522240, 1024 * 920
+    meta = (slot_base, slot_base % 1920, slot_base // 1920, 2**31 + 2711, slot_base // 1024,
+            0, 0, 0)
+    counts = {k: torch.zeros(len(wf.WORK_COUNTERS), dtype=torch.int64, device="cuda")
+              for k in ("kernel", "twin")}
+
+    def work(side):
+        return {"counts": counts[side][wf.NEAREST], "sweeps": counts[side][wf.FLAT]}
+
+    st, idx = fused.path_trace_gen(scene, par, meta, R, 1, gen, emit_key=True, emit_idx=True,
+                                   **work("kernel"))
+    fused.path_trace_gen_ref(scene, par, meta, R, 1, gen, emit_key=True, emit_idx=True,
+                             **work("twin"))
+    _, st, (idx,) = wf.sort_state_payload(st[15].contiguous().view(torch.int32), st, (idx,))
+    st1, idx1 = fused.path_trace_fused(scene, st, 1, bounce0=1, prev=idx, emit_idx=True,
+                                       **work("kernel"))
+    fused.path_trace_fused_ref(scene, st, 1, bounce0=1, prev=idx, emit_idx=True,
+                               **work("twin"))
+    _, st2, (idx2,) = wf.sort_state_payload(wf.ray_sort_key(scene, st1), st1, (idx1,))
+    fused.path_trace_fused(scene, st2, 2, bounce0=2, prev=idx2, **work("kernel"))
+    fused.path_trace_fused_ref(scene, st2, 2, bounce0=2, prev=idx2, **work("twin"))
+    torch.cuda.synchronize()
+    got = dict(zip(wf.WORK_COUNTERS, counts["kernel"].tolist()))
+    want = dict(zip(wf.WORK_COUNTERS, counts["twin"].tolist()))
+    assert got == want
+    nt = scene.tile_bbox.shape[1]
+    assert got["alive"] > R and got["boxes"] == got["alive"] * nt
+    assert got["lane_tiles"] > 0 and got["warp_sweeps"] > 0
+    assert LANE_LOOP_MIN * got["lane_tiles"] + got["warp_sweeps"] <= got["tiles"]
+    assert got["tiles"] <= 32 * got["lane_tiles"] + got["warp_sweeps"]

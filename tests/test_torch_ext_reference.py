@@ -263,7 +263,8 @@ def test_the_shadow_and_specular_counters(scene_path, backend):
     else:
         assert c["shadow_tiles"] == c["shadow_boxes"] == 0
     _, plain = program(scene_path, (), backend)
-    assert all(plain.counters[k] == 0 for k in wavefront.WORK_COUNTERS[4:])
+    assert all(plain.counters[k] == 0
+               for k in ("shadow_rays", "shadow_tiles", "shadow_boxes", "specular"))
 
 
 def test_the_shadow_readers_divide_the_counters(monkeypatch):

@@ -280,14 +280,14 @@ def build_log(name: str, build_dir: Path = BUILD_DIR) -> str:
 _ptr, _i32 = ctypes.c_void_p, ctypes.c_int
 _P = ctypes.POINTER
 # Every C entry point of each source, (restype, argtypes), bound by _load.
-# A pointer to counters (``counts``, ``it_sum``) may be None: the kernel
+# A pointer to counters (``counts``, ``sweeps``, ``it_sum``) may be None: the kernel
 # then counts into a buffer of the library's that nothing reads.
 ENTRY_POINTS = {
     "path_trace": {
         "zrc_path_trace_gen": (_i32, [_P(ZrcScene), _P(ZrcGen), _i32, _i32, _ptr, _ptr, _ptr,
-                                      _i32, _i32, _ptr]),
-        "zrc_path_trace": (_i32, [_P(ZrcScene), _ptr, _ptr, _i32, _i32, _ptr, _ptr, _ptr, _i32,
-                                  _i32, _ptr]),
+                                      _ptr, _i32, _i32, _ptr]),
+        "zrc_path_trace": (_i32, [_P(ZrcScene), _ptr, _ptr, _i32, _i32, _ptr, _ptr, _ptr, _ptr,
+                                  _i32, _i32, _ptr]),
         "zrc_trace_emit": (_i32, [_P(ZrcScene), _P(ZrcHeap), _ptr, _ptr, _ptr, _i32, _ptr, _ptr,
                                   _ptr, _ptr, _i32, _i32, _ptr]),
         "zrc_shade": (_i32, [_P(ZrcScene), _ptr, _ptr, _ptr, _i32, _ptr, _i32, _i32, _ptr]),
@@ -382,20 +382,30 @@ def _addr(t):
     return None if t is None else t.data_ptr()
 
 
+def _check_work(counts, sweeps, device) -> None:
+    """The whole-path kernels' counters: ``counts`` (3,) and ``sweeps``
+    (2,) int64 on ``device``, each or both None."""
+    if counts is not None:
+        _check(counts, "counts", torch.int64, (3,), device)
+    if sweeps is not None:
+        _check(sweeps, "sweeps", torch.int64, (2,), device)
+
+
 def launch_path_trace_gen(scene, par, meta, gen, max_bounce: int,
-                          emit_key: bool, state_out, idx_out, counts=None) -> None:
+                          emit_key: bool, state_out, idx_out, counts=None,
+                          sweeps=None) -> None:
     """Launch path_trace_gen_kernel into ``state_out`` (16, R) and
     ``idx_out`` (R,) int32.  ``counts`` (3,) int64 or None gets the wave's
     rays alive at each bounce's trace, tiles swept and boxes tested
-    added."""
+    added; ``sweeps`` (2,) int64 or None the flat tile loop's tiles swept
+    lane-parallel and passing lanes swept by the whole warp."""
     lib = load()
     dev = scene.device
     R = state_out.shape[1]
     _check(par, "par", torch.float32, (32,), dev)
     _check(state_out, "state_out", torch.float32, (16, R), dev)
     _check(idx_out, "idx_out", torch.int32, (R,), dev)
-    if counts is not None:
-        _check(counts, "counts", torch.int64, (3,), dev)
+    _check_work(counts, sweeps, dev)
     if R >= 1 << 23:
         raise ValueError(f"wave of {R} rays: slot math is exact below 2^23")
     sc = _scene_struct(scene, dev)
@@ -405,15 +415,17 @@ def launch_path_trace_gen(scene, par, meta, gen, max_bounce: int,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.zrc_path_trace_gen(
         ctypes.byref(sc), ctypes.byref(g), int(max_bounce), int(emit_key),
-        state_out.data_ptr(), idx_out.data_ptr(), _addr(counts), R, dev.index or 0, stream)
+        state_out.data_ptr(), idx_out.data_ptr(), _addr(counts), _addr(sweeps), R,
+        dev.index or 0, stream)
     if _launched(err, lib.zrc_error_string, "path_trace_gen_kernel"):
         _count("path_trace_gen")
 
 
 def launch_path_trace(scene, state_in, prev, bounce0: int, max_bounce: int,
-                      state_out, idx_out, counts=None) -> None:
+                      state_out, idx_out, counts=None, sweeps=None) -> None:
     """Launch path_trace_kernel: ``state_in`` (16, R) → ``state_out``;
-    ``prev`` (R,) int32 or None; ``counts`` as ``launch_path_trace_gen``."""
+    ``prev`` (R,) int32 or None; ``counts`` and ``sweeps`` as
+    ``launch_path_trace_gen``."""
     lib = load()
     dev = scene.device
     R = state_in.shape[1]
@@ -422,13 +434,13 @@ def launch_path_trace(scene, state_in, prev, bounce0: int, max_bounce: int,
     _check(idx_out, "idx_out", torch.int32, (R,), dev)
     if prev is not None:
         _check(prev, "prev", torch.int32, (R,), dev)
-    if counts is not None:
-        _check(counts, "counts", torch.int64, (3,), dev)
+    _check_work(counts, sweeps, dev)
     sc = _scene_struct(scene, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.zrc_path_trace(
         ctypes.byref(sc), state_in.data_ptr(), _addr(prev), int(bounce0), int(max_bounce),
-        state_out.data_ptr(), idx_out.data_ptr(), _addr(counts), R, dev.index or 0, stream)
+        state_out.data_ptr(), idx_out.data_ptr(), _addr(counts), _addr(sweeps), R,
+        dev.index or 0, stream)
     if _launched(err, lib.zrc_error_string, "path_trace_kernel"):
         _count("path_trace")
 
@@ -550,8 +562,8 @@ def launch_trace_shaded(scene, groups: bool, par, width: int, spp: int, slot_bas
     The shade reads the scene's shade table, texel bank and ``perm``;
     ``lights`` (``extensions.LightSet``) or None switches NEE on, ``mr``
     ((T, 2) f32 metallic and roughness) or None ``pbr``, ``roulette``
-    Russian roulette.  ``counts`` (8,) int64
-    (``wavefront.WORK_COUNTERS``) or None: the nearest launch adds its rays,
+    Russian roulette.  ``counts`` (8,) int64 (the first eight of
+    ``wavefront.WORK_COUNTERS``) or None: the nearest launch adds its rays,
     tiles and boxes to [0:3], the shadow launch its shadow rays, tiles and
     boxes to [4:7] and its specular bounces to [7].  Every check of the
     wave runs before the library is loaded; CPU tensors raise."""

@@ -459,10 +459,13 @@ __device__ __forceinline__ bool warp_sweep(const ZrcScene& sc, int j, const Trac
 // a ray sees its tiles and its triangles in the order of the one-ray loop
 // and replaces its best only on a strictly smaller t, whichever way a tile
 // is swept: the same t, u, v and winner.  ``swept`` (the same in every
-// lane) gets the tiles the warp's rays swept added.
+// lane) gets the tiles the warp's rays swept added, ``lane_tiles`` the
+// tiles it swept lane-parallel and ``warp_sweeps`` the passing lanes it
+// swept a tile for with the whole warp.
 __device__ Hit trace_nearest_warp(const ZrcScene& sc, bool active, const float o[3],
                                   const float d[3], int prev, int lane,
-                                  unsigned& swept) {
+                                  unsigned& swept, unsigned& lane_tiles,
+                                  unsigned& warp_sweeps) {
     TraceRay r;
     for (int a = 0; a < 3; ++a) {
         r.o[a] = o[a];
@@ -475,11 +478,14 @@ __device__ Hit trace_nearest_warp(const ZrcScene& sc, bool active, const float o
         bool mine = active && tile_passes(sc.tile_bbox, sc.nt, j, r.o, r.inv, h.t);
         unsigned pass = __ballot_sync(FULL_MASK, mine);
         if (!pass) continue;
-        swept += __popc(pass);
-        if (__popc(pass) >= LANE_LOOP_MIN) {
+        const unsigned passing = __popc(pass);
+        swept += passing;
+        if (passing >= LANE_LOOP_MIN) {
+            ++lane_tiles;
             if (mine) sweep_tile(sc, j, r.o, r.d, prev, h);
             continue;
         }
+        warp_sweeps += passing;
         do {
             int k = __ffs(pass) - 1;
             pass &= pass - 1u;
@@ -785,11 +791,14 @@ __device__ int emit_sort_key(const float* par, const float s[S_ROWS]) {
 // ``counts`` its rays alive at each bounce's trace, the tiles they swept
 // and the boxes they tested (the flat loop culls every tile for a live
 // ray), summed over the bounces: the sums of the per-bounce trace's aux
-// rows 4-6, one atomicAdd each.
+// rows 4-6, one atomicAdd each; and to ``sweeps`` the flat loop's tiles
+// swept lane-parallel and passing lanes swept by the whole warp.
 __device__ int run_bounces(const ZrcScene& sc, float s[S_ROWS], int bounce0,
-                           int n, int prev, int idx, unsigned long long* counts) {
+                           int n, int prev, int idx, unsigned long long* counts,
+                           unsigned long long* sweeps) {
     const int lane = threadIdx.x & 31;
-    unsigned alive = 0, swept = 0;  // the warp's, the same in every lane
+    // the warp's, the same in every lane
+    unsigned alive = 0, swept = 0, lane_tiles = 0, warp_sweeps = 0;
     for (int b = bounce0; b < bounce0 + n; ++b) {
         bool live = s[S_ALIVE] > 0.0f;
         const unsigned lives = __popc(__ballot_sync(FULL_MASK, live));
@@ -797,7 +806,8 @@ __device__ int run_bounces(const ZrcScene& sc, float s[S_ROWS], int bounce0,
         alive += lives;
         float o[3] = {s[S_OX], s[S_OX + 1], s[S_OX + 2]};
         float d[3] = {s[S_DX], s[S_DX + 1], s[S_DX + 2]};
-        Hit h = trace_nearest_warp(sc, live, o, d, prev, lane, swept);
+        Hit h = trace_nearest_warp(sc, live, o, d, prev, lane, swept, lane_tiles,
+                                   warp_sweeps);
         if (live) {
             shade_bounce(sc, s, h, b);
             idx = h.idx;
@@ -808,6 +818,8 @@ __device__ int run_bounces(const ZrcScene& sc, float s[S_ROWS], int bounce0,
         atomicAdd(counts, (unsigned long long)alive);
         atomicAdd(counts + 1, (unsigned long long)swept);
         atomicAdd(counts + 2, (unsigned long long)alive * (unsigned)sc.nt);
+        atomicAdd(sweeps, (unsigned long long)lane_tiles);
+        atomicAdd(sweeps + 1, (unsigned long long)warp_sweeps);
     }
     return idx;
 }
@@ -822,13 +834,14 @@ __global__ void __launch_bounds__(kThreads, 8) path_trace_gen_kernel(
                                       ZrcScene sc, ZrcGen g, int max_bounce,
                                       int emit_key, float* __restrict__ state_out,
                                       int* __restrict__ idx_out,
-                                      unsigned long long* __restrict__ counts, int R) {
+                                      unsigned long long* __restrict__ counts,
+                                      unsigned long long* __restrict__ sweeps, int R) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     const bool in = i < R;
     float s[S_ROWS];
     gen_ray(g, i, s);
     if (!in) s[S_ALIVE] = 0.0f;
-    int idx = run_bounces(sc, s, 0, max_bounce, -1, 0, counts);
+    int idx = run_bounces(sc, s, 0, max_bounce, -1, 0, counts, sweeps);
     if (!in) return;
     if (emit_key) s[S_KEY] = __int_as_float(emit_sort_key(g.par, s));
 #pragma unroll
@@ -841,14 +854,15 @@ __global__ void __launch_bounds__(kThreads, 8) path_trace_kernel(
                                   const int* __restrict__ prev, int bounce0,
                                   int max_bounce, float* __restrict__ state_out,
                                   int* __restrict__ idx_out,
-                                  unsigned long long* __restrict__ counts, int R) {
+                                  unsigned long long* __restrict__ counts,
+                                  unsigned long long* __restrict__ sweeps, int R) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     const bool in = i < R;
     float s[S_ROWS];
 #pragma unroll
     for (int f = 0; f < S_ROWS; ++f) s[f] = in ? state_in[(size_t)f * R + i] : 0.0f;
     int p = in && prev ? prev[i] : -1;
-    int idx = run_bounces(sc, s, bounce0, max_bounce, p, prev ? p : 0, counts);
+    int idx = run_bounces(sc, s, bounce0, max_bounce, p, prev ? p : 0, counts, sweeps);
     if (!in) return;
 #pragma unroll
     for (int f = 0; f < S_ROWS; ++f) state_out[(size_t)f * R + i] = s[f];
@@ -2272,34 +2286,39 @@ static cudaError_t counts_or_discard(unsigned long long** counts) {
 }
 
 // ``counts``: null, or three uint64 the kernel adds the rays alive at each
-// bounce's trace, the tiles swept and the boxes tested to.
+// bounce's trace, the tiles swept and the boxes tested to; ``sweeps``:
+// null, or two uint64 it adds the flat loop's tiles swept lane-parallel
+// and passing lanes swept by the whole warp to.
 extern "C" int zrc_path_trace_gen(const ZrcScene* sc, const ZrcGen* g,
                                   int max_bounce, int emit_key, float* state_out,
-                                  int* idx_out, unsigned long long* counts, int R,
-                                  int device, void* stream) {
+                                  int* idx_out, unsigned long long* counts,
+                                  unsigned long long* sweeps, int R, int device,
+                                  void* stream) {
     if (R <= 0) return ZRC_NOTHING_LAUNCHED;
     cudaError_t err = cudaSetDevice(device);
     if (err == cudaSuccess) err = counts_or_discard(&counts);
+    if (err == cudaSuccess) err = counts_or_discard(&sweeps);
     if (err != cudaSuccess) return (int)err;
     int blocks = (R + kThreads - 1) / kThreads;
     path_trace_gen_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        *sc, *g, max_bounce, emit_key, state_out, idx_out, counts, R);
+        *sc, *g, max_bounce, emit_key, state_out, idx_out, counts, sweeps, R);
     return (int)cudaGetLastError();
 }
 
-// ``counts`` as zrc_path_trace_gen's.
+// ``counts`` and ``sweeps`` as zrc_path_trace_gen's.
 extern "C" int zrc_path_trace(const ZrcScene* sc, const float* state_in,
                               const int* prev, int bounce0, int max_bounce,
                               float* state_out, int* idx_out,
-                              unsigned long long* counts, int R, int device,
-                              void* stream) {
+                              unsigned long long* counts, unsigned long long* sweeps,
+                              int R, int device, void* stream) {
     if (R <= 0) return ZRC_NOTHING_LAUNCHED;
     cudaError_t err = cudaSetDevice(device);
     if (err == cudaSuccess) err = counts_or_discard(&counts);
+    if (err == cudaSuccess) err = counts_or_discard(&sweeps);
     if (err != cudaSuccess) return (int)err;
     int blocks = (R + kThreads - 1) / kThreads;
     path_trace_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        *sc, state_in, prev, bounce0, max_bounce, state_out, idx_out, counts, R);
+        *sc, state_in, prev, bounce0, max_bounce, state_out, idx_out, counts, sweeps, R);
     return (int)cudaGetLastError();
 }
 

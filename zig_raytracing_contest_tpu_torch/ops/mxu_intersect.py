@@ -227,12 +227,17 @@ def cull_mask_ref(box: torch.Tensor, o, inv, best, active):
 
 
 # Rays per vectorized chunk of the twin: bounds the (chunk, tile) temporaries.
+# A multiple of 32, so that each chunk starts a warp of the kernels.
 _RAY_CHUNK = 1 << 15
+# The LANE_LOOP_MIN of kernels/path_trace.cu: a tile at least this many
+# lanes of a warp pass is swept lane-parallel, else once per passing lane
+# by the whole warp.
+LANE_LOOP_MIN = 20
 
 
 def nearest_hit_ref(tri_data: torch.Tensor, tile_bbox: torch.Tensor, tile: int,
                     o: torch.Tensor, d: torch.Tensor, active: torch.Tensor,
-                    prev: torch.Tensor | None = None, widen=None):
+                    prev: torch.Tensor | None = None, widen=None, sweeps=None):
     """Nearest front-facing hit over the flat tile loop.
 
     ``o``/``d``: (3, R) f32; ``active``: (R,) bool; ``prev``: optional (R,)
@@ -243,7 +248,10 @@ def nearest_hit_ref(tri_data: torch.Tensor, tile_bbox: torch.Tensor, tile: int,
     variant of the trace micro-benchmark; rays are handed to it in chunks
     of a multiple of 32 from ray 0).  Returns (t, idx, u, v, swept): t =
     +inf, idx = u = v = 0 where nothing was hit; ``swept`` (R,) f32 counts
-    the tiles each ray swept (the work a per-ray kernel does).
+    the tiles each ray swept (the work a per-ray kernel does).  ``sweeps``
+    (2,) int64, when given, gets the flat loop's tiles swept lane-parallel
+    and passing lanes swept by the whole warp added, as the whole-path
+    kernels count them for each warp of 32 rays from ray 0.
     """
     R = o.shape[1]
     out = [torch.empty(R, dtype=dt, device=o.device)
@@ -253,7 +261,7 @@ def nearest_hit_ref(tri_data: torch.Tensor, tile_bbox: torch.Tensor, tile: int,
         sl = slice(c0, min(c0 + _RAY_CHUNK, R))
         res = _nearest_hit_chunk(
             tri_data, tile_bbox, tile, o[:, sl], d[:, sl], active[sl],
-            None if prev is None else prev[sl], widen,
+            None if prev is None else prev[sl], widen, sweeps,
         )
         for dst, src in zip(out, res):
             dst[sl] = src
@@ -286,7 +294,16 @@ def triangle_hit_ref(tri_data: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
     return _transform_hit(m, o, d)
 
 
-def _nearest_hit_chunk(tri_data, tile_bbox, tile, o, d, active, prev, widen):
+def _warp_sweeps(passed: torch.Tensor) -> torch.Tensor:
+    """(tiles swept lane-parallel, passing lanes swept by the whole warp)
+    of one tile, from its per-ray pass mask, over warps of 32 rays."""
+    pops = torch.nn.functional.pad(passed.to(torch.int64), (0, -passed.shape[0] % 32))
+    pops = pops.view(-1, 32).sum(1)
+    lane = pops >= LANE_LOOP_MIN
+    return torch.stack([(lane & (pops > 0)).sum(), torch.where(lane, 0, pops).sum()])
+
+
+def _nearest_hit_chunk(tri_data, tile_bbox, tile, o, d, active, prev, widen, sweeps=None):
     R = o.shape[1]
     dev = o.device
     best_t = torch.full((R,), INF, dtype=torch.float32, device=dev)
@@ -309,6 +326,8 @@ def _nearest_hit_chunk(tri_data, tile_bbox, tile, o, d, active, prev, widen):
         if lanes.numel() == 0:
             continue
         swept += passed
+        if sweeps is not None:
+            sweeps += _warp_sweeps(passed)
         s = j * tile
         rows = tri_data[:_ROWS, s : s + tile]
         ok, t, u, v = _transform_hit([rows[r][None, :] for r in range(_ROWS)],

@@ -336,9 +336,11 @@ def flat_occupancy(scene, state: torch.Tensor, prev: torch.Tensor | None,
     serial triangle iterations per warp, that loop's (swept x tile)
     against this loop's at ``loop_min`` (default the kernel's
     LANE_LOOP_MIN): each lane-parallel tile ``tile`` iterations, each warp
-    sweep tile/32 + WARP_SWEEP_EXTRA.  Every way of sweeping gives the same
-    bests, so the same culls: the replay runs the lane loop and prices the
-    other from its passing-lane counts."""
+    sweep tile/32 + WARP_SWEEP_EXTRA; ``lane_tiles`` and ``warp_sweeps``:
+    that loop's tiles swept lane-parallel and warp sweeps, summed over the
+    warps (the whole-path kernels' counters of the same names).  Every way
+    of sweeping gives the same bests, so the same culls: the replay runs
+    the lane loop and prices the other from its passing-lane counts."""
     L = lane_loop_min() if loop_min is None else loop_min
     R = state.shape[1]
     nw = -(-R // 32)
@@ -356,7 +358,7 @@ def flat_occupancy(scene, state: torch.Tensor, prev: torch.Tensor | None,
         "busy": float(pops.sum()) / max(32.0 * pops.size, 1.0),
         "iters": (pops.size * tile / n,
                   (lane_tiles * tile + warp_sweeps * (tile / 32 + WARP_SWEEP_EXTRA)) / n),
-        "lane_loop_min": L,
+        "lane_loop_min": L, "lane_tiles": lane_tiles, "warp_sweeps": warp_sweeps,
     }
 
 

@@ -310,12 +310,15 @@ def interleave_key(dead, q, dq) -> torch.Tensor:
     return (dead << 30) | key
 
 
-def _bounces_ref(scene: TorchScene, state, idx, prev_first, bounces, counts=None):
+def _bounces_ref(scene: TorchScene, state, idx, prev_first, bounces, counts=None,
+                 sweeps=None):
     """Trace + shade each bounce in ``bounces`` for the live rays.
     ``prev_first`` excludes each ray's previous hit at the first bounce;
     later bounces exclude the winner of the bounce before.  ``counts``
     (3,) int64 gets each bounce's rays alive, tiles swept and boxes tested
-    (every tile for a live ray) added, as the kernels add theirs."""
+    (every tile for a live ray) added, as the kernels add theirs;
+    ``sweeps`` (2,) int64 the flat loop's tiles swept lane-parallel and
+    passing lanes swept by the whole warp, for each warp of 32 lanes."""
     prev = prev_first
     for bounce in bounces:
         alive = state[12] > 0.0
@@ -323,7 +326,7 @@ def _bounces_ref(scene: TorchScene, state, idx, prev_first, bounces, counts=None
             break
         t, hit, u, v, swept = nearest_hit_ref(
             scene.tri_data, scene.tile_bbox, scene.tile, state[0:3],
-            state[3:6], alive, prev,
+            state[3:6], alive, prev, sweeps=sweeps,
         )
         if counts is not None:
             live = alive.sum()
@@ -338,11 +341,11 @@ def _bounces_ref(scene: TorchScene, state, idx, prev_first, bounces, counts=None
 
 def path_trace_gen_ref(scene: TorchScene, par, meta, wave_size: int,
                        max_bounce: int, gen: GenParams, emit_key: bool = False,
-                       emit_idx: bool = False, counts=None):
+                       emit_idx: bool = False, counts=None, sweeps=None):
     """Plain twin of ``path_trace_gen``."""
     state = gen_rays_ref(par, meta, wave_size, gen)
     idx = torch.zeros(wave_size, dtype=torch.int64, device=state.device)
-    state, idx = _bounces_ref(scene, state, idx, None, range(max_bounce), counts)
+    state, idx = _bounces_ref(scene, state, idx, None, range(max_bounce), counts, sweeps)
     if emit_key:
         state[15] = sort_key_ref(state, par).view(torch.float32)
     return (state, idx.to(torch.int32)) if emit_idx else state
@@ -350,14 +353,14 @@ def path_trace_gen_ref(scene: TorchScene, par, meta, wave_size: int,
 
 def path_trace_fused_ref(scene: TorchScene, state16, max_bounce: int,
                          bounce0: int = 0, prev=None, emit_idx: bool = False,
-                         counts=None):
+                         counts=None, sweeps=None):
     """Plain twin of ``path_trace_fused``."""
     R = state16.shape[1]
     idx = (prev.to(torch.int64) if prev is not None
            else torch.zeros(R, dtype=torch.int64, device=state16.device))
     state, idx = _bounces_ref(
         scene, state16.clone(), idx,
-        None if prev is None else idx, range(bounce0, bounce0 + max_bounce), counts,
+        None if prev is None else idx, range(bounce0, bounce0 + max_bounce), counts, sweeps,
     )
     return (state, idx.to(torch.int32)) if emit_idx else state
 
@@ -384,7 +387,7 @@ def _device_kind(scene: TorchScene) -> str:
 
 def path_trace_gen(scene: TorchScene, par, meta, wave_size: int,
                    max_bounce: int, gen: GenParams, emit_key: bool = False,
-                   emit_idx: bool = False, counts=None):
+                   emit_idx: bool = False, counts=None, sweeps=None):
     """Generate one wave of primary rays and path-trace its first
     ``max_bounce`` bounces.  Returns the (16, R) state; with ``emit_key``
     row 15 holds the beam-sort key (int32 bit pattern); with ``emit_idx``
@@ -394,31 +397,35 @@ def path_trace_gen(scene: TorchScene, par, meta, wave_size: int,
     ``par`` (32,) f32 on the scene's device (PAR_* rows); ``meta`` 8 ints
     (META_* rows).  ``counts`` (3,) int64 on the scene's device gets the
     wave's rays alive at each bounce's trace, tiles swept and boxes tested
-    added (inside the kernel on the card: no operation of its own)."""
+    added, and ``sweeps`` (2,) int64 the flat tile loop's tiles swept
+    lane-parallel and passing lanes swept by the whole warp (inside the
+    kernel on the card: no operation of its own)."""
     if _device_kind(scene) == "cpu":
         return path_trace_gen_ref(scene, par, meta, wave_size, max_bounce,
-                                  gen, emit_key, emit_idx, counts)
+                                  gen, emit_key, emit_idx, counts, sweeps)
     state = torch.empty((16, wave_size), dtype=torch.float32, device=scene.device)
     idx = torch.empty(wave_size, dtype=torch.int32, device=scene.device)
     kernels.launch_path_trace_gen(scene, par, meta, gen, max_bounce, emit_key,
-                                  state, idx, counts=counts)
+                                  state, idx, counts=counts, sweeps=sweeps)
     return (state, idx) if emit_idx else state
 
 
 def path_trace_fused(scene: TorchScene, state16, max_bounce: int,
-                     bounce0: int = 0, prev=None, emit_idx: bool = False, counts=None):
+                     bounce0: int = 0, prev=None, emit_idx: bool = False, counts=None,
+                     sweeps=None):
     """Path-trace ``max_bounce`` bounces numbered from ``bounce0`` (the RNG
     tags are per absolute bounce).  ``prev`` (R,) int32: each ray's previous
     hit, excluded at the first bounce.  Returns the (16, R) state, or
-    (state, idx) with ``emit_idx``.  ``counts`` as ``path_trace_gen``'s."""
+    (state, idx) with ``emit_idx``.  ``counts`` and ``sweeps`` as
+    ``path_trace_gen``'s."""
     if _device_kind(scene) == "cpu":
         return path_trace_fused_ref(scene, state16, max_bounce, bounce0, prev,
-                                    emit_idx, counts)
+                                    emit_idx, counts, sweeps)
     R = state16.shape[1]
     state = torch.empty((16, R), dtype=torch.float32, device=scene.device)
     idx = torch.empty(R, dtype=torch.int32, device=scene.device)
     kernels.launch_path_trace(scene, state16, prev, bounce0, max_bounce, state, idx,
-                              counts=counts)
+                              counts=counts, sweeps=sweeps)
     return (state, idx) if emit_idx else state
 
 

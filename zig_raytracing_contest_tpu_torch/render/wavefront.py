@@ -89,21 +89,25 @@ TRI_BATCH = 4
 # left, every GRID_CHECK_EVERY iterations: one host sync each time.
 GRID_CHECK_EVERY = 8
 
-# A wave's work counters, in the order of the (8,) int64 ``counts`` a wave
+# A wave's work counters, in the order of the (10,) int64 ``counts`` a wave
 # adds them to (the frame's tally after its segments: render.pipeline),
 # summed over its bounces: the rays alive at each bounce's trace, the tiles
 # swept and the boxes tested by the tile traces (the per-bounce traces'
 # aux rows 4-6, the whole-path kernels' same sums), and the grid walk's
 # iterations summed over its rays; then NEE's shadow rays (the lanes whose
 # light sample faces them, which trace), the tiles and boxes their traces
-# swept and tested, and the specular bounces ``pbr`` took.  Every route
-# counts all eight; work a route does not do (tiles on the grid, a walk
-# over tiles, shadow rays without NEE) counts 0.
+# swept and tested, and the specular bounces ``pbr`` took; then the
+# whole-path kernels' flat tile loop: the tiles a warp swept lane-parallel
+# and the passing lanes a warp swept a tile for with all its lanes (each
+# warp of 32 lanes).  Every route counts all ten; work a route does not do
+# (tiles on the grid, a walk over tiles, shadow rays without NEE, the flat
+# loop off the whole path) counts 0.
 WORK_COUNTERS = ("alive", "tiles", "boxes", "walk_iterations",
-                 "shadow_rays", "shadow_tiles", "shadow_boxes", "specular")
+                 "shadow_rays", "shadow_tiles", "shadow_boxes", "specular",
+                 "lane_tiles", "warp_sweeps")
 # slices of a wave's counts: the tile traces' three, the walk's iterations,
-# the shadow traces' three, the specular bounces
-NEAREST, WALK, SHADOW, SPECULAR = slice(0, 3), slice(3, 4), slice(4, 7), 7
+# the shadow traces' three, the specular bounces, the flat loop's two
+NEAREST, WALK, SHADOW, SPECULAR, FLAT = slice(0, 3), slice(3, 4), slice(4, 7), 7, slice(8, 10)
 
 
 def xla_path(scene: TorchScene, ext: ExtFlags | None = None) -> bool:
@@ -262,12 +266,13 @@ def unsort_rows(order: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 
 
 def finish_path_sorted(scene: TorchScene, state, idx0, max_bounce: int,
-                       key0=None, plain: bool = False, counts=None):
+                       key0=None, plain: bool = False, counts=None, sweeps=None):
     """Whole-path continuation after bounce 0: beam-sort the wave, trace the
     remaining bounces in one ``path_trace_fused`` call per resort segment,
     and unsort.  ``idx0`` is the bounce-0 winner per lane; ``key0`` the
     kernel-emitted key (the host key when None).  ``plain`` runs the twin;
-    ``counts`` (3,) int64 gets the traces' work added (``path_trace_gen``).
+    ``counts`` (3,) and ``sweeps`` (2,) int64 get the traces' work added
+    (``path_trace_gen``).
 
     Returns rows4 (4, R) in wave order: radiance rows 9-11 and the segment
     counter row 14."""
@@ -287,7 +292,7 @@ def finish_path_sorted(scene: TorchScene, state, idx0, max_bounce: int,
         order = perm if order is None else extras[1]
         last = i == len(bounds) - 2
         out = trace(scene, state, b_end - b_start, bounce0=b_start,
-                    prev=idx_cur, emit_idx=not last, counts=counts)
+                    prev=idx_cur, emit_idx=not last, counts=counts, sweeps=sweeps)
         if last:
             state = out
         else:
@@ -374,8 +379,9 @@ def render_wave_whole_path(scene: TorchScene, par, width: int, height: int,
     """One whole-path wave → rows4 (4, R) in wave order: radiance rows 9-11
     and the segment counter row 14.  ``plain`` runs the twins on any
     device.  ``counts`` (WORK_COUNTERS): the kernels add their rays alive,
-    tiles swept and boxes tested."""
-    work = None if counts is None else counts[0:3]
+    tiles swept and boxes tested, and their flat loop's sweeps."""
+    work = None if counts is None else counts[NEAREST]
+    sweeps = None if counts is None else counts[FLAT]
     gen = fused.GenParams(spp=spp, width=width, img_w=width, img_h=height,
                           tiles_x=tiles_x)
     y_base, x_base = divmod(slot_base, width)
@@ -384,13 +390,13 @@ def render_wave_whole_path(scene: TorchScene, par, width: int, height: int,
     do_sort = max_bounce > 1  # split at bounce 0, beam-sort the survivors
     gen_fn = fused.path_trace_gen_ref if plain else fused.path_trace_gen
     out = gen_fn(scene, par, meta, wave_size, 1 if do_sort else max_bounce, gen,
-                 emit_key=do_sort, emit_idx=do_sort, counts=work)
+                 emit_key=do_sort, emit_idx=do_sort, counts=work, sweeps=sweeps)
     if not do_sort:
         return torch.cat([out[9:12], out[14:15]])
     state, idx0 = out
     key = state[15].contiguous().view(torch.int32)
     return finish_path_sorted(scene, state, idx0, max_bounce, key0=key,
-                              plain=plain, counts=work)
+                              plain=plain, counts=work, sweeps=sweeps)
 
 
 class WalkWork(NamedTuple):
@@ -795,7 +801,7 @@ def render_wave_shaded_trace(scene: TorchScene, par, width: int, spp: int, max_b
     shadow rays and steps the rays.  → rows4 (4, R): radiance and the
     segment count per ray.  ``counts`` (WORK_COUNTERS): the nearest
     launches add their rays, tiles and boxes, the shadow launches their
-    shadow rays, tiles, boxes and specular bounces."""
+    shadow rays, tiles, boxes and specular bounces (the first eight)."""
     R = wave_size
     dev = par.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -813,7 +819,8 @@ def render_wave_shaded_trace(scene: TorchScene, par, width: int, spp: int, max_b
         for shadow in (False, True):
             kernels.launch_trace_shaded(scene, groups, par, width, spp, slot_base, seed, orig,
                                         direction, thr, rows4, hit, idx, flags, bounce, shadow,
-                                        lights, mr, ext.russian_roulette, counts)
+                                        lights, mr, ext.russian_roulette,
+                                        None if counts is None else counts[:SPECULAR + 1])
     return rows4
 
 
@@ -831,7 +838,7 @@ def render_wave_rows(scene: TorchScene, par, width: int, height: int,
     bake's trace (``shaded_trace``: ``render_wave_shaded_trace``); every
     other wave (the CPU, ``plain``, the grid with an extension) takes
     ``render_wave_xla``.  ``plain`` runs the twins on any device; ``ext``
-    the extensions.  ``counts`` (8,) int64 on the scene's device gets the
+    the extensions.  ``counts`` (10,) int64 on the scene's device gets the
     wave's WORK_COUNTERS added (every lane counts, past ``slot_cap``
     too)."""
     if xla_path(scene, ext):
