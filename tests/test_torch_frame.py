@@ -11,7 +11,10 @@
   pipeline; and a sorted per-bounce frame through the graph route against
   the JAX package's whole-frame call (``render_frame_chunk_emit``);
 * the graph route with a stub in place of the capture: two cameras through
-  one cache entry, ``kernels.LAUNCHES`` per replay, a capture error.
+  one cache entry, ``kernels.LAUNCHES`` per replay, a capture error; a
+  graph frame's staged camera bank against ``build_gen_par`` bit for bit
+  (the benchmark cells' cameras and random ones), and two cameras
+  alternated through ``render_frame_graph`` against their eager frames.
 
 The stub stands in for ``capture_cuda_graph``: it runs the function once
 (the capture) and on each replay runs it again into the captured outputs
@@ -26,6 +29,8 @@ import numpy as np
 import pytest
 import torch
 
+from pathbench import spec
+from pathbench.scenes import load_writer
 from zig_raytracing_contest_tpu.config import Config as JConfig
 from zig_raytracing_contest_tpu.render.pipeline import prepare_scene as jax_prepare
 from zig_raytracing_contest_tpu.render.pipeline import render_scene as jax_render
@@ -36,6 +41,8 @@ from zig_raytracing_contest_tpu_torch.ops import mxu_intersect as tmi
 from zig_raytracing_contest_tpu_torch.probes.sort_key import EDGE_CASES, edge_lanes
 from zig_raytracing_contest_tpu_torch.render import fused, pipeline, wavefront
 from zig_raytracing_contest_tpu_torch.scene import procedural as tproc
+from zig_raytracing_contest_tpu_torch.scene.camera import load_camera
+from zig_raytracing_contest_tpu_torch.scene.gltf import load_gltf
 
 
 @pytest.fixture(autouse=True)
@@ -271,11 +278,88 @@ def test_two_cameras_through_one_graph_entry(bench_path, graph_on_cpu):
         assert st.segments == want[id(c)][1].segments
         assert len(graph_on_cpu) == (0 if i == 0 else 1)
     entries = [v for v in scene.frame_cache().values() if isinstance(v, pipeline.FrameGraph)]
-    assert len(entries) == 1 and entries[0].frames == 4
+    assert len(entries) == 1 and entries[0].frames == entries[0].staged == 4
     # another frame key (another seed) takes its own entry
     pipeline.render_scene(scene, cam, Config(num_samples=2, max_bounce=4, seed=4,
                                              wave_size=1 << 12))
     assert sum(isinstance(v, pipeline.FrameGraph) for v in scene.frame_cache().values()) == 2
+
+
+def _cell_camera(config, height, tmp_path, **args):
+    """The camera of a benchmark configuration's scene file at its cell's
+    height (the writers place it apart from ``detail`` and the textures)."""
+    cfg = spec.load_config(config)
+    path = tmp_path / cfg["file"]
+    load_writer(cfg["writer"])(path, **{**cfg["writer_args"], **args})
+    return load_camera(load_gltf(path), cfg["camera"], None, height)
+
+
+def _random_camera(seed, dtype):
+    rng = np.random.default_rng(seed)
+    vec = [rng.normal(0.0, 10.0 ** rng.integers(-2, 4), 3).astype(dtype) for _ in range(4)]
+    return SimpleNamespace(origin=vec[0], lower_left_corner=vec[1], right=vec[2], up=vec[3])
+
+
+CAMERAS = {
+    "sponza": lambda tmp: _cell_camera("sponza_interior", 720, tmp, detail=0.05, tex=48),
+    "duck": lambda tmp: _cell_camera("duck_room", 1080, tmp, tex_size=16),
+    "random-f32": lambda tmp: _random_camera(29, np.float32),
+    "random-f64": lambda tmp: _random_camera(2**31 + 29, np.float64),  # rounded to f32 both ways
+}
+BOXES = {  # (bbox_min, bbox_max): the Sponza stand-in's hall, and one flat along y
+    "hall": ([-15.25, -0.125, -6.0625], [15.0, 10.5, 6.1875]),
+    "flat": ([-3.0, 2.0, -0.5], [7.0, 2.0, 9.0]),
+}
+
+
+@pytest.mark.parametrize("box", list(BOXES))
+@pytest.mark.parametrize("which", list(CAMERAS))
+def test_staged_bank_equals_build_gen_par(which, box, tmp_path):
+    """A FrameGraph's ``par`` after its scene fill, with a frame's staged
+    camera laid into rows 0-11 as the frame's first device op lays it,
+    equals ``build_gen_par`` bit for bit; staging the camera touches no
+    row of ``par``."""
+    lo, hi = BOXES[box]
+    scene = SimpleNamespace(device=torch.device("cpu"), bbox_min=torch.tensor(lo),
+                            bbox_max=torch.tensor(hi))
+    assert len(set(np.subtract(hi, lo).tolist())) == 3  # not a cube
+    cam = CAMERAS[which](tmp_path)
+    entry = pipeline.FrameGraph(scene)
+    filled = entry.par.clone()
+    entry.set_camera(cam)
+    assert entry.staged == 1
+    assert torch.equal(entry.par.view(torch.int32), filled.view(torch.int32))
+    assert not entry.par[:12].any()
+    entry.par[:12].copy_(entry.staging)
+    want = wavefront.build_gen_par(scene, cam.origin, cam.lower_left_corner, cam.right, cam.up)
+    assert want.dtype == entry.par.dtype == torch.float32
+    assert torch.equal(entry.par.view(torch.int32), want.view(torch.int32))
+
+
+def test_staged_camera_never_goes_stale(bench_path, monkeypatch):
+    """Two cameras alternated through one frame key by render_frame_graph,
+    with a stub capture whose replay reruns the captured function: each
+    frame's image and tally equal its camera's eager frame, the warm-up's
+    as well; the counter reads one more each frame, the warm-up's too."""
+    monkeypatch.setattr(pipeline, "capture_cuda_graph", stub_capture)
+    cfg = Config(num_samples=2, max_bounce=3, seed=5, wave_size=1 << 12)
+    scene, cam = _prepare(bench_path, cfg)
+    cam2 = _camera_2(cam)
+    plan = pipeline.frame_plan(scene, cam, cfg)
+    assert plan.key == pipeline.frame_plan(scene, cam2, cfg).key
+    want = {}
+    for c in (cam, cam2):
+        img, st = pipeline.render_scene(scene, c, cfg, graph=False)
+        want[id(c)] = img, [st.segments, *(st.counters[k] for k in wavefront.WORK_COUNTERS)]
+    assert not np.array_equal(want[id(cam)][0], want[id(cam2)][0])
+    entry = pipeline.frame_graph(scene, plan)
+    for i, c in enumerate((cam, cam2, cam, cam2)):
+        _, img, tally = pipeline.render_frame_graph(scene, plan, c, entry=entry)
+        img, tally = pipeline.image_to_host(img, tally, plan)
+        np.testing.assert_array_equal(img, want[id(c)][0])
+        assert tally == want[id(c)][1]
+        assert entry.frames == entry.staged == i + 1
+    assert entry.replay is not None
 
 
 def test_launch_counts_per_replay(bench_path, graph_on_cpu, monkeypatch):

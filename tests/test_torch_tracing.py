@@ -16,7 +16,9 @@
 
 The CUDA cases (a replayed frame's counters equal its eager frame's; the
 walk kernel's iteration sum and the trace kernels' counts against the
-twins or their own aux; graph frames bit for bit the eager ones) skip
+twins or their own aux; graph frames bit for bit the eager ones, two
+cameras through one graph; a replayed frame's host, from its camera to
+its graph's launch, making no device op, and one synchronisation) skip
 without a card.  This
 file imports neither JAX nor the JAX package, so it also runs on a machine
 that has only CUDA PyTorch:
@@ -235,6 +237,58 @@ def test_graph_frames_count_and_render_as_the_eager_frame_on_cuda(scene_file, mo
         assert span in timers.phases
         np.testing.assert_array_equal(img, want)
         assert st.segments == eager.segments and st.counters == eager.counters
+
+
+def moved(cam):
+    """The camera moved and turned a little: another image of the scene."""
+    return SimpleNamespace(width=cam.width, height=cam.height,
+                           origin=cam.origin + np.float32([0.4, -0.2, 0.3]),
+                           lower_left_corner=cam.lower_left_corner + np.float32([0.1, 0.05, 0]),
+                           right=cam.right, up=cam.up)
+
+
+LAUNCHING = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset", "cudaStreamSynchronize")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["grid", "stream", "whole", "ext"])
+def test_a_replayed_frame_launches_its_graph_first_on_cuda(scene_file, monkeypatch, route,
+                                                           tmp_path):
+    """Two cameras alternated through one graph (warm-up, capture, two
+    replays) render bit for bit as their eager frames, each frame's camera
+    staged.  Under torch.profiler a replayed frame runs no aten op
+    and no launching or synchronising runtime call from the start of
+    ``zrc.render.par`` to ``cudaGraphLaunch``, and synchronises once, in
+    ``image_to_host`` (``zrc.render.to_host``)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    dev = card()
+    scene, cam, cfg = prepare(scene_file, route, device=dev, monkeypatch=monkeypatch)
+    cams = (cam, moved(cam))
+    want = [pipeline.render_scene(scene, c, cfg, graph=False) for c in cams]
+    assert not np.array_equal(want[0][0], want[1][0])
+    for i in range(4):
+        img, st = pipeline.render_scene(scene, cams[i % 2], cfg)
+        np.testing.assert_array_equal(img, want[i % 2][0])
+        assert st.counters == want[i % 2][1].counters
+    entry = pipeline.frame_graph(scene, pipeline.frame_plan(scene, cam, cfg))
+    assert entry.replay is not None and entry.frames == entry.staged == 4
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function(devtrace.FRAME_LABEL):
+            img, st = pipeline.render_scene(scene, cams[1], cfg)
+    np.testing.assert_array_equal(img, want[1][0])
+    assert entry.frames == entry.staged == 5
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    trace = devtrace.read_trace(path)
+    host = [h for h in trace.host if trace.start <= h[0] <= trace.end]
+    spans = {name: (s, e) for s, e, name in host if name.startswith("zrc.")}
+    (launch,) = [s for s, _, name in host if name == "cudaGraphLaunch"]
+    before = [name for s, _, name in host if spans["zrc.render.par"][0] <= s < launch]
+    assert not [n for n in before if n.startswith("aten::") or n.startswith(LAUNCHING)], before
+    syncs = [s for s, _, name in host if name == "cudaStreamSynchronize"]
+    to_host = spans["zrc.render.to_host"]
+    assert len(syncs) == 1 and to_host[0] <= syncs[0] <= to_host[1]
 
 
 @pytest.mark.cuda

@@ -40,6 +40,7 @@ Every entry point renders on the CUDA card unless the caller passes
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import subprocess
 from dataclasses import dataclass, field
@@ -365,40 +366,66 @@ def capture_cuda_graph(fn, device: torch.device):
 class FrameGraph:
     """The CUDA graph of one frame key of a scene (``FramePlan.key``): the
     whole-frame device call.  The graph bakes every device address and
-    launch argument of the frame, so it holds a static ``par`` (the
-    camera's, refreshed before every replay) and is kept in the scene's
-    frame cache.  Its first frame runs eagerly (the warm-up: nvcc's build,
-    lazy module loads, the sorts' first workspaces), its second captures
-    and replays, the later ones replay.
+    launch argument of the frame, so it holds a static ``par`` and is kept
+    in the scene's frame cache.  Its first frame runs eagerly (the warm-up:
+    nvcc's build, lazy module loads, the sorts' first workspaces), its
+    second captures and replays, the later ones replay.
+
+    ``par`` is ``build_gen_par``'s bank, filled once for the scene's rows
+    (12-31).  Every frame writes its camera (rows 0-11) into ``staging``,
+    host memory (pinned on a card), and the frame's first device op, the
+    graph's first node, copies it into ``par``, so a replay makes no device
+    op before its launch.  ``staged`` counts the frames whose camera went
+    in through ``staging``.
 
     ``launches`` holds the kernel launches a replay makes (counted at
     capture, which launches nothing: a capture takes its counts back out
     of ``kernels.LAUNCHES``, and every replay adds them), so LAUNCHES reads
     the same after N graph frames as after N eager ones."""
 
-    def __init__(self, par: torch.Tensor):
-        self.par = par
+    def __init__(self, scene: TorchScene):
+        dev = scene.device
+        zero = np.zeros(3, np.float32)
+        self.par = build_gen_par(scene, zero, zero, zero, zero)
+        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+            self.staging = torch.empty(12, dtype=torch.float32, pin_memory=dev.type == "cuda")
+        self.camera = self.staging.numpy().reshape(4, 3)
         self.replay = None
         self.outputs = None
         self.launches: dict = {}
         self.pool_bytes: int | None = None
         self.frames = 0
+        self.staged = 0
+
+    def set_camera(self, camera: Camera):
+        """The frame's camera into ``staging`` alone (no torch op).  The
+        caller ends every frame with a synchronisation (``image_to_host``),
+        so no copy of an earlier frame still reads ``staging`` when it is
+        written."""
+        self.camera[:] = (camera.origin, camera.lower_left_corner, camera.right, camera.up)
+        self.staged += 1
 
     def run(self, fn, capture, timers: PhaseTimers | None = None):
         """This frame's outputs of ``fn`` (``_render_frame_waves`` over the
-        static buffers): run eagerly on the first frame, captured by
-        ``capture(fn, device)`` on the second, replayed from then on; in
-        the span ``render.eager``, ``render.capture`` (the capture and the
-        first replay) or ``render.replay`` of ``timers``."""
+        static buffers) behind the copy of ``staging`` into ``par``: run
+        eagerly on the first frame, captured by ``capture(frame, device)``
+        on the second, replayed from then on; in the span ``render.eager``,
+        ``render.capture`` (the capture and the first replay) or
+        ``render.replay`` of ``timers``."""
         timers = timers or PhaseTimers()
+
+        def frame():
+            self.par[:12].copy_(self.staging, non_blocking=True)
+            return fn()
+
         if self.replay is None and self.frames == 0:
             self.frames = 1
             with timers.phase("render.eager"):
-                return fn()
+                return frame()
         if self.replay is None:
             with timers.phase("render.capture"):
                 before = dict(kernels.LAUNCHES)
-                self.replay, self.outputs, self.pool_bytes = capture(fn, self.par.device)
+                self.replay, self.outputs, self.pool_bytes = capture(frame, self.par.device)
                 self.launches = kernels.launches_since(before)
                 kernels.add_launches({k: -n for k, n in self.launches.items()})
                 self.replay()
@@ -425,23 +452,21 @@ def frame_graph(scene: TorchScene, plan: FramePlan) -> FrameGraph:
     cache = scene.frame_cache()
     entry = cache.get(plan.key)
     if entry is None:
-        par = torch.zeros(32, dtype=torch.float32, device=scene.device)
-        entry = cache[plan.key] = FrameGraph(par)
+        entry = cache[plan.key] = FrameGraph(scene)
     return entry
 
 
 def render_frame_graph(scene: TorchScene, plan: FramePlan, camera: Camera,
                        timers: PhaseTimers | None = None, entry: FrameGraph | None = None):
     """One frame through the scene's FrameGraph of ``plan`` (``entry``,
-    looked up when None): the camera copied into the graph's ``par`` (the
-    span ``render.par`` of ``timers``), then the eager warm-up, the
+    looked up when None): the camera set (``FrameGraph.set_camera``, in
+    the span ``render.par`` of ``timers``), then the eager warm-up, the
     capture (``capture_cuda_graph``) or a replay.  Returns
     ``_render_frame_waves``' outputs."""
     timers = timers or PhaseTimers()
     entry = entry or frame_graph(scene, plan)
     with timers.phase("render.par"):
-        entry.par.copy_(build_gen_par(scene, camera.origin, camera.lower_left_corner,
-                                      camera.right, camera.up))
+        entry.set_camera(camera)
         slot_perm = (device_slot_map(scene, plan.width, plan.height, plan.tiles_x)
                      if plan.encode else None)
     return entry.run(lambda: _render_frame_waves(scene, plan, entry.par, slot_perm,
